@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of the ``repro`` package (the JAX reference).
+
+The port runs the paper's main path on one NVIDIA H100: a label-skew
+partition gives Pi, STL-FW learns a sparse W as Birkhoff atoms, and the
+n-node D-SGD simulator trains on that topology with its gossip step in
+the hand-written CUDA kernels of ``kernels/gossip_mix``.
+
+This package imports ``torch`` and never ``jax``, and nothing of
+``repro``: the numpy host modules it needs are kept as copies
+(``data/synthetic.py``, ``data/partition.py``, ``core/topology.py``,
+``core/heterogeneity.py``, ``core/assignment.py``, ``core/stl_fw.py``,
+``core/dcliques.py``). Entry points run on the card unless the caller
+passes ``device="cpu"`` (see :func:`repro_torch.device.resolve_device`).
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,44 @@
+"""Core library: topology learning (numpy copies) and D-SGD mixing (torch)."""
+
+from . import assignment, dcliques, dsgd, heterogeneity, mixing, stl_fw, topology
+from .dsgd import DSGDState, dsgd_init, dsgd_step_stacked
+from .mixing import (
+    BirkhoffSchedule,
+    ScheduleArrays,
+    mix_dense,
+    mix_schedule_arrays,
+    mix_schedule_stacked,
+    mix_stacked,
+    schedule_from_matrix,
+    schedule_from_result,
+    schedule_to_arrays,
+    truncate_schedule,
+)
+from .stl_fw import STLFWResult, fw_upper_bound, learn_topology, stl_fw_objective
+
+__all__ = [
+    "assignment",
+    "dcliques",
+    "dsgd",
+    "heterogeneity",
+    "mixing",
+    "stl_fw",
+    "topology",
+    "DSGDState",
+    "dsgd_init",
+    "dsgd_step_stacked",
+    "BirkhoffSchedule",
+    "ScheduleArrays",
+    "mix_dense",
+    "mix_schedule_arrays",
+    "mix_schedule_stacked",
+    "mix_stacked",
+    "schedule_from_matrix",
+    "schedule_from_result",
+    "schedule_to_arrays",
+    "truncate_schedule",
+    "STLFWResult",
+    "fw_upper_bound",
+    "learn_topology",
+    "stl_fw_objective",
+]

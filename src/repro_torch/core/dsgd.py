@@ -1,0 +1,98 @@
+"""D-SGD (paper, Algorithm 1) on stacked per-node parameters, in PyTorch.
+
+The algorithm, per node i at step t:
+
+    theta_i^{t+1/2} = theta_i^t - eta_t * grad F_i(theta_i^t, Z_i^t)
+    theta_i^{t+1}   = sum_j W_ij^t theta_j^{t+1/2}
+
+This is the *stacked* form of the n-node simulator: leaves carry a
+leading node axis and the mixing runs through ``mixing.mix_stacked``
+(dense W, a static ``BirkhoffSchedule`` or ``ScheduleArrays``), with
+optional heavy-ball momentum applied locally. The per-shard form of the
+reference (``dsgd_step_sharded``, one node per rank) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from .mixing import BirkhoffSchedule, ScheduleArrays, mix_stacked, tree_map
+
+__all__ = ["DSGDState", "dsgd_init", "dsgd_step_stacked"]
+
+PyTree = Any
+
+
+class DSGDState(NamedTuple):
+    """Optimizer state: step count and (optional) per-node momentum."""
+
+    step: int
+    momentum: PyTree | None
+
+
+def dsgd_init(params: PyTree, momentum: float = 0.0) -> DSGDState:
+    mom = None
+    if momentum > 0.0:
+        mom = tree_map(torch.zeros_like, params)
+    return DSGDState(step=0, momentum=mom)
+
+
+def _local_update(params, grads, state, lr, momentum):
+    """The local gradient half-step theta^{t+1/2}."""
+    if state.momentum is not None:
+        new_mom = tree_map(lambda m, g: momentum * m + g, state.momentum, grads)
+        half = tree_map(lambda p, m: p - lr * m, params, new_mom)
+    else:
+        new_mom = None
+        half = tree_map(lambda p, g: p - lr * g, params, grads)
+    return half, new_mom
+
+
+def dsgd_step_stacked(
+    params_stack: PyTree,
+    grads_stack: PyTree,
+    state: DSGDState,
+    W,
+    lr: float | torch.Tensor,
+    momentum: float = 0.0,
+    use_kernel: bool = False,
+    schedule: BirkhoffSchedule | ScheduleArrays | None = None,
+    transport: str = "auto",
+    single_buffer: bool = False,
+    ef: PyTree | None = None,
+    compression=None,
+) -> tuple[PyTree, DSGDState]:
+    """One D-SGD iteration on stacked per-node parameters (simulator form).
+
+    Args:
+      params_stack / grads_stack: tensors or dicts of tensors with leading
+        node axis n.
+      W: (n, n) doubly-stochastic mixing matrix (may differ per call). May
+        be None when ``schedule`` is given.
+      lr: stepsize eta_t.
+      momentum: heavy-ball coefficient (0 = the paper's plain D-SGD).
+      use_kernel: on the CPU, reproduce the kernels' numerics; on a CUDA
+        tensor the mix runs in the kernels either way (see ``mixing``).
+      schedule: Birkhoff decomposition of W (``BirkhoffSchedule`` or
+        ``ScheduleArrays``); ``transport`` ("auto" | "dense" | "schedule")
+        picks between it and the dense path.
+      single_buffer: on the CPU schedule transport, mix one raveled buffer.
+      ef / compression: the reference's EF-compressed gossip; not ported
+        yet.
+    """
+    if ef is not None or compression is not None:
+        raise NotImplementedError(
+            "EF-compressed gossip (ef=/compression=) is not ported yet"
+        )
+    half, new_mom = _local_update(params_stack, grads_stack, state, lr, momentum)
+    mixed = mix_stacked(
+        half,
+        W=W,
+        schedule=schedule,
+        transport=transport,
+        use_kernel=use_kernel,
+        single_buffer=single_buffer,
+    )
+    return mixed, DSGDState(step=state.step + 1, momentum=new_mom)

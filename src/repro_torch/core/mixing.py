@@ -1,0 +1,644 @@
+"""Gossip mixing of stacked per-node parameters, in PyTorch.
+
+The main-path subset of ``repro/core/mixing.py``: the D-SGD averaging
+step ``theta_i <- sum_j W_ij theta_j`` over a leading node axis, as
+
+1. ``mix_dense``            -- ``W @ Theta`` per leaf. Cost ``O(n^2 P)``.
+2. ``mix_schedule_stacked`` -- the Birkhoff form of a learned sparse W:
+                               ``out = sum_l gamma_l theta[perm_l]``, L
+                               row-gathers and AXPYs on one raveled (n, P)
+                               buffer. Cost ``O(L n P)`` with ``L << n``.
+3. ``mix_schedule_arrays``  -- the same with the schedule as fixed-shape
+                               tensors (``ScheduleArrays``).
+
+``mix_stacked`` picks between (1) and (2) with the closed-form
+``preferred_transport`` cost model.
+
+On a CUDA tensor every mix runs in the hand-written kernels of
+``repro_torch.kernels.gossip_mix``: one ``gossip_mix`` launch per leaf on
+the dense path, one ``gossip_schedule`` launch on the raveled buffer on
+the schedule paths, whatever ``use_kernel`` says. On the CPU the plain
+PyTorch code reproduces the reference's two numerics: ``use_kernel=True``
+gives the kernel's (every atom gathered, float32 accumulation), and
+``use_kernel=False`` the reference's XLA path (identity atoms folded into
+one scale, sums in the leaf dtype).
+
+A parameter "pytree" here is a tensor or a dict of tensors; dict leaves
+are taken in sorted key order, as ``jax.tree_util`` orders them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.gossip_mix import ops as gossip_ops
+
+__all__ = [
+    "BirkhoffSchedule",
+    "ScheduleArrays",
+    "schedule_to_arrays",
+    "arrays_to_matrix",
+    "truncate_schedule",
+    "mix_schedule_arrays",
+    "StackRavelSpec",
+    "ravel_stack",
+    "unravel_stack",
+    "preferred_transport",
+    "DENSE_THROUGHPUT_ADVANTAGE",
+    "mix_dense",
+    "mix_schedule_stacked",
+    "mix_stacked",
+    "schedule_from_result",
+    "schedule_from_matrix",
+    "tree_leaves",
+    "tree_map",
+]
+
+PyTree = Any
+
+# Rows of a raveled buffer on the kernel path are padded to a multiple of
+# this many elements (16 bytes of bfloat16, 32 of float32), so each row
+# starts 16-byte aligned and the schedule kernel takes its vector loads.
+KERNEL_ROW_ALIGN = 8
+
+
+# ---------------------------------------------------------------------------
+# Pytrees: a tensor, or a dict of tensors
+# ---------------------------------------------------------------------------
+
+def _flatten(tree: PyTree) -> tuple[list[torch.Tensor], Callable[[list], PyTree]]:
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda leaves: leaves[0]
+    if isinstance(tree, Mapping):
+        keys = sorted(tree)
+        return [tree[k] for k in keys], lambda leaves: dict(zip(keys, leaves))
+    raise TypeError(f"expected a tensor or a dict of tensors, got {type(tree).__name__}")
+
+
+def tree_leaves(tree: PyTree) -> list[torch.Tensor]:
+    return _flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` applied leaf by leaf across trees of one structure."""
+    leaves, rebuild = _flatten(tree)
+    others = [_flatten(t)[0] for t in rest]
+    return rebuild([fn(*args) for args in zip(leaves, *others)])
+
+
+def _on_cuda(tree: PyTree) -> bool:
+    return tree_leaves(tree)[0].device.type == "cuda"
+
+
+def _check_perm_table(perms: np.ndarray, n: int) -> None:
+    if perms.size and (perms.min() < 0 or perms.max() >= n):
+        raise ValueError(f"permutation entries must lie in [0, {n})")
+
+
+# ---------------------------------------------------------------------------
+# Static schedules
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BirkhoffSchedule:
+    """A mixing matrix as a convex combination of permutations.
+
+    ``coeffs[l]`` weights atom ``l``; ``perms[l][i] = j`` means node ``i``
+    receives node ``j``'s parameters in atom ``l`` (i.e. ``P_l[i, j] = 1``,
+    so ``W = sum_l coeffs[l] P_l``). Atom arrays are python tuples, so
+    the schedule is hashable. ``operands(device)`` keeps the kernel's
+    tensors per device, made once.
+    """
+
+    coeffs: tuple[float, ...]
+    perms: tuple[tuple[int, ...], ...]
+    _operands: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False, hash=False
+    )
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.perms[0])
+
+    @property
+    def n_atoms(self) -> int:
+        return len(self.coeffs)
+
+    @property
+    def n_communication_atoms(self) -> int:
+        """Atoms that move data (non-identity permutations)."""
+        return sum(1 for p in self.perms if tuple(p) != tuple(range(len(p))))
+
+    def identity_weight(self) -> float:
+        """Total coefficient mass on identity atoms (a local scale, no I/O)."""
+        ident = tuple(range(self.n_nodes))
+        return sum(c for c, p in zip(self.coeffs, self.perms) if tuple(p) == ident)
+
+    def communication_atoms(self) -> list[tuple[float, tuple[int, ...]]]:
+        """(gamma, perm) pairs for the non-identity atoms."""
+        ident = tuple(range(self.n_nodes))
+        return [
+            (float(c), tuple(p))
+            for c, p in zip(self.coeffs, self.perms)
+            if tuple(p) != ident
+        ]
+
+    def perm_array(self) -> np.ndarray:
+        """All atoms as an (L, n) int32 index array (kernel input format)."""
+        return np.asarray(self.perms, dtype=np.int32).reshape(self.n_atoms, self.n_nodes)
+
+    def coeff_array(self) -> np.ndarray:
+        return np.asarray(self.coeffs, dtype=np.float32)
+
+    def operands(self, device: torch.device | str) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(coeffs (L,) float32, perms (L, n) int32)`` as tensors on ``device``.
+
+        Made and checked once per device, so a training loop copies
+        nothing from the host per step.
+        """
+        key = str(torch.device(device))
+        ops = self._operands.get(key)
+        if ops is None:
+            perms = self.perm_array()
+            _check_perm_table(perms, self.n_nodes)
+            ops = (
+                torch.as_tensor(self.coeff_array(), device=device),
+                torch.as_tensor(perms, device=device),
+            )
+            self._operands[key] = ops
+        return ops
+
+    def to_matrix(self) -> np.ndarray:
+        n = self.n_nodes
+        W = np.zeros((n, n))
+        for c, perm in zip(self.coeffs, self.perms):
+            W[np.arange(n), list(perm)] += c
+        return W
+
+
+def schedule_from_result(result) -> BirkhoffSchedule:
+    """Build a schedule from an ``STLFWResult`` (drops zero-weight atoms)."""
+    coeffs, perms = [], []
+    for c, perm in result.active_atoms():
+        coeffs.append(float(c))
+        perms.append(tuple(int(x) for x in perm))
+    return BirkhoffSchedule(coeffs=tuple(coeffs), perms=tuple(perms))
+
+
+def schedule_from_matrix(W: np.ndarray, max_atoms: int | None = None, tol: float = 1e-9) -> BirkhoffSchedule:
+    """Greedy Birkhoff-von-Neumann decomposition of an arbitrary doubly-
+    stochastic matrix (used for baseline topologies like rings/regular
+    graphs so they can ride the schedule transport).
+
+    Repeatedly extracts the permutation supported on the largest entries via
+    a max-weight assignment, removing ``min`` of its entries each time.
+    """
+    from .assignment import linear_assignment
+
+    W = np.asarray(W, dtype=np.float64).copy()
+    n = W.shape[0]
+    coeffs: list[float] = []
+    perms: list[tuple[int, ...]] = []
+    remaining = W.copy()
+    limit = max_atoms if max_atoms is not None else n * n
+    for _ in range(limit):
+        total = remaining.sum()
+        if total <= tol * n:
+            break
+        # max-weight perfect matching on the remaining mass: forbid zeros.
+        cost = np.where(remaining > tol, -remaining, 1e6)
+        perm = linear_assignment(cost)
+        vals = remaining[np.arange(n), perm]
+        if np.any(vals <= tol):
+            break
+        gamma = float(vals.min())
+        coeffs.append(gamma)
+        perms.append(tuple(int(x) for x in perm))
+        remaining[np.arange(n), perm] -= gamma
+    if not coeffs:
+        coeffs, perms = [1.0], [tuple(range(n))]
+    # Renormalize tiny residual mass into the coefficients.
+    s = sum(coeffs)
+    coeffs = [c / s for c in coeffs]
+    return BirkhoffSchedule(coeffs=tuple(coeffs), perms=tuple(perms))
+
+
+# ---------------------------------------------------------------------------
+# Data-plane schedules
+# ---------------------------------------------------------------------------
+
+class ScheduleArrays(NamedTuple):
+    """A Birkhoff schedule as data: ``W = sum_l gammas[l] P_{perms[l]}``.
+
+    Attributes:
+      gammas: (l_max,) float32 tensor of convex coefficients (sum to 1;
+        padding atoms carry exactly 0).
+      perms: (l_max, n) int32 tensor, ``perms[l, i] = j`` meaning node
+        ``i`` receives node ``j``'s parameters in atom ``l``; padding rows
+        are the identity permutation.
+
+    Two schedules with the same ``(l_max, n)`` are interchangeable values
+    of the same mixing call.
+    """
+
+    gammas: torch.Tensor
+    perms: torch.Tensor
+
+    @property
+    def l_max(self) -> int:
+        return self.perms.shape[0]
+
+    @property
+    def n_nodes(self) -> int:
+        return self.perms.shape[1]
+
+
+def schedule_to_arrays(
+    schedule: BirkhoffSchedule,
+    l_max: int | None = None,
+    device: torch.device | str | None = None,
+) -> ScheduleArrays:
+    """Pad a static schedule into the fixed-shape data-plane format.
+
+    Padding atoms are identity permutations with coefficient 0 -- they
+    gather and add exact zeros, so the mixed result is what the unpadded
+    schedule produces. ``device=None`` means CUDA.
+    """
+    device = resolve_device(device)
+    L = schedule.n_atoms
+    n = schedule.n_nodes
+    if l_max is None:
+        l_max = L
+    if L > l_max:
+        raise ValueError(
+            f"schedule has {L} atoms > l_max={l_max}; truncate first "
+            "(see truncate_schedule)"
+        )
+    gammas = np.zeros((l_max,), np.float32)
+    perms = np.tile(np.arange(n, dtype=np.int32), (l_max, 1))
+    gammas[:L] = schedule.coeff_array()
+    if L:
+        perms[:L] = schedule.perm_array()
+    _check_perm_table(perms, n)
+    return ScheduleArrays(
+        gammas=torch.as_tensor(gammas, device=device),
+        perms=torch.as_tensor(perms, device=device),
+    )
+
+
+def arrays_to_matrix(arrays: ScheduleArrays) -> np.ndarray:
+    """Densify a data-plane schedule (host-side, for validation/analysis)."""
+    gammas = arrays.gammas.detach().cpu().numpy().astype(np.float64)
+    perms = arrays.perms.detach().cpu().numpy()
+    n = perms.shape[1]
+    W = np.zeros((n, n))
+    rows = np.arange(n)
+    for g, perm in zip(gammas, perms):
+        W[rows, perm] += g
+    return W
+
+
+def truncate_schedule(schedule: BirkhoffSchedule, l_max: int) -> BirkhoffSchedule:
+    """Keep the ``l_max`` largest-coefficient atoms and renormalize.
+
+    A renormalized sub-combination of permutation atoms is still doubly
+    stochastic, so the truncated W stays a valid mixing matrix; what is
+    lost is a small amount of mixing mass (bounded by the dropped
+    coefficients' sum).
+    """
+    if l_max < 1:
+        raise ValueError("l_max must be >= 1")
+    if schedule.n_atoms <= l_max:
+        return schedule
+    order = np.argsort(np.asarray(schedule.coeffs))[::-1][:l_max]
+    order = np.sort(order)  # keep original atom order (identity first)
+    coeffs = [schedule.coeffs[i] for i in order]
+    total = sum(coeffs)
+    if total <= 0.0:
+        raise ValueError("truncate_schedule: kept atoms carry no mass")
+    return BirkhoffSchedule(
+        coeffs=tuple(c / total for c in coeffs),
+        perms=tuple(schedule.perms[i] for i in order),
+    )
+
+
+def _mix_arrays_flat(flat: torch.Tensor, arrays: ScheduleArrays) -> torch.Tensor:
+    """``out = sum_l gammas[l] flat[perms[l]]``, summed in ``flat``'s dtype
+    (the reference's XLA path, ``mixing.py:340``)."""
+    if flat.shape[0] != arrays.n_nodes:
+        raise ValueError(
+            f"schedule arrays are for {arrays.n_nodes} nodes but the stacked "
+            f"parameters have leading axis {flat.shape[0]}"
+        )
+    acc = torch.zeros_like(flat)
+    perms = arrays.perms.long()
+    for l in range(arrays.l_max):
+        acc = acc + arrays.gammas[l].to(flat.dtype) * flat[perms[l]]
+    return acc
+
+
+def _mix_kernel_form(params_stack: PyTree, coeffs, perms) -> PyTree:
+    """One ``gossip_schedule`` call on the raveled buffer (the kernel on a
+    CUDA tensor, its plain version on the CPU)."""
+    flat, spec = ravel_stack(params_stack, pad_to=KERNEL_ROW_ALIGN)
+    return unravel_stack(gossip_ops.gossip_schedule(flat, coeffs, perms), spec)
+
+
+def mix_schedule_arrays(
+    params_stack: PyTree,
+    arrays: ScheduleArrays,
+    *,
+    single_buffer: bool = False,
+    use_kernel: bool = False,
+) -> PyTree:
+    """Data-plane Birkhoff mixing: ``l_max`` gathers + AXPYs, with the
+    schedule as tensors. Cost ``O(l_max n P)`` (padding atoms are not
+    free: choose ``l_max`` as the actual communication budget).
+
+    On a CUDA tensor, or with ``use_kernel``, the whole pytree is raveled
+    into one (n, P) buffer and mixed in one ``gossip_schedule`` call.
+    (The reference's ``block_p``, its Pallas tile width, has no
+    counterpart: the kernel takes any P.)
+    """
+    if use_kernel or _on_cuda(params_stack):
+        return _mix_kernel_form(params_stack, arrays.gammas, arrays.perms)
+    if single_buffer:
+        flat, spec = ravel_stack(params_stack)
+        return unravel_stack(_mix_arrays_flat(flat, arrays), spec)
+    return tree_map(
+        lambda x: _mix_arrays_flat(x.reshape(x.shape[0], -1), arrays).reshape(x.shape),
+        params_stack,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Single-buffer flatten/unflatten
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StackRavelSpec:
+    """Recipe for packing an (n, ...)-leaved pytree into one (n, P)
+    buffer and back."""
+
+    rebuild: Callable[[list], PyTree]
+    shapes: tuple[tuple[int, ...], ...]  # per-leaf shapes *without* node axis
+    dtypes: tuple[torch.dtype, ...]
+    n_nodes: int
+    total: int  # sum of leaf sizes (pre-padding)
+    padded: int  # buffer width P (>= total; padded to pad_to)
+
+    @property
+    def pad(self) -> int:
+        return self.padded - self.total
+
+
+def ravel_stack(params_stack: PyTree, pad_to: int | None = None) -> tuple[torch.Tensor, StackRavelSpec]:
+    """Flatten an (n, ...)-leaved pytree into one contiguous (n, P) buffer.
+
+    ``pad_to`` pads the parameter axis once, with zeros, to a multiple of
+    the given width. The buffer dtype is the common ``promote_types`` of
+    the leaves; ``unravel_stack`` casts back.
+    """
+    leaves, rebuild = _flatten(params_stack)
+    if not leaves:
+        raise ValueError("ravel_stack: empty pytree")
+    n = leaves[0].shape[0]
+    for leaf in leaves:
+        if leaf.ndim < 1 or leaf.shape[0] != n:
+            raise ValueError(
+                f"ravel_stack: every leaf needs leading node axis {n}, "
+                f"got shape {tuple(leaf.shape)}"
+            )
+    dtypes = tuple(leaf.dtype for leaf in leaves)
+    buf_dtype = dtypes[0]
+    for dt in dtypes[1:]:
+        buf_dtype = torch.promote_types(buf_dtype, dt)
+    shapes = tuple(tuple(leaf.shape[1:]) for leaf in leaves)
+    sizes = [int(np.prod(s, dtype=np.int64)) if s else 1 for s in shapes]
+    total = int(sum(sizes))
+    padded = total
+    if pad_to is not None and pad_to > 0:
+        padded = ((total + pad_to - 1) // pad_to) * pad_to
+    flat = torch.empty((n, padded), dtype=buf_dtype, device=leaves[0].device)
+    offset = 0
+    for leaf, size in zip(leaves, sizes):
+        flat[:, offset : offset + size] = leaf.reshape(n, size)
+        offset += size
+    if padded > total:
+        flat[:, total:] = 0
+    spec = StackRavelSpec(
+        rebuild=rebuild,
+        shapes=shapes,
+        dtypes=dtypes,
+        n_nodes=n,
+        total=total,
+        padded=padded,
+    )
+    return flat, spec
+
+
+def unravel_stack(flat: torch.Tensor, spec: StackRavelSpec) -> PyTree:
+    """Inverse of ``ravel_stack`` (drops padding, restores shapes/dtypes).
+
+    The leaves are views into ``flat`` where the dtype is unchanged.
+    """
+    n = spec.n_nodes
+    leaves = []
+    offset = 0
+    for shape, dtype in zip(spec.shapes, spec.dtypes):
+        size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        piece = flat[:, offset : offset + size]
+        leaves.append(piece.reshape((n,) + shape).to(dtype))
+        offset += size
+    return spec.rebuild(leaves)
+
+
+# ---------------------------------------------------------------------------
+# Cost model
+# ---------------------------------------------------------------------------
+
+# Per-element throughput advantage of the dense transport over gather
+# AXPYs in the reference's closed form, calibrated there on CPU BLAS. The
+# port keeps the same rule so that ``transport="auto"`` picks what the
+# reference picks; an H100 table keyed on the card's name is later work.
+DENSE_THROUGHPUT_ADVANTAGE = 4.0
+
+
+def preferred_transport(
+    n_nodes: int,
+    n_atoms: int,
+    dense_speedup: float = DENSE_THROUGHPUT_ADVANTAGE,
+) -> str:
+    """Pick ``"schedule"`` vs ``"dense"`` for the stacked simulator.
+
+    The schedule transport does ``n_atoms`` memory-bound row-gather AXPYs
+    per element; the dense transport does ``n_nodes`` MACs per element at
+    matmul throughput. ``dense_speedup`` is the per-element throughput
+    ratio between the two regimes: the crossover is ``schedule`` iff
+    ``n_atoms <= n_nodes / dense_speedup``.
+    """
+    if dense_speedup <= 0:
+        raise ValueError(f"dense_speedup must be positive, got {dense_speedup}")
+    return "schedule" if n_atoms <= max(1, int(n_nodes / dense_speedup)) else "dense"
+
+
+# ---------------------------------------------------------------------------
+# Transports
+# ---------------------------------------------------------------------------
+
+def _as_matrix(W, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(W, torch.Tensor):
+        return W
+    return torch.as_tensor(np.asarray(W), dtype=torch.float32, device=like.device)
+
+
+def mix_dense(params_stack: PyTree, W, use_kernel: bool = False) -> PyTree:
+    """Dense mixing over a leading node axis: ``out[i] = sum_j W[i,j] x[j]``.
+
+    Args:
+      params_stack: tensor or dict of tensors with leading axis n.
+      W: (n, n) mixing matrix (tensor on the leaves' device, or a host
+        array, copied per call -- pass a tensor on hot paths).
+      use_kernel: on the CPU, the kernel's numerics (``gossip_mix``'s
+        plain version: float32 sum, W cast to the leaf dtype) instead of
+        a product in the leaf dtype. On a CUDA tensor every leaf goes
+        through the ``gossip_mix`` kernel either way.
+    """
+    Wt = _as_matrix(W, tree_leaves(params_stack)[0])
+    if use_kernel or _on_cuda(params_stack):
+        def mix_leaf(x):
+            n = x.shape[0]
+            out = gossip_ops.gossip_mix(x.reshape(n, -1).contiguous(), Wt)
+            return out.reshape(x.shape)
+
+        return tree_map(mix_leaf, params_stack)
+
+    def mix_leaf(x):
+        return torch.tensordot(Wt.to(x.dtype), x, dims=([1], [0]))
+
+    return tree_map(mix_leaf, params_stack)
+
+
+def _mix_schedule_flat(flat: torch.Tensor, schedule: BirkhoffSchedule) -> torch.Tensor:
+    """``out = sum_l gamma_l flat[perm_l]`` on one (n, P) buffer, with the
+    identity atoms folded into one scale (the reference's XLA path,
+    ``mixing.py:2088``)."""
+    if flat.shape[0] != schedule.n_nodes:
+        raise ValueError(
+            f"schedule is for {schedule.n_nodes} nodes but the stacked "
+            f"parameters have leading axis {flat.shape[0]}"
+        )
+    ident_w = schedule.identity_weight()
+    acc = None
+    if ident_w != 0.0:
+        acc = torch.tensor(ident_w, dtype=flat.dtype) * flat
+    for gamma, perm in schedule.communication_atoms():
+        idx = torch.as_tensor(perm, dtype=torch.long, device=flat.device)
+        contrib = torch.tensor(gamma, dtype=flat.dtype) * flat[idx]
+        acc = contrib if acc is None else acc + contrib
+    return flat if acc is None else acc
+
+
+def mix_schedule_stacked(
+    params_stack: PyTree,
+    schedule: BirkhoffSchedule,
+    *,
+    single_buffer: bool = False,
+    use_kernel: bool = False,
+) -> PyTree:
+    """Sparse Birkhoff mixing on stacked parameters: L gathers + AXPYs.
+
+    ``out = sum_l gamma_l theta[perm_l]`` -- cost ``O(L n P)`` versus the
+    dense transport's ``O(n^2 P)``; after ``l`` Frank-Wolfe iterations
+    ``L <= l + 1`` (Theorem 2).
+
+    On a CUDA tensor, or with ``use_kernel``, the pytree is raveled into
+    one (n, P) buffer (rows padded to ``KERNEL_ROW_ALIGN``) and mixed in
+    ONE ``gossip_schedule`` call.
+    Otherwise the CPU runs the reference's identity-folded gathers, per
+    leaf or, with ``single_buffer``, on one raveled buffer.
+    """
+    if use_kernel or _on_cuda(params_stack):
+        device = tree_leaves(params_stack)[0].device
+        return _mix_kernel_form(params_stack, *schedule.operands(device))
+    if single_buffer:
+        flat, spec = ravel_stack(params_stack)
+        return unravel_stack(_mix_schedule_flat(flat, schedule), spec)
+    return tree_map(
+        lambda x: _mix_schedule_flat(x.reshape(x.shape[0], -1), schedule).reshape(x.shape),
+        params_stack,
+    )
+
+
+def mix_stacked(
+    params_stack: PyTree,
+    W=None,
+    schedule: BirkhoffSchedule | ScheduleArrays | None = None,
+    *,
+    transport: str = "auto",
+    use_kernel: bool = False,
+    single_buffer: bool = False,
+    dense_speedup: float = DENSE_THROUGHPUT_ADVANTAGE,
+) -> PyTree:
+    """Unified stacked-mixing entry point with automatic transport choice.
+
+    ``schedule`` may be a static :class:`BirkhoffSchedule` or a
+    :class:`ScheduleArrays`. The data format always executes on the
+    arrays transport (a W passed beside it would go stale at the first
+    schedule swap), so ``transport="dense"`` is refused for it.
+
+    ``transport``:
+      * ``"auto"``     -- the ``preferred_transport`` closed form on the
+                          communication atoms, when both a schedule and a
+                          W are usable -- else whichever is available.
+                          ``dense_speedup`` tunes its crossover.
+      * ``"dense"``    -- the dense path (W required, or densified from
+                          the schedule per call).
+      * ``"schedule"`` -- the Birkhoff gather path (schedule required).
+    The reference's ``"autotune"`` (a measured table) is not ported yet.
+    """
+    if transport == "autotune":
+        raise NotImplementedError(
+            "transport='autotune' needs a transport table measured on the card; "
+            "use 'auto' (the closed-form preferred_transport)"
+        )
+    if transport not in ("auto", "dense", "schedule"):
+        raise ValueError(f"unknown transport {transport!r}")
+    if isinstance(schedule, ScheduleArrays):
+        if transport == "dense":
+            raise ValueError(
+                "transport='dense' cannot execute a ScheduleArrays (it would "
+                "mix with a static W that a schedule swap never updates); convert "
+                "with arrays_to_matrix host-side if you really want dense"
+            )
+        return mix_schedule_arrays(
+            params_stack, schedule,
+            single_buffer=single_buffer, use_kernel=use_kernel,
+        )
+    if transport == "auto":
+        if schedule is None:
+            transport = "dense"
+        elif W is None:
+            transport = "schedule"
+        else:
+            # identity atoms fold into a free scale in the reference's
+            # schedule path, so only communication atoms count as cost
+            transport = preferred_transport(
+                schedule.n_nodes, schedule.n_communication_atoms, dense_speedup
+            )
+    if transport == "schedule":
+        if schedule is None:
+            raise ValueError("transport='schedule' requires a BirkhoffSchedule")
+        return mix_schedule_stacked(
+            params_stack, schedule, single_buffer=single_buffer, use_kernel=use_kernel
+        )
+    if W is None:
+        if schedule is None:
+            raise ValueError("mix_stacked needs W or schedule")
+        W = schedule.to_matrix()
+    return mix_dense(params_stack, W, use_kernel=use_kernel)

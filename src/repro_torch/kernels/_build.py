@@ -1,0 +1,117 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/*.cu`` source compiles on its own into a shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o <name>-<hash>.so <name>.cu
+
+into ``build/repro_torch_kernels/`` at the root of the checkout. The file
+name carries a hash of the source and the flags, so an edited source
+builds anew and an unchanged one is loaded as it is. A build happens at
+first use; :func:`build_all` starts one nvcc per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["KERNEL_SOURCES", "build_all", "load", "build_dir"]
+
+_PKG = Path(__file__).resolve().parent
+# name -> source, relative to the kernels package
+KERNEL_SOURCES = {
+    "gossip_schedule": "gossip_mix/csrc/gossip_schedule.cu",
+    "gossip_mix": "gossip_mix/csrc/gossip_mix.cu",
+}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch_kernels`` at the root of the checkout."""
+    return _PKG.parents[2] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's "
+        "CUDA kernels are built from source at first use"
+    )
+
+
+def _target(name: str) -> tuple[Path, Path]:
+    src = _PKG / KERNEL_SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return src, build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    src, lib = _target(name)
+    if lib.exists():
+        return None
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return proc, tmp, lib
+
+
+def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
+    proc, tmp, lib = job
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed to build {name} (exit {proc.returncode}):\n{err}{out}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+
+
+def build_all() -> None:
+    """Build every kernel library that is not built yet, all nvcc at once."""
+    with _lock:
+        jobs = {name: _start(name) for name in KERNEL_SOURCES}
+        errors = []
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            try:
+                _finish(name, job)
+            except RuntimeError as exc:  # wait for every nvcc before raising
+                errors.append(str(exc))
+        if errors:
+            raise RuntimeError("\n\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
+            lib = ctypes.CDLL(str(_target(name)[1]))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,88 @@
+"""The hand-written CUDA gossip kernels against their plain versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device (the
+kernels have no CPU mode). This file imports no JAX, so it also runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.core.mixing import (  # noqa: E402
+    mix_stacked,
+    schedule_from_result,
+    schedule_to_arrays,
+)
+from repro_torch.core.stl_fw import learn_topology  # noqa: E402
+from repro_torch.data.partition import dirichlet_partition  # noqa: E402
+from repro_torch.kernels.gossip_mix import ops, ref  # noqa: E402
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    ops.reset_launch_counts()
+    return torch.device("cuda")
+
+
+def _schedule(n: int):
+    labels = np.random.default_rng(n).integers(0, 10, size=30 * n)
+    Pi = dirichlet_partition(labels, n, alpha=0.3, seed=0)[1]
+    return schedule_from_result(learn_topology(Pi, budget=min(4, n), lam=0.1))
+
+
+def _theta(n, P, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((n, P), generator=gen).to(dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,P", [(2, 1), (33, 4113), (100, 50896), (7, 300)])
+def test_kernels_match_plain_on_card(cuda, n, P, dtype):
+    sched = _schedule(n)
+    t = _theta(n, P, dtype, cuda)
+    g, p = sched.operands(cuda)
+    out = ops.gossip_schedule(t, g, p)
+    # the same float32 arithmetic in the same order: bitwise equal
+    torch.testing.assert_close(out, ref.gossip_schedule_ref(t, g, p), atol=0, rtol=0)
+    W = torch.as_tensor(sched.to_matrix(), dtype=torch.float32, device=cuda)
+    mixed = ops.gossip_mix(t, W)
+    tol = TOL[dtype]
+    torch.testing.assert_close(mixed.float(), ref.gossip_mix_ref(t, W.to(dtype)).float(),
+                               atol=tol, rtol=tol)
+    assert ops.launch_counts == {"gossip_schedule": 1, "gossip_mix": 1}
+
+
+@pytest.mark.cuda
+def test_mixing_on_card_goes_through_the_kernels(cuda):
+    n = 33
+    sched = _schedule(n)
+    tree = {"w": _theta(n, 120, torch.float32, cuda, 1).reshape(n, 12, 10),
+            "b": _theta(n, 10, torch.float32, cuda, 2)}
+    W = torch.as_tensor(sched.to_matrix(), dtype=torch.float32, device=cuda)
+    for use_kernel in (False, True):
+        dense = mix_stacked(tree, W=W, transport="dense", use_kernel=use_kernel)
+        sparse = mix_stacked(tree, schedule=sched, transport="schedule", use_kernel=use_kernel)
+        arrays = mix_stacked(tree, schedule=schedule_to_arrays(sched, l_max=sched.n_atoms + 2,
+                                                                device=cuda))
+        for k in tree:
+            torch.testing.assert_close(dense[k], sparse[k], atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(arrays[k], sparse[k], atol=0, rtol=0)
+    # per use_kernel: one gossip_mix per leaf, one gossip_schedule per schedule mix
+    assert ops.launch_counts == {"gossip_schedule": 4, "gossip_mix": 4}
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_mixed_devices(cuda):
+    t = _theta(4, 16, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ops.gossip_schedule(t, torch.ones(1), torch.arange(4, dtype=torch.int32)[None].to(cuda))

@@ -1,0 +1,102 @@
+"""The port stands alone: no JAX and nothing of the reference package.
+
+``repro_torch`` and ``chip_smoke.py`` run on a machine without JAX, so
+importing them must load neither ``jax`` nor ``repro``. The numpy host
+modules the port copied from the reference must stay verbatim copies.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.core.mixing import ScheduleArrays  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORTS_ALL = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import repro_torch
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke  # its helpers; main() runs only as a script
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "repro" or m.startswith("repro."))
+print("LEAKED", leaked)
+print("COUNT", sum(m.startswith("repro_torch") for m in sys.modules))
+"""
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = _IMPORTS_ALL.format(src=str(ROOT / "src"), root=str(ROOT))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=str(ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
+    assert lines["LEAKED"] == "[]"
+    assert int(lines["COUNT"]) >= 20  # every module of the package was imported
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b|from\s+(jax|jaxlib|repro)\b)", re.M)
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_sources_import_no_jax_and_no_reference(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), _FORBIDDEN.search(text).group(0)
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["data/synthetic.py", "data/partition.py", "core/topology.py",
+     "core/heterogeneity.py", "core/dcliques.py"],
+)
+def test_host_copies_stay_verbatim(module):
+    reference = ROOT / "src" / "repro" / module
+    assert (PORT / module).read_bytes() == reference.read_bytes()
+
+
+def test_convert_round_trips():
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3), "b": np.ones(3, np.float32)}
+    back = convert.params_to_numpy(convert.params_from_numpy(tree, "cpu"))
+    assert all(np.array_equal(back[k], v) and back[k].dtype == v.dtype for k, v in tree.items())
+    sa = convert.schedule_arrays_from_numpy([0.5, 0.5], [[0, 1, 2], [2, 0, 1]], "cpu")
+    assert isinstance(sa, ScheduleArrays) and sa.perms.dtype == torch.int32
+    assert sa.l_max == 2 and sa.n_nodes == 3
+    with pytest.raises(ValueError):
+        convert.schedule_arrays_from_numpy([1.0], [[0, 0, 1]], "cpu")
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+                          text=True, timeout=300, cwd=str(tmp_path))
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(alone)], capture_output=True, text=True,
+                          timeout=300, cwd=str(tmp_path), env=env)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
