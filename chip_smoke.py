@@ -3,21 +3,37 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/kernels`` and
-then, on the card:
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels`` (one
+nvcc per source, all at once) and then, on the card:
 
 0. prints the card (``nvidia-smi``), the torch and CUDA versions and the
    kernels' build time;
 1. holds each kernel against its plain PyTorch version on the same
-   inputs, at the main path's shapes (float32 at atol = rtol = 1e-5,
-   bfloat16 at 3e-2, the reference's tolerances), and times the kernel,
-   the plain version and one library call computing the same function
-   (median of 30 launches, CUDA events);
-2. drives the main path through the user's entry points -- Pi from a
-   label-skew partition, ``learn_topology``, ``schedule_from_result``,
+   inputs, at the main paths' shapes, with the reference's tolerances
+   (gossip: float32 1e-5; flash attention: float32 2e-3; RG-LRU scan:
+   float32 1e-4; bfloat16 3e-2, but 1e-2 for flash attention, whose
+   outputs over a 2048 window are ~0.04), and times the kernel, the plain
+   version and one library call computing the same function (median of
+   30 launches, CUDA events);
+2. drives the D-SGD main path through the user's entry points -- Pi from
+   a label-skew partition, ``learn_topology``, ``schedule_from_result``,
    ``run_classification`` / ``run_mean_estimation`` on ``cuda`` -- and
    checks accuracies, losses, errors and the kernels' launch counts;
-3. prints one JSON line per kernel set, then the card's name and power
+3. scores sequences with recurrentgemma-2b at its full width (random
+   weights from seed 0, bfloat16, B = 2, S = 4096) through
+   ``registry.loss_fn`` / ``model_forward``: 8 flash_attention and 18
+   rglru_scan launches a forward, the loss against the plain path, against
+   a float64 cross entropy of the forward's logits and above ln(vocab) - 1
+   (random labels); then the same model in float32 at depth 3, kernel
+   path against plain path; tokens/s and the device busy share;
+4. serves it: ``serve.engine.generate`` (B = 2, a 2560-token prompt, 32
+   new tokens: the prompt overruns the 2048 window, so the prefill takes
+   the chunked attention and the ring clamp, and decode wraps the ring),
+   prefill launches, decode consistency in float32 at depth 3; prefill
+   tokens/s and decode ms/token (``generate`` less its prefill);
+5. runs the smoke config's kernel path on the card against its plain
+   path on the CPU;
+6. prints one JSON line per kernel set, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -26,7 +42,10 @@ result; so it does without CUDA or outside a checkout of the repo.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -37,7 +56,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core.mixing import (  # noqa: E402
     ScheduleArrays,
@@ -50,13 +71,24 @@ from repro_torch.data.partition import dirichlet_partition, shard_partition  # n
 from repro_torch.data.synthetic import gaussian_blobs, mean_estimation_clusters  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.gossip_mix import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.gossip_mix.ref import gossip_mix_ref, gossip_schedule_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.models import registry, transformer  # noqa: E402
+from repro_torch.models.layers import unembed  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
 from repro_torch.train.trainer import run_classification, run_mean_estimation  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# bf16 flash outputs over a 2048-key window are ~0.04: 3e-2 would hold
+# nothing, 1e-2 is a few bf16 ulps of them
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-2}
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 TIMED_LAUNCHES = 30
 WARMUP_LAUNCHES = 5
 
@@ -68,6 +100,14 @@ KERNELS = {
     "gossip_mix": {
         "source": "src/repro_torch/kernels/gossip_mix/csrc/gossip_mix.cu",
         "replaces": "src/repro/kernels/gossip_mix/gossip_mix.py:37",
+    },
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:109",
+    },
+    "rglru_scan": {
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:56",
     },
 }
 
@@ -141,12 +181,12 @@ def _theta(n: int, P: int, dtype: torch.dtype, seed: int) -> torch.Tensor:
     return torch.randn((n, P), generator=gen, device="cuda").to(dtype)
 
 
-def _compare(name: str, out: torch.Tensor, plain: torch.Tensor, dtype) -> float:
+def _compare(name: str, out: torch.Tensor, plain: torch.Tensor, dtype, tols=TOL) -> float:
     torch.cuda.synchronize()
     check(out.shape == plain.shape and out.dtype == plain.dtype, f"{name}: shape/dtype")
     check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
     err = float((out.float() - plain.float()).abs().max())
-    tol = TOL[dtype]
+    tol = tols[dtype]
     check(torch.allclose(out.float(), plain.float(), atol=tol, rtol=tol),
           f"{name}: max |kernel - plain| = {err:.3e} exceeds atol = rtol = {tol}")
     return err
@@ -195,6 +235,109 @@ def mix_case(label: str, theta: torch.Tensor, W: torch.Tensor) -> dict:
     return row
 
 
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def kept_pairs(S: int, window: int | None) -> int:
+    """(q, k) pairs a causal, optionally windowed attention keeps."""
+    return int(np.minimum(np.arange(1, S + 1), window or S).sum())
+
+
+def flash_bound(B: int, S: int, H: int, Hkv: int, D: int, window: int | None,
+                dtype: torch.dtype) -> tuple[float, str]:
+    """Least time of causal windowed GQA attention in ms, and what bounds it:
+    q, k, v read once and out written once; 4 D flops per kept pair and head."""
+    s = torch.finfo(dtype).bits // 8
+    t_bytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * s / HBM_BYTES_PER_S
+    t_ops = 4 * D * kept_pairs(S, window) * B * H / PEAK_OPS_PER_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scan_bound(B: int, S: int, D: int, dtype: torch.dtype) -> tuple[float, str]:
+    """Least time of the linear scan in ms: a and b read once, h written once
+    (2 flops an element, far below the bytes)."""
+    s = torch.finfo(dtype).bits // 8
+    t_bytes = 3 * B * S * D * s / HBM_BYTES_PER_S
+    t_ops = 2 * B * S * D / PEAK_OPS_PER_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _randn(shape, dtype: torch.dtype, seed: int, scale: float = 1.0) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def flash_case(label: str, B: int, S: int, H: int, Hkv: int, D: int, window: int | None,
+               dtype: torch.dtype, seed: int) -> dict:
+    q = _randn((B, S, H, D), dtype, seed)
+    k = _randn((B, S, Hkv, D), dtype, seed + 1)
+    v = _randn((B, S, Hkv, D), dtype, seed + 2)
+    out = fa_ops.flash_attention(q, k, v, window=window)
+    plain = flash_attention_ref(q, k, v, window=window)
+    err = _compare(f"flash_attention {label}", out, plain, dtype, FLASH_TOL)
+    # the library yardstick: SDPA with k / v expanded to H heads and an
+    # explicit boolean band mask (timed only; the port never calls it)
+    g = H // Hkv
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(g, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    pos = torch.arange(S, device="cuda")
+    band = pos[None, :] <= pos[:, None]
+    if window is not None:
+        band = band & (pos[None, :] > pos[:, None] - window)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band).transpose(1, 2)
+    bound, bound_by = flash_bound(B, S, H, Hkv, D, window, dtype)
+    row = {
+        "kernel": "flash_attention", "case": label, "shape": [B, S, H, Hkv, D],
+        "window": window, "dtype": _name(dtype), "max_abs_err": err,
+        "library_max_abs_err": float((lib.float() - plain.float()).abs().max()),
+        "kernel_ms": device_ms(lambda: fa_ops.flash_attention(q, k, v, window=window)),
+        "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v, window=window)),
+        "library_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    row["TFLOP_per_s"] = 4 * D * kept_pairs(S, window) * B * H / row["kernel_ms"] / 1e9
+    return row
+
+
+def scan_case(label: str, B: int, S: int, D: int, dtype: torch.dtype, seed: int) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = (torch.rand((B, S, D), generator=gen, device="cuda") * 0.399 + 0.6).to(dtype)
+    b = (torch.randn((B, S, D), generator=gen, device="cuda") * 0.2).to(dtype)
+    out = scan_ops.rglru_scan(a, b)
+    plain = rglru_scan_ref(a, b)
+    err = _compare(f"rglru_scan {label}", out, plain, dtype, SCAN_TOL)
+    bound, bound_by = scan_bound(B, S, D, dtype)
+    row = {
+        "kernel": "rglru_scan", "case": label, "shape": [B, S, D], "dtype": _name(dtype),
+        "max_abs_err": err,
+        "kernel_ms": device_ms(lambda: scan_ops.rglru_scan(a, b)),
+        "plain_ms": device_ms(lambda: rglru_scan_ref(a, b)),
+        "library_ms": None,  # no single PyTorch call computes a linear recurrence
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    row["GB_per_s"] = 3 * B * S * D * a.element_size() / row["kernel_ms"] / 1e6
+    return row
+
+
+def phase_lm_kernels() -> list[dict]:
+    """The LM kernels' cases; the first row of each kernel is its headline
+    (recurrentgemma-2b's full-width shapes)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        flash_case("recurrentgemma-2b layer", 2, 4096, 10, 1, 256, 2048, bf16, 20),
+        flash_case("recurrentgemma-2b layer", 2, 4096, 10, 1, 256, 2048, f32, 21),
+        flash_case("f32, S=1024", 1, 1024, 10, 1, 256, 2048, f32, 23),
+        flash_case("S=100 ragged", 2, 100, 10, 1, 256, 2048, f32, 26),
+        flash_case("S=100 ragged", 2, 100, 10, 1, 256, 2048, bf16, 29),
+        scan_case("recurrentgemma-2b layer", 2, 4096, 2560, f32, 32),
+        scan_case("ragged S and D", 3, 1001, 2561, f32, 33),
+        scan_case("ragged S and D", 3, 1001, 2561, bf16, 34),
+    ]
+
+
 def phase_kernels(Pi_mnist: np.ndarray) -> list[dict]:
     """Every kernel case; the first row of each kernel is its headline."""
     res100 = learn_topology(Pi_mnist, budget=10, lam=0.1)
@@ -229,15 +372,24 @@ def phase_kernels(Pi_mnist: np.ndarray) -> list[dict]:
 # Phase 2: the main path through the user's entry points
 # ---------------------------------------------------------------------------
 
+def reset_launch_counts() -> None:
+    for mod in (ops, fa_ops, scan_ops):
+        mod.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    return {**ops.launch_counts, **fa_ops.launch_counts, **scan_ops.launch_counts}
+
+
 def counted(fn, *args, **kwargs):
-    """``fn(...)`` with the launch counts set to 0 just before it; returns
+    """``fn(...)`` with every launch count set to 0 just before it; returns
     (result, counts, wall seconds)."""
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
-    return out, dict(ops.launch_counts), time.perf_counter() - t0
+    return out, launch_counts(), time.perf_counter() - t0
 
 
 def _final(log) -> dict:
@@ -301,7 +453,8 @@ def phase_main_path(mnist) -> dict:
     launches = {"gossip_schedule": 0, "gossip_mix": 0}
 
     def expect(label, counts, schedule, mix):
-        check(counts == {"gossip_schedule": schedule, "gossip_mix": mix},
+        check(counts == {"gossip_schedule": schedule, "gossip_mix": mix,
+                         "flash_attention": 0, "rglru_scan": 0},
               f"{label}: launches {counts}, expected schedule={schedule} mix={mix}")
         for k in launches:
             launches[k] += counts[k]
@@ -395,6 +548,237 @@ def phase_cross_device() -> None:
               "2d: cuda and cpu error traces disagree")
 
 
+# ---------------------------------------------------------------------------
+# Phases 3-5: the LM slice (recurrentgemma-2b) through the user's entry points
+# ---------------------------------------------------------------------------
+
+def layer_counts(cfg) -> tuple[int, int]:
+    """(attention layers, RG-LRU layers) of ``cfg``."""
+    kinds = [cfg.kind(i) for i in range(cfg.num_layers)]
+    return sum(k in ("attn", "local_attn") for k in kinds), kinds.count("rglru")
+
+
+def expect_lm(label: str, counts: dict, flash: int, scan: int, device: torch.device) -> None:
+    """The LM kernels' launches of one counted run (none on the CPU)."""
+    if device.type != "cuda":
+        flash = scan = 0
+    want = {"gossip_schedule": 0, "gossip_mix": 0, "flash_attention": flash, "rglru_scan": scan}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    print(f"# {label}: launches flash_attention={flash} rglru_scan={scan}")
+
+
+def _median_s(fn, *args, repeats: int = 3, **kwargs) -> float:
+    return float(np.median([counted(fn, *args, **kwargs)[2] for _ in range(repeats)]))
+
+
+def device_profile(fn, *args, **kwargs) -> tuple[dict, int]:
+    """Device ms of one ``fn(...)`` by kernel (and copy) from
+    ``torch.profiler``, and the number of device operations it ran."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        counted(fn, *args, **kwargs)
+    per_kernel: dict[str, float] = {}
+    n_ops = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
+            n_ops += e.count
+    return per_kernel, n_ops
+
+
+def top_kernels(per_kernel: dict) -> dict:
+    """The ten largest entries of a ``device_profile``, in ms."""
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return {k[:90]: round(v, 3) for k, v in top}
+
+
+def phase_scoring(cfg, B: int, S: int, device: torch.device) -> tuple[dict, object]:
+    """Phase 3: ``loss_fn`` / ``model_forward`` with the kernels at full width."""
+    n_attn, n_rglru = layer_counts(cfg)
+    model = registry.init_model(cfg, seed=0, device=device)
+    batch = registry.make_inputs(cfg, B, S, seed=0, device=device)
+    out: dict = {"params": sum(p.numel() for p in model.parameters())}
+    with torch.inference_mode():
+        (loss, _), counts, out["loss_s"] = counted(registry.loss_fn, model, cfg, batch,
+                                                   impl="kernel")
+        expect_lm("3 loss_fn kernel path", counts, n_attn, n_rglru, device)
+        launches = counts
+        torch.cuda.reset_peak_memory_stats()
+        (logits, _, _), counts, out["forward_s"] = counted(
+            registry.model_forward, model, cfg, batch, impl="kernel")
+        out["forward_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        expect_lm("3 model_forward kernel path", counts, n_attn, n_rglru, device)
+        launches = {k: launches[k] + counts[k] for k in launches}
+        check(tuple(logits.shape) == (B, S, cfg.vocab_size), "3: logits shape")
+        check(bool(torch.isfinite(logits).all()), "3: non-finite logits")
+        # the loss recomputed from the forward's logits, one row at a time in
+        # float64, and the logit of each position's own input token: with the
+        # tied, sqrt(d)-scaled embedding it dominates at random init
+        nll, own = [], []
+        for b in range(B):
+            lf = logits[b].double()
+            nll.append(torch.logsumexp(lf, -1) - lf.gather(-1, batch["labels"][b, :, None])[:, 0])
+            own.append(lf.gather(-1, batch["tokens"][b, :, None])[:, 0])
+        del logits, lf
+        plain_loss, _ = registry.loss_fn(model, cfg, batch, impl="plain")
+        out["loss"], out["plain_loss"] = float(loss), float(plain_loss)
+        out["loss_from_logits"] = float(torch.cat(nll).mean())
+        out["own_token_logit_mean"] = float(torch.cat(own).mean())
+        out["ln_vocab"] = math.log(cfg.vocab_size)
+        print(f"# 3 loss {out['loss']:.5f} (plain {out['plain_loss']:.5f}, from the forward's "
+              f"logits {out['loss_from_logits']:.5f}), ln(vocab) {out['ln_vocab']:.5f}, mean "
+              f"logit of the input token {out['own_token_logit_mean']:.3f}")
+        check(math.isfinite(out["loss"]), "3: non-finite loss")
+        check(out["loss"] >= out["ln_vocab"] - 1.0,
+              "3: loss below ln(vocab) - 1 on random labels")
+        check(abs(out["loss"] - out["loss_from_logits"]) <= 1e-2,
+              "3: loss_fn and the forward's logits give losses more than 1e-2 apart")
+        check(abs(out["loss"] - out["plain_loss"]) <= 1e-2,
+              "3: kernel and plain losses differ by more than 1e-2")
+        fwd = _median_s(registry.model_forward, model, cfg, batch, impl="kernel")
+        out["forward_steady_s"] = fwd
+        out["tokens_per_s"] = B * S / fwd
+        out["plain_forward_steady_s"] = _median_s(registry.model_forward, model, cfg, batch,
+                                                  impl="plain")
+        per_kernel, out["device_ops"] = device_profile(
+            registry.model_forward, model, cfg, batch, impl="kernel")
+        out["device_ms"] = sum(per_kernel.values())
+        out["top_kernels_ms"] = top_kernels(per_kernel)
+        out["device_busy_share"] = out["device_ms"] / (1e3 * fwd)
+    return {"scoring": out, "launches": launches}, model
+
+
+def phase_f32_depth3(cfg_full, B: int, S: int, device: torch.device) -> tuple[dict, object]:
+    """Phase 3b: the same forward in float32 at depth 3 (rglru, rglru,
+    local_attn), kernel path against plain path at 1e-4."""
+    cfg = dataclasses.replace(cfg_full, num_layers=3, dtype="float32")
+    n_attn, n_rglru = layer_counts(cfg)
+    model = registry.init_model(cfg, seed=2, device=device)
+    batch = registry.make_inputs(cfg, B, S, seed=2, device=device)
+    with torch.inference_mode():
+        (kernel, _, _), counts, _ = counted(registry.model_forward, model, cfg, batch,
+                                            impl="kernel")
+        expect_lm("3b f32 depth-3 forward, kernel path", counts, n_attn, n_rglru, device)
+        plain, _, _ = registry.model_forward(model, cfg, batch, impl="plain")
+        err = float((kernel - plain).abs().max())
+        print(f"# 3b f32 depth 3: max |kernel - plain| logits {err:.3e}")
+        check(torch.allclose(kernel, plain, atol=1e-4, rtol=1e-4),
+              f"3b: f32 kernel and plain logits differ by {err:.3e} (atol = rtol = 1e-4)")
+        del kernel, plain
+        k_loss = float(registry.loss_fn(model, cfg, batch, impl="kernel")[0])
+        p_loss = float(registry.loss_fn(model, cfg, batch, impl="plain")[0])
+        check(abs(k_loss - p_loss) <= 1e-4, "3b: f32 kernel and plain losses differ")
+    return {"max_abs_err": err, "loss": k_loss, "plain_loss": p_loss}, model
+
+
+def phase_serving(model, cfg, B: int, prompt_len: int, new_tokens: int,
+                  device: torch.device) -> dict:
+    """Phase 4: prefill and greedy ``generate`` at full width. Decode is
+    timed and profiled through ``generate`` itself: its wall and device
+    time less a prefill's, over its ``new_tokens - 1`` decode steps. The
+    busy shares are profiler device time over unprofiled wall time."""
+    _, n_rglru = layer_counts(cfg)
+    prompt = registry.make_inputs(cfg, B, prompt_len, seed=1, device=device)["tokens"]
+    max_len = prompt_len + new_tokens + 1
+    steps = new_tokens - 1
+    out: dict = {}
+    with torch.inference_mode():
+        _, counts, _ = counted(engine.prefill, model, cfg, prompt, max_len=max_len)
+        expect_lm("4 prefill", counts, 0, n_rglru, device)
+        launches = counts
+        out["prefill_s"] = _median_s(engine.prefill, model, cfg, prompt, max_len=max_len)
+        out["prefill_tokens_per_s"] = B * prompt_len / out["prefill_s"]
+        prefill_kernels, prefill_ops = device_profile(engine.prefill, model, cfg, prompt,
+                                                      max_len=max_len)
+    out["prefill_device_ops"] = prefill_ops
+    out["prefill_top_kernels_ms"] = top_kernels(prefill_kernels)
+    out["prefill_device_busy_share"] = sum(prefill_kernels.values()) / (1e3 * out["prefill_s"])
+
+    gen_kw = dict(max_new_tokens=new_tokens, device=device)
+    toks, counts, _ = counted(engine.generate, model, cfg, prompt, **gen_kw)
+    expect_lm("4 generate (prefill + decode)", counts, 0, n_rglru, device)
+    launches = {k: launches[k] + counts[k] for k in launches}
+    check(tuple(toks.shape) == (B, new_tokens), "4: generated tokens' shape")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size, "4: tokens out of range")
+    out["first_tokens"] = toks[:, :8].tolist()
+    out["generate_s"] = _median_s(engine.generate, model, cfg, prompt, **gen_kw)
+    out["decode_ms_per_token"] = 1e3 * (out["generate_s"] - out["prefill_s"]) / steps
+    gen_kernels, gen_ops = device_profile(engine.generate, model, cfg, prompt, **gen_kw)
+    decode_kernels = {k: v - prefill_kernels.get(k, 0.0) for k, v in gen_kernels.items()}
+    out["decode_device_ops_per_token"] = (gen_ops - prefill_ops) / steps
+    out["decode_device_ms_per_token"] = sum(decode_kernels.values()) / steps
+    out["decode_top_kernels_ms"] = top_kernels(decode_kernels)
+    out["decode_device_busy_share"] = out["decode_device_ms_per_token"] / out[
+        "decode_ms_per_token"]
+    return {"serving": out, "launches": launches}
+
+
+def phase_decode_consistency(model, cfg_f32, B: int, S: int, device: torch.device) -> float:
+    """Phase 4b: prefill S - 1 tokens, decode the last, compare its logits
+    with the full forward's last position at the reference's 2e-3
+    (tests/test_decode_consistency.py)."""
+    toks = registry.make_inputs(cfg_f32, B, S, seed=3, device=device)["tokens"]
+    with torch.inference_mode():
+        hidden, _, _ = model(toks, return_hidden=True)
+        full_last = unembed(model.embed, hidden[:, -1:], cfg_f32)[:, 0]
+        cache = transformer.init_cache(cfg_f32, B, S + 8, device=device)
+        pos = torch.arange(S - 1, device=device)[None].expand(B, S - 1)
+        _, cache, _ = model(toks[:, : S - 1], cache=cache, positions=pos)
+        last, _ = engine.decode_step(model, cfg_f32, toks[:, S - 1 :],
+                                     torch.full((B, 1), S - 1, device=device), cache)
+    err = float((last - full_last).abs().max())
+    print(f"# 4b f32 depth-3 decode vs full forward at {S} positions: max |diff| {err:.3e}")
+    check(err < 2e-3, f"4b: decode and full forward differ by {err:.3e} (limit 2e-3)")
+    return err
+
+
+def phase_lm_cross_device() -> float:
+    """Phase 5: the smoke config's kernel path on the card against its plain
+    path on the CPU (float32, num_layers = 5), within 1e-4."""
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"), num_layers=5)
+    cpu_model = registry.init_model(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = registry.make_inputs(cfg, 2, 256, seed=0, device="cpu")
+    gpu_batch = {k: v.cuda() for k, v in batch.items()}
+    with torch.inference_mode():
+        gpu, _, _ = registry.model_forward(gpu_model, cfg, gpu_batch, impl="kernel")
+        cpu, _, _ = registry.model_forward(cpu_model, cfg, batch, impl="plain")
+        gpu_loss = float(registry.loss_fn(gpu_model, cfg, gpu_batch, impl="kernel")[0])
+        cpu_loss = float(registry.loss_fn(cpu_model, cfg, batch, impl="plain")[0])
+    err = float((gpu.cpu() - cpu).abs().max())
+    print(f"# 5 smoke config, max |cuda kernel path - cpu plain path| {err:.3e}, losses "
+          f"{gpu_loss:.6f} and {cpu_loss:.6f}")
+    check(torch.allclose(gpu.cpu(), cpu, atol=1e-4, rtol=1e-4),
+          f"5: cuda kernel path and cpu plain path differ by {err:.3e}")
+    check(abs(gpu_loss - cpu_loss) <= 1e-4, "5: cuda and cpu losses differ")
+    return err
+
+
+def phase_lm(device: torch.device) -> dict:
+    """Phases 3-5; returns the LM kernels' launches over the main-path runs
+    (phase 3's loss and forward, phase 4's prefill and generate)."""
+    cfg = get_config("recurrentgemma-2b")
+    n_attn, n_rglru = layer_counts(cfg)
+    check((n_attn, n_rglru) == (8, 18), f"recurrentgemma-2b has {n_attn} + {n_rglru} layers")
+    scoring, model = phase_scoring(cfg, 2, 4096, device)
+    print("# 3 " + json.dumps(scoring["scoring"]))
+    serving = phase_serving(model, cfg, 2, 2560, 32, device)
+    print("# 4 " + json.dumps(serving["serving"]))
+    del model
+    torch.cuda.empty_cache()
+    f32, model32 = phase_f32_depth3(cfg, 2, 4096, device)
+    print("# 3b f32 depth 3 " + json.dumps(f32))
+    phase_decode_consistency(model32, model32.cfg, 2, 2560, device)
+    del model32
+    torch.cuda.empty_cache()
+    phase_lm_cross_device()
+    launches = {k: scoring["launches"][k] + serving["launches"][k]
+                for k in ("flash_attention", "rglru_scan")}
+    return {"launches": launches, "per_forward": {"flash_attention": n_attn,
+                                                  "rglru_scan": n_rglru}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
@@ -413,13 +797,15 @@ def main() -> int:
           f"kernels built in {build_s:.1f} s")
 
     mnist = mnist_width_data()
-    rows = phase_kernels(mnist[3])
+    rows = phase_kernels(mnist[3]) + phase_lm_kernels()
     for r in rows:
         print("# 1 " + json.dumps(r))
     launches = phase_main_path(mnist)
     phase_cross_device()
     for arm, r in step_breakdown(mnist).items():
         print(f"# 2e {arm} " + json.dumps(r))
+    lm = phase_lm(torch.device("cuda"))
+    launches.update(lm["launches"])
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -430,8 +816,10 @@ def main() -> int:
             "max_abs_err": head["max_abs_err"], "ms": head["kernel_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": [head["n"], head["P"]], "dtype": head["dtype"],
+            "shape": head.get("shape", [head.get("n"), head.get("P")]), "dtype": head["dtype"],
         })
+        if name in lm["per_forward"]:
+            kernels[-1]["launches_per_forward"] = lm["per_forward"][name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,16 @@ The reference's classifier parameters leave JAX as a dict of numpy arrays
 device so both packages compute on the same weights, and
 ``params_to_numpy`` brings them back. ``schedule_arrays_from_numpy``
 builds a ``ScheduleArrays`` from a (gammas, perms) pair.
+
+``lm_params_from_numpy`` carries the reference's ``init_lm`` pytree (as
+numpy arrays) into the port's ``LM`` and ``lm_params_to_numpy`` back. The
+reference stacks the layers of pattern position j on a group axis,
+``params["stages"][j][...][g]``, and keeps the leftover layers in
+``params["tail"][t]`` (``repro/models/transformer.py:173-197``): group g,
+position j is layer ``g * len(pattern) + j`` of the port, tail t is layer
+``reps * len(pattern) + t``. Leaf names map onto parameter names
+(``attn/wq`` -> ``layers.<i>.attn.wq``). bfloat16 leaves travel as their
+bits, so a round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -14,7 +24,14 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "params_to_numpy", "schedule_arrays_from_numpy"]
+__all__ = [
+    "params_from_numpy",
+    "params_to_numpy",
+    "schedule_arrays_from_numpy",
+    "lm_params_from_numpy",
+    "lm_params_to_numpy",
+    "module_params_from_numpy",
+]
 
 
 def params_from_numpy(
@@ -50,3 +67,115 @@ def schedule_arrays_from_numpy(gammas, perms, device: torch.device | str | None 
         gammas=torch.as_tensor(gammas, device=device),
         perms=torch.as_tensor(perms, device=device),
     )
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A host copy of ``arr`` as a tensor; bfloat16 (ml_dtypes) by its bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16, as the reference's arrays carry it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _flatten(prefix: str, node, out: dict) -> None:
+    if isinstance(node, dict):
+        for key, child in node.items():
+            _flatten(f"{prefix}.{key}" if prefix else key, child, out)
+    else:
+        out[prefix] = node
+
+
+def _nest(flat: dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def _stack(trees: list[dict]) -> dict:
+    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else np.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def _layer_slots(cfg) -> tuple[int, int]:
+    """(groups, pattern length) of the reference's stacked layout."""
+    plen = len(cfg.layer_pattern)
+    return cfg.num_layers // plen, plen
+
+
+def _load_flat(module: torch.nn.Module, flat: dict[str, np.ndarray]) -> torch.nn.Module:
+    params = dict(module.named_parameters())
+    if set(flat) != set(params):
+        raise ValueError(f"parameter names differ: missing {sorted(set(params) - set(flat))}, "
+                         f"unexpected {sorted(set(flat) - set(params))}")
+    with torch.no_grad():
+        for name, leaf in flat.items():
+            src = _tensor(leaf)
+            dst = params[name]
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"{name}: got {tuple(src.shape)} {src.dtype}, the module "
+                                 f"holds {tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(src)
+    return module.requires_grad_(False).eval()
+
+
+def module_params_from_numpy(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """Fill ``module``'s parameters from a nested dict of numpy arrays named
+    as the reference's params of that block (``{"wq": ..., "q_norm":
+    {"scale": ...}}``); gradients off, eval mode. Returns the module."""
+    flat: dict[str, np.ndarray] = {}
+    _flatten("", tree, flat)
+    return _load_flat(module, flat)
+
+
+def lm_params_from_numpy(tree: dict, cfg, device: torch.device | str | None = None):
+    """The port's ``LM`` for ``cfg`` on ``device`` (None = CUDA), with the
+    reference's ``init_lm`` weights ``tree`` (leaves as numpy arrays);
+    gradients off, eval mode. Names, shapes and dtypes must all match."""
+    from repro_torch.models.transformer import LM
+
+    device = resolve_device(device)
+    reps, plen = _layer_slots(cfg)
+    flat: dict[str, np.ndarray] = {}
+    _flatten("embed", tree["embed"], flat)
+    _flatten("final_norm", tree["final_norm"], flat)
+    for j in range(plen if reps else 0):
+        stage: dict = {}
+        _flatten("", tree["stages"][j], stage)
+        for g in range(reps):
+            for name, leaf in stage.items():
+                flat[f"layers.{g * plen + j}.{name}"] = np.asarray(leaf)[g]
+    for t, layer in enumerate(tree["tail"]):
+        _flatten(f"layers.{reps * plen + t}", layer, flat)
+
+    return _load_flat(LM(cfg, device), flat)
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The reference's ``init_lm`` pytree of ``model``'s weights, as numpy
+    arrays: ``embed``, ``stages`` (stacked per pattern position; None
+    where there is no whole group), ``tail`` and ``final_norm``."""
+    cfg = model.cfg
+    reps, plen = _layer_slots(cfg)
+    layers = [_nest({n: _array(p) for n, p in layer.named_parameters()})
+              for layer in model.layers]
+    return {
+        "embed": _nest({n: _array(p) for n, p in model.embed.named_parameters()}),
+        "stages": [_stack(layers[j : reps * plen : plen]) if reps else None
+                   for j in range(plen)],
+        "tail": layers[reps * plen :],
+        "final_norm": _nest({n: _array(p) for n, p in model.final_norm.named_parameters()}),
+    }

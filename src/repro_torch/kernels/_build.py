@@ -22,13 +22,15 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "build_all", "load", "build_dir"]
+__all__ = ["KERNEL_SOURCES", "build_all", "load", "build_dir", "kernel_function"]
 
 _PKG = Path(__file__).resolve().parent
 # name -> source, relative to the kernels package
 KERNEL_SOURCES = {
     "gossip_schedule": "gossip_mix/csrc/gossip_schedule.cu",
     "gossip_mix": "gossip_mix/csrc/gossip_mix.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -115,3 +117,18 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)[1]))
             _loaded[name] = lib
         return lib
+
+
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def kernel_function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of kernel ``name``, typed: ``argtypes``
+    as given, an ``int`` (the launch's ``cudaError_t``) returned."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn

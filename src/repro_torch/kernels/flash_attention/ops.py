@@ -1,0 +1,112 @@
+"""Public wrapper for the flash attention kernel.
+
+On a CUDA tensor ``flash_attention`` launches the hand-written kernel
+(``csrc/flash_attention.cu``), built with nvcc at first use; there is no
+fallback to another implementation on the card. On a CPU tensor it runs
+the plain version in ``ref.py``.
+
+Two detours of the reference's ``ops.py`` are not carried over: the
+kernel takes any S >= 1 and masks the ragged q and kv edges itself (the
+reference falls back to its oracle below S = 128 and pads S), and it
+applies the true ``D**-0.5`` in float32 (the reference pads D to a
+multiple of 128 and pre-scales q in q's dtype). Head dims are those of
+the repo's configs: 32, 64, 128 and 256.
+
+The kernel has no backward pass, as the reference's has none: a CUDA
+call on an input that requires grad raises instead of detaching it.
+
+``launch_counts["flash_attention"]`` rises by one at every launch and
+nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention", "launch_counts", "reset_launch_counts", "HEAD_DIMS"]
+
+launch_counts = {"flash_attention": 0}
+HEAD_DIMS = (32, 64, 128, 256)
+
+_SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+
+
+def reset_launch_counts() -> None:
+    launch_counts["flash_attention"] = 0
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.ndim != 4:
+            raise ValueError(f"{name} must be a 4-D (B, S, heads, D) tensor")
+        if t.dtype not in _SYMBOLS:
+            raise TypeError(f"{name} dtype must be float32 or bfloat16, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device} but q is on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (B, S, heads, D)")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    B, S, H, D = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != D:
+        raise ValueError(f"k, v must be (B={B}, S={S}, Hkv, D={D}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if k.shape[2] == 0 or H % k.shape[2]:
+        raise ValueError(f"Hkv={k.shape[2]} must divide H={H}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported; the kernel takes {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if softcap < 0.0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Flash attention with GQA. q: (B, S, H, D); k/v: (B, S, Hkv, D).
+
+    Causal (``kpos <= qpos``) unless ``causal=False``; ``window`` keeps
+    ``kpos > qpos - window``; ``softcap > 0`` applies ``cap * tanh(s / cap)``
+    to the scaled logits before the mask. Float32 arithmetic inside;
+    returns q's dtype.
+    """
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise RuntimeError("flash_attention: no backward kernel; the reference kernel has none")
+    B, S, H, D = q.shape
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's y limit of 65535")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    from repro_torch.kernels import _build
+
+    with torch.cuda.device(q.device):
+        fn = _build.kernel_function("flash_attention", _SYMBOLS[q.dtype], _ARGTYPES)
+        status = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, H, k.shape[2], D, int(causal), 0 if window is None else int(window),
+            float(softcap), torch.cuda.current_stream().cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {status}")
+    launch_counts["flash_attention"] += 1
+    return out

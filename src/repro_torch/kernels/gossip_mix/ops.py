@@ -48,19 +48,10 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-_fns: dict[tuple[str, torch.dtype], object] = {}  # ctypes functions, argtypes set
-
-
 def _kernel_fn(kernel: str, dtype: torch.dtype):
-    fn = _fns.get((kernel, dtype))
-    if fn is None:
-        from repro_torch.kernels import _build
+    from repro_torch.kernels import _build
 
-        fn = getattr(_build.load(kernel), f"{kernel}_{_DTYPES[dtype]}")
-        fn.argtypes = _ARGTYPES[kernel]
-        fn.restype = ctypes.c_int
-        _fns[(kernel, dtype)] = fn
-    return fn
+    return _build.kernel_function(kernel, f"{kernel}_{_DTYPES[dtype]}", _ARGTYPES[kernel])
 
 
 def _check_status(kernel: str, status: int) -> None:

@@ -1,0 +1,293 @@
+"""Attention blocks: GQA/MQA (qk-norm, bias, softcap, sliding window) with
+full-sequence and cached (prefill / decode) paths.
+
+Layout conventions, as in the reference: activations (B, S, D); q/k/v
+(B, S, H, Dh). Keys are rotated (RoPE) before caching.
+
+``impl`` picks the full-sequence attention:
+
+* ``"kernel"`` -- the reference's ``impl="pallas"``: a full-sequence
+  causal call goes to ``kernels.flash_attention.ops.flash_attention``
+  (the hand-written CUDA kernel on the card, its plain version on the
+  CPU);
+* ``"plain"`` -- the reference's ``impl="xla"``: plain PyTorch, the
+  chunked online-softmax form above 2048 positions, one quadratic
+  softmax below.
+
+With a cache (prefill and decode) attention is plain PyTorch whatever
+``impl`` says, as it is plain XLA in the reference. MLA and
+cross-attention wait for their families (ROADMAP queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
+from .common import IMPLS, ModelConfig, dtype_of, truncated_normal_
+from .kvcache import (
+    init_full_cache,
+    init_window_cache,
+    update_full_cache,
+    update_window_cache,
+)
+from .layers import RMSNorm, apply_rope, rms_norm, rotary_embedding
+
+_NEG_INF = -2.0e9
+
+__all__ = [
+    "Attention",
+    "init_attention",
+    "attention",
+    "init_attention_cache",
+]
+
+
+# ---------------------------------------------------------------------------
+# Standard multi-head attention with GQA / MQA
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """Projections ``wq`` (d, H Dh), ``wk`` / ``wv`` (d, Hkv Dh), ``wo``
+    (H Dh, d); ``bq`` / ``bk`` / ``bv`` with ``attn_bias``; ``q_norm`` /
+    ``k_norm`` with ``qk_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device | str):
+        super().__init__()
+        dt = dtype_of(cfg)
+        d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+        def empty(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device))
+
+        self.wq = empty(d, h * dh)
+        self.wk = empty(d, hkv * dh)
+        self.wv = empty(d, hkv * dh)
+        self.wo = empty(h * dh, d)
+        if cfg.attn_bias:
+            self.bq = nn.Parameter(torch.zeros(h * dh, dtype=dt, device=device))
+            self.bk = nn.Parameter(torch.zeros(hkv * dh, dtype=dt, device=device))
+            self.bv = nn.Parameter(torch.zeros(hkv * dh, dtype=dt, device=device))
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(dh, dt, device)
+            self.k_norm = RMSNorm(dh, dt, device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        std = self.wq.shape[0] ** -0.5
+        truncated_normal_(self.wq, std, generator)
+        truncated_normal_(self.wk, std, generator)
+        truncated_normal_(self.wv, std, generator)
+        truncated_normal_(self.wo, self.wo.shape[0] ** -0.5, generator)
+
+
+def init_attention(
+    cfg: ModelConfig, *, generator: torch.Generator, device: torch.device | str
+) -> Attention:
+    attn = Attention(cfg, device)
+    attn.init_weights(generator)
+    return attn
+
+
+def _project_qkv(params: Attention, cfg: ModelConfig, x: torch.Tensor):
+    B, S, _ = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ params.wq
+    k = x @ params.wk
+    v = x @ params.wv
+    if cfg.attn_bias:
+        q = q + params.bq
+        k = k + params.bk
+        v = v + params.bv
+    q = q.reshape(B, S, h, dh)
+    k = k.reshape(B, S, hkv, dh)
+    v = v.reshape(B, S, hkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(params.q_norm, q, cfg.norm_eps)
+        k = rms_norm(params.k_norm, k, cfg.norm_eps)
+    return q, k, v
+
+
+def _sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor | None,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Grouped scaled-dot-product attention. q: (B,Sq,H,Dh); k/v: (B,Sk,Hkv,Dh).
+
+    mask: broadcastable to (B, 1, Sq, Sk) boolean (True = attend) or None.
+    """
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    groups = H // Hkv
+    scale = Dh**-0.5
+    qg = q.reshape(B, Sq, Hkv, groups, Dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    logits = logits * scale
+    if cfg.attn_logit_softcap > 0.0:
+        cap = cfg.attn_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    if mask is not None:
+        logits = torch.where(mask[:, :, None] if mask.ndim == 4 else mask, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+_CHUNK_THRESHOLD = 2048  # full-seq lengths above this use the chunked path
+_CHUNK_Q = 512
+
+
+def _sdpa_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cfg: ModelConfig,
+    window: int | None,
+    chunk_q: int = _CHUNK_Q,
+) -> torch.Tensor:
+    """Causal attention as a loop over q chunks, each with a full-k
+    softmax: the peak temporary is O(B H chunk_q S) instead of O(B H S^2).
+
+    Products take the operands' values exactly and sum in float32 (the
+    reference's ``preferred_element_type``); p is cast to v's dtype
+    before the product with v, as the reference does.
+    """
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    groups = H // Hkv
+    scale = Dh**-0.5
+    if S % chunk_q:
+        raise ValueError(f"S={S} must be a multiple of chunk_q={chunk_q}")
+    qg = q.reshape(B, S, Hkv, groups, Dh)
+    kf = k.float()
+    vf = v.float()
+    kpos = torch.arange(S, device=q.device)
+    chunks = []
+    for ci in range(S // chunk_q):
+        q_chunk = qg[:, ci * chunk_q : (ci + 1) * chunk_q].float()
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", q_chunk, kf) * scale
+        if cfg.attn_logit_softcap > 0.0:
+            cap = cfg.attn_logit_softcap
+            logits = cap * torch.tanh(logits / cap)
+        qpos = ci * chunk_q + torch.arange(chunk_q, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        logits = torch.where(mask, logits, _NEG_INF)
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), vf)
+        out = out / p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+        chunks.append(out.reshape(B, chunk_q, H, Dh).to(q.dtype))
+    return torch.cat(chunks, dim=1)
+
+
+def _causal_mask(Sq: int, Sk: int, window: int | None, device=None) -> torch.Tensor:
+    """(1, 1, Sq, Sk) boolean mask; Sk == Sq for full-sequence paths."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask[None, None]
+
+
+def attention(
+    params: Attention,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    local: bool = False,
+    window: int | None = None,
+    cache: dict | None = None,
+    causal: bool = True,
+    impl: str = "kernel",
+) -> tuple[torch.Tensor, dict | None]:
+    """Self-attention. Returns (output, updated_cache).
+
+    Full-sequence when ``cache is None``; cached prefill / decode
+    otherwise (the cache's buffers are written in place, see
+    ``models/kvcache.py``). ``local=True`` applies the layer's sliding
+    window (``window`` overrides ``cfg.sliding_window`` -- the long_500k
+    sub-quadratic mode).
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    B, S, _ = x.shape
+    dh = cfg.resolved_head_dim
+    eff_window = window if window is not None else (cfg.sliding_window if local else None)
+    q, k, v = _project_qkv(params, cfg, x)
+    cos, sin = rotary_embedding(positions, dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if cache is None:
+        if impl == "kernel" and causal:
+            out = fa_ops.flash_attention(
+                q, k, v, causal=True, window=eff_window, softcap=cfg.attn_logit_softcap
+            )
+        elif causal and S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0:
+            out = _sdpa_chunked(q, k, v, cfg, eff_window)
+        else:
+            mask = _causal_mask(S, S, eff_window, x.device) if causal else None
+            out = _sdpa(q, k, v, mask, cfg)
+        new_cache = None
+    elif S > 1:
+        # Prefill (a multi-token append, from a fresh cache): attention on
+        # the full-sequence plain path, then the cache write. (A window
+        # ring cannot be the source while it is filled: early keys may be
+        # evicted before later queries need them.)
+        if causal and S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0:
+            out = _sdpa_chunked(q, k, v, cfg, eff_window)
+        else:
+            mask = _causal_mask(S, S, eff_window, x.device) if causal else None
+            out = _sdpa(q, k, v, mask, cfg)
+        if local or window is not None:
+            new_cache = update_window_cache(cache, k, v)
+        else:
+            new_cache = update_full_cache(cache, k, v)
+    else:
+        # positions: (B, S) absolute positions of the new tokens.
+        qpos = positions[:, :, None]  # (B, Sq, 1)
+        if not (local or window is not None):
+            new_cache = update_full_cache(cache, k, v)
+            Sk = new_cache["k"].shape[1]
+            kpos = torch.arange(Sk, device=x.device)[None, None, :]  # (1, 1, Sk)
+            mask = kpos <= qpos  # (B, Sq, Sk)
+            out = _sdpa(q, new_cache["k"], new_cache["v"], mask[:, None], cfg)
+        else:  # window ring buffer
+            new_cache = update_window_cache(cache, k, v)
+            W = new_cache["k"].shape[1]
+            slot = torch.arange(W, device=x.device)
+            idx = new_cache["index"]  # absolute positions written so far
+            # absolute position held by each ring slot after the write:
+            # the largest value < idx congruent to the slot modulo W.
+            abs_pos = (idx - 1) - torch.remainder(idx - 1 - slot, W)  # (W,)
+            abs_pos = abs_pos[None, None, :]  # (1, 1, W)
+            mask = (abs_pos >= 0) & (abs_pos <= qpos)
+            if eff_window is not None:
+                mask = mask & (abs_pos > qpos - eff_window)
+            out = _sdpa(q, new_cache["k"], new_cache["v"], mask[:, None], cfg)
+
+    B, Sq = out.shape[:2]
+    out = out.reshape(B, Sq, -1) @ params.wo
+    return out, new_cache
+
+
+def init_attention_cache(
+    cfg: ModelConfig, batch: int, max_len: int, *, local: bool, window: int | None = None,
+    device: torch.device | str | None = None,
+) -> dict:
+    """A window (ring) cache for a local layer or a given ``window``, else
+    a full cache of ``max_len`` positions; on ``device`` (None = CUDA)."""
+    dt = dtype_of(cfg)
+    dh = cfg.resolved_head_dim
+    if local or window is not None:
+        w = window if window is not None else cfg.sliding_window
+        w = min(w, max_len)
+        return init_window_cache(batch, w, cfg.num_kv_heads, dh, dt, device)
+    return init_full_cache(batch, max_len, cfg.num_kv_heads, dh, dt, device)

@@ -1,0 +1,168 @@
+"""Model configuration and shared helpers for the LM stack.
+
+One ``ModelConfig`` covers every architecture of the reference through a
+per-layer block pattern (attention / local attention / mLSTM / sLSTM /
+RG-LRU) plus optional MoE / MLA / encoder / vision / audio sub-configs.
+The dataclasses are copies of the reference's ``models/common.py`` (same
+fields, same defaults), so a config built for one package builds for the
+other. The sub-configs are carried as data only: the blocks that read
+them wait for their families (ROADMAP queue 1 item 12).
+
+Parameters live in ``nn.Module``s (``models/layers.py`` and up), each
+parameter named as the reference's pytree leaf, so the reference's
+weights load by name (``repro_torch.convert.lm_params_from_numpy``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+__all__ = [
+    "MoEConfig",
+    "MLAConfig",
+    "EncoderConfig",
+    "VisionStubConfig",
+    "AudioStubConfig",
+    "ModelConfig",
+    "IMPLS",
+    "param_count",
+    "truncated_normal_",
+    "dtype_of",
+    "NOT_PORTED",
+]
+
+# what a family, block or entry point still to port raises with
+NOT_PORTED = "not ported yet (ROADMAP queue 1 item 12, the LM stack)"
+# full-sequence implementations: the reference's "xla" and "pallas"
+IMPLS = ("plain", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts MLP block configuration."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2)."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0  # 0 = full-rank q projection
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder consumed via cross-attention."""
+
+    num_layers: int
+    num_frames: int  # 1500 for whisper-small (30 s audio, 50 Hz)
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionStubConfig:
+    """LLaVA-style vision stub: precomputed patch embeddings are prepended
+    to the text sequence. ``num_patches`` is the anyres-tiled total."""
+
+    num_patches: int
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioStubConfig:
+    """Marker for audio models whose frontend is stubbed (whisper)."""
+
+    num_mel_bins: int = 80
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 => d_model // num_heads
+    # --- attention flavor ---
+    attn_bias: bool = False  # qwen2.5-style QKV bias
+    qk_norm: bool = False  # qwen3-style per-head RMSNorm on q/k
+    attn_logit_softcap: float = 0.0  # gemma2 attention softcap
+    final_logit_softcap: float = 0.0  # gemma2 output softcap
+    rope_theta: float = 10000.0
+    sliding_window: int = 4096  # window used by 'local_attn' layers
+    # --- block pattern, cycled over layers ---
+    # entries: 'attn' | 'local_attn' | 'mlstm' | 'slstm' | 'rglru'
+    layer_pattern: tuple[str, ...] = ("attn",)
+    mlp_type: str = "swiglu"  # swiglu | geglu | gelu (none if d_ff == 0)
+    # --- sub-configs ---
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
+    encoder: EncoderConfig | None = None
+    vision: VisionStubConfig | None = None
+    audio: AudioStubConfig | None = None
+    # --- misc ---
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    embedding_scale: bool = False  # gemma multiplies embeddings by sqrt(d)
+    post_block_norms: bool = False  # gemma2 pre+post norms around each block
+    dtype: str = "float32"
+    # conv width for recurrent blocks (rglru / xlstm causal conv)
+    conv_width: int = 4
+    # RG-LRU / recurrent block width (d_rnn); 0 => d_model
+    rnn_width: int = 0
+    # long-context override: when serving long_500k, attention layers use a
+    # ring-buffer window of this size (sub-quadratic requirement).
+    long_context_window: int = 4096
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim > 0 else self.d_model // self.num_heads
+
+    @property
+    def resolved_rnn_width(self) -> int:
+        return self.rnn_width if self.rnn_width > 0 else self.d_model
+
+    def kind(self, layer: int) -> str:
+        return self.layer_pattern[layer % len(self.layer_pattern)]
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype named by ``cfg.dtype``."""
+    try:
+        return _DTYPES[cfg.dtype]
+    except KeyError:
+        raise ValueError(f"unsupported model dtype {cfg.dtype!r}") from None
+
+
+def truncated_normal_(param: torch.Tensor, stddev: float, generator: torch.Generator) -> None:
+    """Fill ``param`` with N(0, 1) truncated to [-2, 2], times ``stddev``.
+
+    Drawn in float32 and cast once, as the reference's ``truncated_normal``
+    does (its draws come from ``jax.random``, so the numbers differ).
+    """
+    tmp = torch.empty(param.shape, dtype=torch.float32, device=param.device)
+    nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        param.copy_(tmp.mul_(stddev))
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,187 @@
+"""Shared layers: RMS norm, rotary embeddings, MLPs, embedding tables.
+
+Each parameterised piece is an ``nn.Module`` whose parameters carry the
+reference's pytree names (``scale``; ``w_gate`` / ``w_up`` / ``w_down``;
+``table`` / ``unembed``), stored as the reference stores them: weights as
+(in, out) matrices used as ``x @ W``. The functions keep the reference's
+names and signatures, with the module in place of the params dict.
+
+A module is built with uninitialised weights on an explicit device;
+``init_weights(generator)`` draws them (``init_*`` does both), and
+``repro_torch.convert.lm_params_from_numpy`` loads them instead.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import ModelConfig, dtype_of, truncated_normal_
+
+__all__ = [
+    "RMSNorm",
+    "MLP",
+    "Embedding",
+    "rms_norm",
+    "init_rms_norm",
+    "rotary_embedding",
+    "apply_rope",
+    "init_mlp",
+    "mlp_forward",
+    "init_embedding",
+    "embed",
+    "unembed",
+]
+
+
+def _empty(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class RMSNorm(nn.Module):
+    """RMS norm with a learned ``scale`` (initialised to ones)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype, device: torch.device | str):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        return rms_norm(self, x, eps)
+
+
+def init_rms_norm(dim: int, dtype: torch.dtype, device: torch.device | str) -> RMSNorm:
+    return RMSNorm(dim, dtype, device)
+
+
+def rms_norm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x / rms(x) * scale``, computed in float32 and cast back to x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    return (normed * params.scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rotary_embedding(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of shape ``positions.shape + (head_dim // 2,)``, float32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    freqs = 1.0 / (theta**exps)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate split halves (not interleaved pairs). x: (..., S, H, D);
+    cos/sin: (..., S, D/2) broadcast over H. Computed in float32 (the
+    reference's type promotion), returned in x's dtype."""
+    x1, x2 = x.chunk(2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLPs (SwiGLU / GeGLU / GeLU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """Gated (swiglu, geglu: ``w_gate``, ``w_up``, ``w_down``) or plain
+    (gelu: ``w_up``, ``w_down``) MLP."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device | str, d_ff: int | None = None):
+        super().__init__()
+        dt = dtype_of(cfg)
+        self.d_model = cfg.d_model
+        self.d_ff = d_ff if d_ff is not None else cfg.d_ff
+        self.gated = cfg.mlp_type in ("swiglu", "geglu")
+        if self.gated:
+            self.w_gate = _empty((self.d_model, self.d_ff), dt, device)
+        self.w_up = _empty((self.d_model, self.d_ff), dt, device)
+        self.w_down = _empty((self.d_ff, self.d_model), dt, device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        std_in, std_out = self.d_model**-0.5, self.d_ff**-0.5
+        if self.gated:
+            truncated_normal_(self.w_gate, std_in, generator)
+        truncated_normal_(self.w_up, std_in, generator)
+        truncated_normal_(self.w_down, std_out, generator)
+
+
+def init_mlp(
+    cfg: ModelConfig, *, generator: torch.Generator, device: torch.device | str,
+    d_ff: int | None = None,
+) -> MLP:
+    mlp = MLP(cfg, device, d_ff)
+    mlp.init_weights(generator)
+    return mlp
+
+
+def mlp_forward(params: MLP, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    if mlp_type == "swiglu":
+        gate = F.silu(x @ params.w_gate)
+        return (gate * (x @ params.w_up)) @ params.w_down
+    if mlp_type == "geglu":
+        gate = F.gelu(x @ params.w_gate, approximate="tanh")
+        return (gate * (x @ params.w_up)) @ params.w_down
+    if mlp_type == "gelu":
+        return F.gelu(x @ params.w_up, approximate="tanh") @ params.w_down
+    raise ValueError(f"unknown mlp_type {mlp_type}")
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    """Token ``table`` (V, d); an ``unembed`` (d, V) matrix when untied."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device | str):
+        super().__init__()
+        dt = dtype_of(cfg)
+        self.d_model = cfg.d_model
+        self.table = _empty((cfg.vocab_size, cfg.d_model), dt, device)
+        if not cfg.tie_embeddings:
+            self.unembed = _empty((cfg.d_model, cfg.vocab_size), dt, device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        truncated_normal_(self.table, 0.02, generator)
+        if hasattr(self, "unembed"):
+            truncated_normal_(self.unembed, self.d_model**-0.5, generator)
+
+
+def init_embedding(
+    cfg: ModelConfig, *, generator: torch.Generator, device: torch.device | str
+) -> Embedding:
+    emb = Embedding(cfg, device)
+    emb.init_weights(generator)
+    return emb
+
+
+def embed(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Table lookup; gemma's ``sqrt(d)`` scale is rounded to the table's
+    dtype first, as the reference does (50.5, not 50.596, in bfloat16)."""
+    x = F.embedding(tokens, params.table)
+    if cfg.embedding_scale:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+def unembed(params: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ params.table.T
+    else:
+        logits = x @ params.unembed
+    if cfg.final_logit_softcap > 0.0:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits

@@ -1,0 +1,280 @@
+"""Decoder-only language model assembly from a ModelConfig.
+
+``LM`` holds ``embed``, a ``ModuleList`` of blocks (``layers``) and
+``final_norm``. Each block is built for its kind in the config's layer
+pattern: ``attn`` / ``local_attn`` (GQA attention + MLP) or ``rglru``
+(Griffin recurrent block + MLP). The reference stacks the layers of each
+pattern position on a group axis and runs ``lax.scan`` over the groups
+(plus an unrolled tail); here a plain Python loop runs the layers in
+order (``repro_torch.convert`` maps the reference's stacked layout onto
+``layers``). MoE, MLA and the xLSTM blocks raise ``NotImplementedError``
+until their families are ported (ROADMAP queue 1 item 12).
+
+API:
+  init_lm(cfg, seed=, device=)          -> LM (weights drawn, no grad)
+  LM.forward(tokens, ...)                -> (logits|hidden, new_cache, aux)
+  init_cache(cfg, batch, max_len, device=) -> per-layer caches
+  lm_loss(model, cfg, tokens, labels)    -> (loss, metrics)
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+from .attention import Attention, attention, init_attention_cache
+from .common import IMPLS, NOT_PORTED, ModelConfig, dtype_of
+from .layers import MLP, Embedding, RMSNorm, embed, mlp_forward, rms_norm, unembed
+from .rglru import RGLRUBlock, init_rglru_state, rglru_block
+
+__all__ = [
+    "Layer",
+    "LM",
+    "init_lm",
+    "init_cache",
+    "lm_loss",
+    "softmax_xent",
+    "fused_unembed_xent",
+]
+
+_ATTN_KINDS = ("attn", "local_attn")
+
+
+class Layer(nn.Module):
+    """One block of kind ``attn`` / ``local_attn`` (``ln1``, ``attn``) or
+    ``rglru`` (``block``), then ``ln2`` and ``mlp`` when ``d_ff > 0``;
+    ``post_ln1`` / ``post_ln2`` with gemma2's post-block norms."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device: torch.device | str):
+        super().__init__()
+        if cfg.moe is not None:
+            raise NotImplementedError(f"MoE MLP blocks: {NOT_PORTED}")
+        if cfg.mla is not None:
+            raise NotImplementedError(f"MLA attention: {NOT_PORTED}")
+        dt = dtype_of(cfg)
+        self.kind = kind
+        if kind in _ATTN_KINDS:
+            self.ln1 = RMSNorm(cfg.d_model, dt, device)
+            self.attn = Attention(cfg, device)
+            if cfg.post_block_norms:
+                self.post_ln1 = RMSNorm(cfg.d_model, dt, device)
+        elif kind == "rglru":
+            self.block = RGLRUBlock(cfg, device)
+        elif kind in ("mlstm", "slstm"):
+            raise NotImplementedError(f"{kind} blocks: {NOT_PORTED}")
+        else:
+            raise ValueError(f"unknown layer kind {kind}")
+        if cfg.d_ff > 0:
+            self.ln2 = RMSNorm(cfg.d_model, dt, device)
+            self.mlp = MLP(cfg, device)
+            if cfg.post_block_norms:
+                self.post_ln2 = RMSNorm(cfg.d_model, dt, device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for child in (getattr(self, "attn", None), getattr(self, "block", None),
+                      getattr(self, "mlp", None)):
+            if child is not None:
+                child.init_weights(generator)
+
+
+def _layer_forward(
+    lp: Layer,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache_layer: dict | None,
+    window_override: int | None,
+    impl: str,
+) -> tuple[torch.Tensor, dict | None]:
+    new_cache = None
+    if lp.kind in _ATTN_KINDS:
+        h = rms_norm(lp.ln1, x, cfg.norm_eps)
+        local = lp.kind == "local_attn" or window_override is not None
+        attn_out, new_cache = attention(
+            lp.attn, cfg, h,
+            positions=positions,
+            local=local,
+            window=window_override,
+            cache=cache_layer,
+            impl=impl,
+        )
+        if cfg.post_block_norms:
+            attn_out = rms_norm(lp.post_ln1, attn_out, cfg.norm_eps)
+        x = x + attn_out
+    else:  # rglru
+        x, new_cache = rglru_block(lp.block, cfg, x, cache_layer, impl=impl)
+
+    if cfg.d_ff > 0:
+        h = rms_norm(lp.ln2, x, cfg.norm_eps)
+        mlp_out = mlp_forward(lp.mlp, h, cfg.mlp_type)
+        if cfg.post_block_norms:
+            mlp_out = rms_norm(lp.post_ln2, mlp_out, cfg.norm_eps)
+        x = x + mlp_out
+    return x, new_cache
+
+
+class LM(nn.Module):
+    """Decoder-only LM. Built with uninitialised weights on ``device``:
+    ``init_lm`` draws them, ``repro_torch.convert.lm_params_from_numpy``
+    loads the reference's."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device | str):
+        super().__init__()
+        if cfg.arch_type in ("audio", "vlm"):
+            raise NotImplementedError(f"the {cfg.arch_type} family: {NOT_PORTED}")
+        self.cfg = cfg
+        self.embed = Embedding(cfg, device)
+        self.layers = nn.ModuleList(
+            Layer(cfg, cfg.kind(i), device) for i in range(cfg.num_layers)
+        )
+        self.final_norm = RMSNorm(cfg.d_model, dtype_of(cfg), device)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for layer in self.layers:
+            layer.init_weights(generator)
+        self.embed.init_weights(generator)
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        *,
+        cache: list | None = None,
+        positions: torch.Tensor | None = None,
+        window_override: int | None = None,
+        impl: str = "kernel",
+        return_hidden: bool = False,
+    ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
+        """Decoder forward.
+
+        Args:
+          tokens: (B, S) int tokens.
+          cache: per-layer caches from ``init_cache`` (prefill / decode);
+            None = full sequence. Attention buffers are written in place.
+          positions: (B, S) absolute positions (required with a cache).
+          window_override: force every attention layer to a sliding window
+            (the long_500k sub-quadratic serving mode).
+          impl: "kernel" (the reference's "pallas": the flash-attention and
+            RG-LRU scan kernels) or "plain" (the reference's "xla").
+          return_hidden: skip the unembedding (used by the fused loss).
+
+        Returns (logits | hidden, new_cache, aux); aux is the MoE
+        auxiliary loss of the reference, 0 for the families ported here.
+        """
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        cfg = self.cfg
+        if cache is not None and len(cache) != len(self.layers):
+            raise ValueError(f"cache has {len(cache)} layers, the model {len(self.layers)}")
+        x = embed(self.embed, tokens, cfg)
+        B, S, _ = x.shape
+        if positions is None:
+            if cache is not None:
+                raise ValueError("positions are required with a cache")
+            positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        new_cache = [] if cache is not None else None
+        for i, layer in enumerate(self.layers):
+            cl = cache[i] if cache is not None else None
+            x, nc = _layer_forward(layer, cfg, x, positions, cl, window_override, impl)
+            if new_cache is not None:
+                new_cache.append(nc)
+        x = rms_norm(self.final_norm, x, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if return_hidden:
+            return x, new_cache, aux
+        return unembed(self.embed, x, cfg), new_cache, aux
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device: torch.device | str | None = None) -> LM:
+    """An ``LM`` with weights drawn from ``torch.Generator(seed)`` on
+    ``device`` (None = CUDA), in eval mode with gradients off: this slice
+    is forward only (the reference's kernels have no backward pass)."""
+    device = resolve_device(device)
+    model = LM(cfg, device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model.requires_grad_(False).eval()
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device) -> dict:
+    if kind in _ATTN_KINDS:
+        return init_attention_cache(cfg, batch, max_len, local=kind == "local_attn",
+                                    device=device)
+    if kind == "rglru":
+        return init_rglru_state(cfg, batch, device)
+    raise NotImplementedError(f"{kind} caches: {NOT_PORTED}")
+
+
+def init_cache(
+    cfg: ModelConfig,
+    batch: int,
+    max_len: int,
+    *,
+    device: torch.device | str | None = None,
+) -> list:
+    """One cache per layer, in layer order (the reference groups them as
+    its stacked parameters are grouped), on ``device`` (None = CUDA).
+
+    The reference's ``long_context`` mode (a window cache on every
+    attention layer) waits for the long-context serving slice (ROADMAP
+    queue 1 item 13).
+    """
+    device = resolve_device(device)
+    return [
+        _init_layer_cache(cfg, cfg.kind(i), batch, max_len, device)
+        for i in range(cfg.num_layers)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token ``logsumexp - label logit``, reduced over V in float32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    label_logit = lf.gather(-1, labels[..., None].long())[..., 0]
+    return lse - label_logit
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy; logits stay in their dtype until the
+    float32 reduction."""
+    return _token_nll(logits, labels).mean()
+
+
+_XENT_CHUNK = 512
+
+
+def fused_unembed_xent(
+    params: Embedding, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor
+) -> torch.Tensor:
+    """Unembed + cross-entropy over sequence chunks of 512: the full
+    (B, S, V) logits never materialise, one (B, 512, V) block at a time."""
+    B, S, D = hidden.shape
+    if S % _XENT_CHUNK != 0:
+        return softmax_xent(unembed(params, hidden, cfg), labels)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, _XENT_CHUNK):
+        logits = unembed(params, hidden[:, c0 : c0 + _XENT_CHUNK], cfg)
+        total = total + _token_nll(logits, labels[:, c0 : c0 + _XENT_CHUNK]).sum()
+    return total / (B * S)
+
+
+def lm_loss(
+    model: LM,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    impl: str = "kernel",
+) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy. Returns (loss, {"nll", "aux"})."""
+    hidden, _, aux = model(tokens, impl=impl, return_hidden=True)
+    loss = fused_unembed_xent(model.embed, cfg, hidden, labels)
+    return loss, {"nll": loss, "aux": aux}

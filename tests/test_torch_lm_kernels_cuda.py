@@ -1,0 +1,116 @@
+"""The hand-written flash_attention and rglru_scan kernels against their
+plain versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device (the
+kernels have no CPU mode). This file imports no JAX, so it also runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_kernels_cuda.py
+
+Tolerances are the reference's: flash attention 2e-3 (float32) and 3e-2
+(bfloat16), the scan 1e-4 and 3e-2.
+"""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
+
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa_ops.reset_launch_counts()
+    scan_ops.reset_launch_counts()
+    return torch.device("cuda")
+
+
+def _randn(shape, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(None, 0.0), (100, 50.0), (2048, 0.0)])
+@pytest.mark.parametrize("H,Hkv", [(10, 1), (8, 4), (4, 4)])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [1, 100, 128, 1000])
+def test_flash_attention_matches_plain_on_card(cuda, S, D, H, Hkv, window, softcap, dtype):
+    B = 2
+    q = _randn((B, S, H, D), dtype, cuda, 1)
+    k = _randn((B, S, Hkv, D), dtype, cuda, 2)
+    v = _randn((B, S, Hkv, D), dtype, cuda, 3)
+    out = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    plain = flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+    assert fa_ops.launch_counts["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_non_causal_on_card(cuda):
+    q, k, v = (_randn((1, 300, 4, 64), torch.float32, cuda, s) for s in range(3))
+    out = fa_ops.flash_attention(q, k, v, causal=False, window=77)
+    plain = flash_attention_ref(q, k, v, causal=False, window=77)
+    torch.testing.assert_close(out, plain, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_card_instead_of_falling_back(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa_ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        fa_ops.flash_attention(q, q.detach(), q.detach())
+    assert fa_ops.launch_counts["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D", [(1, 1, 1), (2, 100, 300), (1, 17, 33), (3, 1000, 2560),
+                                   (2, 4097, 2561)])
+def test_rglru_scan_matches_plain_on_card(cuda, B, S, D, dtype):
+    gen = torch.Generator().manual_seed(S + D)
+    a = (torch.rand((B, S, D), generator=gen) * 0.399 + 0.6).to(dtype).to(cuda)
+    b = (torch.randn((B, S, D), generator=gen) * 0.2).to(dtype).to(cuda)
+    out = scan_ops.rglru_scan(a, b)
+    plain = rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == a.shape
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+    assert scan_ops.launch_counts["rglru_scan"] == 1
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        scan_ops.rglru_scan(a.float().requires_grad_(), b.float())
+
+
+@pytest.mark.cuda
+def test_model_on_card_goes_through_the_kernels(cuda):
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"), num_layers=5)
+    model = registry.init_model(cfg, seed=0, device=cuda)
+    batch = registry.make_inputs(cfg, 2, 200, device=cuda)
+    with torch.inference_mode():
+        kernel, _, _ = registry.model_forward(model, cfg, batch, impl="kernel")
+        assert fa_ops.launch_counts["flash_attention"] == 1  # one local_attn layer
+        assert scan_ops.launch_counts["rglru_scan"] == 4
+        plain, _, _ = registry.model_forward(model, cfg, batch, impl="plain")
+    assert fa_ops.launch_counts["flash_attention"] == 1
+    torch.testing.assert_close(kernel, plain, atol=1e-4, rtol=1e-4)
