@@ -1,0 +1,272 @@
+#!/usr/bin/env python3
+"""A/B timings of kernel designs on one NVIDIA GPU, within one process.
+
+    python3 scripts/kernel_ab.py flash OLD_CSRC
+        Builds ``flash_attention.cu`` from this checkout and from OLD_CSRC
+        (a directory holding another version of ``flash_attention.cu`` and
+        the headers it includes, e.g. the ``csrc/`` of an older checkout
+        unpacked with ``git archive`` into a gitignored directory), checks
+        the new bfloat16 kernel against the plain version at small shapes
+        in a child process with a time limit, then times both and
+        ``scaled_dot_product_attention`` at recurrentgemma-2b's layer
+        (B 2, S 4096, H 10, Hkv 1, D 256, window 2048), old and new
+        alternating.
+    python3 scripts/kernel_ab.py gossip OLD_CSRC
+        Builds ``gossip_mix.cu`` from this checkout and from OLD_CSRC and
+        times both, and ``torch.matmul``, in float32 at the main path's
+        shapes: n = 100 with P = 50890 and the four MLP leaves.
+    python3 scripts/kernel_ab.py gossip-floor
+        Where the 3xTF32 gossip_mix kernel's time goes at n = 100: builds
+        copies of ``gossip_mix.cu`` that return at once (the launch
+        floor), that skip loading W (zeros), and that skip the MMAs (their
+        outputs are wrong: only their times are read), and times them
+        with the kernel as it is and ``torch.matmul`` at P = 640 (the w2
+        leaf), 64 and 50890.
+    python3 scripts/kernel_ab.py gossip-designs
+        Builds ``gossip_mix.cu`` as it is and a copy whose dispatch sends
+        every case the W-resident FMA kernel takes to the K-tiled FMA
+        kernel instead, and times both, and ``torch.matmul``, at the
+        shapes the resident kernel serves.
+
+Times are medians of 30 launches (CUDA events, a device sleep queued
+ahead of each). Libraries and ptxas reports go to ``build/kernel_ab/``.
+Prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+
+OUT = ROOT / "build" / "kernel_ab"
+FLAGS = [*_build.NVCC_FLAGS, "-Xptxas", "-v"]
+KERNELS = ROOT / "src" / "repro_torch" / "kernels"
+
+
+def nvcc_all(jobs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
+    """Build every ``name -> source`` at once; load each library."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen([_build._nvcc(), *FLAGS, "-o", str(OUT / f"{name}.so"), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, src in jobs.items()}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        (OUT / f"{name}.ptxas.txt").write_text(log)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+    return {name: ctypes.CDLL(str(OUT / f"{name}.so")) for name in jobs}
+
+
+def device_ms(fn, launches: int = 30, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(launches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: this checkout's bfloat16 kernel against another version
+# ---------------------------------------------------------------------------
+
+def _flash_fn(lib: ctypes.CDLL):
+    fn = lib.flash_attention_bf16
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P]
+    fn.restype = I
+
+    def call(q, k, v, causal=True, window=None, softcap=0.0):
+        out = torch.empty_like(q)
+        B, S, H, D = q.shape
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2],
+                    D, int(causal), 0 if window is None else window, softcap,
+                    torch.cuda.current_stream().cuda_stream)
+        if status:
+            raise RuntimeError(f"flash_attention_bf16: cudaError {status}")
+        return out
+    return call
+
+
+def _qkv(B, S, H, Hkv, D, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, S, h, D), generator=gen, device="cuda").bfloat16()
+            for h in (H, Hkv, Hkv)]
+
+
+def flash_check() -> None:
+    """The new kernel against the plain version at small shapes (child process)."""
+    call = _flash_fn(ctypes.CDLL(str(OUT / "flash_new.so")))
+    for B, S, H, Hkv, D, causal, window, softcap in [
+            (1, 1, 2, 1, 64, True, None, 0.0), (1, 100, 4, 2, 256, True, 64, 0.0),
+            (2, 129, 4, 4, 32, True, None, 0.0), (1, 300, 8, 4, 128, False, None, 50.0),
+            (1, 2049, 10, 1, 256, True, 2048, 0.0), (2, 1000, 4, 1, 64, True, 100, 50.0),
+            (1, 517, 2, 1, 32, False, 200, 0.0)]:
+        q, k, v = _qkv(B, S, H, Hkv, D, S + D)
+        out = call(q, k, v, causal, window, softcap).float()
+        plain = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window,
+                                    softcap=softcap)
+        err = float((out - plain).abs().max())
+        print(f"# check B{B} S{S} H{H}/{Hkv} D{D} causal={causal} window={window} "
+              f"softcap={softcap}: max_abs_err {err:.3e}", flush=True)
+        if not (bool(torch.isfinite(out).all()) and err <= 1e-2):
+            raise RuntimeError("the new flash kernel disagrees with the plain version")
+
+
+def flash(old_csrc: str) -> None:
+    libs = nvcc_all({"flash_new": KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+                     "flash_old": Path(old_csrc).resolve() / "flash_attention.cu"})
+    subprocess.run([sys.executable, __file__, "flash-check"], check=True, timeout=120)
+    calls = {name: _flash_fn(lib) for name, lib in libs.items()}
+    B, S, H, Hkv, D, W = 2, 4096, 10, 1, 256, 2048
+    q, k, v = _qkv(B, S, H, Hkv, D, 20)
+    plain = flash_attention_ref(q.float(), k.float(), v.float(), window=W)
+    row = {"shape": [B, S, H, Hkv, D], "window": W}
+    for rep in range(2):  # old, new, old, new
+        for name in ("flash_old", "flash_new"):
+            out = calls[name](q, k, v, window=W)
+            row[f"{name}_max_abs_err"] = float((out.float() - plain).abs().max())
+            row[f"{name}_ms_{rep}"] = device_ms(lambda: calls[name](q, k, v, window=W))
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).expand(B, H, S, D) for t in (k, v))
+    row["sdpa_ms"] = device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=band))
+    print(json.dumps(row), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# gossip_mix: this checkout's kernels against another version, and the
+# W-resident FMA kernel against the K-tiled one
+# ---------------------------------------------------------------------------
+
+def _gossip_libs(jobs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
+    libs = nvcc_all(jobs)
+    P_ = ctypes.c_void_p
+    for lib in libs.values():
+        for sym in ("gossip_mix_f32", "gossip_mix_bf16"):
+            getattr(lib, sym).argtypes = [P_, P_, P_, ctypes.c_int, ctypes.c_int64, P_]
+            getattr(lib, sym).restype = ctypes.c_int
+        lib.gossip_mix_design.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.gossip_mix_design.restype = ctypes.c_int
+    return libs
+
+
+def _gossip_rows(libs: dict[str, ctypes.CDLL], cases) -> None:
+    """Each library, then ``torch.matmul``, at each (n, P, dtype), with
+    a row-stochastic W; errors against the float64 product."""
+    for n, P, dtype in cases:
+        gen = torch.Generator(device="cuda").manual_seed(n + P)
+        theta = torch.randn((n, P), generator=gen, device="cuda").to(dtype)
+        W = torch.rand((n, n), generator=gen, device="cuda")
+        W = (W / W.sum(1, keepdim=True)).to(dtype)
+        exact = W.double() @ theta.double()
+        sym = "gossip_mix_f32" if dtype == torch.float32 else "gossip_mix_bf16"
+        row = {"n": n, "P": P, "dtype": str(dtype).replace("torch.", "")}
+        for rep in range(2):  # each library in turn, twice
+            for name, lib in libs.items():
+                out = torch.empty_like(theta)
+                fn = getattr(lib, sym)
+
+                def call():
+                    status = fn(W.data_ptr(), theta.data_ptr(), out.data_ptr(), n, P,
+                                torch.cuda.current_stream().cuda_stream)
+                    if status:
+                        raise RuntimeError(f"{name}: cudaError {status}")
+                call()
+                torch.cuda.synchronize()
+                row[f"{name}_design"] = lib.gossip_mix_design(n, theta.element_size())
+                row[f"{name}_max_abs_err"] = float((out.double() - exact).abs().max())
+                row[f"{name}_ms_{rep}"] = device_ms(call)
+        row["matmul_ms"] = device_ms(lambda: torch.matmul(W, theta))
+        print(json.dumps(row), flush=True)
+
+
+def gossip(old_csrc: str) -> None:
+    libs = _gossip_libs({"gossip_mix_new": KERNELS / "gossip_mix" / "csrc" / "gossip_mix.cu",
+                         "gossip_mix_old": Path(old_csrc).resolve() / "gossip_mix.cu"})
+    f32 = torch.float32
+    _gossip_rows(libs, [(100, 50890, f32), (100, 784 * 64, f32), (100, 64, f32),
+                        (100, 640, f32), (100, 10, f32)])
+
+
+def gossip_designs() -> None:
+    src = (KERNELS / "gossip_mix" / "csrc" / "gossip_mix.cu").read_text()
+    dispatch = "return fits ? kResident : kTiled;"
+    if dispatch not in src:
+        raise RuntimeError("gossip_mix.cu's dispatch line changed; update this script")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "gossip_mix_tiled.cu").write_text(src.replace(dispatch, "return kTiled;"))
+    libs = _gossip_libs({"gossip_mix": KERNELS / "gossip_mix" / "csrc" / "gossip_mix.cu",
+                         "gossip_mix_tiled": OUT / "gossip_mix_tiled.cu"})
+    bf16, f32 = torch.bfloat16, torch.float32
+    _gossip_rows(libs, [(100, 50890, bf16), (161, 50890, f32), (176, 50890, f32),
+                        (192, 50890, bf16), (129, 50896, f32), (100, 640, bf16)])
+
+
+def gossip_floor() -> None:
+    src = (KERNELS / "gossip_mix" / "csrc" / "gossip_mix.cu").read_text()
+    cuts = {  # variant -> (text, replacement)
+        "empty": ("  using K = Tf32x3<K8>;\n", "  if (P > 0) return;\n  using K = Tf32x3<K8>;\n"),
+        "no_w_loads": ("const float w = (r < n && c < n) ? W[(int64_t)r * n + c] : 0.f;",
+                       "const float w = 0.f;"),
+        "no_mma": ("for (int kk = 0; kk < K8; ++kk) {\n      const uint32_t off",
+                   "for (int kk = 0; kk < 0; ++kk) {\n      const uint32_t off"),
+    }
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = {"gossip_mix": KERNELS / "gossip_mix" / "csrc" / "gossip_mix.cu"}
+    for name, (text, repl) in cuts.items():
+        if text not in src:
+            raise RuntimeError(f"gossip_mix.cu changed where the {name} cut goes; update this script")
+        (OUT / f"gossip_mix_{name}.cu").write_text(src.replace(text, repl))
+        jobs[f"gossip_mix_{name}"] = OUT / f"gossip_mix_{name}.cu"
+    libs = _gossip_libs(jobs)
+    f32 = torch.float32
+    _gossip_rows(libs, [(100, 640, f32), (100, 64, f32), (100, 50890, f32)])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:2] != ["flash-check"]:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if sys.argv[1:2] == ["flash"] and len(sys.argv) == 3:
+        flash(sys.argv[2])
+    elif sys.argv[1:2] == ["gossip"] and len(sys.argv) == 3:
+        gossip(sys.argv[2])
+    elif sys.argv[1:] == ["flash-check"]:
+        flash_check()
+    elif sys.argv[1:] == ["gossip-floor"]:
+        gossip_floor()
+    elif sys.argv[1:] == ["gossip-designs"]:
+        gossip_designs()
+    else:
+        print(__doc__, file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

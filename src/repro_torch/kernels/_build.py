@@ -7,9 +7,11 @@ a plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o <name>-<hash>.so <name>.cu
 
 into ``build/repro_torch_kernels/`` at the root of the checkout. The file
-name carries a hash of the source and the flags, so an edited source
-builds anew and an unchanged one is loaded as it is. A build happens at
-first use; :func:`build_all` starts one nvcc per source at once.
+name carries a hash of the flags, of the ``.cu`` and of the headers it
+includes with ``#include "..."``, so an edited source or header builds
+anew, an unchanged one is loaded as it is, and editing one kernel's
+source leaves the others' libraries alone. A build happens at first
+use; :func:`build_all` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -60,10 +63,34 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> list[Path]:
+    """``src`` and every file it includes with ``#include "..."``, the
+    includes' own includes too (resolved beside the including file)."""
+    found, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for rel in _INCLUDE.findall(path.read_text()):
+            todo.append((path.parent / rel).resolve())
+    return found
+
+
+def _digest(src: Path) -> str:
+    """Hash of the flags, of ``src`` and of the files it includes."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = _PKG / KERNEL_SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return src, build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    return src, build_dir() / f"{name}-{_digest(src)}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

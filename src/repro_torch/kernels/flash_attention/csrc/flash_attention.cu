@@ -6,7 +6,13 @@
 //   kept: j <= i (causal), j > i - window (window > 0), j < S
 //
 // q, out: (B, S, H, D); k, v: (B, S, Hkv, D); all row-major, one dtype
-// (float32 or bfloat16), float32 arithmetic inside; D in {32, 64, 128, 256}.
+// (float32 or bfloat16); D in {32, 64, 128, 256}. Two kernels, picked by
+// dtype at the C entry points below:
+//   - bfloat16: the tensor-core kernel of flash_attention_wgmma.cuh
+//     (a TMA producer warpgroup, wgmma bf16 products, float32 sums and
+//     softmax);
+//   - float32: the CUDA-core kernel of this file, full float32 FMA (TF32
+//     would miss the reference's 2e-3 float32 tolerance).
 //
 // Replaces: repro/kernels/flash_attention/flash_attention.py,
 // flash_attention_pallas (the TPU kernel; its pallas_call is at :153).
@@ -14,12 +20,11 @@
 // Bound on an H100: the operations. 4 D flops per kept (q, k) pair and
 // head (2 D for q.k, 2 D for p.v): for recurrentgemma-2b's layer
 // (B 2, S 4096, H 10, D 256, window 2048) that is ~1.29e11 flops,
-// ~0.13 ms at the 989 TFLOP/s bf16 tensor-core peak, against ~60 MB of
-// bytes (~0.02 ms). This first kernel runs on the CUDA cores in full
-// float32 FMA (67 TFLOP/s peak, so ~1.9 ms at best): TF32 would miss the
-// reference's 2e-3 float32 tolerance, and wgmma / TMA are later work.
+// ~0.13 ms at the 989 TFLOP/s bf16 tensor-core peak, ~1.9 ms at the
+// 67 TFLOP/s float32 CUDA-core peak, against ~60 MB of bytes (~0.02 ms).
 //
-// Design. One block of 256 threads per (64-query tile, b * H + h); the
+// Design of the float32 kernel. One block of 256 threads per (64-query
+// tile, b * H + h); the
 // latest (heaviest, under the causal mask) q tiles are launched first.
 // The q tile is converted to float32 once into shared memory. A loop
 // over 64-row kv tiles, BOUNDED to the tiles that hold at least one
@@ -55,6 +60,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_wgmma.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;
@@ -62,24 +69,15 @@ constexpr int kBKV = 64;
 constexpr int kThreads = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
 constexpr float kNegInf = -2.0e9f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return (size_t)(kBQ * (D + 4) + kBKV * (D + 4) + kBKV * D + kBQ * (kBKV + 1)) * sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int S, int H, int Hkv, int causal, int window,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int S, int H, int Hkv, int causal, int window,
                  float softcap, float scale) {
   constexpr int LD = D + 4;       // padded row stride of the q and k tiles
   constexpr int LP = kBKV + 1;    // padded row stride of the P tile
@@ -100,15 +98,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int hk = h / (H / Hkv);
   const int64_t q_stride = (int64_t)H * D;     // between positions of q and out
   const int64_t kv_stride = (int64_t)Hkv * D;  // between positions of k and v
-  const T* qb = q + (int64_t)b * S * q_stride + (int64_t)h * D;
-  const T* kb = k + (int64_t)b * S * kv_stride + (int64_t)hk * D;
-  const T* vb = v + (int64_t)b * S * kv_stride + (int64_t)hk * D;
-  T* ob = out + (int64_t)b * S * q_stride + (int64_t)h * D;
+  const float* qb = q + (int64_t)b * S * q_stride + (int64_t)h * D;
+  const float* kb = k + (int64_t)b * S * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * S * kv_stride + (int64_t)hk * D;
+  float* ob = out + (int64_t)b * S * q_stride + (int64_t)h * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int s = q0 + r;
-    Qs[r * LD + c] = s < S ? to_f32(qb[s * q_stride + c]) : 0.f;
+    Qs[r * LD + c] = s < S ? qb[s * q_stride + c] : 0.f;
   }
 
   // kv tiles holding a kept key for some query of [q0, q_last]
@@ -132,8 +130,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int r = e / D, c = e % D;
       const int s = k0 + r;
       const bool in = s < S;
-      Ks[r * LD + c] = in ? to_f32(kb[s * kv_stride + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[s * kv_stride + c]) : 0.f;
+      Ks[r * LD + c] = in ? kb[s * kv_stride + c] : 0.f;
+      Vs[r * D + c] = in ? vb[s * kv_stride + c] : 0.f;
     }
     __syncthreads();
 
@@ -218,34 +216,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (s >= S) continue;
     const float inv_l = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) ob[s * q_stride + tx + 16 * c] = from_f32<T>(acc[i][c] * inv_l);
+    for (int c = 0; c < kCols; ++c) ob[s * q_stride + tx + 16 * c] = acc[i][c] * inv_l;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
              int Hkv, int causal, int window, float softcap, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)(B * H));
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, Hkv, causal, window, softcap,
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), S, H, Hkv, causal, window, softcap,
       (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int Hkv,
            int D, int causal, int window, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_d<T, 32>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 64: return launch_d<T, 64>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 128: return launch_d<T, 128>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 256: return launch_d<T, 256>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
+    case 32: return launch_d<32>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
+    case 64: return launch_d<64>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
+    case 128: return launch_d<128>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
+    case 256: return launch_d<256>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -259,11 +256,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int B,
                                    int S, int H, int Hkv, int D, int causal, int window,
                                    float softcap, void* stream) {
-  return launch<float>(q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, stream);
+  return launch(q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, stream);
 }
 
+// The tensor-core kernel: q, k, v and out also 16-byte aligned (TMA
+// reads q, k and v). Returns cudaErrorNotSupported if the driver has no
+// tensor-map encoder.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B,
                                     int S, int H, int Hkv, int D, int causal, int window,
                                     float softcap, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, stream);
+  return flash_wgmma::launch(q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, stream);
 }

@@ -1,9 +1,14 @@
 """Public wrapper for the flash attention kernel.
 
-On a CUDA tensor ``flash_attention`` launches the hand-written kernel
-(``csrc/flash_attention.cu``), built with nvcc at first use; there is no
-fallback to another implementation on the card. On a CPU tensor it runs
-the plain version in ``ref.py``.
+On a CUDA tensor ``flash_attention`` launches a hand-written kernel,
+built with nvcc at first use and picked by dtype: bfloat16 inputs go to
+the tensor-core kernel (``csrc/flash_attention_wgmma.cuh``: a TMA producer
+warpgroup feeding two wgmma consumer warpgroups, bf16 products, float32
+sums and softmax), float32 inputs to the CUDA-core kernel
+(``csrc/flash_attention.cu``: full float32 FMA, which the 2e-3 float32
+parity needs). There is no fallback to another implementation on the
+card: a failed launch raises. On a CPU tensor it runs the plain version
+in ``ref.py``.
 
 Two detours of the reference's ``ops.py`` are not carried over: the
 kernel takes any S >= 1 and masks the ragged q and kv edges itself (the
@@ -15,8 +20,12 @@ the repo's configs: 32, 64, 128 and 256.
 The kernel has no backward pass, as the reference's has none: a CUDA
 call on an input that requires grad raises instead of detaching it.
 
-``launch_counts["flash_attention"]`` rises by one at every launch and
-nowhere else.
+The bfloat16 kernel reads q, k and v with TMA, which needs 16-byte
+aligned addresses (every fresh tensor has one): a view that starts
+elsewhere is first copied into a fresh tensor.
+
+``launch_counts["flash_attention"]`` rises by one at every launch of
+either kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -27,7 +36,9 @@ import torch
 
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "launch_counts", "reset_launch_counts", "HEAD_DIMS"]
+__all__ = [
+    "flash_attention", "kernel_design", "launch_counts", "reset_launch_counts", "HEAD_DIMS",
+]
 
 launch_counts = {"flash_attention": 0}
 HEAD_DIMS = (32, 64, 128, 256)
@@ -36,6 +47,18 @@ _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attenti
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+
+
+_DESIGNS = {
+    torch.bfloat16: "tensor-core wgmma bf16, TMA producer warpgroup, f32 sums "
+                    "(flash_attention_wgmma.cuh)",
+    torch.float32: "cuda-core f32 fma (flash_attention.cu)",
+}
+
+
+def kernel_design(dtype: torch.dtype) -> str:
+    """The kernel ``flash_attention`` launches on the card for ``dtype``."""
+    return _DESIGNS[dtype]
 
 
 def reset_launch_counts() -> None:
@@ -83,8 +106,9 @@ def flash_attention(
 
     Causal (``kpos <= qpos``) unless ``causal=False``; ``window`` keeps
     ``kpos > qpos - window``; ``softcap > 0`` applies ``cap * tanh(s / cap)``
-    to the scaled logits before the mask. Float32 arithmetic inside;
-    returns q's dtype.
+    to the scaled logits before the mask. Float32 sums and softmax inside
+    (on the card, bfloat16 inputs multiply on the tensor cores and the
+    softmax weights enter P V as two bfloat16 parts); returns q's dtype.
     """
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
@@ -94,6 +118,8 @@ def flash_attention(
     B, S, H, D = q.shape
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the grid's y limit of 65535")
+    if q.dtype == torch.bfloat16:  # TMA reads from 16-byte aligned addresses only
+        q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

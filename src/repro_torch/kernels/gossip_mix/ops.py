@@ -29,6 +29,7 @@ __all__ = [
     "gossip_mix",
     "gossip_schedule",
     "gossip_apply",
+    "gossip_mix_design",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -128,7 +129,10 @@ def gossip_mix(theta: torch.Tensor, W) -> torch.Tensor:
 
     W is cast to theta's dtype first, as the reference's ``ops.py`` does:
     a bfloat16 theta mixes with a bfloat16-quantized W. The product
-    accumulates in float32 and returns theta's dtype.
+    accumulates in float32 and returns theta's dtype; on the card a
+    float32 theta with n <= 128 multiplies as 3xTF32 on the tensor cores
+    (each product keeps ~21 of float32's 24 bits; see
+    ``gossip_mix_design``).
     """
     _check_theta(theta)
     n, P = theta.shape
@@ -149,6 +153,25 @@ def gossip_mix(theta: torch.Tensor, W) -> torch.Tensor:
     _check_status("gossip_mix", status)
     launch_counts["gossip_mix"] += 1
     return out
+
+
+_MIX_DESIGNS = ("tf32x3-mma w-resident", "fma w-resident", "fma k-tiled")
+
+
+def gossip_mix_design(n: int, dtype: torch.dtype, device=None) -> str:
+    """Which ``gossip_mix`` kernel runs for ``n`` nodes on the card:
+    ``"tf32x3-mma w-resident"`` (float32, n <= 128: 3xTF32 on the tensor
+    cores, W in registers), ``"fma w-resident"`` (W staged once per block
+    in shared memory) or ``"fma k-tiled"`` (W too large for that)."""
+    from repro_torch.kernels import _build
+
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        fn = _build.kernel_function("gossip_mix", "gossip_mix_design",
+                                    [ctypes.c_int, ctypes.c_int])
+        design = fn(n, torch.empty((), dtype=dtype).element_size())
+    if design < 0:
+        raise RuntimeError(f"gossip_mix_design failed: cudaError {-design}")
+    return _MIX_DESIGNS[design]
 
 
 def gossip_apply(theta: torch.Tensor, W=None, schedule=None) -> torch.Tensor:

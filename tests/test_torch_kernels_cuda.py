@@ -46,7 +46,14 @@ def _theta(n, P, dtype, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,P", [(2, 1), (33, 4113), (100, 50896), (7, 300)])
+# gossip_mix's kernels: float32 n <= 128 the 3xTF32 one (n = 9, 128),
+# n = 129 and 161 (float32) W resident in shared memory, n = 512 K-tiled;
+# bfloat16 W-resident up to n = 192. n = 9, 129 and 161 are not
+# multiples of 8; P = 4113, 1001, 4099, 515 and 2051 are odd and P = 50890
+# is 2 mod 4: no 16-byte copies.
+@pytest.mark.parametrize("n,P", [(2, 1), (33, 4113), (100, 50896), (7, 300), (9, 1001),
+                                 (128, 333), (129, 515), (161, 4099), (512, 2051),
+                                 (100, 50890)])
 def test_kernels_match_plain_on_card(cuda, n, P, dtype):
     sched = _schedule(n)
     t = _theta(n, P, dtype, cuda)
@@ -60,6 +67,23 @@ def test_kernels_match_plain_on_card(cuda, n, P, dtype):
     torch.testing.assert_close(mixed.float(), ref.gossip_mix_ref(t, W.to(dtype)).float(),
                                atol=tol, rtol=tol)
     assert ops.launch_counts == {"gossip_schedule": 1, "gossip_mix": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,P", [(100, 4096), (9, 1000), (512, 1028)])
+def test_gossip_mix_on_misaligned_theta(cuda, n, P, dtype):
+    """A contiguous theta at offset 1 of a larger buffer: its rows start
+    4 (float32) or 2 (bfloat16) bytes off the 16-byte grid."""
+    W = torch.as_tensor(_schedule(n).to_matrix(), dtype=torch.float32, device=cuda)
+    buf = _theta(1, n * P + 1, dtype, cuda, 3)[0]
+    t = buf[1:].view(n, P)
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    mixed = ops.gossip_mix(t, W)
+    tol = TOL[dtype]
+    torch.testing.assert_close(mixed.float(), ref.gossip_mix_ref(t, W.to(dtype)).float(),
+                               atol=tol, rtol=tol)
+    assert ops.launch_counts["gossip_mix"] == 1
 
 
 @pytest.mark.cuda

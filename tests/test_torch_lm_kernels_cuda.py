@@ -7,8 +7,11 @@ a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_kernels_cuda.py
 
-Tolerances are the reference's: flash attention 2e-3 (float32) and 3e-2
-(bfloat16), the scan 1e-4 and 3e-2.
+Tolerances: flash attention 2e-3 (float32, the reference's) and 1e-2
+(bfloat16: outputs over a 2048-key window are ~0.04, so the reference's
+3e-2 would hold nothing; 1e-2 is a few bf16 ulps of them, as in
+``chip_smoke.py``); the scan 1e-4 and 3e-2, the reference's. Float32
+inputs run the CUDA-core kernel, bfloat16 inputs the tensor-core one.
 """
 
 import dataclasses
@@ -25,7 +28,7 @@ from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 
-FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-2}
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
@@ -49,7 +52,7 @@ def _randn(shape, dtype, device, seed):
 @pytest.mark.parametrize("window,softcap", [(None, 0.0), (100, 50.0), (2048, 0.0)])
 @pytest.mark.parametrize("H,Hkv", [(10, 1), (8, 4), (4, 4)])
 @pytest.mark.parametrize("D", [32, 64, 128, 256])
-@pytest.mark.parametrize("S", [1, 100, 128, 1000])
+@pytest.mark.parametrize("S", [1, 100, 128, 129, 1000, 2049])
 def test_flash_attention_matches_plain_on_card(cuda, S, D, H, Hkv, window, softcap, dtype):
     B = 2
     q = _randn((B, S, H, D), dtype, cuda, 1)
@@ -65,11 +68,36 @@ def test_flash_attention_matches_plain_on_card(cuda, S, D, H, Hkv, window, softc
 
 
 @pytest.mark.cuda
+def test_flash_attention_headline_shape_bf16_on_card(cuda):
+    """recurrentgemma-2b's layer: B 2, S 4096, H 10, one kv head, D 256,
+    window 2048, bfloat16 (the tensor-core kernel)."""
+    q = _randn((2, 4096, 10, 256), torch.bfloat16, cuda, 4)
+    k = _randn((2, 4096, 1, 256), torch.bfloat16, cuda, 5)
+    v = _randn((2, 4096, 1, 256), torch.bfloat16, cuda, 6)
+    out = fa_ops.flash_attention(q, k, v, window=2048)
+    plain = flash_attention_ref(q, k, v, window=2048)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain.float(), atol=1e-2, rtol=1e-2)
+    assert fa_ops.launch_counts["flash_attention"] == 1
+
+
+@pytest.mark.cuda
 def test_flash_attention_non_causal_on_card(cuda):
     q, k, v = (_randn((1, 300, 4, 64), torch.float32, cuda, s) for s in range(3))
     out = fa_ops.flash_attention(q, k, v, causal=False, window=77)
     plain = flash_attention_ref(q, k, v, causal=False, window=77)
     torch.testing.assert_close(out, plain, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [77, None])
+def test_flash_attention_non_causal_both_kernels_on_card(cuda, dtype, window):
+    q, k, v = (_randn((1, 300, 4, 64), dtype, cuda, s) for s in range(3))
+    out = fa_ops.flash_attention(q, k, v, causal=False, window=window)
+    plain = flash_attention_ref(q, k, v, causal=False, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -81,6 +109,28 @@ def test_flash_attention_raises_on_card_instead_of_falling_back(cuda):
     with pytest.raises(RuntimeError, match="no backward kernel"):
         fa_ops.flash_attention(q, q.detach(), q.detach())
     assert fa_ops.launch_counts["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 256])
+def test_flash_attention_bf16_misaligned_views_on_card(cuda, D):
+    """TMA reads 16-byte aligned addresses only: views at an odd offset
+    into a larger buffer give the result of aligned copies."""
+    B, S, H, Hkv = 2, 200, 4, 2
+    gen = torch.Generator().manual_seed(D)
+    views = []
+    for heads in (H, Hkv, Hkv):
+        n = B * S * heads * D
+        buf = torch.randn(n + 1, generator=gen).to(torch.bfloat16).to(cuda)
+        views.append(buf[1:].view(B, S, heads, D))
+    assert all(t.data_ptr() % 16 for t in views)
+    q, k, v = views
+    out = fa_ops.flash_attention(q, k, v, window=64)
+    aligned = fa_ops.flash_attention(q.clone(), k.clone(), v.clone(), window=64)
+    torch.testing.assert_close(out, aligned, atol=0, rtol=0)
+    plain = flash_attention_ref(q.float().cpu(), k.float().cpu(), v.float().cpu(), window=64)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float().cpu(), plain, atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
