@@ -14,9 +14,12 @@ nvcc per source, all at once) and then, on the card:
    float32 1e-4; bfloat16 3e-2, but 1e-2 for flash attention, whose
    outputs over a 2048 window are ~0.04), and times the kernel, the plain
    version and one library call computing the same function (median of
-   30 launches, CUDA events); for flash_attention and gossip_mix it also
-   prints which kernel design ran (by dtype and n), and their headline
-   rows must be faster than the library call;
+   30 launches, CUDA events); it also prints which kernel design ran
+   (gossip_schedule: a shared-memory tile in float32, the L2 gather in
+   bfloat16 and for n = 4096; gossip_mix and flash_attention: by dtype
+   and n; rglru_scan: its tiling, with a 32768-step case for a long
+   look-back chain), and the headline rows of gossip_schedule, gossip_mix
+   and flash_attention must be faster than the library call;
 2. drives the D-SGD main path through the user's entry points -- Pi from
    a label-skew partition, ``learn_topology``, ``schedule_from_result``,
    ``run_classification`` / ``run_mean_estimation`` on ``cuda`` -- and
@@ -213,7 +216,8 @@ def schedule_case(label: str, theta: torch.Tensor, gammas: torch.Tensor,
     bound, bound_by = schedule_bound(n, P, L, dtype)
     row = {
         "kernel": "gossip_schedule", "case": label, "n": n, "P": P, "L": L,
-        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+        "dtype": str(dtype).replace("torch.", ""),
+        "design": ops.gossip_schedule_design(n, L, dtype), "max_abs_err": err,
         "kernel_ms": device_ms(lambda: ops.gossip_schedule(theta, gammas, perms)),
         "plain_ms": device_ms(lambda: gossip_schedule_ref(theta, gammas, perms)),
         "library_ms": device_ms(lambda: torch.matmul(W, theta)),
@@ -323,7 +327,7 @@ def scan_case(label: str, B: int, S: int, D: int, dtype: torch.dtype, seed: int)
     bound, bound_by = scan_bound(B, S, D, dtype)
     row = {
         "kernel": "rglru_scan", "case": label, "shape": [B, S, D], "dtype": _name(dtype),
-        "max_abs_err": err,
+        "design": scan_ops.kernel_design(), "max_abs_err": err,
         "kernel_ms": device_ms(lambda: scan_ops.rglru_scan(a, b)),
         "plain_ms": device_ms(lambda: rglru_scan_ref(a, b)),
         "library_ms": None,  # no single PyTorch call computes a linear recurrence
@@ -346,7 +350,18 @@ def phase_lm_kernels() -> list[dict]:
         scan_case("recurrentgemma-2b layer", 2, 4096, 2560, f32, 32),
         scan_case("ragged S and D", 3, 1001, 2561, f32, 33),
         scan_case("ragged S and D", 3, 1001, 2561, bf16, 34),
+        scan_case("long look-back", 2, 32768, 2560, f32, 35),
     ]
+
+
+def random_atoms(n: int, L: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """L atoms on n nodes: the identity and L - 1 random permutations with
+    positive weights summing to 1 (a schedule too large to learn here)."""
+    rng = np.random.default_rng(seed)
+    perms = np.stack([np.arange(n)] + [rng.permutation(n) for _ in range(L - 1)])
+    g = rng.random(L) + 0.1
+    return (torch.as_tensor(g / g.sum(), dtype=torch.float32, device="cuda"),
+            torch.as_tensor(perms, dtype=torch.int32, device="cuda"))
 
 
 def phase_kernels(Pi_mnist: np.ndarray) -> list[dict]:
@@ -370,6 +385,9 @@ def phase_kernels(Pi_mnist: np.ndarray) -> list[dict]:
                       *s512.operands("cuda")),
         schedule_case("zero-weight padding", _theta(100, P_main, torch.float32, 6),
                       padded.gammas, padded.perms),
+        # too many rows for a shared-memory tile: the l2-gather kernel
+        schedule_case("n=4096 l2 gather", _theta(4096, 2**14 + 5, torch.float32, 11),
+                      *random_atoms(4096, 9, 11)),
         mix_case("P=50890", _theta(100, P_mlp, torch.float32, 7), W100),
         mix_case("P=50890", _theta(100, P_mlp, torch.bfloat16, 8), W100),
         mix_case("n=512", _theta(512, 2**18 + 37, torch.float32, 9), W512),
@@ -598,6 +616,11 @@ def device_profile(fn, *args, **kwargs) -> tuple[dict, int]:
     return per_kernel, n_ops
 
 
+def kernel_ms(per_kernel: dict, name: str) -> float:
+    """Device ms of a ``device_profile`` in kernels whose name holds ``name``."""
+    return sum(v for k, v in per_kernel.items() if name in k)
+
+
 def top_kernels(per_kernel: dict) -> dict:
     """The ten largest entries of a ``device_profile``, in ms."""
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
@@ -656,6 +679,7 @@ def phase_scoring(cfg, B: int, S: int, device: torch.device) -> tuple[dict, obje
             registry.model_forward, model, cfg, batch, impl="kernel")
         out["device_ms"] = sum(per_kernel.values())
         out["top_kernels_ms"] = top_kernels(per_kernel)
+        out["rglru_scan_device_ms"] = kernel_ms(per_kernel, "rglru_scan_kernel")
         out["device_busy_share"] = out["device_ms"] / (1e3 * fwd)
     return {"scoring": out, "launches": launches}, model
 
@@ -704,6 +728,7 @@ def phase_serving(model, cfg, B: int, prompt_len: int, new_tokens: int,
                                                       max_len=max_len)
     out["prefill_device_ops"] = prefill_ops
     out["prefill_top_kernels_ms"] = top_kernels(prefill_kernels)
+    out["prefill_rglru_scan_device_ms"] = kernel_ms(prefill_kernels, "rglru_scan_kernel")
     out["prefill_device_busy_share"] = sum(prefill_kernels.values()) / (1e3 * out["prefill_s"])
 
     gen_kw = dict(max_new_tokens=new_tokens, device=device)
@@ -811,12 +836,13 @@ def main() -> int:
     rows = phase_kernels(mnist[3]) + phase_lm_kernels()
     for r in rows:
         if "design" in r:  # the redesigned kernels: which design ran, and its numbers
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             print(f"# 1 {r['kernel']} {r['case']} {r['dtype']}: {r['design']}; "
                   f"kernel_ms={r['kernel_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                  f"library_ms={r['library_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
+                  f"library_ms={lib} max_abs_err={r['max_abs_err']:.3e}")
         print("# 1 " + json.dumps(r))
     # the redesigned kernels' headlines against one library call, same run
-    for name in ("gossip_mix", "flash_attention"):
+    for name in ("gossip_schedule", "gossip_mix", "flash_attention"):
         head = next(r for r in rows if r["kernel"] == name)
         check(head["kernel_ms"] < head["library_ms"],
               f"{name} {head['case']} {head['dtype']}: {head['kernel_ms']:.4f} ms is not below "

@@ -22,6 +22,21 @@
         outputs are wrong: only their times are read), and times them
         with the kernel as it is and ``torch.matmul`` at P = 640 (the w2
         leaf), 64 and 50890.
+    python3 scripts/kernel_ab.py schedule OLD_CSRC
+        Builds ``gossip_schedule.cu`` from this checkout and from OLD_CSRC,
+        checks the new kernel bitwise against the plain version (both
+        designs, aligned and unaligned rows) in a child process with a
+        time limit, then times both and ``torch.matmul`` on the densified
+        W at the main path's shapes: n = 100, L = 11 (identity and ten
+        random permutations), P = 50896 in float32 and bfloat16 and the
+        unaligned P = 50890, old and new alternating.
+    python3 scripts/kernel_ab.py scan OLD_CSRC
+        Builds ``rglru_scan.cu`` from this checkout and from OLD_CSRC,
+        checks the new kernel against the plain version (1e-4 float32,
+        3e-2 bfloat16) in a child process with a time limit, then times
+        both at recurrentgemma-2b's (2, 4096, 2560) in float32 and
+        bfloat16 and at (2, 32768, 2560) float32, old and new alternating;
+        the new kernel's time includes zeroing its workspace.
     python3 scripts/kernel_ab.py gossip-designs
         Builds ``gossip_mix.cu`` as it is and a copy whose dispatch sends
         every case the W-resident FMA kernel takes to the K-tiled FMA
@@ -244,20 +259,270 @@ def gossip_floor() -> None:
     _gossip_rows(libs, [(100, 640, f32), (100, 64, f32), (100, 50890, f32)])
 
 
+# ---------------------------------------------------------------------------
+# gossip_schedule and rglru_scan: this checkout's kernels against another version
+# ---------------------------------------------------------------------------
+
+def _schedule_fn(lib: ctypes.CDLL, dtype: torch.dtype):
+    fn = getattr(lib, "gossip_schedule_f32" if dtype == torch.float32 else "gossip_schedule_bf16")
+    P_ = ctypes.c_void_p
+    fn.argtypes = [P_, P_, P_, P_, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, P_]
+    fn.restype = ctypes.c_int
+
+    def call(theta, gammas, perms):
+        out = torch.empty_like(theta)
+        n, P = theta.shape
+        vec = 16 // theta.element_size()
+        vectorized = P % vec == 0 and theta.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        status = fn(theta.data_ptr(), gammas.data_ptr(), perms.data_ptr(), out.data_ptr(), n, P,
+                    perms.shape[0], int(vectorized), torch.cuda.current_stream().cuda_stream)
+        if status:
+            raise RuntimeError(f"gossip_schedule: cudaError {status}")
+        return out
+    return call
+
+
+def _atoms(n: int, L: int, seed: int):
+    """L atoms on n nodes: the identity and L - 1 random permutations,
+    positive weights summing to 1."""
+    rng = np.random.default_rng(seed)
+    perms = np.stack([np.arange(n)] + [rng.permutation(n) for _ in range(L - 1)])
+    g = rng.random(L) + 0.1
+    return (torch.as_tensor(g / g.sum(), dtype=torch.float32, device="cuda"),
+            torch.as_tensor(perms, dtype=torch.int32, device="cuda"))
+
+
+def schedule_check() -> None:
+    """The new kernel against the plain version, bitwise (child process)."""
+    from repro_torch.kernels.gossip_mix.ref import gossip_schedule_ref
+
+    lib = ctypes.CDLL(str(OUT / "schedule_new.so"))
+    for n, P, L, dtype, offset in [(2, 1, 1, torch.float32, 0), (100, 50896, 11, torch.float32, 0),
+                                   (100, 50890, 11, torch.float32, 0),
+                                   (100, 50896, 11, torch.bfloat16, 0),
+                                   (33, 4113, 5, torch.bfloat16, 1), (100, 4096, 16, torch.float32, 1),
+                                   (512, 2051, 9, torch.float32, 0), (1500, 777, 3, torch.float32, 0),
+                                   (3000, 300, 2, torch.float32, 0), (4096, 1000, 3, torch.bfloat16, 0)]:
+        g, p = _atoms(n, L, n + P)
+        gen = torch.Generator(device="cuda").manual_seed(P)
+        theta = torch.randn(n * P + offset, generator=gen, device="cuda").to(dtype)[offset:].view(n, P)
+        out = _schedule_fn(lib, dtype)(theta, g, p)
+        plain = gossip_schedule_ref(theta, g, p)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out, plain))
+        print(f"# check n={n} P={P} L={L} {dtype} offset={offset}: bitwise {same}, max_abs_err "
+              f"{float((out.float() - plain.float()).abs().max()):.3e}", flush=True)
+        if not same:
+            raise RuntimeError("the new gossip_schedule kernel disagrees with the plain version")
+
+
+def schedule(old_csrc: str) -> None:
+    libs = nvcc_all({"schedule_new": KERNELS / "gossip_mix" / "csrc" / "gossip_schedule.cu",
+                     "schedule_old": Path(old_csrc).resolve() / "gossip_schedule.cu"})
+    subprocess.run([sys.executable, __file__, "schedule-check"], check=True, timeout=180)
+    g, p = _atoms(100, 11, 0)
+    W = torch.zeros((100, 100), device="cuda")
+    for l in range(11):  # the densified W, for the library call
+        W[torch.arange(100, device="cuda"), p[l].long()] += g[l]
+    for P, dtype in [(50896, torch.float32), (50896, torch.bfloat16), (50890, torch.float32)]:
+        gen = torch.Generator(device="cuda").manual_seed(P)
+        theta = torch.randn((100, P), generator=gen, device="cuda").to(dtype)
+        row = {"n": 100, "P": P, "L": 11, "dtype": str(dtype).replace("torch.", "")}
+        calls = {name: _schedule_fn(lib, dtype) for name, lib in libs.items()}
+        for rep in range(2):  # old, new, old, new
+            for name in ("schedule_old", "schedule_new"):
+                row[f"{name}_ms_{rep}"] = device_ms(lambda: calls[name](theta, g, p))
+        Wd = W.to(dtype)
+        row["matmul_ms"] = device_ms(lambda: torch.matmul(Wd, theta))
+        print(json.dumps(row), flush=True)
+
+
+def _scan_fn(lib: ctypes.CDLL, dtype: torch.dtype):
+    """A call of ``lib``'s scan; a library with ``rglru_scan_workspace``
+    takes a workspace, zeroed here in the call."""
+    fn = getattr(lib, "rglru_scan_f32" if dtype == torch.float32 else "rglru_scan_bf16")
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    fn.restype = I_
+    workspace = getattr(lib, "rglru_scan_workspace", None)
+    if workspace is None:
+        fn.argtypes = [P_, P_, P_, I_, I_, I_, P_]
+    else:
+        fn.argtypes = [P_, P_, P_, I_, I_, I_, P_, P_, P_]
+        workspace.argtypes = [I_, I_, I_, P_, P_]
+        workspace.restype = I_
+
+    def call(a, b):
+        h = torch.empty_like(a)
+        B, S, D = a.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        if workspace is None:
+            status = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, stream)
+        else:
+            zeroed, scratch = ctypes.c_int64(), ctypes.c_int64()
+            workspace(B, S, D, ctypes.addressof(zeroed), ctypes.addressof(scratch))
+            flags = torch.zeros(zeroed.value, dtype=torch.uint8, device="cuda")
+            values = torch.empty(scratch.value, dtype=torch.uint8, device="cuda")
+            status = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, flags.data_ptr(),
+                        values.data_ptr(), stream)
+        if status:
+            raise RuntimeError(f"rglru_scan: cudaError {status}")
+        return h
+    return call
+
+
+def _scan_inputs(B: int, S: int, D: int, dtype: torch.dtype, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = (torch.rand((B, S, D), generator=gen, device="cuda") * 0.399 + 0.6).to(dtype)
+    b = (torch.randn((B, S, D), generator=gen, device="cuda") * 0.2).to(dtype)
+    return a, b
+
+
+def scan_check() -> None:
+    """The new kernel against the plain version (child process)."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    lib = ctypes.CDLL(str(OUT / "scan_new.so"))
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    for B, S, D, dtype in [(1, 1, 1, torch.float32), (2, 255, 33, torch.float32),
+                           (2, 256, 64, torch.float32), (2, 257, 2561, torch.bfloat16),
+                           (3, 1001, 2561, torch.float32), (2, 4096, 2560, torch.float32),
+                           (2, 4096, 2560, torch.bfloat16), (1, 65536, 96, torch.float32),
+                           (2, 32768, 2560, torch.float32)]:
+        a, b = _scan_inputs(B, S, D, dtype, S + D)
+        call = _scan_fn(lib, dtype)
+        out = call(a, b)
+        again = call(a, b)  # back to back: the workspace is zeroed anew
+        plain = rglru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((out.float() - plain.float()).abs().max())
+        rerun = float((out.float() - again.float()).abs().max())
+        print(f"# check B{B} S{S} D{D} {dtype}: max_abs_err {err:.3e}, rerun max |diff| "
+              f"{rerun:.3e}", flush=True)
+        if not (torch.allclose(out.float(), plain.float(), atol=tol[dtype], rtol=tol[dtype])
+                and torch.allclose(again.float(), plain.float(), atol=tol[dtype], rtol=tol[dtype])):
+            raise RuntimeError("the new rglru_scan kernel disagrees with the plain version")
+
+
+def scan(old_csrc: str) -> None:
+    libs = nvcc_all({"scan_new": KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu",
+                     "scan_old": Path(old_csrc).resolve() / "rglru_scan.cu"})
+    subprocess.run([sys.executable, __file__, "scan-check"], check=True, timeout=180)
+    for B, S, D, dtype in [(2, 4096, 2560, torch.float32), (2, 4096, 2560, torch.bfloat16),
+                           (2, 32768, 2560, torch.float32)]:
+        a, b = _scan_inputs(B, S, D, dtype, 32)
+        row = {"shape": [B, S, D], "dtype": str(dtype).replace("torch.", "")}
+        calls = {name: _scan_fn(lib, dtype) for name, lib in libs.items()}
+        for rep in range(2):  # old, new, old, new
+            for name in ("scan_old", "scan_new"):
+                row[f"{name}_ms_{rep}"] = device_ms(lambda: calls[name](a, b))
+        row["bytes_GB"] = 3 * B * S * D * a.element_size() / 1e9
+        print(json.dumps(row), flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+
+def _cut_variants(src: Path, prefix: str, cuts: dict) -> dict[str, Path]:
+    """``prefix`` -> ``src`` as it is, and ``prefix_<name>`` -> a copy of
+    ``src`` with each (text, replacement) of ``cuts[name]`` applied."""
+    text = src.read_text()
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = {prefix: src}
+    for name, pairs in cuts.items():
+        variant = text
+        for old, new in pairs:
+            if old not in variant:
+                raise RuntimeError(f"{src.name} changed where the {name} cut goes; update this script")
+            variant = variant.replace(old, new)
+        (OUT / f"{prefix}_{name}.cu").write_text(variant)
+        jobs[f"{prefix}_{name}"] = OUT / f"{prefix}_{name}.cu"
+    return jobs
+
+
+def schedule_floor() -> None:
+    """Where the staged gossip_schedule kernel's time goes at n = 100,
+    float32: copies that skip the gathers (copies and ring only), skip
+    the copies, skip the stores, or add only the first 4 atoms (their
+    outputs are wrong), take 256- or 128-byte rows, or keep 3 ring stages
+    instead of up to 8; only their times are read."""
+    jobs = _cut_variants(KERNELS / "gossip_mix" / "csrc" / "gossip_schedule.cu", "schedule", {
+        "no_gather": [("    slot = slot + 1 == stages ? 0 : slot + 1;\n",
+                       "    slot = slot + 1 == stages ? 0 : slot + 1;\n    if (n > 0) continue;\n")],
+        "no_copies": [("    if (s < rg.n_tiles) load(s, s);", ""),
+                      ("    if (t + ahead < rg.n_tiles) load(t + ahead, slot == 0 ? stages - 1 : slot - 1);",
+                       "")],
+        "no_stores": [("          if (c < cols)  // stored once",
+                       "          if (c < cols && acc[k][0] == 1234.5f)  // stored once")],
+        "atoms4": [("        for (int l0 = 0; l0 < L; l0 += U) {\n          // U atoms'",
+                    "        for (int l0 = 0; l0 < 4; l0 += U) {\n          // U atoms'")],
+        "rows256": [("for (int kw : {512, 256, 128, 64}) {", "for (int kw : {256, 128, 64}) {")],
+        "rows128": [("for (int kw : {512, 256, 128, 64}) {", "for (int kw : {128, 64}) {")],
+        "stages3": [("constexpr int kMaxStages = 8;", "constexpr int kMaxStages = 3;")],
+    })
+    libs = nvcc_all(jobs)
+    g, p = _atoms(100, 11, 0)
+    for P, dtype in [(50896, torch.float32)]:
+        gen = torch.Generator(device="cuda").manual_seed(P)
+        theta = torch.randn((100, P), generator=gen, device="cuda").to(dtype)
+        row = {"n": 100, "P": P, "L": 11, "dtype": str(dtype).replace("torch.", "")}
+        for name, lib in libs.items():
+            call = _schedule_fn(lib, dtype)
+            row[f"{name}_ms"] = device_ms(lambda: call(theta, g, p))
+        row["copy_ms"] = device_ms(lambda: theta.clone())
+        print(json.dumps(row), flush=True)
+
+
+def scan_floor() -> None:
+    """Where the rglru_scan kernel's time goes: copies that skip the
+    look-back (incoming state 0; its output is wrong), or take other
+    tiles than 32 features x 256 steps (16 warps of 16 steps): 64 x 128
+    and 128 x 64 (2 and 4 feature groups), 128 steps (8 warps), 512 (32
+    warps, or 16 warps of 32 steps)."""
+    jobs = _cut_variants(KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu", "scan", {
+        "no_lookback": [("      for (;;) {\n        const int lv",
+                         "      for (; level < 0;) {\n        const int lv")],
+        "groups2": [("constexpr int kGroups = 1;", "constexpr int kGroups = 2;")],
+        "groups4": [("constexpr int kGroups = 1;", "constexpr int kGroups = 4;")],
+        "warps8": [("constexpr int kWarps = 16;", "constexpr int kWarps = 8;")],
+        "warps32": [("constexpr int kWarps = 16;", "constexpr int kWarps = 32;")],
+        "steps32": [("constexpr int kSteps = 16;", "constexpr int kSteps = 32;")],
+    })
+    libs = nvcc_all(jobs)
+    for B, S, D, dtype in [(2, 4096, 2560, torch.float32), (2, 4096, 2560, torch.bfloat16)]:
+        a, b = _scan_inputs(B, S, D, dtype, 32)
+        row = {"shape": [B, S, D], "dtype": str(dtype).replace("torch.", "")}
+        for name, lib in libs.items():
+            call = _scan_fn(lib, dtype)
+            row[f"{name}_ms"] = device_ms(lambda: call(a, b))
+        row["copy_ms"] = device_ms(lambda: torch.add(a, b))  # reads a and b, writes one tensor
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    if sys.argv[1:2] != ["flash-check"]:
+    if sys.argv[1:] not in (["flash-check"], ["schedule-check"], ["scan-check"]):
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     if sys.argv[1:2] == ["flash"] and len(sys.argv) == 3:
         flash(sys.argv[2])
     elif sys.argv[1:2] == ["gossip"] and len(sys.argv) == 3:
         gossip(sys.argv[2])
+    elif sys.argv[1:2] == ["schedule"] and len(sys.argv) == 3:
+        schedule(sys.argv[2])
+    elif sys.argv[1:2] == ["scan"] and len(sys.argv) == 3:
+        scan(sys.argv[2])
     elif sys.argv[1:] == ["flash-check"]:
         flash_check()
+    elif sys.argv[1:] == ["schedule-check"]:
+        schedule_check()
+    elif sys.argv[1:] == ["scan-check"]:
+        scan_check()
+    elif sys.argv[1:] == ["schedule-floor"]:
+        schedule_floor()
+    elif sys.argv[1:] == ["scan-floor"]:
+        scan_floor()
     elif sys.argv[1:] == ["gossip-floor"]:
         gossip_floor()
     elif sys.argv[1:] == ["gossip-designs"]:

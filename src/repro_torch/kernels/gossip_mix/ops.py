@@ -30,6 +30,7 @@ __all__ = [
     "gossip_schedule",
     "gossip_apply",
     "gossip_mix_design",
+    "gossip_schedule_design",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -172,6 +173,28 @@ def gossip_mix_design(n: int, dtype: torch.dtype, device=None) -> str:
     if design < 0:
         raise RuntimeError(f"gossip_mix_design failed: cudaError {-design}")
     return _MIX_DESIGNS[design]
+
+
+def gossip_schedule_design(n: int, L: int, dtype: torch.dtype, device=None) -> str:
+    """Which ``gossip_schedule`` kernel runs for n rows, L atoms and
+    ``dtype`` on the card: ``"staged tile, <bytes>-byte rows x <k>
+    stages"`` (float32: column tiles of all n rows staged in shared
+    memory, theta read from device memory once) or ``"l2 gather"``
+    (bfloat16, or a perms table and n rows of 64 bytes too large for a
+    block's shared memory: the source rows are gathered through L2)."""
+    from repro_torch.kernels import _build
+
+    tile, stages = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        fn = _build.kernel_function("gossip_schedule", "gossip_schedule_design",
+                                    [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P])
+        design = fn(n, L, torch.empty((), dtype=dtype).element_size(),
+                    ctypes.addressof(tile), ctypes.addressof(stages))
+    if design < 0:
+        raise RuntimeError(f"gossip_schedule_design failed: cudaError {-design}")
+    if design == 1:
+        return "l2 gather"
+    return f"staged tile, {tile.value}-byte rows x {stages.value} stages"
 
 
 def gossip_apply(theta: torch.Tensor, W=None, schedule=None) -> torch.Tensor:

@@ -9,6 +9,11 @@ b = 0 and falls back to its oracle below S = 256). There is no ``h0``:
 the RG-LRU block folds a carried state into ``b[:, 0]`` first, as the
 reference's block does.
 
+The kernel carries the state between time tiles through a small
+workspace (a ticket counter and a flag a tile, zeroed here on the
+launch's stream before every launch, and the tiles' published values);
+``kernel_design`` names the tiling.
+
 The kernel has no backward pass, as the reference's has none: a CUDA
 call on an input that requires grad raises instead of detaching it.
 
@@ -24,18 +29,35 @@ import torch
 
 from .ref import rglru_scan_ref
 
-__all__ = ["rglru_scan", "launch_counts", "reset_launch_counts"]
+__all__ = ["rglru_scan", "kernel_design", "launch_counts", "reset_launch_counts"]
 
 launch_counts = {"rglru_scan": 0}
 
 _SYMBOLS = {torch.float32: "rglru_scan_f32", torch.bfloat16: "rglru_scan_bf16"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _P, _P, _P]
 
 
 def reset_launch_counts() -> None:
     launch_counts["rglru_scan"] = 0
+
+
+def _workspace(B: int, S: int, D: int) -> tuple[int, int, int]:
+    """(bytes to zero, bytes of scratch, time steps of a tile) of a scan."""
+    from repro_torch.kernels import _build
+
+    fn = _build.kernel_function("rglru_scan", "rglru_scan_workspace",
+                                [_I, _I, _I, _P, _P])
+    zeroed, scratch = ctypes.c_int64(), ctypes.c_int64()
+    tile = fn(B, S, D, ctypes.addressof(zeroed), ctypes.addressof(scratch))
+    return zeroed.value, scratch.value, tile
+
+
+def kernel_design() -> str:
+    """The CUDA kernel's design, with its tile."""
+    return (f"one-pass chained scan, decoupled look-back, tiles of 32 features x "
+            f"{_workspace(1, 1, 1)[2]} steps")
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -58,17 +80,18 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.requires_grad or b.requires_grad:
         raise RuntimeError("rglru_scan: no backward kernel; the reference kernel has none")
     B, S, D = a.shape
-    if B > 65535:
-        raise ValueError(f"B = {B} exceeds the grid's y limit of 65535")
     h = torch.empty_like(a)
     if a.numel() == 0:
         return h
     from repro_torch.kernels import _build
 
     with torch.cuda.device(a.device):
+        zeroed, scratch, _ = _workspace(B, S, D)
+        flags = torch.zeros(zeroed, dtype=torch.uint8, device=a.device)
+        values = torch.empty(scratch, dtype=torch.uint8, device=a.device)
         fn = _build.kernel_function("rglru_scan", _SYMBOLS[a.dtype], _ARGTYPES)
-        status = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D,
-                    torch.cuda.current_stream().cuda_stream)
+        status = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D, flags.data_ptr(),
+                    values.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(f"rglru_scan launch failed: cudaError {status}")
     launch_counts["rglru_scan"] += 1

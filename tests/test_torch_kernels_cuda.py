@@ -69,6 +69,51 @@ def test_kernels_match_plain_on_card(cuda, n, P, dtype):
     assert ops.launch_counts == {"gossip_schedule": 1, "gossip_mix": 1}
 
 
+def _atoms(n: int, L: int, zeros: int, seed: int, device):
+    """The identity and L - 1 random permutations with positive weights,
+    then ``zeros`` zero-weight padding atoms (as ``ScheduleArrays`` pads)."""
+    rng = np.random.default_rng(seed)
+    perms = [np.arange(n)] + [rng.permutation(n) for _ in range(L - 1 + zeros)]
+    g = rng.random(L) + 0.1
+    g = np.concatenate([g / g.sum(), np.zeros(zeros)])
+    return (torch.as_tensor(g, dtype=torch.float32, device=device),
+            torch.as_tensor(np.stack(perms), dtype=torch.int32, device=device))
+
+
+# The staged kernel (float32; bfloat16 runs the l2 gather) keeps a column
+# tile of all n rows in shared memory; on an H100 (227 KB a block) n = 100
+# takes 512-byte rows, n = 500 with
+# L = 3 128-byte rows, n = 1000 two 64-byte stages, n = 1500 one, and with
+# L = 2 n = 2075 is the last n that holds one (its perms table, 8 atoms a
+# row, takes the rest): n = 2076 runs the l2 gather.
+# P = 4099 and 777 are odd; offset 1 puts every row off the 16-byte grid.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,P,L,zeros,offset,design", [
+    (100, 50896, 11, 0, 0, "staged tile, 512-byte rows x 4 stages"),
+    (100, 50890, 11, 3, 0, "staged tile"),
+    (100, 4096, 11, 0, 1, "staged tile"),
+    (7, 4099, 3, 2, 1, "staged tile, 512-byte rows x 8 stages"),
+    (500, 3001, 3, 0, 1, "staged tile, 128-byte rows x 3 stages"),
+    (1000, 520, 3, 0, 0, "staged tile, 64-byte rows x 2 stages"),
+    (1500, 777, 3, 0, 1, "staged tile, 64-byte rows x 1 stages"),
+    (2075, 300, 2, 0, 0, "staged tile, 64-byte rows x 1 stages"),
+    (2076, 300, 2, 0, 0, "l2 gather"),
+    (4096, 1001, 3, 1, 1, "l2 gather"),
+])
+def test_gossip_schedule_designs_match_plain_on_card(cuda, n, P, L, zeros, offset, design, dtype):
+    g, p = _atoms(n, L, zeros, n + P, cuda)
+    buf = _theta(1, n * P + offset, dtype, cuda, 4)[0]
+    t = buf[offset:].view(n, P)
+    assert t.is_contiguous() and (t.data_ptr() % 16 != 0) == (offset != 0)
+    want = design if dtype == torch.float32 else "l2 gather"
+    assert ops.gossip_schedule_design(n, L + zeros, dtype).startswith(want)
+    out = ops.gossip_schedule(t, g, p)
+    # the same float32 arithmetic in the same order: bitwise equal
+    torch.testing.assert_close(out, ref.gossip_schedule_ref(t, g, p), atol=0, rtol=0)
+    assert ops.launch_counts == {"gossip_schedule": 1, "gossip_mix": 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,P", [(100, 4096), (9, 1000), (512, 1028)])

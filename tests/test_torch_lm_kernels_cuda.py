@@ -135,8 +135,12 @@ def test_flash_attention_bf16_misaligned_views_on_card(cuda, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# The kernel's time tiles are 256 steps: S = 255, 256 and 257 sit at one
+# tile's edge; S = 2^17 with one chain of 32 features makes 512 tiles in a
+# row, a look-back chain far longer than the blocks resident at once.
 @pytest.mark.parametrize("B,S,D", [(1, 1, 1), (2, 100, 300), (1, 17, 33), (3, 1000, 2560),
-                                   (2, 4097, 2561)])
+                                   (2, 4097, 2561), (2, 255, 2561), (2, 256, 64), (2, 257, 33),
+                                   (1, 2**17, 32)])
 def test_rglru_scan_matches_plain_on_card(cuda, B, S, D, dtype):
     gen = torch.Generator().manual_seed(S + D)
     a = (torch.rand((B, S, D), generator=gen) * 0.399 + 0.6).to(dtype).to(cuda)
@@ -150,6 +154,29 @@ def test_rglru_scan_matches_plain_on_card(cuda, B, S, D, dtype):
     assert scan_ops.launch_counts["rglru_scan"] == 1
     with pytest.raises(RuntimeError, match="no backward kernel"):
         scan_ops.rglru_scan(a.float().requires_grad_(), b.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_back_to_back_on_card(cuda, dtype):
+    """Three launches on one stream, one of another shape in between: each
+    zeroes its own workspace, so the tickets and flags start afresh. (The
+    look-back may fold a different number of tiles from one launch to the
+    next, so two launches agree to rounding, not bitwise.)"""
+    gen = torch.Generator().manual_seed(7)
+    a = (torch.rand((2, 3000, 96), generator=gen) * 0.399 + 0.6).to(dtype).to(cuda)
+    b = (torch.randn((2, 3000, 96), generator=gen) * 0.2).to(dtype).to(cuda)
+    first = scan_ops.rglru_scan(a, b)
+    small = scan_ops.rglru_scan(a[:1, :300].contiguous(), b[:1, :300].contiguous())
+    second = scan_ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert scan_ops.launch_counts["rglru_scan"] == 3
+    tol = SCAN_TOL[dtype]
+    plain = rglru_scan_ref(a, b).float()
+    for out in (first, second):
+        torch.testing.assert_close(out.float(), plain, atol=tol, rtol=tol)
+    torch.testing.assert_close(second.float(), first.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(small.float(), plain[:1, :300], atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
