@@ -38,7 +38,17 @@ nvcc per source, all at once) and then, on the card:
    tokens/s and decode ms/token (``generate`` less its prefill);
 5. runs the smoke config's kernel path on the card against its plain
    path on the CPU;
-6. prints one JSON line per kernel set, then the card's name and power
+6. drives the captured D-SGD rollout (``rollout="scan"``: CUDA graphs)
+   and online topology adaptation: both gossip kernels captured in a
+   graph and swapped by ``copy_``; 6a, the reference's online acceptance
+   run (abrupt label swap, frozen / oracle / online arms: log-space
+   recovery >= 0.8, one capture per arm); 6b, phase 2b's MNIST-width MLP
+   on a ``ScheduleArrays`` with an ``OnlineTopologyController`` (inline:
+   graph against loop, equal losses and swaps, one capture; overlap:
+   every swap collected without blocking, a final flush), and, printed,
+   loop against graph ms/step and device busy share on phase 2b's arms;
+   6c, a cold and a warm STL-FW refresh at n = 512;
+7. prints one JSON line per kernel set, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -72,6 +82,7 @@ from repro_torch.core.mixing import (  # noqa: E402
     schedule_to_arrays,
 )
 from repro_torch.core.stl_fw import learn_topology  # noqa: E402
+from repro_torch.data.drift import AbruptLabelSwap, labels_stream  # noqa: E402
 from repro_torch.data.partition import dirichlet_partition, shard_partition  # noqa: E402
 from repro_torch.data.synthetic import gaussian_blobs, mean_estimation_clusters  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -83,6 +94,13 @@ from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.models import registry, transformer  # noqa: E402
 from repro_torch.models.layers import unembed  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
+from repro_torch.online import (  # noqa: E402
+    OnlineTopologyController,
+    RefreshConfig,
+    StreamingPiEstimator,
+    TopologyRefresher,
+)
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.train.trainer import run_classification, run_mean_estimation  # noqa: E402
 
@@ -372,6 +390,7 @@ def phase_kernels(Pi_mnist: np.ndarray) -> list[dict]:
     res512 = learn_topology(dirichlet_pi(512), budget=8, lam=0.1)
     s512 = schedule_from_result(res512)
     padded = schedule_to_arrays(s100, l_max=s100.n_atoms + 5, device="cuda")
+    s64 = schedule_from_result(learn_topology(np.eye(8)[np.arange(64) % 8], budget=8, lam=0.5))
     W100 = torch.as_tensor(res100.W, dtype=torch.float32, device="cuda")
     W512 = torch.as_tensor(res512.W, dtype=torch.float32, device="cuda")
     P_mlp = 784 * 64 + 64 + 64 * 10 + 10  # 50890 parameters per node
@@ -385,6 +404,9 @@ def phase_kernels(Pi_mnist: np.ndarray) -> list[dict]:
                       *s512.operands("cuda")),
         schedule_case("zero-weight padding", _theta(100, P_main, torch.float32, 6),
                       padded.gammas, padded.perms),
+        # phase 6a: n = 64 scalar parameters (rows padded to 8), l_max 17
+        schedule_case("phase-6a mean estimation", _theta(64, 8, torch.float32, 12),
+                      *schedule_to_arrays(s64, l_max=s64.n_atoms + 8, device="cuda")),
         # too many rows for a shared-memory tile: the l2-gather kernel
         schedule_case("n=4096 l2 gather", _theta(4096, 2**14 + 5, torch.float32, 11),
                       *random_atoms(4096, 9, 11)),
@@ -526,7 +548,8 @@ def phase_main_path(mnist) -> dict:
 
 
 def step_breakdown(data, short: int = 20, long: int = 120) -> dict:
-    """Phase 2e: where a phase-2b step's time goes.
+    """Phase 2e: where a phase-2b step's time goes in the eager loop
+    (``rollout="loop"``; phase 6b sets the graph beside it).
 
     Steady-state ms per step of both arms, as the wall-time difference of
     a ``long`` and a ``short`` run without evaluation (setup cancels
@@ -538,7 +561,8 @@ def step_breakdown(data, short: int = 20, long: int = 120) -> dict:
     n_train = sum(len(i) for i in idx)
     res = learn_topology(Pi, budget=10, lam=0.1)
     arms = {"schedule": (None, schedule_from_result(res)), "dense": (res.W, None)}
-    kw = dict(model="mlp", hidden=64, batch_size=64, lr=0.2, seed=0, device="cuda")
+    kw = dict(model="mlp", hidden=64, batch_size=64, lr=0.2, seed=0, device="cuda",
+              rollout="loop")
     out = {}
     for arm, (W, sched) in arms.items():
         secs = {}
@@ -575,6 +599,276 @@ def phase_cross_device() -> None:
               f": max |diff| {err:.3e}")
         check(np.allclose(gpu["mean_sq_error"], cpu["mean_sq_error"], rtol=1e-5, atol=1e-6),
               "2d: cuda and cpu error traces disagree")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the captured rollout and online topology adaptation
+# ---------------------------------------------------------------------------
+
+def phase_capture_kernels() -> dict:
+    """Both gossip kernels captured in one CUDA graph, their operands
+    replaced by ``copy_`` and the graph replayed: equal to the plain
+    versions (schedule bitwise, mix at 1e-5), as the captured rollout
+    uses them, at phase 2b's shape. Launches made here are compared, not
+    counted."""
+    n, P, L = 100, 50896, 11
+    theta = _theta(n, P, torch.float32, 40)
+    g, p = random_atoms(n, L, 41)
+    W = torch.as_tensor(arrays_to_matrix(ScheduleArrays(g, p)), dtype=torch.float32,
+                        device="cuda")
+    ops.gossip_schedule(theta, g, p)
+    ops.gossip_mix(theta, W)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_s = ops.gossip_schedule(theta, g, p)
+        out_m = ops.gossip_mix(theta, W)
+    errs = {}
+    for swap in (False, True):
+        if swap:
+            g2, p2 = random_atoms(n, L, 42)
+            g.copy_(g2)
+            p.copy_(p2)
+            theta.copy_(_theta(n, P, torch.float32, 43))
+            W.copy_(torch.as_tensor(arrays_to_matrix(ScheduleArrays(g2, p2)),
+                                    dtype=torch.float32, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out_s, gossip_schedule_ref(theta, g, p)),
+              f"6 captured gossip_schedule (swap={swap}) is not bitwise the plain version")
+        errs[f"mix_swap={swap}"] = _compare(f"6 captured gossip_mix (swap={swap})", out_m,
+                                            gossip_mix_ref(theta, W), torch.float32)
+    print(f"# 6 capture: both gossip kernels in one graph, operands swapped by copy_, "
+          f"gossip_mix max err {errs}")
+    return errs
+
+
+def _feed(ctl, labels):
+    """``on_segment`` hook: stream the labels up to ``t`` in, then ask."""
+    fed = {"t": 0}
+
+    def hook(t):
+        while fed["t"] <= t:
+            ctl.observe(labels[fed["t"]])
+            fed["t"] += 1
+        return ctl.on_segment(t)
+
+    return hook
+
+
+def phase_drift_recovery(launches: dict) -> dict:
+    """Phase 6a: the reference's online acceptance configuration
+    (``benchmarks/bench_online.py`` ``_bench_recovery_and_retrace``,
+    non-smoke): abrupt label swap at t = 200 on Section 6.1 mean estimation
+    (n = 64, K = 8), frozen / oracle / online arms on one observation
+    stream, all ``rollout="scan"`` on the card."""
+    n, K, steps, seg, t_drift, budget = 64, 8, 600, 20, 200, 8
+    lam, lr, batch, beta = 0.5, 0.05, 4, 0.2
+    task = mean_estimation_clusters(n_nodes=n, K=K, m=5.0, sigma_tilde2=1.0)
+    Pi0 = np.eye(K)[np.arange(n) % K].astype(float)
+    scenario = AbruptLabelSwap(Pi0, t_drift=t_drift,
+                               node_perm=np.random.default_rng(11).permutation(n))
+    labels = labels_stream(scenario, steps, batch, seed=0)
+    zs = np.asarray(task.cluster_means)[labels] + np.sqrt(task.sigma_tilde2) * \
+        np.random.default_rng(1).normal(size=labels.shape)
+    res0 = learn_topology(Pi0, budget=budget, lam=lam)
+    ref = TopologyRefresher(res0, RefreshConfig(budget=budget, lam=lam), device="cuda")
+    sa0 = schedule_to_arrays(schedule_from_result(res0), ref.l_max, device="cuda")
+    sa_oracle = schedule_to_arrays(
+        schedule_from_result(learn_topology(scenario.Pi(t_drift), budget=budget, lam=lam)),
+        ref.l_max, device="cuda")
+    swapped = {"done": False}
+
+    def oracle_hook(t):
+        if not swapped["done"] and t >= t_drift - 1:
+            swapped["done"] = True
+            return sa_oracle
+        return None
+
+    ctl = OnlineTopologyController(
+        ref, estimator=StreamingPiEstimator(n, K, beta=beta, init=Pi0))
+    arms = {}
+    for arm, hook in (("frozen", None), ("oracle", oracle_hook), ("online", _feed(ctl, labels))):
+        out, counts, secs = counted(
+            run_mean_estimation, task, None, steps=steps, lr=lr, batch=batch, seed=2,
+            schedule=sa0, zs=zs, on_segment=hook, segment_len=seg, rollout="scan",
+            device="cuda")
+        check(counts["gossip_schedule"] == steps and counts["gossip_mix"] == 0,
+              f"6a {arm}: launches {counts}, expected gossip_schedule={steps}")
+        launches["gossip_schedule"] += counts["gossip_schedule"]
+        check(out["n_traces"] == 1, f"6a {arm}: n_traces {out['n_traces']} != 1")
+        check(bool(np.isfinite(out["mean_sq_error"]).all()), f"6a {arm}: non-finite error")
+        arms[arm] = {"out": out, "seconds": secs}
+    check(swapped["done"], "6a: the oracle arm never swapped")
+    check(ref.n_refreshes >= 1 and len(arms["online"]["out"]["swaps"]) >= 1,
+          "6a: the online arm never swapped")
+    tail = slice(-max(10, steps // 12), None)
+    err = {a: float(np.median(r["out"]["mean_sq_error"][tail])) for a, r in arms.items()}
+    log_rec = (np.log(err["frozen"]) - np.log(err["online"])) / (
+        np.log(err["frozen"]) - np.log(err["oracle"]))
+    out = {"err": err, "recovery_log": float(log_rec),
+           "recovery_linear": (err["frozen"] - err["online"]) / (err["frozen"] - err["oracle"]),
+           "swaps": arms["online"]["out"]["swaps"], "n_refreshes": ref.n_refreshes,
+           "n_traces": {a: r["out"]["n_traces"] for a, r in arms.items()},
+           "seconds": {a: r["seconds"] for a, r in arms.items()}}
+    print("# 6a " + json.dumps(out))
+    check(log_rec >= 0.8, f"6a: log-space recovery {log_rec:.3f} < 0.8 of the frozen->oracle gap")
+    return out
+
+
+def _online_controller(Pi0: np.ndarray, res0, **kw):
+    ref = TopologyRefresher(res0, RefreshConfig(budget=10, lam=0.1, l_max=11), device="cuda")
+    return OnlineTopologyController(ref, Pi0=Pi0, **kw)
+
+
+def phase_online_full_width(data, launches: dict, steps: int = 200) -> dict:
+    """Phase 6b: phase 2b's MNIST-width run (n = 100, MLP hidden 64, P =
+    50890) on a ``ScheduleArrays`` (STL-FW budget 10, l_max 11), with an
+    ``OnlineTopologyController`` observing a label stream that swaps at
+    t = 100: inline in both rollouts (equal losses and swaps), then in
+    overlap mode in the captured rollout."""
+    X, y, idx, Pi0 = data
+    n, n_train = len(idx), sum(len(i) for i in idx)
+    res0 = learn_topology(Pi0, budget=10, lam=0.1)
+    labels = labels_stream(
+        AbruptLabelSwap(Pi0, t_drift=steps // 2,
+                        node_perm=np.random.default_rng(11).permutation(n)),
+        steps, 64, seed=0)
+    kw = dict(model="mlp", hidden=64, steps=steps, batch_size=64, lr=0.2, eval_every=20,
+              X_test=X[n_train:], y_test=y[n_train:], seed=0, device="cuda")
+    runs = {}
+    for rollout in ("loop", "scan"):
+        ctl = _online_controller(Pi0, res0)
+        sa0 = ctl.schedule_arrays()
+        log, counts, secs = counted(run_classification, X[:n_train], y[:n_train], idx, None,
+                                    schedule=sa0, on_segment=_feed(ctl, labels),
+                                    rollout=rollout, **kw)
+        check(counts["gossip_schedule"] == steps and counts["gossip_mix"] == 0,
+              f"6b inline {rollout}: launches {counts}, expected gossip_schedule={steps}")
+        launches["gossip_schedule"] += counts["gossip_schedule"]
+        runs[rollout] = {"log": log, "seconds": secs, "refreshes": ctl.refresher.n_refreshes}
+    loop, scan = runs["loop"]["log"], runs["scan"]["log"]
+    l_loop, l_scan = loop.column("loss"), scan.column("loss")
+    max_diff = float(np.abs(l_loop - l_scan).max())
+    bitwise = bool(np.array_equal(l_loop, l_scan)) and loop.history == scan.history
+    out = {"swaps": scan.aux["swaps"], "loop_swaps": loop.aux["swaps"],
+           "n_traces": {"loop": loop.aux["n_traces"], "scan": scan.aux["n_traces"]},
+           "bitwise_equal": bitwise, "loss_max_abs_diff": max_diff,
+           "acc_mean": _final(scan)["acc_mean"],
+           "seconds": {r: v["seconds"] for r, v in runs.items()},
+           "refreshes": runs["scan"]["refreshes"]}
+    print(f"# 6b inline: swaps scan {out['swaps']} loop {out['loop_swaps']}, captures "
+          f"{out['n_traces']}, graph == loop bitwise: {bitwise} (max |loss diff| {max_diff:.3e}), "
+          f"acc_mean {out['acc_mean']:.4f}")
+    check(out["swaps"] == out["loop_swaps"] and len(out["swaps"]) >= 1,
+          "6b: the rollouts swapped at different steps, or never")
+    check(scan.aux["n_traces"] == 1, f"6b: {scan.aux['n_traces']} captures, expected 1")
+    check(bitwise or np.allclose(l_scan, l_loop, rtol=1e-6, atol=0.0),
+          f"6b: graph and loop losses differ by {max_diff:.3e} (bound 1e-6 relative)")
+    check(bool(np.isfinite(l_scan).all()) and l_scan[-10:].mean() < l_scan[:10].mean(),
+          "6b: the captured run's loss did not fall")
+
+    # overlap mode: the solve runs on a worker while the graph replays
+    ctl = _online_controller(Pi0, res0, overlap=True)
+    try:
+        log, counts, secs = counted(run_classification, X[:n_train], y[:n_train], idx, None,
+                                    schedule=ctl.schedule_arrays(),
+                                    on_segment=_feed(ctl, labels), rollout="scan", **kw)
+        in_run = list(ctl.refresh_log)
+        ctl.request_refresh("final flush")
+        ctl.on_segment(steps - 1)
+        final = ctl.flush(steps)
+    finally:
+        ctl.close()
+    check(counts["gossip_schedule"] == steps, f"6b overlap: launches {counts}")
+    launches["gossip_schedule"] += counts["gossip_schedule"]
+    check(all(r["blocked_s"] == 0.0 and "error" not in r for r in in_run),
+          f"6b overlap: a swap was not collected free: {in_run}")
+    check(final is not None and ctl.refresh_log[-1]["t_collect"] == steps,
+          "6b overlap: the final flush was not recorded")
+    out["overlap"] = {
+        "swaps": log.aux["swaps"], "n_traces": log.aux["n_traces"], "seconds": secs,
+        "submitted": sum(1 for e in ctl.events if e.get("submitted")),
+        "in_run": [{k: r[k] for k in ("t_submit", "t_collect", "solve_s", "pending_segments",
+                                      "blocked_s")} for r in in_run],
+        "final_flush": {k: ctl.refresh_log[-1][k] for k in ("t_submit", "t_collect", "solve_s",
+                                                             "blocked_s")}}
+    print("# 6b overlap " + json.dumps(out["overlap"]))
+    check(log.aux["n_traces"] == 1, "6b overlap: captures grew")
+    return out
+
+
+def graph_step_times(data, steps: int = 256, every: int = 32) -> dict:
+    """Phase 6b, printed and not checked: steady ms per step of phase 2b's
+    schedule and dense arms, loop against graph, from the ``sim.segment``
+    spans of a run evaluated every ``every`` steps on a 1000-sample test
+    set (the evaluation runs outside the spans). Segments 3 on are timed:
+    in the graph the first ``every``-step segment is the eager warm-up and
+    the second captures, so the rest are replays. (The difference of two
+    whole runs, as phase 2e takes, is dominated here by the run-to-run
+    spread of the data setup.) The device busy share is the profiler's
+    device time per step, in a run without evaluation, over that ms per
+    step."""
+    X, y, idx, Pi = data
+    n_train = sum(len(i) for i in idx)
+    res = learn_topology(Pi, budget=10, lam=0.1)
+    arms = {"schedule": (None, schedule_from_result(res)), "dense": (res.W, None)}
+    kw = dict(model="mlp", hidden=64, batch_size=64, lr=0.2, seed=0, device="cuda",
+              steps=steps, eval_every=every, X_test=X[n_train:n_train + 1000],
+              y_test=y[n_train:n_train + 1000])
+    out = {}
+    for arm, (W, sched) in arms.items():
+        for rollout in ("loop", "scan"):
+            tracer = Tracer()
+            run_classification(X[:n_train], y[:n_train], idx, W, schedule=sched,
+                               rollout=rollout, tracer=tracer, **kw)
+            segs = [sp.duration_s for sp in tracer.spans("sim.segment")
+                    if sp.attrs["k"] == every]
+            ms = 1e3 * float(np.median(segs[2:])) / every
+            # the device time of the steps alone: the same run without evaluation
+            per_kernel, n_ops = device_profile(run_classification, X[:n_train], y[:n_train],
+                                               idx, W, schedule=sched, rollout=rollout,
+                                               **{**kw, "X_test": None, "y_test": None})
+            dev = sum(v for k, v in per_kernel.items() if "HtoD" not in k) / steps
+            out[f"{arm} {rollout}"] = {
+                "ms_per_step": ms, "device_ms_per_step": dev, "device_busy_share": dev / ms,
+                "device_ops_per_step": n_ops / steps,
+                "segment_ms": [1e3 * t for t in segs],  # warm-up, capture (graph), steady
+            }
+    return out
+
+
+def phase_warm_refresh() -> dict:
+    """Phase 6c: one cold and one warm refresh at n = 512, budget 64 (the
+    reference's ``bench_online`` claim 1): host seconds, printed."""
+    n, K, budget = 512, 64, 64
+    rng = np.random.default_rng(0)
+    Pi0 = rng.dirichlet(0.1 * np.ones(K), size=n)
+    res0 = learn_topology(Pi0, budget=budget, lam=0.1)
+    ref = TopologyRefresher(res0, RefreshConfig(budget=budget // 4, lam=0.1), device="cuda")
+    Pi1 = Pi0[rng.permutation(n)]
+    t0 = time.perf_counter()
+    cold = learn_topology(Pi1, budget=budget, lam=0.1)
+    cold_s = time.perf_counter() - t0
+    warm = ref.refresh(Pi1)
+    out = {"cold_s": cold_s, "warm_s": ref.last_refresh_s, "warm_iters": ref.last_iters,
+           "objective_cold": float(cold.objective_trace[-1]),
+           "objective_warm": float(warm.objective_trace[-1])}
+    print("# 6c " + json.dumps(out))
+    return out
+
+
+def phase_online(mnist) -> dict:
+    """Phase 6; returns the gossip kernels' launches over its counted runs."""
+    launches = {"gossip_schedule": 0, "gossip_mix": 0}
+    phase_capture_kernels()
+    phase_drift_recovery(launches)
+    phase_online_full_width(mnist, launches)
+    for label, r in graph_step_times(mnist).items():
+        print(f"# 6b timing {label} " + json.dumps(r))
+    phase_warm_refresh()
+    print(f"# 6 launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -851,6 +1145,9 @@ def main() -> int:
     phase_cross_device()
     for arm, r in step_breakdown(mnist).items():
         print(f"# 2e {arm} " + json.dumps(r))
+    online = phase_online(mnist)
+    for k, v in online.items():
+        launches[k] += v
     lm = phase_lm(torch.device("cuda"))
     launches.update(lm["launches"])
 
@@ -869,6 +1166,8 @@ def main() -> int:
             kernels[-1]["design"] = head["design"]
         if name in lm["per_forward"]:
             kernels[-1]["launches_per_forward"] = lm["per_forward"][name]
+        if name in online:
+            kernels[-1]["launches_phase6"] = online[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,18 @@ partition gives Pi, STL-FW learns a sparse W as Birkhoff atoms, and the
 n-node D-SGD simulator trains on that topology with its gossip step in
 the hand-written CUDA kernels of ``kernels/gossip_mix``.
 
+The D-SGD drivers also run as captured CUDA graphs (``rollout="scan"``,
+``train/rollout.py``) and adapt the topology online (``online/``: a
+streaming Pi estimate, a drift detector, warm STL-FW refreshes swapped
+into the running graph by value).
+
 This package imports ``torch`` and never ``jax``, and nothing of
-``repro``: the numpy host modules it needs are kept as copies
-(``data/synthetic.py``, ``data/partition.py``, ``core/topology.py``,
-``core/heterogeneity.py``, ``core/assignment.py``, ``core/stl_fw.py``,
-``core/dcliques.py``). Entry points run on the card unless the caller
+``repro``: the numpy and pure-Python host modules it needs are kept as
+copies (``data/synthetic.py``, ``data/partition.py``, ``data/drift.py``,
+``core/topology.py``, ``core/heterogeneity.py``, ``core/assignment.py``,
+``core/stl_fw.py``, ``core/dcliques.py``, ``core/theory.py``,
+``core/dynamic.py``, ``online/streaming.py``, ``obs/trace.py``,
+``obs/report.py``). Entry points run on the card unless the caller
 passes ``device="cpu"`` (see :func:`repro_torch.device.resolve_device`).
 """
 

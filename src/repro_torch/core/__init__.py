@@ -1,9 +1,22 @@
-"""Core library: topology learning (numpy copies) and D-SGD mixing (torch)."""
+"""Core library: topology learning, theory and dynamic schedules (numpy
+copies) and D-SGD mixing (torch)."""
 
-from . import assignment, dcliques, dsgd, heterogeneity, mixing, stl_fw, topology
+from . import (
+    assignment,
+    dcliques,
+    dsgd,
+    dynamic,
+    heterogeneity,
+    mixing,
+    stl_fw,
+    theory,
+    topology,
+)
 from .dsgd import DSGDState, dsgd_init, dsgd_step_stacked
 from .mixing import (
     BirkhoffSchedule,
+    PermPool,
+    PoolSwap,
     ScheduleArrays,
     mix_dense,
     mix_schedule_arrays,
@@ -20,14 +33,18 @@ __all__ = [
     "assignment",
     "dcliques",
     "dsgd",
+    "dynamic",
     "heterogeneity",
     "mixing",
     "stl_fw",
+    "theory",
     "topology",
     "DSGDState",
     "dsgd_init",
     "dsgd_step_stacked",
     "BirkhoffSchedule",
+    "PermPool",
+    "PoolSwap",
     "ScheduleArrays",
     "mix_dense",
     "mix_schedule_arrays",

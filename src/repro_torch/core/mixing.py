@@ -44,6 +44,8 @@ __all__ = [
     "schedule_to_arrays",
     "arrays_to_matrix",
     "truncate_schedule",
+    "PermPool",
+    "PoolSwap",
     "mix_schedule_arrays",
     "StackRavelSpec",
     "ravel_stack",
@@ -325,6 +327,185 @@ def truncate_schedule(schedule: BirkhoffSchedule, l_max: int) -> BirkhoffSchedul
         coeffs=tuple(c / total for c in coeffs),
         perms=tuple(schedule.perms[i] for i in order),
     )
+
+
+# ---------------------------------------------------------------------------
+# Staged permutation pools (host classes of the reference's pool transport)
+# ---------------------------------------------------------------------------
+#
+# The reference compiles the UNION of K permutation atoms once (the
+# initial solve's Birkhoff atoms plus identity headroom slots) into its
+# mesh transport ``mix_ppermute_pool``, with the per-atom convex
+# coefficients as a (K,) data vector: a refresh whose atoms stay inside
+# the pool is a pure gamma-value change, an out-of-pool refresh restages
+# the pool once. The port keeps the host side -- the pool, the
+# projection and the ``PoolSwap`` update the online controller emits --
+# so the controller's pool mode works; the sharded transport itself
+# comes with the port's mesh trainer.
+
+
+@dataclasses.dataclass(frozen=True)
+class PermPool:
+    """A fixed, compiled-in set of permutation atoms ("slots").
+
+    ``perms`` holds ``capacity`` static permutations, identity-padded:
+    identity slots cost nothing (a local scale, no communication) and
+    serve as headroom -- but REPLACING a slot's permutation changes the
+    compiled trace, which is exactly the pool-miss recompile the
+    schedule projection exists to avoid. Frozen + tuple-of-tuples, so a
+    compiled step can close over a pool hashably.
+
+    The runtime coefficients live OUTSIDE the pool, as a ``(capacity,)``
+    gamma vector threaded through the step as data (the reference's
+    ``mix_ppermute_pool``, whose port waits for the mesh trainer);
+    ``project`` maps any :class:`BirkhoffSchedule` onto that vector.
+    """
+
+    perms: tuple[tuple[int, ...], ...]
+
+    def __post_init__(self):
+        if not self.perms:
+            raise ValueError("PermPool needs at least one slot")
+        n = len(self.perms[0])
+        for p in self.perms:
+            if len(p) != n or sorted(p) != list(range(n)):
+                raise ValueError(f"pool slot {p!r} is not a permutation of {n}")
+
+    @property
+    def capacity(self) -> int:
+        return len(self.perms)
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.perms[0])
+
+    @property
+    def identity(self) -> tuple[int, ...]:
+        return tuple(range(self.n_nodes))
+
+    @property
+    def n_comm_slots(self) -> int:
+        """Non-identity slots: each moves P bytes per node per mix step
+        (gamma 0 or not -- a staged ppermute executes unconditionally)."""
+        ident = self.identity
+        return sum(1 for p in self.perms if p != ident)
+
+    @classmethod
+    def from_schedule(
+        cls, schedule: BirkhoffSchedule, capacity: int | None = None
+    ) -> "PermPool":
+        """Stage a schedule's atoms (deduplicated, order kept), identity-
+        padding up to ``capacity`` headroom slots.
+
+        A schedule with more atoms than ``capacity`` is truncated first
+        (largest coefficients kept -- :func:`truncate_schedule`), so a
+        restage always fits.
+        """
+        if capacity is not None and capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if capacity is not None and schedule.n_atoms > capacity:
+            schedule = truncate_schedule(schedule, capacity)
+        seen: dict[tuple[int, ...], None] = {}
+        for p in schedule.perms:
+            seen.setdefault(tuple(int(x) for x in p))
+        slots = list(seen)
+        n = schedule.n_nodes
+        cap = capacity if capacity is not None else len(slots)
+        ident = tuple(range(n))
+        while len(slots) < cap:
+            slots.append(ident)
+        return cls(perms=tuple(slots))
+
+    def _slot_index(self) -> dict[tuple[int, ...], int]:
+        idx: dict[tuple[int, ...], int] = {}
+        for l, p in enumerate(self.perms):
+            idx.setdefault(p, l)
+        return idx
+
+    def project(self, schedule: BirkhoffSchedule) -> tuple[np.ndarray, float]:
+        """Schedule -> pool-aligned gammas; returns ``(gammas, dropped)``.
+
+        Atoms staged in the pool land in their slot; atoms NOT in the
+        pool are dropped and their total coefficient mass returned as
+        ``dropped`` (pre-renormalization). The kept coefficients are
+        renormalized, so the executed W stays doubly stochastic -- the
+        same pool-aware truncation argument as
+        :func:`truncate_schedule`, with the pool membership (not the
+        coefficient rank) deciding who is kept. The caller compares
+        ``dropped`` against its miss tolerance to decide between an
+        in-pool swap and a restage.
+        """
+        if schedule.n_nodes != self.n_nodes:
+            raise ValueError(
+                f"schedule is for {schedule.n_nodes} nodes, pool for {self.n_nodes}"
+            )
+        idx = self._slot_index()
+        gammas = np.zeros((self.capacity,), np.float64)
+        dropped = 0.0
+        for c, p in zip(schedule.coeffs, schedule.perms):
+            slot = idx.get(tuple(int(x) for x in p))
+            if slot is None:
+                dropped += float(c)
+            else:
+                gammas[slot] += float(c)
+        kept = gammas.sum()
+        if kept > 0.0:
+            gammas /= kept
+        return gammas.astype(np.float32), float(dropped)
+
+    def contains(self, schedule: BirkhoffSchedule) -> bool:
+        """True iff every atom of ``schedule`` is staged in this pool."""
+        _, dropped = self.project(schedule)
+        return dropped == 0.0
+
+    def arrays_for(
+        self, gammas: np.ndarray, device: torch.device | str | None = None
+    ) -> ScheduleArrays:
+        """Pool-aligned gammas as a :class:`ScheduleArrays` (slot order
+        preserved) on ``device`` (None = CUDA): the data-plane twin of
+        the pool transport, which any ``ScheduleArrays`` mix executes."""
+        gammas = np.asarray(gammas, np.float32)
+        if gammas.shape != (self.capacity,):
+            raise ValueError(
+                f"gammas must be ({self.capacity},), got {gammas.shape}"
+            )
+        device = resolve_device(device)
+        perms = np.asarray(self.perms, np.int32).reshape(self.capacity, self.n_nodes)
+        return ScheduleArrays(
+            gammas=torch.as_tensor(gammas, device=device),
+            perms=torch.as_tensor(perms, device=device),
+        )
+
+    def to_matrix(self, gammas: np.ndarray) -> np.ndarray:
+        """Densify pool slots + gammas (host-side validation)."""
+        return arrays_to_matrix(self.arrays_for(gammas, device="cpu"))
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolSwap:
+    """A topology update in pool coordinates (what an online refresh
+    hands a pool-transport trainer at a segment boundary).
+
+    ``pool is None`` means the update stayed inside the trainer's
+    staged pool: applying it is a pure ``(capacity,)`` gamma value
+    change (zero retraces). A non-None ``pool`` is a RESTAGE -- the
+    refresh emitted out-of-pool atoms beyond the miss tolerance, the
+    new pool must be compiled in (one counted recompile on the pool
+    transport; pure data on the all-gather transport, which executes
+    pool gammas as their ScheduleArrays twin), and ``gammas`` is
+    aligned to the NEW pool's slots. ``dropped_mass`` records the
+    coefficient mass the projection discarded: the out-of-pool mass
+    for an in-pool swap, the capacity-truncation residue for a restage
+    (0 iff every refreshed atom fit the pool).
+    """
+
+    gammas: np.ndarray
+    pool: "PermPool | None" = None
+    dropped_mass: float = 0.0
+
+    @property
+    def restaged(self) -> bool:
+        return self.pool is not None
 
 
 def _mix_arrays_flat(flat: torch.Tensor, arrays: ScheduleArrays) -> torch.Tensor:

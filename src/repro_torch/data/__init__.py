@@ -1,6 +1,17 @@
-"""Data substrate: copies of the reference's numpy partitioners and synthetic sets."""
+"""Data substrate: copies of the reference's numpy partitioners, synthetic
+sets and drift scenarios."""
 
-from . import partition, synthetic
+from . import drift, partition, synthetic
+from .drift import (
+    AbruptLabelSwap,
+    ConceptShift,
+    FeatureDrift,
+    GradualDirichlet,
+    NodeChurn,
+    features_stream,
+    labels_stream,
+    partition_from_pi,
+)
 from .partition import (
     cluster_partition,
     dirichlet_partition,
@@ -10,8 +21,17 @@ from .partition import (
 from .synthetic import MeanEstimationTask, gaussian_blobs, mean_estimation_clusters
 
 __all__ = [
+    "drift",
     "partition",
     "synthetic",
+    "AbruptLabelSwap",
+    "ConceptShift",
+    "FeatureDrift",
+    "GradualDirichlet",
+    "NodeChurn",
+    "features_stream",
+    "labels_stream",
+    "partition_from_pi",
     "cluster_partition",
     "dirichlet_partition",
     "proportions_from_labels",

@@ -3,7 +3,8 @@
 The quantities the paper plots: per-node error/accuracy (min/mean/max across
 nodes -- the dashed lines of Fig. 1), consensus distance
 ``||Theta - Theta_bar||_F^2`` (the quantity controlled by Lemma 3), and
-standard loss aggregation.
+standard loss aggregation; and the modeled communication meter
+(``mix_bytes_per_step``, ``CommMeter``) the online drivers return.
 """
 
 from __future__ import annotations
@@ -19,7 +20,198 @@ from repro_torch.core.mixing import tree_leaves
 
 PyTree = Any
 
-__all__ = ["consensus_distance", "node_spread", "MetricLogger"]
+__all__ = [
+    "consensus_distance",
+    "node_spread",
+    "MetricLogger",
+    "mix_bytes_per_step",
+    "CommMeter",
+]
+
+
+def mix_bytes_per_step(
+    transport: str,
+    *,
+    n_nodes: int,
+    p_total: int,
+    n_comm_atoms: int | None = None,
+    itemsize: int = 4,
+    alive_frac: float = 1.0,
+    compression=None,
+) -> int:
+    """Bytes RECEIVED per node per mixing step, by transport.
+
+    The counter the comm accounting (and the bench acceptance ratios)
+    runs on -- a closed-form model of the collective, not a NIC
+    counter: every listed transport moves a deterministic byte volume
+    per step, so the model IS the measurement up to wire framing.
+    ``p_total`` is one node's parameter count; transfers run in f32
+    (``itemsize=4``) in all the hot-swappable transports.
+
+    ===========  =========================  ==============================
+    transport    bytes/node/step            which mix function
+    ===========  =========================  ==============================
+    dense        0 (single host)            mix_dense / mix_schedule_*
+    allgather    (n - 1) * P * itemsize     mix_dense_sharded /
+                                            mix_arrays_sharded
+    ppermute     n_comm_atoms * P * item    mix_ppermute (static) --
+                                            non-identity atoms only
+    pool         n_comm_atoms * P * item    mix_ppermute_pool -- staged
+                                            non-identity SLOTS (gamma 0
+                                            still transfers)
+    allreduce    2 (n-1)/n * P * itemsize   mix_allreduce (ring model)
+    ===========  =========================  ==============================
+
+    ``alive_frac`` scales the fleet for degraded runs: with a fraction
+    of nodes crashed, a dead peer sends nothing (its repaired atom
+    entries are self-loops, which move zero bytes), so the effective
+    gather degree shrinks proportionally. ``alive_frac=1.0`` (default)
+    is the fault-free model above; the faults runner instead keeps the
+    full-rate model here and meters per-step delivery honestly through
+    :meth:`CommMeter.tick`'s ``delivered_frac``.
+
+    ``compression`` (the reference's compressed wire layouts) is not
+    ported yet: anything but None raises ``NotImplementedError``
+    (ROADMAP queue 1 item 9, ``core/compression.py``).
+    """
+    if compression is not None:
+        raise NotImplementedError(
+            "mix_bytes_per_step(compression=...): the compressed wire "
+            "(core/compression.py) is not ported yet (ROADMAP queue 1 item 9)"
+        )
+    if n_nodes < 1 or p_total < 0:
+        raise ValueError(f"bad n_nodes={n_nodes} / p_total={p_total}")
+    if not 0.0 <= alive_frac <= 1.0:
+        raise ValueError(f"alive_frac must be in [0, 1], got {alive_frac}")
+    wire_elems, wire_itemsize = p_total, itemsize
+    if transport == "dense":
+        return 0
+    if transport == "allgather":
+        # (alive - 1) peers actually send; floor at zero for a lone node
+        senders = max(alive_frac * n_nodes - 1.0, 0.0)
+        return int(senders * wire_elems) * wire_itemsize
+    if transport in ("ppermute", "pool"):
+        if n_comm_atoms is None:
+            raise ValueError(f"transport={transport!r} needs n_comm_atoms")
+        return int(alive_frac * n_comm_atoms * wire_elems) * wire_itemsize
+    if transport == "allreduce":
+        n_alive = max(alive_frac * n_nodes, 1.0)
+        return int(2 * (n_alive - 1) / n_alive * p_total) * itemsize
+    raise ValueError(f"unknown transport {transport!r}")
+
+
+@dataclasses.dataclass
+class CommMeter:
+    """Accumulates the modeled communication of a training run.
+
+    ``per_step_bytes`` is per NODE per step (the :func:`mix_bytes_per_step`
+    unit); a transport change mid-run (e.g. a pool restage that grows
+    the staged slot count) updates it via :meth:`set_rate`, which also
+    records the change as an event.
+
+    Degraded paths stay honest: ``tick(k, delivered_frac=f)`` splits
+    the modeled volume into delivered bytes (``total_bytes``) and bytes
+    lost to dead nodes / dropped edges (``dropped_bytes``) -- the BENCH
+    curves charge only what actually arrived. Self-loop fallbacks move
+    zero bytes so they need no counting; retransmissions DO arrive and
+    are added on top via :meth:`retransmit` (``retransmit_bytes``,
+    also folded into ``total_bytes``).
+
+    Bounded-delay gossip adds a third fate: a straggler's payload that
+    ARRIVES, late. ``tick(k, delivered_frac=f, deferred_frac=d)``
+    records that ``d`` of the step's volume was delivered past its
+    deadline (``deferred_bytes``, a SUBSET of ``total_bytes`` -- late
+    bytes still cross the wire and are charged as delivered, unlike
+    dropped bytes, which never arrive). The degrade policy converts
+    would-be-deferred transfers into dropped ones (the repaired
+    schedule self-loops them), so the deferred/dropped split is exactly
+    the wait-vs-degrade policy decision, metered.
+
+    Quarantine adds a fourth fate, also a SUBSET of delivered:
+    ``tick(k, ..., quarantined_frac=q)`` records that ``q`` of the
+    step's volume crossed the wire touching a quarantined endpoint --
+    bytes that were moved but then excluded from consensus by the
+    quarantine repair (the repaired W self-loops the node). They are
+    the honest cost of the detection window and of keeping a suspect
+    isolated; the screen's value proposition (bytes protected vs bytes
+    forfeited) is read directly off this counter.
+    """
+
+    per_step_bytes: int = 0
+    steps: int = 0
+    total_bytes: int = 0
+    dropped_bytes: int = 0
+    deferred_bytes: int = 0
+    quarantined_bytes: int = 0
+    retransmit_bytes: int = 0
+    events: list = dataclasses.field(default_factory=list)
+
+    def tick(
+        self,
+        k: int = 1,
+        delivered_frac: float = 1.0,
+        deferred_frac: float = 0.0,
+        quarantined_frac: float = 0.0,
+    ) -> None:
+        if not 0.0 <= delivered_frac <= 1.0:
+            raise ValueError(
+                f"delivered_frac must be in [0, 1], got {delivered_frac}"
+            )
+        if not 0.0 <= deferred_frac <= delivered_frac:
+            raise ValueError(
+                f"deferred_frac must be in [0, delivered_frac="
+                f"{delivered_frac}], got {deferred_frac} (deferred bytes "
+                f"are a subset of delivered bytes)"
+            )
+        if not 0.0 <= quarantined_frac <= delivered_frac:
+            raise ValueError(
+                f"quarantined_frac must be in [0, delivered_frac="
+                f"{delivered_frac}], got {quarantined_frac} (quarantined "
+                f"bytes are a subset of delivered bytes)"
+            )
+        self.steps += int(k)
+        volume = int(k) * self.per_step_bytes
+        delivered = int(volume * delivered_frac)
+        self.total_bytes += delivered
+        self.dropped_bytes += volume - delivered
+        # Derive deferred from the already-truncated delivered volume, not
+        # from a second independent int(volume * frac) truncation: the
+        # subset invariant (deferred <= delivered, per tick and hence
+        # cumulatively) must hold by CONSTRUCTION, not by both roundings
+        # happening to land the same way under fractional fates.
+        if delivered_frac > 0.0:
+            deferred = int(delivered * (deferred_frac / delivered_frac))
+            quarantined = int(delivered * (quarantined_frac / delivered_frac))
+        else:
+            deferred = 0
+            quarantined = 0
+        self.deferred_bytes += deferred
+        self.quarantined_bytes += quarantined
+
+    def retransmit(self, nbytes: int) -> None:
+        """Count a successful re-send (delivered, on top of the model)."""
+        self.retransmit_bytes += int(nbytes)
+        self.total_bytes += int(nbytes)
+
+    def set_rate(self, per_step_bytes: int, step: int | None = None) -> None:
+        if per_step_bytes != self.per_step_bytes:
+            self.events.append(
+                {"step": self.steps if step is None else int(step),
+                 "per_step_bytes": int(per_step_bytes)}
+            )
+        self.per_step_bytes = int(per_step_bytes)
+
+    def summary(self) -> dict:
+        return {
+            "per_step_bytes": self.per_step_bytes,
+            "steps": self.steps,
+            "total_bytes": self.total_bytes,
+            "dropped_bytes": self.dropped_bytes,
+            "deferred_bytes": self.deferred_bytes,
+            "quarantined_bytes": self.quarantined_bytes,
+            "retransmit_bytes": self.retransmit_bytes,
+            "rate_changes": list(self.events),
+        }
 
 
 def consensus_distance(params_stack: PyTree) -> torch.Tensor:

@@ -1,0 +1,246 @@
+"""Captured rollouts: the port's counterpart of the reference's
+``jax.jit(lax.scan)`` rollout closures.
+
+The reference compiles the steps between two segment boundaries into one
+``lax.scan`` and runs every later segment of the same shape on that one
+compiled program; a schedule hot swap reaches it as data. Here the same
+rollout is a CUDA graph:
+
+* a *segment body* is a Python function of no arguments that runs ``k``
+  D-SGD steps. It reads only static input tensors (the parameters, this
+  chunk's observations or minibatch indices, the schedule's ``gammas`` /
+  ``perms``) and writes its results into static output tensors (the
+  parameters again, the per-step traces), so running it again continues
+  where it stopped. A driver builds one body per distinct ``(k, shape)``
+  (``shape``: the schedule's ``l_max``, or None for a static W or
+  ``BirkhoffSchedule``) and fills its inputs before each run.
+* :meth:`SegmentRunner.run_segment` runs a segment as bodies of at most
+  ``MAX_GRAPH_STEPS`` steps, each executed as follows. With ``captured=True`` the
+  first run of a key is the warm-up: the body runs eagerly, on a side
+  stream on the card, and computes its segment for real -- the kernels
+  are built and loaded, their one-time ``cudaFuncSetAttribute`` /
+  ``cudaDeviceGetAttribute`` / occupancy calls run, cuBLAS and autograd
+  set up their state, all outside any capture. The second run of the
+  key captures the body into a ``torch.cuda.CUDAGraph`` (one capture,
+  recorded under the runner's name in the ``RetraceGuard``) and replays
+  it; later runs replay. A body that runs only once is never captured.
+  On the CPU the body runs eagerly every time, with the same counting,
+  so CPU tests hold the capture counts. With ``captured=False`` (the
+  ``"loop"`` rollout) every run is eager and the runner counts one body
+  per distinct ``shape``, as the reference's jitted step traces once per
+  shape.
+* :meth:`SegmentRunner.swap` copies a new schedule into the static
+  ``gammas`` / ``perms`` the bodies read (``copy_``, never a rebind), so
+  a swap changes values and recaptures nothing; a schedule of another
+  ``l_max`` gets buffers of its own, hence new bodies and, on their
+  second run, one more capture -- as the reference retraces.
+
+Two things a graph freezes at capture are handled here. Kernel launch
+counts: a wrapper adds one to its count when the capture records its
+launch, but the kernel runs only at replays, so the runner takes the
+recorded launches back after the capture and adds them once per replay.
+Random draws: the generators a body draws from are registered with each
+graph (``CUDAGraph.register_generator_state``), so replays draw what the
+eager steps would have drawn and advance the generator alike.
+
+A failed capture raises; the runner never falls back to the eager body
+on the card. Captures use the default ``"global"`` capture mode: the
+online controller's overlap worker, the only other thread that may run
+during a capture, makes no CUDA call (``online/refresh.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Hashable
+
+import torch
+
+from repro_torch.core.mixing import ScheduleArrays
+from repro_torch.kernels.flash_attention import ops as _flash_ops
+from repro_torch.kernels.gossip_mix import ops as _gossip_ops
+from repro_torch.kernels.rglru_scan import ops as _scan_ops
+
+__all__ = ["MAX_GRAPH_STEPS", "SegmentRunner", "chunks"]
+
+# A segment longer than this runs as several bodies of at most this many
+# steps (and one shorter remainder), so a long static run replays one
+# bounded graph instead of capturing every step into a single graph.
+MAX_GRAPH_STEPS = 64
+
+_LAUNCH_COUNTS = (_gossip_ops.launch_counts, _flash_ops.launch_counts, _scan_ops.launch_counts)
+
+
+def chunks(length: int) -> list[int]:
+    """Body lengths a segment of ``length`` steps runs as, in order."""
+    full, rest = divmod(length, MAX_GRAPH_STEPS)
+    return [MAX_GRAPH_STEPS] * full + ([rest] if rest else [])
+
+
+@dataclasses.dataclass
+class _Body:
+    fn: Callable[[], None]
+    inputs: torch.Tensor | None
+    outputs: torch.Tensor
+    runs: int = 0
+    graph: "torch.cuda.CUDAGraph | None" = None
+    launches: list[dict[str, int]] = dataclasses.field(default_factory=list)
+
+
+class SegmentRunner:
+    """Runs segment bodies eagerly (``captured=False``) or as CUDA graphs.
+
+    Args:
+      name: the ``RetraceGuard`` name its captures are recorded under
+        (the reference's ``"mean_estimation.roll"`` /
+        ``"classification.roll"``).
+      device: the run's device; graphs are captured only on CUDA.
+      captured: the ``"scan"`` rollout (capture and replay) or the
+        ``"loop"`` rollout (eager every time).
+      retrace_guard: an ``obs.RetraceGuard`` to record captures in.
+      generators: the device generators the bodies draw from.
+    """
+
+    def __init__(
+        self,
+        name: str,
+        device: torch.device,
+        *,
+        captured: bool,
+        retrace_guard=None,
+        generators: tuple[torch.Generator, ...] = (),
+    ):
+        self.name = name
+        self.device = device
+        self.captured = captured
+        self.retrace_guard = retrace_guard
+        self.generators = tuple(generators)
+        self.n_traces = 0
+        self._bodies: dict[Hashable, _Body] = {}
+        self._shapes: set = set()
+        self._schedules: dict[int, ScheduleArrays] = {}
+        # warm-ups and captures run on this side stream
+        self._stream = torch.cuda.Stream(device) if captured and device.type == "cuda" else None
+
+    # -- schedule buffers --------------------------------------------------
+
+    def swap(self, new: ScheduleArrays) -> ScheduleArrays:
+        """Copy ``new`` into the static schedule buffers of its ``l_max``
+        (made on first sight) and return those buffers."""
+        static = self._schedules.get(new.l_max)
+        if static is None:
+            static = ScheduleArrays(
+                gammas=torch.empty_like(new.gammas, dtype=torch.float32, device=self.device),
+                perms=torch.empty_like(new.perms, dtype=torch.int32, device=self.device),
+            )
+            self._schedules[new.l_max] = static
+        if new.perms.shape != static.perms.shape:
+            raise ValueError(
+                f"schedule swap: perms {tuple(new.perms.shape)} do not match the "
+                f"run's {tuple(static.perms.shape)}"
+            )
+        static.gammas.copy_(new.gammas)
+        static.perms.copy_(new.perms)
+        return static
+
+    # -- bodies ------------------------------------------------------------
+
+    def run_segment(
+        self,
+        t0: int,
+        length: int,
+        schedule,
+        make_body: Callable[[int, object], tuple[Callable[[], None], torch.Tensor | None,
+                                                 torch.Tensor]],
+        fill: Callable[[torch.Tensor | None, int, int], None],
+    ) -> torch.Tensor:
+        """Run steps ``t0 .. t0 + length - 1`` as bodies of at most
+        ``MAX_GRAPH_STEPS`` steps.
+
+        ``schedule`` is what the bodies mix with: the static buffers
+        :meth:`swap` returned, or a static W's or ``BirkhoffSchedule``'s
+        stand-in (its shape is None). ``make_body(k, schedule)`` returns
+        ``(fn, inputs, outputs)`` for a body of ``k`` steps; it is called
+        once per ``(k, l_max)``. ``fill(inputs, t, k)`` writes the inputs
+        of steps ``t .. t + k - 1`` before each run. Returns the bodies'
+        per-step outputs, in order, on the device.
+        """
+        shape = schedule.l_max if isinstance(schedule, ScheduleArrays) else None
+        outs, t = [], t0
+        for k in chunks(length):
+            key = (k, shape)
+            if key not in self._bodies:
+                self._bodies[key] = _Body(*make_body(k, schedule))
+            body = self._bodies[key]
+            fill(body.inputs, t, k)
+            self._run(key, shape)
+            outs.append(body.outputs.clone())  # the next run of the body overwrites them
+            t += k
+        return torch.cat(outs)
+
+    def _run(self, key: Hashable, shape: Hashable) -> None:
+        """Run the body of ``key`` once (eagerly, by capture + replay, or
+        by replay; see the module docstring)."""
+        body = self._bodies[key]
+        body.runs += 1
+        if not self.captured:
+            if shape not in self._shapes:
+                self._shapes.add(shape)
+                self._count()
+            body.fn()
+            return
+        if body.runs == 1:
+            self._warm_up(body)
+            return
+        if body.runs == 2:
+            self._count()
+            if self.device.type == "cuda":
+                self._capture(key, body)
+        if body.graph is None:  # the CPU: eager, counted as on the card
+            body.fn()
+            return
+        body.graph.replay()
+        for counts, added in zip(_LAUNCH_COUNTS, body.launches):
+            for kernel, k in added.items():
+                counts[kernel] += k
+
+    def _count(self) -> None:
+        self.n_traces += 1
+        if self.retrace_guard is not None:
+            self.retrace_guard.record(self.name)
+
+    def _warm_up(self, body: _Body) -> None:
+        if self._stream is None:
+            body.fn()
+            return
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            body.fn()
+        current.wait_stream(self._stream)
+
+    def _capture(self, key: Hashable, body: _Body) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        before = [dict(counts) for counts in _LAUNCH_COUNTS]
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                body.fn()
+        except Exception as exc:
+            raise RuntimeError(
+                f"{self.name}: capturing the segment body {key!r} as a CUDA graph "
+                f"failed ({exc!r}); the captured rollout does not fall back to the "
+                "eager loop (run with rollout='loop')"
+            ) from exc
+        current.wait_stream(self._stream)
+        # the capture recorded these launches; they run at each replay
+        body.launches = []
+        for counts, was in zip(_LAUNCH_COUNTS, before):
+            added = {k: counts[k] - was.get(k, 0) for k in counts if counts[k] != was.get(k, 0)}
+            for kernel, k in added.items():
+                counts[kernel] -= k
+            body.launches.append(added)
+        body.graph = graph

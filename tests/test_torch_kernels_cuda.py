@@ -155,3 +155,134 @@ def test_wrapper_rejects_mixed_devices(cuda):
     t = _theta(4, 16, torch.float32, cuda)
     with pytest.raises(ValueError):
         ops.gossip_schedule(t, torch.ones(1), torch.arange(4, dtype=torch.int32)[None].to(cuda))
+
+
+# ---------------------------------------------------------------------------
+# Capture: the kernels inside CUDA graphs, and the captured rollout
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,P", [(100, 50896), (33, 4113)])
+def test_kernels_capture_and_take_new_operands_by_copy(cuda, n, P, dtype):
+    theta = _theta(n, P, dtype, cuda, 3)
+    g, p = _atoms(n, 5, 2, seed=4, device=cuda)
+    W = torch.as_tensor(_schedule(n).to_matrix(), dtype=torch.float32, device=cuda)
+    ops.gossip_schedule(theta, g, p)  # warm-up: build, load, one-time attribute calls
+    ops.gossip_mix(theta, W)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_s = ops.gossip_schedule(theta, g, p)
+        out_m = ops.gossip_mix(theta, W)
+    tol = TOL[dtype]
+    for seed in (5, 6):
+        if seed == 6:  # new operands, copied into the captured ones
+            g2, p2 = _atoms(n, 7, 0, seed=seed, device=cuda)
+            g.copy_(g2)
+            p.copy_(p2)
+            theta.copy_(_theta(n, P, dtype, cuda, seed))
+            W.copy_(torch.eye(n, device=cuda).roll(1, 0) * 0.5 + W * 0.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out_s, ref.gossip_schedule_ref(theta, g, p), atol=0, rtol=0)
+        torch.testing.assert_close(out_m.float(), ref.gossip_mix_ref(theta, W.to(dtype)).float(),
+                                   atol=tol, rtol=tol)
+
+
+def _mlp_data(n=16):
+    from repro_torch.data.partition import shard_partition
+    from repro_torch.data.synthetic import gaussian_blobs
+
+    X, y = gaussian_blobs(800, 10, dim=32, sep=2.5, seed=0)
+    idx, Pi = shard_partition(y[:700], n, shards_per_node=2, seed=0)
+    return X[:700], y[:700], X[700:], y[700:], idx, Pi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["schedule", "dense", "arrays"])
+def test_captured_classification_equals_the_loop_on_card(cuda, arm):
+    from repro_torch.train.trainer import run_classification
+
+    X, y, X_te, y_te, idx, Pi = _mlp_data()
+    res = learn_topology(Pi, budget=4, lam=0.1)
+    sched = schedule_from_result(res)
+    W, kw = None, {}
+    if arm == "schedule":
+        kw["schedule"] = sched
+    elif arm == "dense":
+        W = res.W
+    else:
+        other = schedule_to_arrays(schedule_from_result(learn_topology(Pi[::-1].copy(), budget=4,
+                                                                       lam=0.1)),
+                                   l_max=8, device=cuda)
+        kw.update(schedule=schedule_to_arrays(sched, l_max=8, device=cuda),
+                  on_segment=lambda t: other if t == 10 else None)
+    logs, counts = {}, {}
+    for rollout in ("loop", "scan"):
+        ops.reset_launch_counts()
+        logs[rollout] = run_classification(
+            X, y, idx, W, model="mlp", hidden=16, steps=41, batch_size=16, lr=0.2,
+            eval_every=5, X_test=X_te, y_test=y_te, seed=0, rollout=rollout, device=cuda, **kw)
+        counts[rollout] = dict(ops.launch_counts)
+    # the same kernels on the same inputs, and the same random draws
+    assert logs["scan"].history == logs["loop"].history
+    assert logs["scan"].aux["swaps"] == logs["loop"].aux["swaps"]
+    assert logs["scan"].aux["n_traces"] == 1  # the 5-step body (1 + 8 x 5 steps)
+    want = {"gossip_schedule": 0 if arm == "dense" else 41, "gossip_mix": 4 * 41 if arm == "dense" else 0}
+    assert counts["scan"] == counts["loop"] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["W", "arrays-swap"])
+def test_captured_mean_estimation_equals_the_loop_on_card(cuda, form):
+    from repro_torch.data.synthetic import mean_estimation_clusters
+    from repro_torch.obs import RetraceGuard
+    from repro_torch.train.trainer import run_mean_estimation
+
+    task = mean_estimation_clusters(24, K=4, m=3.0)
+    res = learn_topology(task.Pi, budget=4, lam=0.5)
+    if form == "W":  # one 150-step segment: bodies of 64, 64 and 22 steps
+        kw, steps = {"W": res.W}, 150
+    else:
+        sa2 = schedule_to_arrays(schedule_from_result(learn_topology(task.Pi[::-1].copy(),
+                                                                     budget=4, lam=0.5)),
+                                 l_max=9, device=cuda)
+        kw = {"W": None, "schedule": schedule_to_arrays(schedule_from_result(res), l_max=9,
+                                                        device=cuda),
+              "segment_len": 10, "on_segment": lambda t: sa2 if t == 29 else None}
+        steps = 100
+    outs, counts = {}, {}
+    for rollout in ("loop", "scan"):
+        guard = RetraceGuard()
+        ops.reset_launch_counts()
+        outs[rollout] = run_mean_estimation(task, steps=steps, lr=0.2, seed=1, rollout=rollout,
+                                            retrace_guard=guard, device=cuda, **kw)
+        counts[rollout] = dict(ops.launch_counts)
+        if form != "W":
+            assert outs[rollout]["n_traces"] == 1 and guard.counts == {"mean_estimation.roll": 1}
+    for key in ("mean_sq_error", "max_sq_error", "min_sq_error", "theta"):
+        assert np.array_equal(outs["scan"][key], outs["loop"][key]), key
+    want = {"gossip_schedule": 0, "gossip_mix": steps} if form == "W" else \
+        {"gossip_schedule": steps, "gossip_mix": 0}
+    assert counts["scan"] == counts["loop"] == want  # replays count their launches
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_never_runs_eagerly(cuda):
+    from repro_torch.train.rollout import SegmentRunner
+
+    x = torch.ones(4, device=cuda)
+
+    def body():
+        x.add_(float(x.sum()))  # a host read: illegal inside a capture
+
+    runner = SegmentRunner("test.roll", cuda, captured=True)
+    segment = dict(t0=0, length=3, schedule=None, make_body=lambda k, sched: (body, None, x),
+                   fill=lambda inputs, t, k: None)
+    runner.run_segment(**segment)  # the body's first run: the eager warm-up
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        runner.run_segment(**segment)  # its second: the capture, which fails
+    torch.cuda.synchronize()
+    assert float(x[0]) == 5.0  # the warm-up's one run, nothing more
+    assert runner.n_traces == 1

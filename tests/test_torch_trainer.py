@@ -21,7 +21,11 @@ torch.set_num_threads(1)
 from repro.core import mixing as J_mix  # noqa: E402
 from repro.train import trainer as J_tr  # noqa: E402
 from repro_torch.core import topology as T  # noqa: E402
-from repro_torch.core.mixing import schedule_from_result, schedule_to_arrays  # noqa: E402
+from repro_torch.core.mixing import (  # noqa: E402
+    PoolSwap,
+    schedule_from_result,
+    schedule_to_arrays,
+)
 from repro_torch.core.stl_fw import learn_topology  # noqa: E402
 from repro_torch.data.partition import shard_partition  # noqa: E402
 from repro_torch.data.synthetic import gaussian_blobs, mean_estimation_clusters  # noqa: E402
@@ -203,14 +207,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_later_slices_raise():
     task = mean_estimation_clusters(n_nodes=4, K=2, m=1.0)
-    with pytest.raises(NotImplementedError, match="CUDA-graph"):
-        T_tr.run_mean_estimation(task, T.complete(4), steps=2, rollout="scan", device="cpu")
-    for kw in ({"compression": "bf16"}, {"on_segment": lambda t: None},
-               {"segment_len": 5}, {"probes": object()}, {"tracer": object()}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"compression": "bf16"}, {"staleness": object()}, {"probes": object()}):
+        with pytest.raises(NotImplementedError, match="item"):
             T_tr.run_mean_estimation(task, T.complete(4), steps=2, device="cpu", **kw)
+    # a PoolSwap from the hook needs the mesh trainer's pool transport
+    sa = schedule_to_arrays(schedule_from_result(learn_topology(task.Pi, budget=2, lam=0.5)),
+                            l_max=4, device="cpu")
+    pool_swap = PoolSwap(gammas=np.full(4, 0.25, np.float32))
+    for rollout in ("loop", "scan"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            T_tr.run_mean_estimation(task, None, schedule=sa, steps=4, segment_len=2,
+                                     on_segment=lambda t: pool_swap, rollout=rollout,
+                                     device="cpu")
     X, y, _, _, idx, _ = _classification_data(n=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item"):
         T_tr.run_classification(X, y, idx, T.complete(4), steps=2, device="cpu",
                                 staleness=object())
     with pytest.raises(ValueError):
