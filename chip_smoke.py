@@ -19,7 +19,9 @@ nvcc per source, all at once) and then, on the card:
    bfloat16 and for n = 4096; gossip_mix and flash_attention: by dtype
    and n; rglru_scan: its tiling, with a 32768-step case for a long
    look-back chain), and the headline rows of gossip_schedule, gossip_mix
-   and flash_attention must be faster than the library call;
+   and flash_attention must be faster than the library call; two launches
+   of rglru_scan on the same inputs must be bitwise equal (every scan
+   case, and bfloat16 at (2, 4096, 2560) and (2, 32768, 2560));
 2. drives the D-SGD main path through the user's entry points -- Pi from
    a label-skew partition, ``learn_topology``, ``schedule_from_result``,
    ``run_classification`` / ``run_mean_estimation`` on ``cuda`` -- and
@@ -48,9 +50,21 @@ nvcc per source, all at once) and then, on the card:
    every swap collected without blocking, a final flush), and, printed,
    loop against graph ms/step and device busy share on phase 2b's arms;
    6c, a cold and a warm STL-FW refresh at n = 512;
-7. prints one JSON line per kernel set, then the card's name and power
+7. drives the robustness layer in the captured rollout: 7a, phase 6b's
+   run with health probes (tau_bar at the controller's live Pi_hat)
+   bitwise the probes-off run, and the probes' cost per step; 7b, phase
+   2b's shape with a swap under the wires none / identity / bf16 /
+   topk:0.1:g0.25 (identity bitwise none, bf16 half the bytes, top-k
+   k * 8, graph bitwise loop); 7c, bounded-delay gossip there (zero
+   delays bitwise fresh; wait, degrade, wait + bf16) and its ms per step;
+   7d, ``run_faulty_mean_estimation`` at ``benchmarks/bench_faults.py``'s
+   sizes: a fault-sweep cell, the straggler bars (wait 1.1x, degrade
+   1.2x of fault-free), the corruption bar (1.2x, all four modes), the
+   crash-recovery drill resumed bitwise; one capture an arm;
+8. prints one JSON line per kernel set, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
+Every ``#`` result line ends with the card's name and power limit.
 Any failed check raises, so the script exits non-zero and prints no
 result; so it does without CUDA or outside a checkout of the repo.
 """
@@ -59,10 +73,12 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -77,6 +93,7 @@ from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core.mixing import (  # noqa: E402
     ScheduleArrays,
+    StragglerPolicy,
     arrays_to_matrix,
     schedule_from_result,
     schedule_to_arrays,
@@ -94,7 +111,8 @@ from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.models import registry, transformer  # noqa: E402
 from repro_torch.models.layers import unembed  # noqa: E402
-from repro_torch.obs import Tracer  # noqa: E402
+from repro_torch.faults import run_faulty_mean_estimation  # noqa: E402
+from repro_torch.obs import HealthProbes, Tracer  # noqa: E402
 from repro_torch.online import (  # noqa: E402
     OnlineTopologyController,
     RefreshConfig,
@@ -134,6 +152,20 @@ KERNELS = {
         "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:56",
     },
 }
+
+
+@functools.cache
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def note(line: str) -> None:
+    """Print a result line with the card's name and power limit beside it."""
+    print(f"{line} | {card()}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -342,10 +374,12 @@ def scan_case(label: str, B: int, S: int, D: int, dtype: torch.dtype, seed: int)
     out = scan_ops.rglru_scan(a, b)
     plain = rglru_scan_ref(a, b)
     err = _compare(f"rglru_scan {label}", out, plain, dtype, SCAN_TOL)
+    check(torch.equal(scan_ops.rglru_scan(a, b), out),
+          f"rglru_scan {label} {_name(dtype)}: two launches on the same inputs differ")
     bound, bound_by = scan_bound(B, S, D, dtype)
     row = {
         "kernel": "rglru_scan", "case": label, "shape": [B, S, D], "dtype": _name(dtype),
-        "design": scan_ops.kernel_design(), "max_abs_err": err,
+        "design": scan_ops.kernel_design(), "max_abs_err": err, "bitwise_rerun": True,
         "kernel_ms": device_ms(lambda: scan_ops.rglru_scan(a, b)),
         "plain_ms": device_ms(lambda: rglru_scan_ref(a, b)),
         "library_ms": None,  # no single PyTorch call computes a linear recurrence
@@ -355,10 +389,25 @@ def scan_case(label: str, B: int, S: int, D: int, dtype: torch.dtype, seed: int)
     return row
 
 
+def scan_determinism(B: int, S: int, D: int, dtype: torch.dtype, seed: int) -> None:
+    """Three launches of the scan on one input give the same bits (each
+    ``scan_case`` checks two)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = (torch.rand((B, S, D), generator=gen, device="cuda") * 0.399 + 0.6).to(dtype)
+    b = (torch.randn((B, S, D), generator=gen, device="cuda") * 0.2).to(dtype)
+    first = scan_ops.rglru_scan(a, b)
+    for _ in range(2):
+        check(torch.equal(scan_ops.rglru_scan(a, b), first),
+              f"rglru_scan ({B}, {S}, {D}) {_name(dtype)}: launches differ")
+    note(f"# 1 rglru_scan ({B}, {S}, {D}) {_name(dtype)}: three launches bitwise equal")
+
+
 def phase_lm_kernels() -> list[dict]:
     """The LM kernels' cases; the first row of each kernel is its headline
     (recurrentgemma-2b's full-width shapes)."""
     bf16, f32 = torch.bfloat16, torch.float32
+    scan_determinism(2, 4096, 2560, bf16, 36)
+    scan_determinism(2, 32768, 2560, bf16, 37)
     return [
         flash_case("recurrentgemma-2b layer", 2, 4096, 10, 1, 256, 2048, bf16, 20),
         flash_case("recurrentgemma-2b layer", 2, 4096, 10, 1, 256, 2048, f32, 21),
@@ -509,13 +558,13 @@ def phase_main_path(mnist) -> dict:
               f"{label}: launches {counts}, expected schedule={schedule} mix={mix}")
         for k in launches:
             launches[k] += counts[k]
-        print(f"# 2 {label}: launches {counts}")
+        note(f"# 2 {label}: launches {counts}")
 
     a = fig2_protocol()
     expect("2a stl-fw(d2) schedule, 150 steps", a["stl_counts"], 150, 0)
     expect("2a random(d2) dense, 150 steps x 2 leaves", a["random_counts"], 0, 300)
     ref_acc = fig2_reference_acc()
-    print(f"# 2a acc_mean stl-fw(d2)={a['stl']['acc_mean']:.4f} "
+    note(f"# 2a acc_mean stl-fw(d2)={a['stl']['acc_mean']:.4f} "
           f"random(d2)={a['random']['acc_mean']:.4f} reference stl-fw(d2)={ref_acc:.4f} "
           f"({a['stl_s']:.2f} s, {a['random_s']:.2f} s)")
     check(a["stl"]["acc_mean"] >= a["random"]["acc_mean"] + 0.03,
@@ -528,7 +577,7 @@ def phase_main_path(mnist) -> dict:
     expect("2b dense W, 200 steps x 4 leaves", b["dense"]["counts"], 0, 800)
     for arm, r in b.items():
         loss = r["loss"]
-        print(f"# 2b {arm}: acc_mean={r['final']['acc_mean']:.4f} "
+        note(f"# 2b {arm}: acc_mean={r['final']['acc_mean']:.4f} "
               f"loss {loss[:10].mean():.4f} -> {loss[-10:].mean():.4f} "
               f"consensus={r['final']['consensus']:.4g} {r['steps_per_s']:.1f} steps/s "
               f"({r['seconds']:.2f} s with setup and 2 evals)")
@@ -539,7 +588,7 @@ def phase_main_path(mnist) -> dict:
     c = mean_estimation()
     expect("2c mean estimation stl-fw W, 100 steps", c["stl_counts"], 0, 100)
     expect("2c mean estimation random(d9), 100 steps", c["random_counts"], 0, 100)
-    print(f"# 2c mean_sq_error stl-fw {c['stl'][0]:.5f} -> {c['stl'][-1]:.5f}, "
+    note(f"# 2c mean_sq_error stl-fw {c['stl'][0]:.5f} -> {c['stl'][-1]:.5f}, "
           f"random(d9) final {c['random'][-1]:.5f}")
     check(bool(np.isfinite(c["stl"]).all()), "2c: non-finite error")
     check(c["stl"][-1] < c["stl"][0], "2c: final mean_sq_error is not below the first")
@@ -595,7 +644,7 @@ def phase_cross_device() -> None:
         gpu = run_mean_estimation(task, steps=20, lr=0.2, device="cuda", **kw)
         cpu = run_mean_estimation(task, steps=20, lr=0.2, device="cpu", **kw)
         err = float(np.abs(gpu["mean_sq_error"] - cpu["mean_sq_error"]).max())
-        print(f"# 2d mean estimation cuda vs cpu ({'W' if kw['W'] is not None else 'schedule'})"
+        note(f"# 2d mean estimation cuda vs cpu ({'W' if kw['W'] is not None else 'schedule'})"
               f": max |diff| {err:.3e}")
         check(np.allclose(gpu["mean_sq_error"], cpu["mean_sq_error"], rtol=1e-5, atol=1e-6),
               "2d: cuda and cpu error traces disagree")
@@ -638,13 +687,15 @@ def phase_capture_kernels() -> dict:
               f"6 captured gossip_schedule (swap={swap}) is not bitwise the plain version")
         errs[f"mix_swap={swap}"] = _compare(f"6 captured gossip_mix (swap={swap})", out_m,
                                             gossip_mix_ref(theta, W), torch.float32)
-    print(f"# 6 capture: both gossip kernels in one graph, operands swapped by copy_, "
+    note(f"# 6 capture: both gossip kernels in one graph, operands swapped by copy_, "
           f"gossip_mix max err {errs}")
     return errs
 
 
 def _feed(ctl, labels):
-    """``on_segment`` hook: stream the labels up to ``t`` in, then ask."""
+    """``on_segment`` hook: stream the labels up to ``t`` in, then ask. It
+    exposes the controller's estimator, so a tau_bar probe reads the live
+    Pi_hat at each boundary."""
     fed = {"t": 0}
 
     def hook(t):
@@ -653,6 +704,7 @@ def _feed(ctl, labels):
             fed["t"] += 1
         return ctl.on_segment(t)
 
+    hook.estimator = ctl.estimator
     return hook
 
 
@@ -711,7 +763,7 @@ def phase_drift_recovery(launches: dict) -> dict:
            "swaps": arms["online"]["out"]["swaps"], "n_refreshes": ref.n_refreshes,
            "n_traces": {a: r["out"]["n_traces"] for a, r in arms.items()},
            "seconds": {a: r["seconds"] for a, r in arms.items()}}
-    print("# 6a " + json.dumps(out))
+    note("# 6a " + json.dumps(out))
     check(log_rec >= 0.8, f"6a: log-space recovery {log_rec:.3f} < 0.8 of the frozen->oracle gap")
     return out
 
@@ -757,7 +809,7 @@ def phase_online_full_width(data, launches: dict, steps: int = 200) -> dict:
            "acc_mean": _final(scan)["acc_mean"],
            "seconds": {r: v["seconds"] for r, v in runs.items()},
            "refreshes": runs["scan"]["refreshes"]}
-    print(f"# 6b inline: swaps scan {out['swaps']} loop {out['loop_swaps']}, captures "
+    note(f"# 6b inline: swaps scan {out['swaps']} loop {out['loop_swaps']}, captures "
           f"{out['n_traces']}, graph == loop bitwise: {bitwise} (max |loss diff| {max_diff:.3e}), "
           f"acc_mean {out['acc_mean']:.4f}")
     check(out["swaps"] == out["loop_swaps"] and len(out["swaps"]) >= 1,
@@ -793,7 +845,7 @@ def phase_online_full_width(data, launches: dict, steps: int = 200) -> dict:
                                       "blocked_s")} for r in in_run],
         "final_flush": {k: ctl.refresh_log[-1][k] for k in ("t_submit", "t_collect", "solve_s",
                                                              "blocked_s")}}
-    print("# 6b overlap " + json.dumps(out["overlap"]))
+    note("# 6b overlap " + json.dumps(out["overlap"]))
     check(log.aux["n_traces"] == 1, "6b overlap: captures grew")
     return out
 
@@ -854,7 +906,7 @@ def phase_warm_refresh() -> dict:
     out = {"cold_s": cold_s, "warm_s": ref.last_refresh_s, "warm_iters": ref.last_iters,
            "objective_cold": float(cold.objective_trace[-1]),
            "objective_warm": float(warm.objective_trace[-1])}
-    print("# 6c " + json.dumps(out))
+    note("# 6c " + json.dumps(out))
     return out
 
 
@@ -865,9 +917,349 @@ def phase_online(mnist) -> dict:
     phase_drift_recovery(launches)
     phase_online_full_width(mnist, launches)
     for label, r in graph_step_times(mnist).items():
-        print(f"# 6b timing {label} " + json.dumps(r))
+        note(f"# 6b timing {label} " + json.dumps(r))
     phase_warm_refresh()
-    print(f"# 6 launches {launches}")
+    note(f"# 6 launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the robustness layer inside the captured rollout
+# ---------------------------------------------------------------------------
+
+def _span_ms(tracer, k: int) -> float:
+    """Steady ms per step from the ``sim.segment`` spans of ``k``-step
+    segments: the first is the eager warm-up and the second captures, so
+    the rest are replays."""
+    segs = [sp.duration_s for sp in tracer.spans("sim.segment") if sp.attrs["k"] == k]
+    return 1e3 * float(np.median(segs[2:])) / k
+
+
+def _expect_schedule(label: str, counts: dict, want: int, launches: dict) -> None:
+    check(counts["gossip_schedule"] == want and counts["gossip_mix"] == 0,
+          f"{label}: launches {counts}, expected gossip_schedule={want}")
+    launches["gossip_schedule"] += counts["gossip_schedule"]
+
+
+def _robust_setup(data, steps: int):
+    """Phase 2b's shape on the data plane: n = 100, the MLP (P = 50890),
+    STL-FW budget 10 at l_max 11, and a second schedule (the topology of
+    the label-swapped fleet) the hook swaps in at ``steps // 2 - 1``."""
+    X, y, idx, Pi0 = data
+    n, n_train = len(idx), sum(len(i) for i in idx)
+    perm = np.random.default_rng(11).permutation(n)
+    sa = schedule_to_arrays(schedule_from_result(learn_topology(Pi0, budget=10, lam=0.1)),
+                            l_max=11, device="cuda")
+    sa2 = schedule_to_arrays(schedule_from_result(learn_topology(Pi0[perm], budget=10, lam=0.1)),
+                             l_max=11, device="cuda")
+    kw = dict(model="mlp", hidden=64, steps=steps, batch_size=64, lr=0.2, eval_every=20,
+              X_test=X[n_train:n_train + 1000], y_test=y[n_train:n_train + 1000], seed=0,
+              device="cuda", schedule=sa)
+    return (X[:n_train], y[:n_train], idx, None), kw, (lambda t: sa2 if t == steps // 2 - 1
+                                                        else None)
+
+
+def phase_probes(data, launches: dict, steps: int = 200, timed: int = 256) -> dict:
+    """7a: phase 6b's online run with health probes (consensus, grad_dev,
+    tau_bar at the controller's live Pi_hat): losses bitwise the probes-off
+    run, one capture each; then the per-step probe cost from the
+    ``sim.segment`` spans of ``timed``-step runs."""
+    X, y, idx, Pi0 = data
+    n, n_train = len(idx), sum(len(i) for i in idx)
+    res0 = learn_topology(Pi0, budget=10, lam=0.1)
+    labels = labels_stream(
+        AbruptLabelSwap(Pi0, t_drift=steps // 2,
+                        node_perm=np.random.default_rng(11).permutation(n)),
+        steps, 64, seed=0)
+    kw = dict(model="mlp", hidden=64, steps=steps, batch_size=64, lr=0.2, eval_every=20,
+              X_test=X[n_train:], y_test=y[n_train:], seed=0, device="cuda")
+    logs = {}
+    for arm, probes in (("off", None), ("on", HealthProbes(tau_bar=True))):
+        ctl = _online_controller(Pi0, res0)
+        extra = dict(probes=probes, pi_hat=Pi0) if probes is not None else {}
+        log, counts, _ = counted(run_classification, X[:n_train], y[:n_train], idx, None,
+                                 schedule=ctl.schedule_arrays(), on_segment=_feed(ctl, labels),
+                                 rollout="scan", **extra, **kw)
+        # the tau_bar probe mixes pi_hat through gossip_schedule: one more a step
+        _expect_schedule(f"7a probes {arm}", counts, steps * (2 if probes else 1), launches)
+        logs[arm] = log
+    on, off = logs["on"], logs["off"]
+    bitwise = bool(np.array_equal(on.column("loss"), off.column("loss"))) and \
+        on.history == off.history
+    health = on.aux["health"]
+    out = {"bitwise_equal": bitwise, "swaps": on.aux["swaps"],
+           "n_traces": {"off": off.aux["n_traces"], "on": on.aux["n_traces"]},
+           "health_last": {k: float(v[-1]) for k, v in health.items()}}
+    check(bitwise, "7a: the probes-on run is not bitwise the probes-off run")
+    check(on.aux["swaps"] == off.aux["swaps"] and len(on.aux["swaps"]) >= 1,
+          f"7a: swaps {on.aux['swaps']} / {off.aux['swaps']}")
+    check(out["n_traces"] == {"off": 1, "on": 1}, f"7a: captures {out['n_traces']}")
+    check(all(np.isfinite(v).all() and v.shape == (steps,) for v in health.values()),
+          "7a: non-finite or missing probe values")
+    # the cost: timed-step runs evaluated every 32 steps (outside the spans)
+    sa = schedule_to_arrays(schedule_from_result(res0), l_max=11, device="cuda")
+    tkw = {**kw, "steps": timed, "eval_every": 32, "X_test": X[n_train:n_train + 1000],
+           "y_test": y[n_train:n_train + 1000]}
+    ms = {}
+    for arm, extra in (("off", {}), ("default", dict(probes=HealthProbes())),
+                       ("tau_bar", dict(probes=HealthProbes(tau_bar=True), pi_hat=Pi0))):
+        tracer = Tracer()
+        run_classification(X[:n_train], y[:n_train], idx, None, schedule=sa, rollout="scan",
+                           tracer=tracer, **extra, **tkw)
+        ms[arm] = _span_ms(tracer, 32)
+    out["ms_per_step"] = ms
+    out["probe_ms_per_step"] = {arm: ms[arm] - ms["off"] for arm in ("default", "tau_bar")}
+    note("# 7a probes " + json.dumps(out))
+    return out
+
+
+def phase_compression(data, launches: dict, steps: int = 200) -> dict:
+    """7b: phase 2b's shape on the schedule transport with a swap, under
+    the wires none, identity, bf16 and topk:0.1:g0.25: identity bitwise
+    none (losses and bytes), bf16 0.5x the bytes, top-k k * 8 a node,
+    graph bitwise the loop for bf16 and top-k, one capture an arm;
+    printed: ms per step of each wire."""
+    args, kw, hook = _robust_setup(data, steps)
+    n = len(args[2])
+    P = 784 * 64 + 64 + 64 * 10 + 10
+    runs = {}
+    for wire in (None, "identity", "bf16", "topk:0.1:g0.25"):
+        rollouts = ("scan", "loop") if wire in ("bf16", "topk:0.1:g0.25") else ("scan",)
+        for rollout in rollouts:
+            tracer = Tracer()
+            log, counts, secs = counted(run_classification, *args, on_segment=hook,
+                                        compression=wire, rollout=rollout, tracer=tracer, **kw)
+            _expect_schedule(f"7b {wire} {rollout}", counts, steps, launches)
+            runs[wire, rollout] = {"log": log, "ms": _span_ms(tracer, 20), "seconds": secs}
+    none, ident = runs[None, "scan"]["log"], runs["identity", "scan"]["log"]
+    f32_bytes = none.aux["comm"]["per_step_bytes"]
+    out = {"ms_per_step": {str(w): r["ms"] for (w, ro), r in runs.items() if ro == "scan"},
+           "loop_ms_per_step": {str(w): r["ms"] for (w, ro), r in runs.items() if ro == "loop"},
+           "per_step_bytes": {str(w): r["log"].aux["comm"]["per_step_bytes"]
+                              for (w, ro), r in runs.items() if ro == "scan"},
+           "n_traces": {str(w): r["log"].aux["n_traces"] for (w, ro), r in runs.items()
+                        if ro == "scan"},
+           "final_loss": {str(w): float(r["log"].column("loss")[-10:].mean())
+                          for (w, ro), r in runs.items() if ro == "scan"}}
+    check(none.history == ident.history and none.aux["comm"] == ident.aux["comm"],
+          "7b: the identity wire is not bitwise the uncompressed run")
+    check(2 * runs["bf16", "scan"]["log"].aux["comm"]["per_step_bytes"] == f32_bytes,
+          "7b: the bf16 wire does not move exactly half the bytes")
+    k = max(1, int(P * 0.1))
+    check(runs["topk:0.1:g0.25", "scan"]["log"].aux["comm"]["per_step_bytes"] == (n - 1) * k * 8,
+          "7b: the top-k wire does not cost k * 8 bytes a node")
+    for wire in ("bf16", "topk:0.1:g0.25"):
+        scan, loop = runs[wire, "scan"]["log"], runs[wire, "loop"]["log"]
+        check(scan.history == loop.history, f"7b {wire}: graph and loop differ")
+    check(all(v == 1 for v in out["n_traces"].values()), f"7b: captures {out['n_traces']}")
+    check(all(np.isfinite(v) for v in out["final_loss"].values()), "7b: non-finite loss")
+    note("# 7b compression " + json.dumps(out))
+    return out
+
+
+def phase_staleness(data, launches: dict, steps: int = 200) -> dict:
+    """7c: phase 2b's shape under bounded-delay gossip: a zero-delay arm
+    bitwise the fresh run (losses and bytes), ``wait`` and ``degrade`` at
+    tau_max 4 on a FaultPlan's straggler trace (rate 0.3, tau_max 4, plus
+    1% hard stragglers past the deadline), and wait with the bf16 wire;
+    one capture an arm; printed: ms per step and the ring's bytes."""
+    from repro_torch.faults import FaultPlan
+
+    args, kw, hook = _robust_setup(data, steps)
+    n = len(args[2])
+    plan = FaultPlan(n_nodes=n, steps=steps, seed=8, straggler_rate=0.3, tau_max=4)
+    plan.delays[np.random.default_rng([8, 99]).random((steps, n)) < 0.01] = 6
+    arms = {"fresh": {}, "zero": dict(staleness=StragglerPolicy("wait", 4)),
+            "wait": dict(staleness=StragglerPolicy("wait", 4), delays=plan.delays),
+            "degrade": dict(staleness=StragglerPolicy("degrade", 4), delays=plan.delays),
+            "wait+bf16": dict(staleness=StragglerPolicy("wait", 4), delays=plan.delays,
+                              compression="bf16")}
+    runs = {}
+    for arm, extra in arms.items():
+        tracer = Tracer()
+        log, counts, _ = counted(run_classification, *args, on_segment=hook, rollout="scan",
+                                 tracer=tracer, **extra, **kw)
+        _expect_schedule(f"7c {arm}", counts, steps, launches)
+        runs[arm] = {"log": log, "ms": _span_ms(tracer, 20)}
+    fresh, zero = runs["fresh"]["log"], runs["zero"]["log"]
+    P_pad = -(-(784 * 64 + 64 + 64 * 10 + 10) // 8) * 8
+    out = {"ms_per_step": {a: r["ms"] for a, r in runs.items()},
+           "n_traces": {a: r["log"].aux["n_traces"] for a, r in runs.items()},
+           "comm": {a: r["log"].aux["comm"] for a, r in runs.items() if a != "fresh"},
+           "final_loss": {a: float(r["log"].column("loss")[-10:].mean())
+                          for a, r in runs.items()},
+           "ring_bytes": 5 * n * P_pad * 4}
+    check(zero.history == fresh.history, "7c: zero delays are not bitwise the fresh run")
+    check(zero.aux["comm"]["total_bytes"] == fresh.aux["comm"]["total_bytes"]
+          and zero.aux["comm"]["deferred_bytes"] == 0, "7c: zero-delay bytes differ")
+    check(all(v == 1 for v in out["n_traces"].values()), f"7c: captures {out['n_traces']}")
+    check(all(np.isfinite(v) for v in out["final_loss"].values()), "7c: non-finite loss")
+    note("# 7c staleness " + json.dumps(out))
+    return out
+
+
+def _faulty(label: str, launches: dict, task, plan, arrays, **kw) -> dict:
+    out, counts, _ = counted(run_faulty_mean_estimation, task, plan, arrays, device="cuda", **kw)
+    _expect_schedule(f"7d {label}", counts,
+                     plan.steps - (out["resumed_from"] or 0) if out["stopped_at"] is None
+                     else out["stopped_at"], launches)
+    check(out["n_traces"] == 1, f"7d {label}: {out['n_traces']} captures")
+    return out
+
+
+def phase_faults(launches: dict, smoke: bool = False) -> dict:
+    """7d: ``run_faulty_mean_estimation`` at ``benchmarks/bench_faults.py``'s
+    non-smoke sizes: a fault-sweep cell, the straggler bars, the
+    corruption bar, the crash-recovery drill; one capture an arm."""
+    from repro_torch.data.drift import NodeChurn
+    from repro_torch.faults import FaultPlan, QuarantineController, ScreenPolicy
+
+    lam, out = 0.1, {}
+
+    def setup(n, K, steps, zs_seed, batch=2):
+        task = mean_estimation_clusters(n_nodes=n, K=K, m=5.0, sigma_tilde2=1.0)
+        res0 = learn_topology(task.Pi, budget=8, lam=lam)
+        sched0 = schedule_from_result(res0)
+        arrays = schedule_to_arrays(sched0, sched0.n_atoms + 2, device="cuda")
+        rng = np.random.default_rng(zs_seed)
+        zs = np.stack([task.sample(batch, rng) for _ in range(steps)]).astype(np.float32)
+        return task, res0, arrays, zs
+
+    # a fault-sweep cell: crash 0.05, stragglers at tau 4, 15% edge drops
+    n, K, steps, seg = (8, 4, 120, 20) if smoke else (32, 8, 600, 50)
+    task, _, arrays, zs = setup(n, K, steps, 1)
+    tail = slice(-max(10, steps // 10), None)
+    kw = dict(lr=0.05, seed=2, zs=zs, segment_len=seg)
+    base = _faulty("sweep base", launches, task, FaultPlan(n_nodes=n, steps=steps, seed=0),
+                   arrays, **kw)
+    cell = _faulty("sweep cell", launches, task,
+                   FaultPlan(n_nodes=n, steps=steps, seed=3, crash_rate=0.05, mean_outage=6.0,
+                             straggler_rate=0.3, tau_max=4, edge_drop_rate=0.15), arrays, **kw)
+    base_err = float(np.median(base["mean_sq_error"][tail]))
+    out["sweep_cell"] = {"gap_ratio": float(np.median(cell["mean_sq_error"][tail])) / base_err,
+                         "alive_frac": cell["alive_frac"], "comm": cell["comm"]}
+    check(np.isfinite(cell["mean_sq_error"]).all(), "7d sweep cell: non-finite error")
+
+    # the straggler bars: tau_max <= 4, <= 25% stragglers -> wait within
+    # 10% of fault-free, degrade within 20%
+    task, _, arrays, zs = setup(n, K, steps, 6)
+    tail = slice(-max(10, steps // 3), None)
+    kw = dict(lr=0.02, seed=2, zs=zs, segment_len=seg)
+    plan0 = FaultPlan(n_nodes=n, steps=steps, seed=0)
+    base = _faulty("straggler base", launches, task, plan0, arrays, **kw)
+    base_err = float(np.median(base["mean_sq_error"][tail]))
+    for mode in ("wait", "degrade"):  # the delays=0 control arms
+        ctrl = _faulty(f"delays=0 {mode}", launches, task, plan0, arrays,
+                       staleness=StragglerPolicy(mode, 4), **kw)
+        check(np.array_equal(ctrl["mean_sq_error"], base["mean_sq_error"])
+              and ctrl["comm"]["total_bytes"] == base["comm"]["total_bytes"],
+              f"7d: the delays=0 {mode} arm is not bitwise the fresh run")
+    hard = 0.02 if smoke else 0.01
+    ratios = {}
+    for tau in (2, 4):
+        for rate in (0.1, 0.25):
+            plan = FaultPlan(n_nodes=n, steps=steps, seed=8, straggler_rate=rate, tau_max=tau)
+            late = np.random.default_rng([8, 99, tau, int(rate * 100)]).random((steps, n)) < hard
+            plan.delays[late] = tau + 2
+            for mode in ("wait", "degrade"):
+                r = _faulty(f"straggler {mode} tau={tau} rate={rate}", launches, task, plan,
+                            arrays, staleness=StragglerPolicy(mode, tau), **kw)
+                ratio = float(np.median(r["mean_sq_error"][tail])) / base_err
+                ratios[f"{mode} tau={tau} rate={rate}"] = ratio
+                bar = 1.10 if mode == "wait" else 1.20
+                check(ratio <= bar, f"7d straggler {mode} tau={tau} rate={rate}: "
+                                    f"{ratio:.3f} > {bar}")
+    out["straggler_ratios"] = ratios
+
+    # corruption at 10% lying nodes, every mode: screen on within 1.2x of
+    # the oracle (the liars offline from t_start), corruption-off bitwise
+    n, K, steps, seg = (8, 4, 120, 20) if smoke else (16, 4, 300, 30)
+    task, _, arrays, zs = setup(n, K, steps, 12)
+    tail = slice(-max(10, steps // 10), None)
+    kw = dict(lr=0.05, seed=2, zs=zs, segment_len=seg)
+    policy = ScreenPolicy(confirm_streak=2, cooldown_steps=2 * steps, probation_steps=8)
+    plan0 = FaultPlan(n_nodes=n, steps=steps, seed=0)
+    plain = _faulty("corruption plain", launches, task, plan0, arrays, **kw)
+    q0 = QuarantineController(n, policy, lr=0.05)
+    clean = _faulty("corruption clean screen", launches, task, plan0, arrays, quarantine=q0,
+                    **kw)
+    check(np.array_equal(clean["mean_sq_error"], plain["mean_sq_error"])
+          and q0.n_quarantines == 0, "7d: the clean screened run is not bitwise the plain one")
+    h, t_start = max(1, round(0.1 * n)), 5
+    liars, honest = list(range(h)), list(range(h, n))
+    oracle_plan = FaultPlan(n_nodes=n, steps=steps, seed=0)
+    oracle_plan.alive[t_start:, liars] = False
+    oracle = _faulty("corruption oracle", launches, task, oracle_plan, arrays,
+                     quarantine=QuarantineController(n, policy, lr=0.05), **kw)
+
+    def honest_tail(r):
+        return float(np.median(np.mean(r["sq_error_nodes"][:, honest], axis=1)[tail]))
+
+    corrupt = {}
+    for mode, (mult, xor) in {"nan": (np.nan, 0), "sign_flip": (-1.0, 0), "scale:8": (8.0, 0),
+                              "bitflip": (1.0, 1 << 25)}.items():
+        plan = FaultPlan(n_nodes=n, steps=steps, seed=0)
+        plan.corrupt_mult[t_start:, liars] = mult
+        plan.corrupt_xor[t_start:, liars] = xor
+        q = QuarantineController(n, policy, lr=0.05)
+        on = _faulty(f"corruption {mode} screen on", launches, task, plan, arrays, quarantine=q,
+                     **kw)
+        ratio = honest_tail(on) / honest_tail(oracle)
+        corrupt[mode] = {"ratio": ratio, "n_quarantines": q.n_quarantines}
+        check(ratio <= 1.2, f"7d corruption {mode}: honest tail {ratio:.3f}x > 1.2x")
+    out["corruption"] = corrupt
+
+    # the crash-recovery drill: n = 8, a crash and rejoin of node 3, one
+    # warm refresh under the faults, killed at a boundary and resumed
+    n, K, steps, seg = 8, 4, 120, 20
+    task, res0, _, zs = setup(n, K, steps, 4)
+    plan = FaultPlan.from_node_churn(NodeChurn(Pi0=task.Pi, events=((30, 3, 25),), seed=0),
+                                     steps=steps, seed=5, straggler_rate=0.3, tau_max=2,
+                                     edge_drop_rate=0.05)
+
+    def drill():
+        ref = TopologyRefresher(res0, RefreshConfig(budget=4, lam=lam), device="cuda")
+        done = {"swapped": False}
+
+        def hook(t):
+            if not done["swapped"] and t >= 39:
+                done["swapped"] = True
+                ref.refresh(task.Pi)
+                return ref.schedule_arrays()
+            return None
+
+        return ref.schedule_arrays(), hook
+
+    kw = dict(lr=0.05, seed=2, zs=zs, segment_len=seg)
+    arrays, hook = drill()
+    full = _faulty("recovery full", launches, task, plan, arrays, on_segment=hook, **kw)
+    with tempfile.TemporaryDirectory(prefix="faults_recovery_") as ckpt:
+        arrays, hook = drill()
+        head = _faulty("recovery head", launches, task, plan, arrays, on_segment=hook,
+                       checkpoint_dir=ckpt, stop_after_segments=3, **kw)
+        tail_run = _faulty("recovery tail", launches, task, plan, arrays, checkpoint_dir=ckpt,
+                           resume=True, **kw)
+    glued = np.concatenate([head["mean_sq_error"], tail_run["mean_sq_error"]])
+    bitwise = bool(np.array_equal(glued, full["mean_sq_error"])) and \
+        bool(np.array_equal(tail_run["theta"], full["theta"]))
+    out["recovery"] = {"swaps": full["swaps"], "stopped_at": head["stopped_at"],
+                       "resumed_from": tail_run["resumed_from"], "bitwise": bitwise}
+    check(full["swaps"] == [39] and head["stopped_at"] == 60 and
+          tail_run["resumed_from"] == 60, f"7d recovery: {out['recovery']}")
+    check(bitwise, "7d: the resumed run is not bitwise the uninterrupted run")
+    note("# 7d faults " + json.dumps(out))
+    return out
+
+
+def phase_robustness(mnist) -> dict:
+    """Phase 7; returns the gossip kernels' launches over its counted runs."""
+    launches = {"gossip_schedule": 0, "gossip_mix": 0}
+    t0 = time.perf_counter()
+    phase_probes(mnist, launches)
+    phase_compression(mnist, launches)
+    phase_staleness(mnist, launches)
+    phase_faults(launches)
+    note(f"# 7 launches {launches}, {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -887,7 +1279,7 @@ def expect_lm(label: str, counts: dict, flash: int, scan: int, device: torch.dev
         flash = scan = 0
     want = {"gossip_schedule": 0, "gossip_mix": 0, "flash_attention": flash, "rglru_scan": scan}
     check(counts == want, f"{label}: launches {counts}, expected {want}")
-    print(f"# {label}: launches flash_attention={flash} rglru_scan={scan}")
+    note(f"# {label}: launches flash_attention={flash} rglru_scan={scan}")
 
 
 def _median_s(fn, *args, repeats: int = 3, **kwargs) -> float:
@@ -954,7 +1346,7 @@ def phase_scoring(cfg, B: int, S: int, device: torch.device) -> tuple[dict, obje
         out["loss_from_logits"] = float(torch.cat(nll).mean())
         out["own_token_logit_mean"] = float(torch.cat(own).mean())
         out["ln_vocab"] = math.log(cfg.vocab_size)
-        print(f"# 3 loss {out['loss']:.5f} (plain {out['plain_loss']:.5f}, from the forward's "
+        note(f"# 3 loss {out['loss']:.5f} (plain {out['plain_loss']:.5f}, from the forward's "
               f"logits {out['loss_from_logits']:.5f}), ln(vocab) {out['ln_vocab']:.5f}, mean "
               f"logit of the input token {out['own_token_logit_mean']:.3f}")
         check(math.isfinite(out["loss"]), "3: non-finite loss")
@@ -991,7 +1383,7 @@ def phase_f32_depth3(cfg_full, B: int, S: int, device: torch.device) -> tuple[di
         expect_lm("3b f32 depth-3 forward, kernel path", counts, n_attn, n_rglru, device)
         plain, _, _ = registry.model_forward(model, cfg, batch, impl="plain")
         err = float((kernel - plain).abs().max())
-        print(f"# 3b f32 depth 3: max |kernel - plain| logits {err:.3e}")
+        note(f"# 3b f32 depth 3: max |kernel - plain| logits {err:.3e}")
         check(torch.allclose(kernel, plain, atol=1e-4, rtol=1e-4),
               f"3b: f32 kernel and plain logits differ by {err:.3e} (atol = rtol = 1e-4)")
         del kernel, plain
@@ -1058,7 +1450,7 @@ def phase_decode_consistency(model, cfg_f32, B: int, S: int, device: torch.devic
         last, _ = engine.decode_step(model, cfg_f32, toks[:, S - 1 :],
                                      torch.full((B, 1), S - 1, device=device), cache)
     err = float((last - full_last).abs().max())
-    print(f"# 4b f32 depth-3 decode vs full forward at {S} positions: max |diff| {err:.3e}")
+    note(f"# 4b f32 depth-3 decode vs full forward at {S} positions: max |diff| {err:.3e}")
     check(err < 2e-3, f"4b: decode and full forward differ by {err:.3e} (limit 2e-3)")
     return err
 
@@ -1077,7 +1469,7 @@ def phase_lm_cross_device() -> float:
         gpu_loss = float(registry.loss_fn(gpu_model, cfg, gpu_batch, impl="kernel")[0])
         cpu_loss = float(registry.loss_fn(cpu_model, cfg, batch, impl="plain")[0])
     err = float((gpu.cpu() - cpu).abs().max())
-    print(f"# 5 smoke config, max |cuda kernel path - cpu plain path| {err:.3e}, losses "
+    note(f"# 5 smoke config, max |cuda kernel path - cpu plain path| {err:.3e}, losses "
           f"{gpu_loss:.6f} and {cpu_loss:.6f}")
     check(torch.allclose(gpu.cpu(), cpu, atol=1e-4, rtol=1e-4),
           f"5: cuda kernel path and cpu plain path differ by {err:.3e}")
@@ -1092,13 +1484,13 @@ def phase_lm(device: torch.device) -> dict:
     n_attn, n_rglru = layer_counts(cfg)
     check((n_attn, n_rglru) == (8, 18), f"recurrentgemma-2b has {n_attn} + {n_rglru} layers")
     scoring, model = phase_scoring(cfg, 2, 4096, device)
-    print("# 3 " + json.dumps(scoring["scoring"]))
+    note("# 3 " + json.dumps(scoring["scoring"]))
     serving = phase_serving(model, cfg, 2, 2560, 32, device)
-    print("# 4 " + json.dumps(serving["serving"]))
+    note("# 4 " + json.dumps(serving["serving"]))
     del model
     torch.cuda.empty_cache()
     f32, model32 = phase_f32_depth3(cfg, 2, 4096, device)
-    print("# 3b f32 depth 3 " + json.dumps(f32))
+    note("# 3b f32 depth 3 " + json.dumps(f32))
     phase_decode_consistency(model32, model32.cfg, 2, 2560, device)
     del model32
     torch.cuda.empty_cache()
@@ -1116,10 +1508,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = card()
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -1131,10 +1520,10 @@ def main() -> int:
     for r in rows:
         if "design" in r:  # the redesigned kernels: which design ran, and its numbers
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            print(f"# 1 {r['kernel']} {r['case']} {r['dtype']}: {r['design']}; "
+            note(f"# 1 {r['kernel']} {r['case']} {r['dtype']}: {r['design']}; "
                   f"kernel_ms={r['kernel_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                   f"library_ms={lib} max_abs_err={r['max_abs_err']:.3e}")
-        print("# 1 " + json.dumps(r))
+        note("# 1 " + json.dumps(r))
     # the redesigned kernels' headlines against one library call, same run
     for name in ("gossip_schedule", "gossip_mix", "flash_attention"):
         head = next(r for r in rows if r["kernel"] == name)
@@ -1144,9 +1533,12 @@ def main() -> int:
     launches = phase_main_path(mnist)
     phase_cross_device()
     for arm, r in step_breakdown(mnist).items():
-        print(f"# 2e {arm} " + json.dumps(r))
+        note(f"# 2e {arm} " + json.dumps(r))
     online = phase_online(mnist)
     for k, v in online.items():
+        launches[k] += v
+    robust = phase_robustness(mnist)
+    for k, v in robust.items():
         launches[k] += v
     lm = phase_lm(torch.device("cuda"))
     launches.update(lm["launches"])
@@ -1168,6 +1560,8 @@ def main() -> int:
             kernels[-1]["launches_per_forward"] = lm["per_forward"][name]
         if name in online:
             kernels[-1]["launches_phase6"] = online[name]
+        if name in robust:
+            kernels[-1]["launches_phase7"] = robust[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,8 @@
     python3 scripts/kernel_ab.py scan OLD_CSRC
         Builds ``rglru_scan.cu`` from this checkout and from OLD_CSRC,
         checks the new kernel against the plain version (1e-4 float32,
-        3e-2 bfloat16) in a child process with a time limit, then times
+        3e-2 bfloat16) and two of its launches against each other
+        (bitwise) in a child process with a time limit, then times
         both at recurrentgemma-2b's (2, 4096, 2560) in float32 and
         bfloat16 and at (2, 32768, 2560) float32, old and new alternating;
         the new kernel's time includes zeroing its workspace.
@@ -401,6 +402,8 @@ def scan_check() -> None:
         if not (torch.allclose(out.float(), plain.float(), atol=tol[dtype], rtol=tol[dtype])
                 and torch.allclose(again.float(), plain.float(), atol=tol[dtype], rtol=tol[dtype])):
             raise RuntimeError("the new rglru_scan kernel disagrees with the plain version")
+        if not torch.equal(out, again):
+            raise RuntimeError("two launches of the new rglru_scan kernel differ")
 
 
 def scan(old_csrc: str) -> None:
@@ -473,13 +476,20 @@ def schedule_floor() -> None:
 
 def scan_floor() -> None:
     """Where the rglru_scan kernel's time goes: copies that skip the
-    look-back (incoming state 0; its output is wrong), or take other
+    look-back's waits and folds (incoming state read unwaited; its output
+    is wrong), that take another origin stride than 8 time tiles (1: each
+    tile waits for its predecessor's end state; 4, 16, 32), or take other
     tiles than 32 features x 256 steps (16 warps of 16 steps): 64 x 128
     and 128 x 64 (2 and 4 feature groups), 128 steps (8 warps), 512 (32
-    warps, or 16 warps of 32 steps)."""
+    warps, or 16 warps of 32 steps). Timed at (2, 4096, 2560) float32 and
+    bfloat16 and at (2, 32768, 2560) float32."""
     jobs = _cut_variants(KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu", "scan", {
-        "no_lookback": [("      for (;;) {\n        const int lv",
-                         "      for (; level < 0;) {\n        const int lv")],
+        "no_lookback": [("      const int m = k - 1 - origin;\n      if (lane <= m) {",
+                         "      const int m = 0;\n      if (lane < m) {")],
+        "origin1": [("constexpr int kOrigin = 8;", "constexpr int kOrigin = 1;")],
+        "origin4": [("constexpr int kOrigin = 8;", "constexpr int kOrigin = 4;")],
+        "origin16": [("constexpr int kOrigin = 8;", "constexpr int kOrigin = 16;")],
+        "origin32": [("constexpr int kOrigin = 8;", "constexpr int kOrigin = 32;")],
         "groups2": [("constexpr int kGroups = 1;", "constexpr int kGroups = 2;")],
         "groups4": [("constexpr int kGroups = 1;", "constexpr int kGroups = 4;")],
         "warps8": [("constexpr int kWarps = 16;", "constexpr int kWarps = 8;")],
@@ -487,7 +497,8 @@ def scan_floor() -> None:
         "steps32": [("constexpr int kSteps = 16;", "constexpr int kSteps = 32;")],
     })
     libs = nvcc_all(jobs)
-    for B, S, D, dtype in [(2, 4096, 2560, torch.float32), (2, 4096, 2560, torch.bfloat16)]:
+    for B, S, D, dtype in [(2, 4096, 2560, torch.float32), (2, 4096, 2560, torch.bfloat16),
+                           (2, 32768, 2560, torch.float32)]:
         a, b = _scan_inputs(B, S, D, dtype, 32)
         row = {"shape": [B, S, D], "dtype": str(dtype).replace("torch.", "")}
         for name, lib in libs.items():

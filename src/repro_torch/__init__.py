@@ -8,7 +8,11 @@ the hand-written CUDA kernels of ``kernels/gossip_mix``.
 The D-SGD drivers also run as captured CUDA graphs (``rollout="scan"``,
 ``train/rollout.py``) and adapt the topology online (``online/``: a
 streaming Pi estimate, a drift detector, warm STL-FW refreshes swapped
-into the running graph by value).
+into the running graph by value). The robustness layer rides the same
+graphs: EF-compressed gossip (``core/compression.py``), bounded-delay,
+straggler and corrupted gossip (``core/mixing.py``), in-rollout health
+probes (``obs/probes.py``) and the crash-resumable fault runner
+(``faults/``, ``train/checkpoints.py``).
 
 This package imports ``torch`` and never ``jax``, and nothing of
 ``repro``: the numpy and pure-Python host modules it needs are kept as
@@ -16,7 +20,8 @@ copies (``data/synthetic.py``, ``data/partition.py``, ``data/drift.py``,
 ``core/topology.py``, ``core/heterogeneity.py``, ``core/assignment.py``,
 ``core/stl_fw.py``, ``core/dcliques.py``, ``core/theory.py``,
 ``core/dynamic.py``, ``online/streaming.py``, ``obs/trace.py``,
-``obs/report.py``). Entry points run on the card unless the caller
+``obs/report.py``, and ``faults/plan.py`` / ``faults/quarantine.py``
+with their imports pointed at the port). Entry points run on the card unless the caller
 passes ``device="cpu"`` (see :func:`repro_torch.device.resolve_device`).
 """
 

@@ -8,8 +8,10 @@ The algorithm, per node i at step t:
 This is the *stacked* form of the n-node simulator: leaves carry a
 leading node axis and the mixing runs through ``mixing.mix_stacked``
 (dense W, a static ``BirkhoffSchedule`` or ``ScheduleArrays``), with
-optional heavy-ball momentum applied locally. The per-shard form of the
-reference (``dsgd_step_sharded``, one node per rank) is not ported yet.
+optional heavy-ball momentum applied locally, or through the EF-compressed
+transport (``compression.ef_mix_schedule_arrays``) when an EF memory is
+given. The per-shard form of the reference (``dsgd_step_sharded``, one
+node per rank) comes with the mesh trainer (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def dsgd_step_stacked(
     single_buffer: bool = False,
     ef: PyTree | None = None,
     compression=None,
-) -> tuple[PyTree, DSGDState]:
+) -> tuple[PyTree, DSGDState] | tuple[PyTree, DSGDState, PyTree]:
     """One D-SGD iteration on stacked per-node parameters (simulator form).
 
     Args:
@@ -79,14 +81,28 @@ def dsgd_step_stacked(
         ``ScheduleArrays``); ``transport`` ("auto" | "dense" | "schedule")
         picks between it and the dense path.
       single_buffer: on the CPU schedule transport, mix one raveled buffer.
-      ef / compression: the reference's EF-compressed gossip; not ported
-        yet.
+      ef / compression: EF-compressed gossip. With ``ef`` (a pytree of
+        per-node error-feedback memories, see ``compression.ef_init``) the
+        half-step mixes through ``compression.ef_mix_schedule_arrays``
+        under the ``compression`` wire format and the call returns a
+        triple ``(params, state, new_ef)``. Requires the schedule as
+        ``ScheduleArrays``.
     """
-    if ef is not None or compression is not None:
-        raise NotImplementedError(
-            "EF-compressed gossip (ef=/compression=) is not ported yet"
-        )
     half, new_mom = _local_update(params_stack, grads_stack, state, lr, momentum)
+    if ef is not None:
+        from .compression import ef_mix_schedule_arrays
+
+        if not isinstance(schedule, ScheduleArrays):
+            raise ValueError(
+                "EF-compressed stacked mixing needs the schedule as "
+                "ScheduleArrays (the hot-swappable data plane); a static "
+                "BirkhoffSchedule or dense-W path carries no EF memory"
+            )
+        mixed, new_ef = ef_mix_schedule_arrays(half, ef, schedule, compression,
+                                               use_kernel=use_kernel)
+        return mixed, DSGDState(step=state.step + 1, momentum=new_mom), new_ef
+    if compression is not None:
+        raise ValueError("compression without ef: pass ef=ef_init(params)")
     mixed = mix_stacked(
         half,
         W=W,

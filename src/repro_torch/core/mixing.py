@@ -14,6 +14,13 @@ step ``theta_i <- sum_j W_ij theta_j`` over a leading node axis, as
 ``mix_stacked`` picks between (1) and (2) with the closed-form
 ``preferred_transport`` cost model.
 
+The fault layer's transports ride the same data plane:
+``degrade_schedule`` repairs a schedule around crashed nodes and dropped
+edges, the ``StaleBuffer`` ring and ``mix_schedule_arrays_stale`` mix
+bounded-delay states (``StragglerPolicy`` / ``straggler_stream`` resolve
+the delays), and ``corrupt_wire`` / ``mix_schedule_arrays_screened``
+model lying senders and the receiver-side screen.
+
 On a CUDA tensor every mix runs in the hand-written kernels of
 ``repro_torch.kernels.gossip_mix``: one ``gossip_mix`` launch per leaf on
 the dense path, one ``gossip_schedule`` launch on the raveled buffer on
@@ -59,6 +66,18 @@ __all__ = [
     "schedule_from_matrix",
     "tree_leaves",
     "tree_map",
+    "degrade_schedule",
+    "StaleBuffer",
+    "stale_buffer_init",
+    "stale_push",
+    "stale_view",
+    "mix_schedule_arrays_stale",
+    "StragglerPolicy",
+    "straggler_stream",
+    "WireCorruption",
+    "corrupt_wire",
+    "ScreenStats",
+    "mix_schedule_arrays_screened",
 ]
 
 PyTree = Any
@@ -536,6 +555,7 @@ def mix_schedule_arrays(
     *,
     single_buffer: bool = False,
     use_kernel: bool = False,
+    corrupt: "WireCorruption | None" = None,
 ) -> PyTree:
     """Data-plane Birkhoff mixing: ``l_max`` gathers + AXPYs, with the
     schedule as tensors. Cost ``O(l_max n P)`` (padding atoms are not
@@ -545,7 +565,18 @@ def mix_schedule_arrays(
     into one (n, P) buffer and mixed in one ``gossip_schedule`` call.
     (The reference's ``block_p``, its Pallas tile width, has no
     counterpart: the kernel takes any P.)
+
+    ``corrupt`` (a :class:`WireCorruption`) poisons each sender's
+    outgoing payload at the wire; None is the untouched transport.
+    Self-loops move no bytes and stay clean. (The reference refuses
+    ``corrupt`` on its kernel path; here the corrupted mix runs in the
+    kernel too, on a stacked source buffer.)
     """
+    if corrupt is not None:
+        if use_kernel or single_buffer or _on_cuda(params_stack):
+            flat, spec = ravel_stack(params_stack)
+            return unravel_stack(_mix_arrays_flat_corrupt(flat, arrays, corrupt), spec)
+        return tree_map(lambda x: _mix_arrays_flat_corrupt(x, arrays, corrupt), params_stack)
     if use_kernel or _on_cuda(params_stack):
         return _mix_kernel_form(params_stack, arrays.gammas, arrays.perms)
     if single_buffer:
@@ -823,3 +854,456 @@ def mix_stacked(
             raise ValueError("mix_stacked needs W or schedule")
         W = schedule.to_matrix()
     return mix_dense(params_stack, W, use_kernel=use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# Degraded mixing: fault repair on the data-plane schedule
+# ---------------------------------------------------------------------------
+#
+# A crash or a dropped gossip edge breaks some transfers of a Birkhoff
+# atom. The repair works at the permutation level (the reference's
+# ``mixing.py:430-529``): every cycle of an atom that contains a broken
+# transfer collapses to fixed points, so each repaired atom is still a
+# permutation and W' = sum_l gammas[l] P'_l stays exactly doubly
+# stochastic with the coefficients unchanged. A dead node is a fixed
+# point of every atom: its row and column of W' are e_i. The repair
+# rewrites only the values of ``perms`` (same shapes), so a degraded
+# schedule swaps into a running graph by ``copy_``.
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _repair_perm(perm: np.ndarray, broken: np.ndarray) -> np.ndarray:
+    """Collapse every cycle of ``perm`` containing a broken position.
+
+    ``broken[i]`` marks the transfer into position ``i`` (the edge
+    ``perm[i] -> i``) as undeliverable.
+    """
+    n = perm.shape[0]
+    out = perm.copy()
+    visited = np.zeros(n, bool)
+    for start in range(n):
+        if visited[start]:
+            continue
+        cycle = []
+        i = start
+        bad = False
+        while not visited[i]:
+            visited[i] = True
+            cycle.append(i)
+            bad = bad or bool(broken[i])
+            i = perm[i]
+        if bad:
+            idx = np.asarray(cycle)
+            out[idx] = idx
+    return out
+
+
+def degrade_schedule(
+    arrays: ScheduleArrays,
+    alive_mask: np.ndarray,
+    dropped_edges=(),
+) -> ScheduleArrays:
+    """Repair a data-plane schedule on the surviving nodes/edges.
+
+    Args:
+      arrays: the fault-free schedule (``W = sum_l gammas[l] P_l``).
+      alive_mask: (n,) bool; ``False`` marks a crashed node.
+      dropped_edges: iterable of ``(src, dst)`` pairs (or an (m, 2)
+        array): node ``dst`` fails to receive node ``src``'s parameters
+        this step.
+
+    Returns a ``ScheduleArrays`` with the same gammas and shapes whose
+    atoms are repaired permutations, on the device of ``arrays``. Host
+    numpy: faults are control-plane events, like topology refreshes.
+    """
+    perms = _host(arrays.perms)
+    l_max, n = perms.shape
+    alive = np.asarray(alive_mask, dtype=bool).reshape(n)
+    drop = np.zeros((n, n), dtype=bool)
+    edges = np.asarray(list(dropped_edges) if not isinstance(dropped_edges, np.ndarray) else dropped_edges)
+    if edges.size:
+        edges = edges.reshape(-1, 2).astype(np.int64)
+        if edges.min() < 0 or edges.max() >= n:
+            raise ValueError(f"dropped edge index out of range for n={n}")
+        drop[edges[:, 0], edges[:, 1]] = True
+    rows = np.arange(n)
+    out = perms.copy()
+    for l in range(l_max):
+        p = perms[l]
+        nonself = p != rows
+        broken = nonself & (~alive | ~alive[p] | drop[p, rows])
+        if broken.any():
+            out[l] = _repair_perm(p, broken)
+    device = arrays.perms.device if isinstance(arrays.perms, torch.Tensor) else "cpu"
+    return ScheduleArrays(
+        gammas=torch.as_tensor(_host(arrays.gammas), device=device),
+        perms=torch.as_tensor(out.astype(np.int32), device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Stale-theta mixing: bounded-delay stragglers through a ring buffer
+# ---------------------------------------------------------------------------
+#
+# Node j's parameters reach the mixing step tau_j^t <= tau_max steps late:
+# ``theta_i <- sum_j W_ij theta_j^{t + 1/2 - tau_j^t}`` (source-indexed
+# delay). The ring keeps the last ``depth = tau_max + 1`` half-step
+# states. In the port the ring is a static tensor of the captured body:
+# ``stale_push`` writes into it in place, and its head is an int64
+# tensor on the ring's device, advanced and read on the device, so a
+# replayed graph pushes into and reads the slots of the step it replays.
+# With all delays 0 the view is the state just pushed, gathered bit for
+# bit, and it mixes through the same transport as fresh mixing: the
+# zero-delay trajectory is the fresh one, bitwise.
+
+
+class StaleBuffer(NamedTuple):
+    """Ring buffer of the last ``depth`` (n, P) half-step states.
+
+    ``head`` (a () int64 tensor on ``buf``'s device) indexes the most
+    recent push; slot ``(head - d) % depth`` holds the state from ``d``
+    pushes ago.
+    """
+
+    buf: torch.Tensor  # (depth, n, P)
+    head: torch.Tensor  # () int64
+
+    @property
+    def depth(self) -> int:
+        return self.buf.shape[0]
+
+
+def stale_buffer_init(flat: torch.Tensor, depth: int) -> StaleBuffer:
+    """Fill all ``depth`` slots with ``flat`` (so a delay larger than the
+    number of pushes so far reads the initial state, never garbage)."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1 (tau_max + 1), got {depth}")
+    if flat.ndim != 2:
+        raise ValueError(f"flat must be (n, P), got shape {tuple(flat.shape)}")
+    buf = flat.unsqueeze(0).repeat(depth, 1, 1)
+    return StaleBuffer(buf=buf, head=torch.zeros((), dtype=torch.long, device=flat.device))
+
+
+def stale_push(buffer: StaleBuffer, flat: torch.Tensor) -> StaleBuffer:
+    """Advance the ring and write ``flat`` into the new head slot, in
+    place (the reference returns a new buffer; here the ring is the
+    static tensor a captured body keeps). Returns ``buffer``."""
+    buffer.head.add_(1).remainder_(buffer.depth)
+    buffer.buf.index_copy_(0, buffer.head.reshape(1), flat.unsqueeze(0).to(buffer.buf.dtype))
+    return buffer
+
+
+def stale_view(buffer: StaleBuffer, delays: torch.Tensor) -> torch.Tensor:
+    """Per-source delayed read: row ``j`` is node ``j``'s state from
+    ``delays[j]`` pushes ago (``delays`` (n,) int, values in [0, depth);
+    larger values alias modulo the ring depth)."""
+    n = buffer.buf.shape[1]
+    slot = torch.remainder(buffer.head - delays.long(), buffer.depth)
+    return buffer.buf[slot, torch.arange(n, device=buffer.buf.device)]
+
+
+def _mix_flat(flat: torch.Tensor, arrays: ScheduleArrays, use_kernel: bool = False) -> torch.Tensor:
+    """One (n, P) buffer through the schedule transport: the
+    ``gossip_schedule`` kernel on a CUDA tensor (or its plain version with
+    ``use_kernel``), else the reference's XLA-path sum."""
+    if use_kernel or flat.is_cuda:
+        return gossip_ops.gossip_schedule(flat.contiguous(), arrays.gammas, arrays.perms)
+    return _mix_arrays_flat(flat, arrays)
+
+
+def mix_schedule_arrays_stale(
+    buffer: StaleBuffer,
+    arrays: ScheduleArrays,
+    delays: torch.Tensor,
+    corrupt: "WireCorruption | None" = None,
+    *,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Bounded-delay data-plane mixing on the flat (n, P) convention.
+
+    ``out = sum_l gammas[l] theta_stale[perms[l]]`` where
+    ``theta_stale`` is the delayed view of the ring. The view is gathered
+    and then mixed exactly as fresh mixing mixes (one ``gossip_schedule``
+    launch on the card), so zero delays reproduce it bitwise.
+    ``corrupt`` poisons each sender's delivered payload at the wire
+    (self-loops stay clean); None is the untouched transport.
+    """
+    view = stale_view(buffer, delays)
+    if corrupt is not None:
+        return _mix_arrays_flat_corrupt(view, arrays, corrupt)
+    return _mix_flat(view, arrays, use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# Straggler policy: wait vs deadline-based graceful degradation
+# ---------------------------------------------------------------------------
+#
+# The ring implements the mechanism of bounded-delay mixing; the policy
+# decides per node per step what a delay means. Under ``wait`` every
+# late payload is consumed at its staleness, clamped to ``tau_max``.
+# Under ``degrade`` a delay past the deadline is an outage for the step:
+# the schedule is repaired on the on-time support (the cycle collapse of
+# ``degrade_schedule``, W exactly doubly stochastic) and the late node
+# keeps its own parameters. Both are host-side decisions; what reaches
+# the captured body is a repaired schedule and an effective int32 delay
+# vector per step, copied into its static input tensors.
+
+
+@dataclasses.dataclass(frozen=True)
+class StragglerPolicy:
+    """Deadline policy for bounded-delay gossip (frozen/hashable).
+
+    Attributes:
+      mode: ``"wait"`` consumes every payload at its staleness, clamped
+        to ``tau_max``; ``"degrade"`` treats any delay past ``tau_max`` as
+        an offline node for that step and repairs the schedule on the
+        on-time support.
+      tau_max: the staleness deadline. The ring consuming this policy
+        has ``depth == ring_depth == tau_max + 1``.
+    """
+
+    mode: str = "wait"
+    tau_max: int = 1
+
+    def __post_init__(self):
+        if self.mode not in ("wait", "degrade"):
+            raise ValueError(
+                f"StragglerPolicy mode must be 'wait' or 'degrade', "
+                f"got {self.mode!r}"
+            )
+        if self.tau_max < 0:
+            raise ValueError(f"tau_max must be >= 0, got {self.tau_max}")
+
+    @property
+    def ring_depth(self) -> int:
+        return self.tau_max + 1
+
+    def apply(
+        self,
+        arrays: ScheduleArrays,
+        delays,
+        alive_mask=None,
+        dropped_edges=(),
+    ) -> tuple[ScheduleArrays, np.ndarray]:
+        """Resolve one step's raw delay vector against the deadline.
+
+        Returns ``(arrays', eff_delays)``: the (possibly repaired)
+        schedule to mix with and the effective (n,) int32 delay vector to
+        read the ring at. ``alive_mask`` / ``dropped_edges`` fold crash
+        faults into the same single repair; offline nodes always get
+        effective delay 0.
+        """
+        delays = np.asarray(delays, np.int64).reshape(-1)
+        n = delays.shape[0]
+        if arrays.n_nodes != n:
+            raise ValueError(
+                f"delays are for {n} nodes, schedule for {arrays.n_nodes}"
+            )
+        if delays.min() < 0:
+            raise ValueError("delays must be non-negative")
+        alive = (
+            np.ones(n, bool)
+            if alive_mask is None
+            else np.asarray(alive_mask, bool).reshape(n)
+        )
+        if self.mode == "wait":
+            eff = np.minimum(delays, self.tau_max)
+            mask = alive
+        else:
+            late = delays > self.tau_max
+            eff = np.where(late, 0, delays)
+            mask = alive & ~late
+        eff = np.where(alive, eff, 0).astype(np.int32)
+        edges = np.asarray(
+            dropped_edges
+            if isinstance(dropped_edges, np.ndarray)
+            else list(dropped_edges)
+        )
+        if not mask.all() or edges.size:
+            arrays = degrade_schedule(arrays, mask, edges)
+        return arrays, eff
+
+
+def straggler_stream(
+    policy: StragglerPolicy,
+    arrays: ScheduleArrays,
+    delays,
+    alive=None,
+    edges_at=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Resolve a (T, n) raw delay trace into stacked per-step inputs.
+
+    Returns ``(gammas (T, l_max) float32, perms (T, l_max, n) int32, eff
+    (T, n) int32)`` on the CPU: one schedule value and one delay vector
+    per step, what a stale rollout body reads. ``alive`` is an optional
+    (T, n) bool mask and ``edges_at(t)`` an optional per-step dropped-edge
+    callback, both folded into each step's single repair.
+    """
+    delays = np.asarray(delays, np.int64)
+    if delays.ndim != 2:
+        raise ValueError(f"delays must be (T, n), got shape {delays.shape}")
+    T = delays.shape[0]
+    g_rows, p_rows, d_rows = [], [], []
+    for t in range(T):
+        a_t = None if alive is None else np.asarray(alive)[t]
+        e_t = () if edges_at is None else edges_at(t)
+        sa, eff = policy.apply(
+            arrays, delays[t], alive_mask=a_t, dropped_edges=e_t
+        )
+        g_rows.append(_host(sa.gammas).astype(np.float32))
+        p_rows.append(_host(sa.perms).astype(np.int32))
+        d_rows.append(eff)
+    l_max, n = arrays.perms.shape
+    return (
+        torch.as_tensor(np.stack(g_rows) if T else np.zeros((0, l_max), np.float32)),
+        torch.as_tensor(np.stack(p_rows) if T else np.zeros((0, l_max, n), np.int32)),
+        torch.as_tensor(np.stack(d_rows) if T else np.zeros((0, n), np.int32)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Wire corruption and receiver-side screening
+# ---------------------------------------------------------------------------
+#
+# Nodes that lie: corruption applies to the sent payload at the wire --
+# a per-sender multiplicative factor (nan / -1 / scale k) and a
+# per-sender XOR mask on the float32 bit pattern (bitflip) -- and never
+# to the sender's own state: self-loops move no bytes. Both planes are
+# (n,) vectors, inputs of the captured body like the delays. The only
+# in-graph defense is the non-finite guard (a non-finite payload is
+# replaced by the receiver's own); the norm and deviation screens come
+# back as per-edge statistics (``ScreenStats``) for the host-side
+# quarantine controller (``faults/quarantine.py``).
+#
+# On the card these mixes run in ``gossip_schedule`` too: the clean
+# rows, the wire and (guarded) the receivers' own payloads are stacked
+# into one source buffer, and each (atom, receiver) entry picks its row
+# of it -- the self-loop, the sender's wire row or the receiver's own --
+# so every mix adds the same values in the same order as the clean
+# transport, and with nothing corrupt it is the clean mix bit for bit.
+
+
+class WireCorruption(NamedTuple):
+    """Per-sender wire corruption for one mixing step.
+
+    ``mult`` (n,) float32 multiplies the sender's outgoing payload (1.0 =
+    honest, ``nan`` poisons, ``-1`` sign-flips, ``k`` rescales); ``xor``
+    (n,) int32 is XOR-ed into the float32 bit pattern afterwards (0 =
+    honest). Senders with ``mult == 1 and xor == 0`` are delivered
+    bitwise verbatim.
+    """
+
+    mult: torch.Tensor  # (n,) float32
+    xor: torch.Tensor  # (n,) int32
+
+
+def corrupt_wire(wire: torch.Tensor, corrupt: WireCorruption) -> torch.Tensor:
+    """Apply per-sender corruption to an (n, P) float32 wire buffer:
+    honest rows are selected untouched, corrupt rows are
+    ``bits(bits(x * mult) ^ xor)`` (a reinterpretation of the float32
+    bits as int32, not a cast)."""
+    if wire.dtype != torch.float32:
+        raise ValueError(
+            f"corrupt_wire needs a float32 wire payload, got {wire.dtype}"
+        )
+    bcast = (wire.shape[0],) + (1,) * (wire.ndim - 1)
+    mult = corrupt.mult.to(torch.float32).reshape(bcast)
+    xor = corrupt.xor.to(torch.int32).reshape(bcast)
+    bent = ((wire * mult).view(torch.int32) ^ xor).view(torch.float32)
+    # nan != 1.0 is True, so the nan mode lands in the corrupt branch
+    dirty = (mult != 1.0) | (xor != 0)
+    return torch.where(dirty, bent, wire)
+
+
+def _stacked_mix(sources: list[torch.Tensor], pick: torch.Tensor,
+                 gammas: torch.Tensor) -> torch.Tensor:
+    """``out[i] = sum_l gammas[l] src[pick[l, i]]`` with ``src`` the
+    row-wise concatenation of ``sources`` (each (n, P)): one
+    ``gossip_schedule`` call on the stacked buffer, whose extra rows
+    gather themselves and are dropped."""
+    n = sources[0].shape[0]
+    src = torch.cat(sources).contiguous()
+    rest = torch.arange(n, src.shape[0], device=src.device, dtype=pick.dtype)
+    table = torch.cat([pick, rest.expand(pick.shape[0], -1)], dim=1).to(torch.int32)
+    return gossip_ops.gossip_schedule(src, gammas, table)[:n]
+
+
+def _mix_arrays_flat_corrupt(
+    flat: torch.Tensor, arrays: ScheduleArrays, corrupt: WireCorruption
+) -> torch.Tensor:
+    """The schedule mix with the non-self contributions routed through
+    the corrupted wire (a corrupt node's contribution to itself stays
+    clean)."""
+    if flat.shape[0] != arrays.n_nodes:
+        raise ValueError(
+            f"schedule arrays are for {arrays.n_nodes} nodes but the stacked "
+            f"parameters have leading axis {flat.shape[0]}"
+        )
+    shape = flat.shape
+    flat2 = flat.reshape(shape[0], -1)
+    n = shape[0]
+    wire = corrupt_wire(flat2, corrupt)
+    perms = arrays.perms.long()
+    rows = torch.arange(n, device=flat.device)
+    pick = torch.where(perms == rows, rows, perms + n)
+    return _stacked_mix([flat2, wire], pick, arrays.gammas).reshape(shape)
+
+
+class ScreenStats(NamedTuple):
+    """Per-edge screening statistics from one screened mixing step.
+
+    For atom ``l`` and receiver ``i`` the sender is ``perms[l, i]``;
+    entries with ``perms[l, i] == i`` are self-loops (no wire payload;
+    the host-side screen skips them).
+    """
+
+    sq_own: torch.Tensor  # (n,)        ||own payload||^2 per receiver
+    sq_recv: torch.Tensor  # (l_max, n)  ||received payload||^2 per edge
+    dot: torch.Tensor  # (l_max, n)  <received, own> per edge
+    finite: torch.Tensor  # (l_max, n)  all-finite flag per edge
+
+
+def mix_schedule_arrays_screened(
+    buffer: StaleBuffer,
+    arrays: ScheduleArrays,
+    delays: torch.Tensor,
+    own: torch.Tensor,
+    corrupt: WireCorruption | None = None,
+    *,
+    guard: bool = True,
+) -> tuple[torch.Tensor, ScreenStats]:
+    """Screened bounded-delay mixing: corrupted wire in, stats out.
+
+    Non-self contributions come off the (optionally corrupted) wire, and
+    every edge emits its norm, inner-product and finiteness statistics
+    for the host-side screen. ``own`` is the receiver's reference
+    payload, its fresh half-step. ``guard=True`` substitutes the
+    receiver's own payload for any non-finite contribution; with
+    ``guard=False`` the poison propagates (the screen-off baseline). With
+    no corruption and all-finite payloads the mixed output is
+    :func:`mix_schedule_arrays_stale`'s, bitwise.
+    """
+    view = stale_view(buffer, delays)
+    wire = view if corrupt is None else corrupt_wire(view, corrupt)
+    n = view.shape[0]
+    rows = torch.arange(n, device=view.device)
+    perms = arrays.perms.long()
+    self_loop = perms == rows
+    pick = torch.where(self_loop, rows, perms + n)  # into [view; wire]
+    recv = torch.cat([view, wire])[pick]  # (l_max, n, P)
+    finite = torch.isfinite(recv).all(dim=2)
+    sq_recv = torch.sum(recv * recv, dim=2)
+    dot = torch.sum(recv * own, dim=2)
+    sq_own = torch.sum(own * own, dim=1)
+    sources = [view, wire]
+    if guard:
+        pick = torch.where(finite, pick, rows + 2 * n)  # the receiver's own row
+        sources.append(own)
+    mixed = _stacked_mix(sources, pick, arrays.gammas)
+    return mixed, ScreenStats(sq_own=sq_own, sq_recv=sq_recv, dot=dot, finite=finite)

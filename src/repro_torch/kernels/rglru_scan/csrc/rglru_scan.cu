@@ -33,16 +33,23 @@
 //     composes its 16 steps from h = 0: A = prod a_t, H = the end state.
 //     Warp 0 turns the slices' (A, H) into each slice's exclusive prefix
 //     and the tile's aggregate.
-//   - warp 0 carries the tile's state: it publishes the aggregate (flag
-//     1; the first tile of a chain publishes its end state at once, flag
-//     2), then looks back: its lanes read the flags of the 32 tiles
-//     before it, wait until every tile up to the nearest one with an end
-//     state has published, fold the aggregates in between (each lane its
-//     feature) onto that end state, and so obtain the incoming state; it
+//   - warp 0 carries the tile's state, so that it never depends on
+//     timing: every kOrigin-th time tile of a chain is an origin, and a
+//     tile starts from the end state of the last origin before it. It
+//     publishes its aggregate (flag 1; the first tile of a chain
+//     publishes its end state at once, flag 2), waits until the tiles
+//     between the origin and itself have published their aggregates and
+//     the origin its end state (lane c watches tile k - 1 - c), folds
+//     those aggregates, nearest first (each lane its feature), onto the
+//     origin's end state, and so obtains the incoming state; an origin
 //     publishes its own end state (flag 2). Values are written, fenced,
 //     then flagged with a release store; readers acquire the flag and
-//     read the values from L2 (ld.cg). How many aggregates a tile folds
-//     depends on timing, so two launches agree to rounding, not bitwise.
+//     read the values from L2 (ld.cg). Which values a tile folds, and in
+//     which order, is fixed by its index alone, so two launches on the
+//     same inputs give the same bits. The origins form a chain one L2
+//     round trip a hop, ceil(S / (kTile kOrigin)) hops; the tiles
+//     between them wait only on aggregates, which are published as soon
+//     as a tile's own pass ends.
 //   - every thread rescans its 16 steps from the shared copy, starting
 //     from its slice's incoming state, and writes h.
 // Tile shape, from scripts/kernel_ab.py scan-floor on an H100: 256 steps
@@ -69,6 +76,8 @@ constexpr int kTile = kSlices * kSteps;    // time steps of a tile
 constexpr int kThreads = kLanes * kWarps;
 constexpr int kValues = 3 * kLanes;        // a group's workspace floats: A, H, end state
 constexpr int kPad = 16;                   // a staged step's room for a shift
+constexpr int kOrigin = 8;                 // time tiles between two origins, <= kLanes
+static_assert(kOrigin >= 1 && kOrigin <= kLanes, "a tile folds at most kLanes - 1 aggregates");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -240,40 +249,29 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restric
       __stcg(mine + lane, eA);
       __stcg(mine + kLanes + lane, eH);
       publish(flags + me, 1, lane);
-      // look back over windows of 32 tiles: lane c watches time tile k - 1 - c
-      float gA = 1.f, gH = 0.f;  // the tiles folded so far, composed
-      int level = k - 1;
-      for (;;) {
-        const int lv = level - lane;
-        const int fl = lv >= 0 ? load_acquire(flags + (lv * chains + chain) * kGroups + g) : 2;
-        const unsigned incl = __ballot_sync(0xffffffffu, fl == 2);
-        const unsigned none = __ballot_sync(0xffffffffu, fl == 0);
-        const int m = incl ? __ffs(incl) - 1 : kLanes;  // lanes < m aggregates, m an end state
-        const unsigned needed = m == kLanes ? 0xffffffffu : (2u << m) - 1u;
-        if (none & needed) {  // a tile up to the end state has published nothing yet
-          __nanosleep(64);
-          continue;
-        }
-        __syncwarp();
-        __threadfence();
-#pragma unroll 4
-        for (int c = 0; c < m; ++c) {
-          const float* u =
-              values + ((int64_t)((level - c) * chains + chain) * kGroups + g) * kValues;
-          const float jA = __ldcg(u + lane), jH = __ldcg(u + kLanes + lane);
-          gH = fmaf(gA, jH, gH);
-          gA *= jA;
-        }
-        if (m < kLanes) {
-          const float* u =
-              values + ((int64_t)((level - m) * chains + chain) * kGroups + g) * kValues;
-          h_in = fmaf(gA, __ldcg(u + 2 * kLanes + lane), gH);
-          break;
-        }
-        level -= kLanes;
+      // the origin, and the aggregates of tiles k - 1 .. origin + 1 between
+      const int origin = (k - 1) / kOrigin * kOrigin;
+      const int m = k - 1 - origin;
+      if (lane <= m) {  // lane c watches time tile k - 1 - c; lane m the origin's end state
+        const int* fp = flags + ((k - 1 - lane) * chains + chain) * kGroups + g;
+        const int want = lane == m ? 2 : 1;
+        while (load_acquire(fp) < want) __nanosleep(64);
       }
-      __stcg(mine + 2 * kLanes + lane, fmaf(eA, h_in, eH));
-      publish(flags + me, 2, lane);
+      __syncwarp();
+      __threadfence();
+      float gA = 1.f, gH = 0.f;  // the tiles folded so far, composed
+      for (int c = 0; c < m; ++c) {
+        const float* u = values + ((int64_t)((k - 1 - c) * chains + chain) * kGroups + g) * kValues;
+        const float jA = __ldcg(u + lane), jH = __ldcg(u + kLanes + lane);
+        gH = fmaf(gA, jH, gH);
+        gA *= jA;
+      }
+      const float* u = values + ((int64_t)(origin * chains + chain) * kGroups + g) * kValues;
+      h_in = fmaf(gA, __ldcg(u + 2 * kLanes + lane), gH);
+      if (k % kOrigin == 0) {
+        __stcg(mine + 2 * kLanes + lane, fmaf(eA, h_in, eH));
+        publish(flags + me, 2, lane);
+      }
     }
 #pragma unroll
     for (int c = 0; c < kSlices; ++c) s_in[c][f] = fmaf(s_A[c][f], h_in, s_H[c][f]);

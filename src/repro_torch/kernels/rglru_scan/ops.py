@@ -56,8 +56,8 @@ def _workspace(B: int, S: int, D: int) -> tuple[int, int, int]:
 
 def kernel_design() -> str:
     """The CUDA kernel's design, with its tile."""
-    return (f"one-pass chained scan, decoupled look-back, tiles of 32 features x "
-            f"{_workspace(1, 1, 1)[2]} steps")
+    return (f"one-pass chained scan, deterministic look-back to an origin every 8 tiles, "
+            f"tiles of 32 features x {_workspace(1, 1, 1)[2]} steps")
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

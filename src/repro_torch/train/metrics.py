@@ -4,7 +4,8 @@ The quantities the paper plots: per-node error/accuracy (min/mean/max across
 nodes -- the dashed lines of Fig. 1), consensus distance
 ``||Theta - Theta_bar||_F^2`` (the quantity controlled by Lemma 3), and
 standard loss aggregation; and the modeled communication meter
-(``mix_bytes_per_step``, ``CommMeter``) the online drivers return.
+(``mix_bytes_per_step``, ``CommMeter``, ``staleness_transfer_fracs``) the
+online drivers return.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.compression import make_compressor
 from repro_torch.core.mixing import tree_leaves
 
 PyTree = Any
@@ -25,8 +27,42 @@ __all__ = [
     "node_spread",
     "MetricLogger",
     "mix_bytes_per_step",
+    "staleness_transfer_fracs",
     "CommMeter",
 ]
+
+
+def staleness_transfer_fracs(
+    delays, tau_max: int, mode: str = "wait"
+) -> tuple[float, float, float]:
+    """Closed-form fate split of one step's n(n-1) directed transfers
+    under a raw per-source delay vector: ``(on_time, deferred,
+    dropped)``, summing to 1.
+
+    The all-gather model: every node sends to every other node, and a
+    source with delay d > 0 delivers all its transfers late. Under
+    ``"wait"`` nothing is dropped -- late payloads are consumed stale
+    (``deferred``). Under ``"degrade"`` a source past the ``tau_max``
+    deadline is cut for the step (the repaired schedule self-loops it,
+    both directions), so its transfers move from deferred to dropped and
+    the delivered support shrinks to the on-time nodes.
+    """
+    if mode not in ("wait", "degrade"):
+        raise ValueError(f"mode must be 'wait' or 'degrade', got {mode!r}")
+    d = np.asarray(delays).reshape(-1)
+    n = d.shape[0]
+    if n < 2:
+        return 1.0, 0.0, 0.0
+    on = d <= tau_max if mode == "degrade" else np.ones(n, bool)
+    n_on = int(on.sum())
+    total = n * (n - 1)
+    delivered = n_on * (n_on - 1)
+    deferred = int(((d > 0) & on).sum()) * (n_on - 1)
+    return (
+        (delivered - deferred) / total,
+        deferred / total,
+        (total - delivered) / total,
+    )
 
 
 def mix_bytes_per_step(
@@ -70,20 +106,26 @@ def mix_bytes_per_step(
     full-rate model here and meters per-step delivery honestly through
     :meth:`CommMeter.tick`'s ``delivered_frac``.
 
-    ``compression`` (the reference's compressed wire layouts) is not
-    ported yet: anything but None raises ``NotImplementedError``
-    (ROADMAP queue 1 item 9, ``core/compression.py``).
+    ``compression`` (a ``repro_torch.core.compression.Compressor``, a
+    spec string like ``"bf16"`` / ``"topk:0.25"``, or None) swaps the
+    per-payload wire layout: the element count and per-element width
+    above become the compressor's ``wire_layout(p_total, itemsize)`` --
+    bf16 ships the same elements at 2 bytes (exactly half the float32
+    model, including under fractional ``alive_frac``), top-k ships
+    ``k = max(1, int(P * frac))`` value+index pairs at ``itemsize + 4``
+    bytes each. ``dense`` moves nothing, and ``allreduce`` reduces
+    in-network (no per-edge payload a CHOCO wire could compress), so a
+    non-identity compressor there is refused.
     """
-    if compression is not None:
-        raise NotImplementedError(
-            "mix_bytes_per_step(compression=...): the compressed wire "
-            "(core/compression.py) is not ported yet (ROADMAP queue 1 item 9)"
-        )
+    comp = make_compressor(compression)
     if n_nodes < 1 or p_total < 0:
         raise ValueError(f"bad n_nodes={n_nodes} / p_total={p_total}")
     if not 0.0 <= alive_frac <= 1.0:
         raise ValueError(f"alive_frac must be in [0, 1], got {alive_frac}")
-    wire_elems, wire_itemsize = p_total, itemsize
+    if comp is None or comp.is_identity or p_total == 0:
+        wire_elems, wire_itemsize = p_total, itemsize
+    else:
+        wire_elems, wire_itemsize = comp.wire_layout(p_total, itemsize)
     if transport == "dense":
         return 0
     if transport == "allgather":
@@ -95,6 +137,12 @@ def mix_bytes_per_step(
             raise ValueError(f"transport={transport!r} needs n_comm_atoms")
         return int(alive_frac * n_comm_atoms * wire_elems) * wire_itemsize
     if transport == "allreduce":
+        if comp is not None and not comp.is_identity:
+            raise ValueError(
+                "allreduce has no compressed wire: the ring reduces "
+                "in-network, so a CHOCO compressor does not apply -- use a "
+                "gossip transport (allgather/ppermute/pool) for compression"
+            )
         n_alive = max(alive_frac * n_nodes, 1.0)
         return int(2 * (n_alive - 1) / n_alive * p_total) * itemsize
     raise ValueError(f"unknown transport {transport!r}")

@@ -34,6 +34,22 @@ rollout is a CUDA graph:
   a swap changes values and recaptures nothing; a schedule of another
   ``l_max`` gets buffers of its own, hence new bodies and, on their
   second run, one more capture -- as the reference retraces.
+* The rest of the state a run carries from body to body is static too,
+  registered with :meth:`SegmentRunner.carry` under a name: the
+  parameters, the EF memory of compressed gossip, the bounded-delay
+  ring and its head (an int64 tensor on the device, advanced by the
+  body, so a replay pushes into and reads the slots of the step it
+  replays), the ``pi_hat`` the tau_bar probe reads. A new value reaches
+  them by ``copy_`` (:meth:`SegmentRunner.refresh`, a checkpoint's
+  :meth:`SegmentRunner.load_state_dict`), never by a rebind. Per-step
+  streams -- observations, minibatch indices, the delays and the
+  repaired ``(k, L)`` gammas / ``(k, L, n)`` perms of bounded-delay
+  gossip, the wire-corruption planes -- are a body's static inputs,
+  filled before each run; its per-step outputs (the trace, probe values,
+  screen statistics) are static outputs, one tensor or a tuple of them.
+  So a changed delay stream, a ``pi_hat`` refresh, a quarantine (a
+  repaired schedule stream) or a restored checkpoint are all values:
+  none adds a capture.
 
 Two things a graph freezes at capture are handled here. Kernel launch
 counts: a wrapper adds one to its count when the capture records its
@@ -77,11 +93,14 @@ def chunks(length: int) -> list[int]:
     return [MAX_GRAPH_STEPS] * full + ([rest] if rest else [])
 
 
+Outputs = torch.Tensor | tuple[torch.Tensor, ...]
+
+
 @dataclasses.dataclass
 class _Body:
     fn: Callable[[], None]
-    inputs: torch.Tensor | None
-    outputs: torch.Tensor
+    inputs: object
+    outputs: Outputs
     runs: int = 0
     graph: "torch.cuda.CUDAGraph | None" = None
     launches: list[dict[str, int]] = dataclasses.field(default_factory=list)
@@ -119,6 +138,7 @@ class SegmentRunner:
         self._bodies: dict[Hashable, _Body] = {}
         self._shapes: set = set()
         self._schedules: dict[int, ScheduleArrays] = {}
+        self._carry: dict[str, torch.Tensor] = {}
         # warm-ups and captures run on this side stream
         self._stream = torch.cuda.Stream(device) if captured and device.type == "cuda" else None
 
@@ -143,6 +163,35 @@ class SegmentRunner:
         static.perms.copy_(new.perms)
         return static
 
+    # -- static carry --------------------------------------------------------
+
+    def carry(self, name: str, init: torch.Tensor) -> torch.Tensor:
+        """The static tensor registered as ``name``: made once, on the run's
+        device, from ``init`` (copied); a later call returns the same
+        tensor. Bodies read and write it in place."""
+        if name not in self._carry:
+            self._carry[name] = init.detach().to(self.device).clone()
+        return self._carry[name]
+
+    def refresh(self, name: str, value) -> None:
+        """Copy a new value into the static tensor ``name`` (``copy_``: the
+        captured bodies see it at their next replay)."""
+        self._carry[name].copy_(torch.as_tensor(value).to(self._carry[name].dtype))
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The registered static tensors, by name (the live tensors)."""
+        return dict(self._carry)
+
+    def load_state_dict(self, values: dict) -> None:
+        """Copy each ``name -> value`` into its registered static tensor."""
+        for name, value in values.items():
+            if tuple(self._carry[name].shape) != tuple(value.shape):
+                raise ValueError(
+                    f"{self.name}: {name} is {tuple(self._carry[name].shape)}, the "
+                    f"restored value {tuple(value.shape)}"
+                )
+            self.refresh(name, value)
+
     # -- bodies ------------------------------------------------------------
 
     def run_segment(
@@ -150,10 +199,9 @@ class SegmentRunner:
         t0: int,
         length: int,
         schedule,
-        make_body: Callable[[int, object], tuple[Callable[[], None], torch.Tensor | None,
-                                                 torch.Tensor]],
-        fill: Callable[[torch.Tensor | None, int, int], None],
-    ) -> torch.Tensor:
+        make_body: Callable[[int, object], tuple[Callable[[], None], object, Outputs]],
+        fill: Callable[[object, int, int], None],
+    ) -> Outputs:
         """Run steps ``t0 .. t0 + length - 1`` as bodies of at most
         ``MAX_GRAPH_STEPS`` steps.
 
@@ -163,7 +211,8 @@ class SegmentRunner:
         ``(fn, inputs, outputs)`` for a body of ``k`` steps; it is called
         once per ``(k, l_max)``. ``fill(inputs, t, k)`` writes the inputs
         of steps ``t .. t + k - 1`` before each run. Returns the bodies'
-        per-step outputs, in order, on the device.
+        per-step outputs, in order, on the device: one tensor, or a tuple
+        of tensors where the bodies' outputs are a tuple.
         """
         shape = schedule.l_max if isinstance(schedule, ScheduleArrays) else None
         outs, t = [], t0
@@ -174,8 +223,14 @@ class SegmentRunner:
             body = self._bodies[key]
             fill(body.inputs, t, k)
             self._run(key, shape)
-            outs.append(body.outputs.clone())  # the next run of the body overwrites them
+            # the next run of the body overwrites them
+            if isinstance(body.outputs, torch.Tensor):
+                outs.append(body.outputs.clone())
+            else:
+                outs.append(tuple(o.clone() for o in body.outputs))
             t += k
+        if outs and not isinstance(outs[0], torch.Tensor):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
         return torch.cat(outs)
 
     def _run(self, key: Hashable, shape: Hashable) -> None:

@@ -28,10 +28,29 @@ the graph replays give the loop's results bit for bit.
 Online topology adaptation: with ``schedule`` as a ``ScheduleArrays``,
 ``on_segment(t)`` may hand back a new ``ScheduleArrays`` at a segment
 boundary; it is copied into the static schedule tensors the bodies read,
-so a swap recaptures nothing (``n_traces`` counts the captures). The
-arguments of later slices -- ``compression``, ``staleness`` / ``delays``,
-``probes`` / ``pi_hat``, and a ``PoolSwap`` from the hook -- raise
-``NotImplementedError``.
+so a swap recaptures nothing (``n_traces`` counts the captures).
+
+The robustness layer rides the same bodies, each as static state of the
+captured rollout (``train/rollout.py``):
+
+* ``compression`` -- EF-compressed gossip (``core/compression.py``): the
+  EF memory is a static tensor; the identity wire builds the
+  uncompressed body, bitwise the uncompressed run.
+* ``staleness`` / ``delays`` -- bounded-delay gossip: the half-steps are
+  raveled into one (n, P) buffer (rows padded to the kernel's
+  alignment) and pushed into a static ring of ``tau_max + 1`` states;
+  the policy-resolved per-step schedules and delays of each segment are
+  body inputs. All-zero delays give the fresh run, bitwise.
+* ``probes`` / ``pi_hat`` -- health probes (``obs/probes.py``) as extra
+  per-step outputs; ``pi_hat`` is a static tensor refreshed by ``copy_``
+  at each boundary from the hook's live estimator. A probes-on run is
+  bitwise the probes-off run.
+
+Arguments are checked as the reference checks them, with one
+difference: the port's ``rollout="loop"`` runs the same bodies eagerly,
+so it takes ``staleness`` and ``probes`` too (the reference needs its
+scan for them). A ``PoolSwap`` from the hook raises
+``NotImplementedError`` (the mesh trainer, ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -43,13 +62,33 @@ import torch
 from torch import nn
 
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.compression import ef_init, ef_stale_mix_flat, make_compressor
 from repro_torch.core.dsgd import dsgd_init, dsgd_step_stacked
-from repro_torch.core.mixing import BirkhoffSchedule, PoolSwap, ScheduleArrays
+from repro_torch.core.mixing import (
+    KERNEL_ROW_ALIGN,
+    BirkhoffSchedule,
+    PoolSwap,
+    ScheduleArrays,
+    StaleBuffer,
+    StragglerPolicy,
+    mix_schedule_arrays_stale,
+    ravel_stack,
+    stale_push,
+    straggler_stream,
+    unravel_stack,
+)
 from repro_torch.data.synthetic import MeanEstimationTask
 from repro_torch.device import resolve_device
+from repro_torch.obs.probes import HealthProbes, compute_probes
 from repro_torch.obs.trace import Tracer
 
-from .metrics import CommMeter, MetricLogger, consensus_distance, mix_bytes_per_step
+from .metrics import (
+    CommMeter,
+    MetricLogger,
+    consensus_distance,
+    mix_bytes_per_step,
+    staleness_transfer_fracs,
+)
 from .rollout import SegmentRunner
 
 __all__ = [
@@ -63,33 +102,128 @@ __all__ = [
 # run); callers opt in by passing a real one
 _NULL_TRACER = Tracer(enabled=False)
 
-# the later slices' arguments, and the ROADMAP queue-1 item that ports each
-_LATER = {
-    "compression": "EF-compressed gossip, item 9",
-    "staleness": "bounded-delay gossip, item 10",
-    "delays": "bounded-delay gossip, item 10",
-    "probes": "health probes, item 8",
-    "pi_hat": "health probes, item 8",
-}
 
-
-def _check_rollout_and_later_args(rollout: str, **later) -> None:
+def _check_rollout(rollout: str) -> None:
     if rollout not in ("scan", "loop"):
         raise ValueError(f"unknown rollout {rollout!r}")
-    given = [name for name, value in later.items() if value is not None]
-    if given:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(f"{name} ({_LATER[name]})" for name in given)
+
+
+def _check_staleness_args(staleness, delays, steps, n, online):
+    """Validate and normalize the (staleness, delays) pair of both
+    drivers. Returns the (steps, n) int32 raw-delay trace, or None when
+    no policy is given."""
+    if staleness is None:
+        if delays is not None:
+            raise ValueError(
+                "delays without staleness: pass a StragglerPolicy to say "
+                "how the delay trace should be consumed (wait vs degrade)"
+            )
+        return None
+    if not isinstance(staleness, StragglerPolicy):
+        raise TypeError(
+            f"staleness must be a StragglerPolicy, got {type(staleness).__name__}"
         )
+    if not online:
+        raise ValueError(
+            "staleness rides the retrace-free data plane: pass the "
+            "schedule as ScheduleArrays (a static schedule cannot carry "
+            "the ring buffer / per-step delay data)"
+        )
+    if delays is None:
+        delays = np.zeros((steps, n), np.int32)
+    delays = np.asarray(delays)
+    if delays.shape != (steps, n):
+        raise ValueError(
+            f"delays must be (steps={steps}, n={n}), got {delays.shape}"
+        )
+    if delays.size and delays.min() < 0:
+        raise ValueError("delays must be non-negative")
+    return delays.astype(np.int32)
 
 
-def _online_comm_meter(n_nodes: int, params_per_node: int) -> CommMeter:
+def _check_probe_args(probes, pi_hat, n, online, staleness, device):
+    """Validate the (probes, pi_hat) pair of both drivers; returns pi_hat
+    as a float32 tensor on ``device`` (or None)."""
+    if probes is None:
+        if pi_hat is not None:
+            raise ValueError(
+                "pi_hat without probes: pass HealthProbes(tau_bar=True) to "
+                "say what the estimate is for"
+            )
+        return None
+    if not isinstance(probes, HealthProbes):
+        raise TypeError(
+            f"probes must be a HealthProbes, got {type(probes).__name__}"
+        )
+    if not online:
+        raise ValueError(
+            "health probes ride the retrace-free data plane: pass the "
+            "schedule as ScheduleArrays (probe values are per-step outputs "
+            "of the captured rollout)"
+        )
+    if staleness is not None:
+        raise ValueError(
+            "health probes under bounded-delay gossip are not supported "
+            "yet: run probes on the fresh online path, or sample at eval "
+            "boundaries under staleness"
+        )
+    if probes.tau_bar:
+        if pi_hat is None:
+            raise ValueError(
+                "HealthProbes(tau_bar=True) needs pi_hat: the live (n, K) "
+                "label-histogram estimate the Prop. 2 proxy is evaluated at"
+            )
+        pi_hat = torch.as_tensor(np.asarray(pi_hat), dtype=torch.float32, device=device)
+        if pi_hat.ndim != 2 or pi_hat.shape[0] != n:
+            raise ValueError(
+                f"pi_hat must be (n={n}, K), got {tuple(pi_hat.shape)}"
+            )
+        return pi_hat
+    if pi_hat is not None:
+        raise ValueError("pi_hat given but probes.tau_bar is off")
+    return None
+
+
+def _check_compression(compression, online):
+    """The wire format (None for no compression); compression needs the
+    ``ScheduleArrays`` data plane."""
+    compressor = make_compressor(compression)
+    if compressor is not None and not online:
+        raise ValueError(
+            "compression rides the retrace-free data plane: pass the "
+            "schedule as ScheduleArrays (static schedules have no EF carry)"
+        )
+    return compressor
+
+
+def _live_pi_hat(on_segment):
+    """The hook's live Pi estimate (an ``OnlineTopologyController``
+    exposes ``.estimator.Pi_hat``), or None for hooks without one."""
+    est = getattr(on_segment, "estimator", None)
+    return getattr(est, "Pi_hat", None) if est is not None else None
+
+
+def _staleness_meter_fracs(delays, staleness) -> tuple[float, float]:
+    """Mean (delivered_frac, deferred_frac) over a (k, n) delay window --
+    the :meth:`CommMeter.tick` pair, from the closed-form model."""
+    fates = [
+        staleness_transfer_fracs(row, staleness.tau_max, staleness.mode)
+        for row in np.asarray(delays)
+    ]
+    on_time = float(np.mean([f[0] for f in fates])) if fates else 1.0
+    deferred = float(np.mean([f[1] for f in fates])) if fates else 0.0
+    return on_time + deferred, deferred
+
+
+def _online_comm_meter(n_nodes: int, params_per_node: int, compression=None) -> CommMeter:
     """Modeled comm meter for a data-plane (hot-swappable) schedule: the
     bytes the same run would move on a device mesh, where the
     ``ScheduleArrays`` transport is the all-gather, ``(n-1) P`` received
-    per node per step (the reference's ``_online_comm_meter``)."""
+    per node per step (the reference's ``_online_comm_meter``);
+    ``compression`` swaps in the compressed wire layout."""
     return CommMeter(per_step_bytes=mix_bytes_per_step(
         "allgather", n_nodes=n_nodes, p_total=params_per_node,
+        compression=compression,
     ))
 
 
@@ -119,6 +253,87 @@ def _device_mixing(W, schedule, transport: str, device: torch.device):
     return Wt
 
 
+class _StaleStreams:
+    """Bounded-delay inputs of a run: the ring (static, in the runner) and
+    each segment's policy-resolved ``(gammas, perms, delays)``, resolved
+    on the host from the current base schedule and sliced into a body's
+    static inputs by :meth:`fill`."""
+
+    def __init__(self, runner: SegmentRunner, flat0: torch.Tensor, staleness: StragglerPolicy,
+                 delays: np.ndarray, base: ScheduleArrays):
+        depth = staleness.ring_depth
+        self.buffer = StaleBuffer(
+            buf=runner.carry("ring", flat0.unsqueeze(0).repeat(depth, 1, 1)),
+            head=runner.carry("head", torch.zeros((), dtype=torch.long)),
+        )
+        self.staleness = staleness
+        self.delays = delays
+        self.rebase(base)
+        self.t0 = 0
+        self.segment = None
+
+    def rebase(self, base: ScheduleArrays) -> None:
+        """Resolve later segments from ``base`` (kept on the host, where the
+        policy repairs it)."""
+        self.base = ScheduleArrays(gammas=base.gammas.detach().cpu().float(),
+                                   perms=base.perms.detach().cpu().int())
+
+    def resolve(self, t0: int, k: int) -> None:
+        """Resolve steps ``t0 .. t0 + k - 1`` against the current base."""
+        self.t0 = t0
+        self.segment = straggler_stream(self.staleness, self.base, self.delays[t0 : t0 + k])
+
+    def inputs(self, k: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        l_max, n = self.base.perms.shape
+        return (torch.empty((k, l_max), dtype=torch.float32, device=device),
+                torch.empty((k, l_max, n), dtype=torch.int32, device=device),
+                torch.empty((k, n), dtype=torch.int32, device=device))
+
+    def fill(self, inputs, t: int, k: int) -> None:
+        for dst, src in zip(inputs, self.segment):
+            dst.copy_(src[t - self.t0 : t - self.t0 + k])
+
+    def tick(self, meter: CommMeter, t0: int, k: int) -> None:
+        delivered, deferred = _staleness_meter_fracs(self.delays[t0 : t0 + k], self.staleness)
+        meter.tick(k, delivered_frac=delivered, deferred_frac=deferred)
+
+
+def _stale_mix(flat, ef, streams: _StaleStreams, inputs, j: int, compressor, payload: int,
+               use_kernel: bool):
+    """One bounded-delay mix of the raveled half-step ``flat`` at body step
+    ``j``; returns ``(mixed, new_ef)``."""
+    g_in, p_in, d_in = inputs
+    sa = ScheduleArrays(gammas=g_in[j], perms=p_in[j])
+    if ef is not None:
+        mixed, ef, _ = ef_stale_mix_flat(flat, ef, streams.buffer, sa, d_in[j], compressor,
+                                         payload=payload, use_kernel=use_kernel)
+        return mixed, ef
+    stale_push(streams.buffer, flat)
+    return mix_schedule_arrays_stale(streams.buffer, sa, d_in[j], use_kernel=use_kernel), None
+
+
+def _segment_hook(on_segment, t: int, runner: SegmentRunner, swaps: list, stale, ph_live: bool):
+    """The hook after a segment ending at step ``t``: a returned schedule is
+    copied into the runner's static schedule tensors (or, under staleness,
+    becomes the base the next segments are resolved from); a live
+    ``pi_hat`` is refreshed by ``copy_``. Returns the schedule the next
+    bodies mix with, or None when unchanged."""
+    update = on_segment(t)
+    new = None
+    if update is not None:
+        update = _check_update(update)
+        swaps.append(t)
+        if stale is not None:
+            stale.rebase(update)
+        else:
+            new = runner.swap(update)
+    if ph_live:
+        live = _live_pi_hat(on_segment)
+        if live is not None:
+            runner.refresh("pi_hat", np.asarray(live, np.float32))
+    return new
+
+
 # ---------------------------------------------------------------------------
 # Section 6.1: decentralized mean estimation
 # ---------------------------------------------------------------------------
@@ -138,9 +353,9 @@ def run_mean_estimation(
     on_segment=None,
     segment_len: int | None = None,
     compression=None,
-    staleness=None,
+    staleness: StragglerPolicy | None = None,
     delays: np.ndarray | None = None,
-    probes=None,
+    probes: HealthProbes | None = None,
     pi_hat: np.ndarray | None = None,
     tracer: Tracer | None = None,
     retrace_guard=None,
@@ -165,15 +380,25 @@ def run_mean_estimation(
     value. The result then also carries ``"n_traces"`` (captures of the
     rollout -- one per distinct body that ran more than once -- or, for
     the loop, one per distinct schedule shape), ``"swaps"`` (the steps
-    where a swap landed), ``"comm"`` (the modeled all-gather bytes) and
-    ``"compression"`` (None). ``tracer`` records a ``sim.segment`` span
-    per segment; ``retrace_guard`` counts captures under
+    where a swap landed), ``"comm"`` (the modeled all-gather bytes,
+    compressed and staleness-split as the run is) and ``"compression"``
+    (the wire's label, or None).
+
+    ``compression`` (a ``Compressor`` or a spec string like ``"bf16"`` /
+    ``"topk:0.25"``) mixes through the EF-compressed transport, with the
+    EF memory a static tensor of the bodies. ``staleness`` (a
+    ``StragglerPolicy``) turns on bounded-delay gossip on the raw
+    (steps, n) ``delays`` trace (default all zero): each segment's steps
+    are resolved by the policy against the current base schedule (a hook
+    swap rebases it), and the half-steps mix through the ring; the
+    result gains ``"staleness"``. ``probes`` (a ``HealthProbes``) adds
+    ``"health"``, one (steps,) series per probe; with ``tau_bar`` it reads
+    ``pi_hat``, re-snapshotted from an ``OnlineTopologyController`` hook's
+    estimator at every boundary. ``tracer`` records a ``sim.segment``
+    span per segment; ``retrace_guard`` counts captures under
     ``"mean_estimation.roll"``.
     """
-    _check_rollout_and_later_args(
-        rollout, compression=compression, staleness=staleness, delays=delays,
-        probes=probes, pi_hat=pi_hat,
-    )
+    _check_rollout(rollout)
     device = resolve_device(device)
     n = task.n_nodes
     if zs is None:
@@ -191,60 +416,105 @@ def run_mean_estimation(
             "on_segment hot-swapping needs the schedule as ScheduleArrays "
             "(a static BirkhoffSchedule is baked into the rollout)"
         )
+    compressor = _check_compression(compression, online)
+    delays_arr = _check_staleness_args(staleness, delays, steps, n, online)
+    pi_hat_t = _check_probe_args(probes, pi_hat, n, online, staleness, device)
     # as in the reference, only the online run is segmented
     seg = int(segment_len) if online and segment_len is not None else max(steps, 1)
     if seg < 1:
         raise ValueError(f"segment_len must be >= 1, got {segment_len}")
     tracer = _NULL_TRACER if tracer is None else tracer
 
-    theta = torch.zeros((n, 1), device=device)  # static: every body continues it
-    state = dsgd_init(theta)
-    Wt = _device_mixing(W, schedule, transport, device)
-    theta_star = torch.tensor(task.theta_star, dtype=torch.float32, device=device)
     runner = SegmentRunner("mean_estimation.roll", device, captured=rollout == "scan",
                            retrace_guard=retrace_guard)
-    sched = runner.swap(schedule) if online else schedule
+    # static: every body continues these
+    theta = runner.carry("theta", torch.zeros((n, 1)))
+    state = dsgd_init(theta)
+    use_ef = compressor is not None and not compressor.routes_to_plain
+    Wt = _device_mixing(W, schedule, transport, device)
+    theta_star = torch.tensor(task.theta_star, dtype=torch.float32, device=device)
+    stale = None
+    if staleness is not None:
+        flat0, _ = ravel_stack(theta, pad_to=KERNEL_ROW_ALIGN)
+        stale = _StaleStreams(runner, flat0, staleness, delays_arr, schedule)
+        ef = runner.carry("ef", torch.zeros_like(flat0)) if use_ef else None
+        sched = schedule
+    else:
+        ef = runner.carry("ef", ef_init(theta)) if use_ef else None
+        sched = runner.swap(schedule) if online else schedule
+    ph = runner.carry("pi_hat", pi_hat_t) if pi_hat_t is not None else None
+    names = probes.names() if probes is not None else ()
 
     def make_body(k: int, sched):
         z_in = torch.empty((k,) + tuple(zs_t.shape[1:]), device=device)
+        inputs = (z_in,) + (stale.inputs(k, device) if stale is not None else ())
         errs = torch.empty((k, 3), device=device)
+        health = torch.empty((k, len(names)), device=device)
 
         def body() -> None:
-            th = theta
+            th, e = theta, ef
             for j in range(k):
                 grads = 2.0 * (th - z_in[j].mean(dim=1, keepdim=True))
-                th, _ = dsgd_step_stacked(
-                    th, grads, state, Wt, lr,
-                    use_kernel=use_kernel, schedule=sched, transport=transport,
-                )
+                if stale is not None:
+                    half = th - lr * grads
+                    flat, _ = ravel_stack(half, pad_to=KERNEL_ROW_ALIGN)
+                    mixed, e = _stale_mix(flat, e, stale, inputs[1:], j, compressor, 1,
+                                          use_kernel)
+                    th = mixed[:, :1]
+                elif e is not None:
+                    th, _, e = dsgd_step_stacked(
+                        th, grads, state, Wt, lr, use_kernel=use_kernel, schedule=sched,
+                        transport=transport, ef=e, compression=compressor,
+                    )
+                else:
+                    th, _ = dsgd_step_stacked(
+                        th, grads, state, Wt, lr,
+                        use_kernel=use_kernel, schedule=sched, transport=transport,
+                    )
                 err = torch.square(th[:, 0] - theta_star)
                 errs[j] = torch.stack([err.mean(), err.max(), err.min()])
+                if names:
+                    # extra outputs only: the run itself is unchanged
+                    pv = compute_probes(probes, params_stack=th, grads_stack=grads,
+                                        arrays=sched, pi_hat=ph)
+                    health[j] = torch.stack(list(pv.values()))
             theta.copy_(th)
+            if e is not None:
+                ef.copy_(e)
 
-        return body, z_in, errs
+        return body, inputs, (errs, health) if names else errs
 
-    def fill(z_in, t, k):
-        z_in.copy_(zs_t[t : t + k])
+    def fill(inputs, t, k):
+        inputs[0].copy_(zs_t[t : t + k])
+        if stale is not None:
+            stale.fill(inputs[1:], t, k)
 
     traces: list[np.ndarray] = []
+    series: list[np.ndarray] = []
     swaps: list[int] = []
-    meter = _online_comm_meter(n, 1) if online else None
+    meter = _online_comm_meter(n, 1, compressor) if online else None
     t0 = 0
     while t0 < steps:
         length = min(seg, steps - t0)
+        if stale is not None:
+            stale.resolve(t0, length)
         with tracer.span("sim.segment", t0=t0, k=length):
-            errs = runner.run_segment(t0, length, sched, make_body, fill)
+            out = runner.run_segment(t0, length, stale.base if stale is not None else sched,
+                                     make_body, fill)
+            errs, health = out if names else (out, None)
             traces.append(errs.cpu().numpy())
-        if meter is not None:
+            if health is not None:
+                series.append(health.cpu().numpy())
+        if stale is not None:
+            stale.tick(meter, t0, length)
+        elif meter is not None:
             meter.tick(length)
         t0 += length
         if on_segment is not None and t0 < steps:
             # no hook after the final segment: a refresh triggered there
             # would burn a warm solve whose schedule nothing executes
-            update = on_segment(t0 - 1)
-            if update is not None:
-                sched = runner.swap(_check_update(update))
-                swaps.append(t0 - 1)
+            new = _segment_hook(on_segment, t0 - 1, runner, swaps, stale, ph is not None)
+            sched = new if new is not None else sched
     trace = np.concatenate(traces) if traces else np.zeros((0, 3), np.float32)
     out = {
         "mean_sq_error": trace[:, 0],
@@ -254,7 +524,12 @@ def run_mean_estimation(
     }
     if online:
         out.update(n_traces=runner.n_traces, swaps=swaps, comm=meter.summary(),
-                   compression=None)
+                   compression=compressor.label if compressor is not None else None)
+    if names:
+        health = np.concatenate(series) if series else np.zeros((0, len(names)), np.float32)
+        out["health"] = {name: health[:, i] for i, name in enumerate(names)}
+    if staleness is not None:
+        out["staleness"] = {"mode": staleness.mode, "tau_max": staleness.tau_max}
     return out
 
 
@@ -407,9 +682,9 @@ def run_classification(
     rollout: str = "scan",
     on_segment=None,
     compression=None,
-    staleness=None,
+    staleness: StragglerPolicy | None = None,
     delays: np.ndarray | None = None,
-    probes=None,
+    probes: HealthProbes | None = None,
     pi_hat: np.ndarray | None = None,
     tracer: Tracer | None = None,
     retrace_guard=None,
@@ -431,9 +706,14 @@ def run_classification(
     must be a ``ScheduleArrays``). ``logger.aux`` records ``n_traces``
     (captures, or for the loop one per distinct schedule shape) and
     ``swaps``, and for a ``ScheduleArrays`` run ``comm`` (the modeled
-    all-gather bytes) and ``compression`` (None). ``tracer`` records a
-    ``sim.segment`` span per segment; ``retrace_guard`` counts captures
-    under ``"classification.roll"``.
+    all-gather bytes) and ``compression`` (the wire's label, or None).
+    ``compression``, ``staleness`` / ``delays`` and ``probes`` /
+    ``pi_hat`` work as in :func:`run_mean_estimation`: under staleness
+    the half-step pytree is raveled into one (n, P) buffer and mixed
+    through the ring (``aux["staleness"]``); probes land in
+    ``aux["health"]``. ``tracer`` records a ``sim.segment`` span per
+    segment; ``retrace_guard`` counts captures under
+    ``"classification.roll"``.
 
     Random draws come from ``torch.Generator``s seeded from ``seed``: the
     initial parameters from a CPU generator (``seed``, so every device
@@ -444,10 +724,7 @@ def run_classification(
     single-node numpy arrays, and ``batch_indices``, a
     (steps, n, batch_size) integer array. ``device=None`` runs on CUDA.
     """
-    _check_rollout_and_later_args(
-        rollout, compression=compression, staleness=staleness, delays=delays,
-        probes=probes, pi_hat=pi_hat,
-    )
+    _check_rollout(rollout)
     device = resolve_device(device)
     online = isinstance(schedule, ScheduleArrays)
     if on_segment is not None and not online:
@@ -455,8 +732,11 @@ def run_classification(
             "on_segment hot-swapping needs the schedule as ScheduleArrays "
             "(a static BirkhoffSchedule is baked into the rollout)"
         )
-    tracer = _NULL_TRACER if tracer is None else tracer
+    compressor = _check_compression(compression, online)
     n = len(indices_per_node)
+    delays_arr = _check_staleness_args(staleness, delays, steps, n, online)
+    pi_hat_t = _check_probe_args(probes, pi_hat, n, online, staleness, device)
+    tracer = _NULL_TRACER if tracer is None else tracer
     num_classes = int(np.max(y)) + 1
     dim = X.shape[1]
     data = _stack_node_data(X, y, indices_per_node, device)
@@ -465,9 +745,13 @@ def run_classification(
         generator=torch.Generator().manual_seed(seed), params0=params0,
         device=device,
     )
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    runner = SegmentRunner("classification.roll", device, captured=rollout == "scan",
+                           retrace_guard=retrace_guard, generators=(gen,))
     # static: every body reads and continues these
-    params = {k: p.detach() for k, p in net.named_parameters()}
+    params = {k: runner.carry(k, p.detach()) for k, p in net.named_parameters()}
     state = dsgd_init(params)
+    use_ef = compressor is not None and not compressor.routes_to_plain
     Wt = _device_mixing(W, schedule, transport, device)
     if batch_indices is not None:
         batch_idx = torch.as_tensor(np.asarray(batch_indices), dtype=torch.long, device=device)
@@ -476,22 +760,32 @@ def run_classification(
                 f"batch_indices must be (steps={steps}, n={n}, batch_size={batch_size}), "
                 f"got {tuple(batch_idx.shape)}"
             )
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
     # a node with no samples draws index 0 of its (empty, zero) rows, as
     # the reference's maximum(length, 1) does
     draw_len = data.lengths.clamp(min=1).to(torch.float32).unsqueeze(1)
     rows = torch.arange(n, device=device).unsqueeze(1)
-    runner = SegmentRunner("classification.roll", device, captured=rollout == "scan",
-                           retrace_guard=retrace_guard, generators=(gen,))
-    sched = runner.swap(schedule) if online else schedule
+    stale = spec = None
+    if staleness is not None:
+        flat0, spec = ravel_stack(params, pad_to=KERNEL_ROW_ALIGN)
+        stale = _StaleStreams(runner, flat0, staleness, delays_arr, schedule)
+        ef = runner.carry("ef", torch.zeros_like(flat0)) if use_ef else None
+        sched = schedule
+    else:
+        ef = ({k: runner.carry(f"ef.{k}", v) for k, v in ef_init(params).items()}
+              if use_ef else None)
+        sched = runner.swap(schedule) if online else schedule
+    ph = runner.carry("pi_hat", pi_hat_t) if pi_hat_t is not None else None
+    names = probes.names() if probes is not None else ()
 
     def make_body(k: int, sched):
         idx_in = (torch.empty((k, n, batch_size), dtype=torch.long, device=device)
                   if batch_indices is not None else None)
+        inputs = (idx_in,) + (stale.inputs(k, device) if stale is not None else ())
         losses_out = torch.empty((k,), device=device)
+        health = torch.empty((k, len(names)), device=device)
 
         def body() -> None:
-            p = params
+            p, e = params, ef
             for j in range(k):
                 if idx_in is not None:
                     idx = idx_in[j]
@@ -501,16 +795,38 @@ def run_classification(
                 xb, yb = data.x[rows, idx], data.y[rows, idx]
                 leaves = {name: v.detach().requires_grad_() for name, v in p.items()}
                 losses = classifier_losses(torch.func.functional_call(net, leaves, (xb,)), yb)
-                grads = torch.autograd.grad(losses.sum(), list(leaves.values()))
-                p, _ = dsgd_step_stacked(
-                    p, dict(zip(leaves, grads)), state, Wt, lr,
-                    use_kernel=use_kernel, schedule=sched, transport=transport,
-                )
+                grads = dict(zip(leaves, torch.autograd.grad(losses.sum(), list(leaves.values()))))
+                if stale is not None:
+                    half = {name: p[name] - lr * grads[name] for name in p}
+                    flat, _ = ravel_stack(half, pad_to=KERNEL_ROW_ALIGN)
+                    mixed, e = _stale_mix(flat, e, stale, inputs[1:], j, compressor,
+                                          spec.total, use_kernel)
+                    p = unravel_stack(mixed, spec)
+                elif e is not None:
+                    p, _, e = dsgd_step_stacked(
+                        p, grads, state, Wt, lr, use_kernel=use_kernel, schedule=sched,
+                        transport=transport, ef=e, compression=compressor,
+                    )
+                else:
+                    p, _ = dsgd_step_stacked(
+                        p, grads, state, Wt, lr,
+                        use_kernel=use_kernel, schedule=sched, transport=transport,
+                    )
                 losses_out[j] = losses.detach().mean()
+                if names:
+                    # extra outputs only: the loss trajectory is unchanged
+                    pv = compute_probes(probes, params_stack=p, grads_stack=grads,
+                                        arrays=sched, pi_hat=ph)
+                    health[j] = torch.stack(list(pv.values()))
             for name, v in params.items():
                 v.copy_(p[name])
+            if isinstance(e, dict):
+                for name, v in ef.items():
+                    v.copy_(e[name])
+            elif e is not None:
+                ef.copy_(e)
 
-        return body, idx_in, losses_out
+        return body, inputs, (losses_out, health) if names else losses_out
 
     do_eval = X_test is not None
     X_t = torch.as_tensor(X_test, dtype=torch.float32, device=device) if do_eval else None
@@ -535,30 +851,46 @@ def run_classification(
             else:
                 logger.log(t, loss=float(loss))
 
-    def fill(idx_in, t, k):
-        if idx_in is not None:
-            idx_in.copy_(batch_idx[t : t + k])
+    def fill(inputs, t, k):
+        if inputs[0] is not None:
+            inputs[0].copy_(batch_idx[t : t + k])
+        if stale is not None:
+            stale.fill(inputs[1:], t, k)
 
     swaps: list[int] = []
+    series: list[np.ndarray] = []
     # on_segment needs segment boundaries even without eval data (the
     # eval calls themselves stay gated on do_eval)
     segmented = do_eval or on_segment is not None
     t0 = 0
     for seg_len, evaluate in _eval_segments(steps, eval_every, segmented):
+        if stale is not None:
+            stale.resolve(t0, seg_len)
         with tracer.span("sim.segment", t0=t0, k=seg_len):
-            losses = runner.run_segment(t0, seg_len, sched, make_body, fill).cpu().numpy()
+            out = runner.run_segment(t0, seg_len, stale.base if stale is not None else sched,
+                                     make_body, fill)
+            losses, health = out if names else (out, None)
+            losses = losses.cpu().numpy()
+            if health is not None:
+                series.append(health.cpu().numpy())
         log_segment(t0, losses, evaluate and do_eval)
         t0 += seg_len
         if on_segment is not None and t0 < steps:  # no hook after the final segment
-            update = on_segment(t0 - 1)
-            if update is not None:
-                sched = runner.swap(_check_update(update))
-                swaps.append(t0 - 1)
+            new = _segment_hook(on_segment, t0 - 1, runner, swaps, stale, ph is not None)
+            sched = new if new is not None else sched
     logger.aux["n_traces"] = runner.n_traces
     logger.aux["swaps"] = swaps
+    if names:
+        health = np.concatenate(series) if series else np.zeros((0, len(names)), np.float32)
+        logger.aux["health"] = {name: health[:, i] for i, name in enumerate(names)}
     if online:
-        meter = _online_comm_meter(n, sum(int(np.prod(p.shape[1:])) for p in params.values()))
-        meter.tick(steps)
+        meter = _online_comm_meter(n, sum(int(np.prod(p.shape[1:])) for p in params.values()),
+                                   compressor)
+        if stale is not None:
+            stale.tick(meter, 0, steps)
+            logger.aux["staleness"] = {"mode": staleness.mode, "tau_max": staleness.tau_max}
+        else:
+            meter.tick(steps)
         logger.aux["comm"] = meter.summary()
-        logger.aux["compression"] = None
+        logger.aux["compression"] = compressor.label if compressor is not None else None
     return logger

@@ -286,3 +286,169 @@ def test_a_failed_capture_raises_and_never_runs_eagerly(cuda):
     torch.cuda.synchronize()
     assert float(x[0]) == 5.0  # the warm-up's one run, nothing more
     assert runner.n_traces == 1
+
+
+# ---------------------------------------------------------------------------
+# The robustness layer inside the captured rollout
+# ---------------------------------------------------------------------------
+
+def _arrays_pair(Pi, device, l_max=8):
+    a = schedule_to_arrays(schedule_from_result(learn_topology(Pi, budget=4, lam=0.1)),
+                           l_max=l_max, device=device)
+    b = schedule_to_arrays(schedule_from_result(learn_topology(Pi[::-1].copy(), budget=4,
+                                                               lam=0.1)),
+                           l_max=l_max, device=device)
+    return a, b
+
+
+class _LiveEstimate:
+    """A hook with a live ``estimator.Pi_hat`` that moves at every call,
+    handing back a new schedule at one step."""
+
+    def __init__(self, Pi, swap_at, new):
+        self.estimator = type("Estimator", (), {})()
+        self.estimator.Pi_hat = Pi
+        self.swap_at, self.new = swap_at, new
+
+    def __call__(self, t):
+        self.estimator.Pi_hat = np.roll(self.estimator.Pi_hat, 1, axis=0)
+        return self.new if t == self.swap_at else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["bf16", "topk", "wait", "probes"])
+def test_robust_classification_graph_equals_the_loop_on_card(cuda, arm):
+    """bf16 and top-k EF, ``wait`` staleness under a changing delay stream,
+    and probes with a live pi_hat: each with a swap, graph bitwise the
+    loop, one capture, and every mix in gossip_schedule."""
+    from repro_torch.core.mixing import StragglerPolicy
+    from repro_torch.obs import HealthProbes
+    from repro_torch.train.trainer import run_classification
+
+    X, y, X_te, y_te, idx, Pi = _mlp_data()
+    n, steps = len(idx), 41
+    sa, sa2 = _arrays_pair(Pi, cuda)
+    kw = {"bf16": dict(compression="bf16"),
+          "topk": dict(compression="topk:0.1:g0.25"),
+          "wait": dict(staleness=StragglerPolicy("wait", 3),
+                       delays=np.random.default_rng(0).integers(0, 5, (steps, n))),
+          "probes": dict(probes=HealthProbes(tau_bar=True), pi_hat=Pi)}[arm]
+    logs, counts = {}, {}
+    for rollout in ("loop", "scan"):
+        ops.reset_launch_counts()
+        logs[rollout] = run_classification(
+            X, y, idx, None, schedule=sa, on_segment=_LiveEstimate(Pi, 10, sa2), model="mlp",
+            hidden=16, steps=steps, batch_size=16, lr=0.2, eval_every=5, X_test=X_te,
+            y_test=y_te, seed=0, rollout=rollout, device=cuda, **kw)
+        counts[rollout] = dict(ops.launch_counts)
+    assert logs["scan"].history == logs["loop"].history
+    assert logs["scan"].aux["swaps"] == logs["loop"].aux["swaps"] == [10]
+    assert logs["scan"].aux["n_traces"] == 1
+    for name, series in logs["scan"].aux.get("health", {}).items():
+        assert np.array_equal(series, logs["loop"].aux["health"][name]), name
+    # the tau_bar probe mixes pi_hat through the kernel too
+    want = 2 * steps if arm == "probes" else steps
+    assert counts["scan"] == counts["loop"] == {"gossip_schedule": want, "gossip_mix": 0}
+
+
+@pytest.mark.cuda
+def test_robust_arms_equal_the_fresh_run_bitwise_on_card(cuda):
+    """Identity compression, zero delays and probes change nothing of the
+    run on the card, as on the CPU."""
+    from repro_torch.core.mixing import StragglerPolicy
+    from repro_torch.obs import HealthProbes
+    from repro_torch.train.trainer import run_classification
+
+    X, y, X_te, y_te, idx, Pi = _mlp_data()
+    sa, sa2 = _arrays_pair(Pi, cuda)
+    kw = dict(schedule=sa, model="mlp", hidden=16, steps=31, batch_size=16, lr=0.2,
+              eval_every=5, X_test=X_te, y_test=y_te, seed=0, device=cuda)
+    base = run_classification(X, y, idx, None, on_segment=lambda t: sa2 if t == 10 else None,
+                              **kw)
+    for extra in (dict(compression="identity"), dict(staleness=StragglerPolicy("wait", 4)),
+                  dict(staleness=StragglerPolicy("degrade", 4)),
+                  dict(probes=HealthProbes())):
+        log = run_classification(X, y, idx, None, on_segment=lambda t: sa2 if t == 10 else None,
+                                 **extra, **kw)
+        assert log.history == base.history, extra
+        assert log.aux["comm"]["total_bytes"] == base.aux["comm"]["total_bytes"], extra
+
+
+@pytest.mark.cuda
+def test_screened_and_corrupted_mixes_on_card(cuda):
+    """The stacked-source mixes run in gossip_schedule: with nothing
+    corrupt they are the clean mix bitwise, and with liars they match the
+    plain version on the CPU."""
+    from repro_torch.core import mixing as M
+
+    n, P = 32, 1000
+    g, p = (t.to(cuda) for t in _schedule(n).operands("cpu"))
+    sa = M.ScheduleArrays(g, p)
+    theta = _theta(n, P, torch.float32, cuda)
+    buf = M.stale_buffer_init(theta, 3)
+    own = _theta(n, P, torch.float32, cuda, seed=1)
+    M.stale_push(buf, own)
+    zero = torch.zeros(n, dtype=torch.int32, device=cuda)
+    clean = M.mix_schedule_arrays_stale(buf, sa, zero)
+    honest = M.WireCorruption(torch.ones(n, device=cuda), torch.zeros(n, dtype=torch.int32,
+                                                                        device=cuda))
+    screened, _ = M.mix_schedule_arrays_screened(buf, sa, zero, own, honest)
+    assert torch.equal(clean, ops.gossip_schedule(own, g, p))
+    assert torch.equal(screened, clean)
+    assert torch.equal(M.mix_schedule_arrays_stale(buf, sa, zero, honest), clean)
+    mult = torch.ones(n, device=cuda)
+    mult[3], mult[7] = float("nan"), -1.0
+    liars = M.WireCorruption(mult, torch.zeros(n, dtype=torch.int32, device=cuda))
+    delays = torch.randint(0, 3, (n,), generator=torch.Generator().manual_seed(0)).to(cuda)
+    on_card = M.mix_schedule_arrays_screened(buf, sa, delays, own, liars)
+    cpu_buf = M.StaleBuffer(buf.buf.cpu(), buf.head.cpu())
+    cpu_liars = M.WireCorruption(liars.mult.cpu(), liars.xor.cpu())
+    on_cpu = M.mix_schedule_arrays_screened(cpu_buf, M.ScheduleArrays(g.cpu(), p.cpu()),
+                                            delays.cpu(), own.cpu(), cpu_liars)
+    assert torch.equal(on_card[0].cpu(), on_cpu[0])  # the kernel's sums are the plain ones
+    assert torch.equal(on_card[1].finite.cpu(), on_cpu[1].finite)
+
+
+@pytest.mark.cuda
+def test_fault_runner_captures_once_and_resumes_bitwise_on_card(cuda, tmp_path):
+    """A crash, stragglers, drops and a NaN liar that the quarantine
+    catches (a repaired schedule stream mid-run): one capture, graph
+    bitwise the loop, and a resume from a checkpoint bitwise the
+    uninterrupted run."""
+    from repro_torch.data.synthetic import mean_estimation_clusters
+    from repro_torch.faults import FaultPlan, QuarantineController, ScreenPolicy, \
+        run_faulty_mean_estimation
+
+    n, steps = 16, 120
+    task = mean_estimation_clusters(n_nodes=n, K=4, m=5.0, sigma_tilde2=1.0)
+    res = learn_topology(task.Pi, budget=8, lam=0.1)
+    sched = schedule_from_result(res)
+    sa = schedule_to_arrays(sched, sched.n_atoms + 2, device=cuda)
+    faults = dict(n_nodes=n, steps=steps, seed=3, crash_rate=0.02, mean_outage=6.0,
+                  straggler_rate=0.3, tau_max=2, edge_drop_rate=0.05)
+    plan = FaultPlan(**faults)
+    plan.corrupt_mult[5:, 0] = np.nan
+    kw = dict(lr=0.05, seed=2, segment_len=20, device=cuda)
+
+    def controller():
+        return QuarantineController(n, ScreenPolicy(cooldown_steps=2 * steps), lr=0.05)
+
+    outs, qs = {}, {}
+    for rollout in ("loop", "scan"):
+        qs[rollout] = controller()
+        outs[rollout] = run_faulty_mean_estimation(task, plan, sa, quarantine=qs[rollout],
+                                                   rollout=rollout, **kw)
+    assert outs["scan"]["n_traces"] == 1
+    assert np.array_equal(outs["scan"]["mean_sq_error"], outs["loop"]["mean_sq_error"])
+    assert qs["scan"].events == qs["loop"].events and qs["scan"].n_quarantines >= 1
+    plan = FaultPlan(**faults)  # the crash drill: no liar
+    full = run_faulty_mean_estimation(task, plan, sa, **kw)
+    head = run_faulty_mean_estimation(task, plan, sa, checkpoint_dir=str(tmp_path),
+                                      stop_after_segments=3, **kw)
+    tail = run_faulty_mean_estimation(task, plan, sa, checkpoint_dir=str(tmp_path), resume=True,
+                                      **kw)
+    assert full["n_traces"] == 1 and np.isfinite(full["mean_sq_error"]).all()
+    assert head["stopped_at"] == tail["resumed_from"] == 60
+    assert np.array_equal(np.concatenate([head["mean_sq_error"], tail["mean_sq_error"]]),
+                          full["mean_sq_error"])
+    assert np.array_equal(tail["theta"], full["theta"])

@@ -197,7 +197,8 @@ def test_dsgd_step_matches_manual_and_refuses_ef():
                                           torch.from_numpy(W), 0.1)
     manual = W @ (theta.numpy() - 0.1 * grads.numpy())
     np.testing.assert_allclose(new.numpy(), manual, atol=TOL)
-    with pytest.raises(NotImplementedError):
+    # an EF memory needs the ScheduleArrays data plane, not a dense W
+    with pytest.raises(ValueError, match="ScheduleArrays"):
         T_dsgd.dsgd_step_stacked(theta, grads, state, torch.from_numpy(W), 0.1, ef=theta)
 
 

@@ -73,6 +73,15 @@ def test_host_copies_stay_verbatim(module):
     assert (PORT / module).read_bytes() == reference.read_bytes()
 
 
+@pytest.mark.parametrize("module", ["faults/plan.py", "faults/quarantine.py"])
+def test_fault_copies_differ_only_in_their_imports(module):
+    """The numpy fault modules are copies whose imports point at the port:
+    with ``repro_torch.`` read as ``repro.`` they are the reference's."""
+    port = (PORT / module).read_text().replace("from repro_torch.", "from repro.")
+    assert port == (ROOT / "src" / "repro" / module).read_text()
+    assert "from repro_torch." in (PORT / module).read_text()
+
+
 def test_convert_round_trips():
     tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3), "b": np.ones(3, np.float32)}
     back = convert.params_to_numpy(convert.params_from_numpy(tree, "cpu"))
