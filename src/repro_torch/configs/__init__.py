@@ -4,10 +4,10 @@
 returns the reduced same-family variant the CPU tests use. Names are the
 reference's (``repro/configs/__init__.py``), hyphenated or as module names.
 
-Only recurrentgemma-2b is ported so far. Every other architecture of the
+The port runs the dense GQA families (qwen3-0.6b, gemma-2b, gemma2-2b,
+qwen2.5-14b) and recurrentgemma-2b. Every other architecture of the
 reference raises ``NotImplementedError``: its blocks (MoE, MLA, xLSTM,
-whisper, the VLM stub) or its dense GQA path wait for ROADMAP queue 1
-item 12.
+whisper, the VLM stub) wait for ROADMAP queue 1 item 12.
 
 Input shapes (the reference's):
   train_4k     seq 4096,   global batch 256   (train_step)
@@ -37,7 +37,7 @@ ARCH_IDS = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
-PORTED = ("recurrentgemma_2b",)
+PORTED = ("qwen3_0_6b", "gemma_2b", "gemma2_2b", "qwen2_5_14b", "recurrentgemma_2b")
 
 INPUT_SHAPES = {
     "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},

@@ -7,11 +7,21 @@
 Recurrent states belong to their blocks (``models.rglru``). Keys are
 stored post-RoPE, so decode never re-rotates history.
 
+``index`` is a 0-d int64 tensor on the cache's device, as the reference
+keeps a device int32 scalar: the writes go to slots computed from it on
+the device (``index_copy_``) and advance it in place (``add_``), so a
+decode step reads nothing on the host and a captured step (a CUDA graph,
+``serve/engine.py``) writes the slot of the step it replays. int64, not
+the reference's int32: ``index_copy_`` and advanced indexing take int64
+indices, so the slots need no cast.
+
 Unlike the reference's functional updates, ``update_*_cache`` write the
-new positions into the cache's ``k`` / ``v`` buffers in place, so decode
-allocates no new cache per token. They return a new dict that shares the
-buffers; ``index`` is a host integer, so masks need no device read.
-The ``init_*`` functions put the cache on ``device`` (None = CUDA).
+new positions into the cache's ``k`` / ``v`` buffers and its ``index``
+in place, so decode allocates no new cache per token; they return a new
+dict that shares the tensors. A write past the end of a full cache
+cannot be seen without reading ``index``: the callers that know the
+lengths check them on the host first (``check_fits``). The ``init_*``
+functions put the cache on ``device`` (None = CUDA).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ __all__ = [
     "init_window_cache",
     "update_full_cache",
     "update_window_cache",
+    "check_fits",
 ]
 
 
@@ -33,12 +44,16 @@ def _zeros(batch: int, length: int, n_kv: int, head_dim: int, dtype, device) -> 
                        device=resolve_device(device))
 
 
+def _index(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=resolve_device(device))
+
+
 def init_full_cache(batch: int, max_len: int, n_kv: int, head_dim: int, dtype,
                     device: torch.device | str | None = None) -> dict:
     return {
         "k": _zeros(batch, max_len, n_kv, head_dim, dtype, device),
         "v": _zeros(batch, max_len, n_kv, head_dim, dtype, device),
-        "index": 0,  # number of valid positions
+        "index": _index(device),  # number of valid positions
     }
 
 
@@ -47,21 +62,35 @@ def init_window_cache(batch: int, window: int, n_kv: int, head_dim: int, dtype,
     return {
         "k": _zeros(batch, window, n_kv, head_dim, dtype, device),
         "v": _zeros(batch, window, n_kv, head_dim, dtype, device),
-        "index": 0,  # absolute position counter
+        "index": _index(device),  # absolute position counter
     }
 
 
+def check_fits(max_len: int, index: int, s_new: int) -> None:
+    """Raise before a write of ``s_new`` positions at ``index`` (both known
+    on the host) overruns a full cache of ``max_len`` positions."""
+    if index + s_new > max_len:
+        raise ValueError(f"full cache of {max_len} positions cannot take {s_new} more at {index}")
+
+
+def _write(cache: dict, slots: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+           advance: int) -> dict:
+    cache["k"].index_copy_(1, slots, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slots, v_new.to(cache["v"].dtype))
+    cache["index"].add_(advance)
+    return {"k": cache["k"], "v": cache["v"], "index": cache["index"]}
+
+
 def update_full_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
-    """Append ``S_new`` positions at the current index (decode: S_new = 1)."""
-    idx = cache["index"]
-    s_new = k_new.shape[1]
-    if idx + s_new > cache["k"].shape[1]:
-        raise ValueError(
-            f"full cache of {cache['k'].shape[1]} positions cannot take {s_new} more at {idx}"
-        )
-    cache["k"][:, idx : idx + s_new] = k_new
-    cache["v"][:, idx : idx + s_new] = v_new
-    return {"k": cache["k"], "v": cache["v"], "index": idx + s_new}
+    """Append ``S_new`` positions at the current index (decode: S_new = 1).
+
+    Only a write longer than the whole cache raises here; one that starts
+    too late is the caller's to refuse (``check_fits``)."""
+    length, s_new = cache["k"].shape[1], k_new.shape[1]
+    if s_new > length:
+        raise ValueError(f"full cache of {length} positions cannot take {s_new} more")
+    slots = cache["index"] + torch.arange(s_new, device=cache["k"].device)
+    return _write(cache, slots, k_new, v_new, s_new)
 
 
 def update_window_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
@@ -70,18 +99,8 @@ def update_window_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -
     A prefill longer than the window keeps only its last ``window``
     positions (the only ones that survive), so slots stay unique.
     """
-    window = cache["k"].shape[1]
-    idx = cache["index"]
-    s_new = k_new.shape[1]
-    if s_new > window:
-        k_new = k_new[:, -window:]
-        v_new = v_new[:, -window:]
-        start, count = idx + s_new - window, window
-    else:
-        start, count = idx, s_new
-    slots = torch.remainder(
-        torch.arange(start, start + count, device=cache["k"].device), window
-    )
-    cache["k"].index_copy_(1, slots, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slots, v_new.to(cache["v"].dtype))
-    return {"k": cache["k"], "v": cache["v"], "index": idx + s_new}
+    window, s_new = cache["k"].shape[1], k_new.shape[1]
+    skip = max(s_new - window, 0)
+    positions = cache["index"] + torch.arange(skip, s_new, device=cache["k"].device)
+    return _write(cache, torch.remainder(positions, window), k_new[:, skip:], v_new[:, skip:],
+                  s_new)

@@ -13,6 +13,8 @@ A module is built with uninitialised weights on an explicit device;
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -172,8 +174,16 @@ def embed(params: Embedding, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Te
     dtype first, as the reference does (50.5, not 50.596, in bfloat16)."""
     x = F.embedding(tokens, params.table)
     if cfg.embedding_scale:
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+        x = x * _rounded(cfg.d_model**0.5, x.dtype)
     return x
+
+
+@functools.cache
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a host float: a scalar operand,
+    so the product needs no host-to-device copy (a captured decode step
+    may hold none)."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def unembed(params: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -94,7 +94,9 @@ def init_rglru_state(
     }
 
 
-def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None):
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None) -> torch.Tensor:
+    """The causal conv of ``x`` after the tail ``state`` (zeros when None);
+    a given ``state`` is overwritten in place with the new tail."""
     width = w.shape[0]
     pad = (
         torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
@@ -103,7 +105,9 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None)
     )
     xp = torch.cat([pad, x], dim=1)
     y = sum(xp[:, i : i + x.shape[1], :] * w[i] for i in range(width))
-    return y, xp[:, -(width - 1) :, :].clone()  # a copy: the state must not pin xp
+    if state is not None:
+        state.copy_(xp[:, -(width - 1) :, :])
+    return y
 
 
 def rglru_block(
@@ -114,15 +118,18 @@ def rglru_block(
     impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict | None]:
     """x: (B,S,D) -> (x + block(x), new state). Scan (state None, or a
-    prefill with S > 1) or one decode step (state and S == 1)."""
+    prefill with S > 1) or one decode step (state and S == 1).
+
+    A given ``state`` is written in place (``copy_``: the new ``h`` and
+    conv tail land in its own tensors, so a captured decode step reads and
+    writes the same storage at every replay) and returned."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, S, D = x.shape
     xn = rms_norm(params.norm, x, cfg.norm_eps)
     gate = F.gelu(xn @ params.w_gate, approximate="tanh")  # (B,S,dr)
     rnn_in = xn @ params.w_rnn_in
-    conv_state = None if state is None else state["conv"]
-    rnn_in, new_conv = _causal_conv1d(rnn_in, params.conv_w, conv_state)
+    rnn_in = _causal_conv1d(rnn_in, params.conv_w, None if state is None else state["conv"])
 
     r = torch.sigmoid((rnn_in @ params.w_a).float())
     i = torch.sigmoid((rnn_in @ params.w_x).float())
@@ -137,11 +144,11 @@ def rglru_block(
             b[:, 0] += a[:, 0] * state["h"]
         scan = scan_ops.rglru_scan if impl == "kernel" else rglru_scan_ref
         h = scan(a, b)
-        new_state = None if state is None else {"h": h[:, -1].clone(), "conv": new_conv}
+        if state is not None:
+            state["h"].copy_(h[:, -1])
     else:
-        h = a[:, 0] * state["h"] + b[:, 0]
-        new_state = {"h": h, "conv": new_conv}
-        h = h[:, None, :]
+        h = (a[:, 0] * state["h"] + b[:, 0])[:, None, :]
+        state["h"].copy_(h[:, 0])
 
     out = (h.to(x.dtype) * gate) @ params.w_out
-    return x + out, new_state
+    return x + out, state

@@ -1,11 +1,27 @@
 """Serving engine: batched prefill + single-token greedy decode with caches.
 
 ``prefill`` runs the prompt through the model and builds the per-layer
-caches (window rings for local attention, RG-LRU states); ``decode_step``
-takes one new token against them; ``generate`` is the greedy host loop,
-under ``torch.inference_mode()``. Prefill attention and decode are plain
-PyTorch, as they are plain XLA in the reference; the RG-LRU recurrence of
-the prefill goes through ``kernels.rglru_scan`` (``impl="kernel"``).
+caches (full caches and window rings for attention, RG-LRU states);
+``decode_step`` takes one new token against them. Both are the eager
+counterparts of the reference's functions. Prefill attention and decode
+are plain PyTorch, as they are plain XLA in the reference; the RG-LRU
+recurrence of the prefill goes through ``kernels.rglru_scan``
+(``impl="kernel"``).
+
+``generate`` is greedy decoding through a :class:`Decoder`, the port's
+counterpart of the reference's jitted decode step: the decoder owns
+static buffers (the cache at ``(B, max_len)``, the current token and
+position, the logits, the generated tokens), and its step -- one
+``decode_step`` into those buffers, the greedy argmax, the position
+advanced, all on the device -- runs through ``repro_torch.graphs``: an
+eager warm-up on a side stream, a CUDA-graph capture at its second run,
+replays after that. The cache's ``index`` is a device tensor
+(``models/kvcache.py``), so a replay writes the slot of the step it
+replays. Nothing reads the device between two steps; lengths are checked
+on the host before a step runs. Each model keeps at most one decoder,
+for the ``(B, max_len)`` of its last ``generate``, so repeated calls at
+that shape capture once. On the CPU the step runs eagerly, counted as on
+the card. A failed capture raises; nothing falls back to the eager step.
 
 The reference's ``long_context`` mode (a window cache on every
 attention layer) and ``make_serve_setup`` (its sharded dry-run serve
@@ -14,14 +30,29 @@ step) wait for the mesh slice (ROADMAP queue 1 item 13).
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.graphs import Body, GraphRunner
 from repro_torch.models import transformer
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, dtype_of
+from repro_torch.models.kvcache import check_fits
 from repro_torch.models.layers import unembed
 
-__all__ = ["prefill", "decode_step", "generate"]
+__all__ = ["prefill", "decode_step", "generate", "Decoder", "decoder_for"]
+
+
+def _prefill_into(
+    model: transformer.LM, cfg: ModelConfig, tokens: torch.Tensor, cache: list
+) -> torch.Tensor:
+    """Run the prompt (B, S) into the fresh ``cache``; the last position's logits."""
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    # impl="kernel" (the default): the RG-LRU recurrence in its kernel
+    hidden, _, _ = model(tokens, cache=cache, positions=pos, return_hidden=True)
+    return unembed(model.embed, hidden[:, -1:], cfg)[:, 0]
 
 
 def prefill(
@@ -37,11 +68,9 @@ def prefill(
     is unembedded (the reference unembeds all S and keeps the last).
     """
     B, S = tokens.shape
+    check_fits(max_len, 0, S)
     cache = transformer.init_cache(cfg, B, max_len, device=tokens.device)
-    pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    # impl="kernel" (the default): the RG-LRU recurrence in its kernel
-    hidden, cache, _ = model(tokens, cache=cache, positions=pos, return_hidden=True)
-    return unembed(model.embed, hidden[:, -1:], cfg)[:, 0], cache
+    return _prefill_into(model, cfg, tokens, cache), cache
 
 
 def decode_step(
@@ -56,6 +85,116 @@ def decode_step(
     return logits[:, 0], cache
 
 
+def _same_config(model: transformer.LM, cfg: ModelConfig) -> None:
+    if model.cfg != cfg:
+        raise ValueError(f"model was built for {model.cfg.name!r}, not for this config")
+
+
+def _param_ptrs(model: transformer.LM) -> tuple[int, ...]:
+    return tuple(p.data_ptr() for p in model.parameters())
+
+
+class Decoder:
+    """Greedy decoding of ``model`` for ``batch`` sequences of at most
+    ``max_len`` positions, on the model's device.
+
+    Static buffers, read and written in place by every step:
+      ``cache``     the per-layer caches (``transformer.init_cache``);
+      ``token``     (B, 1) int64, the token the next step feeds;
+      ``position``  (B, 1) int64, its absolute position;
+      ``logits``    (B, V) in the model's dtype, the last logits;
+      ``tokens``    (B, max_len + 1) int64, each greedy token at the
+                    position it takes (the prompt's columns stay 0).
+
+    :meth:`start` prefills a prompt; :meth:`step` decodes ``token`` (the
+    last greedy token, or one the caller gives) -- eagerly at its first
+    run, by capture and replay after (``n_captures``).
+    """
+
+    def __init__(self, model: transformer.LM, cfg: ModelConfig, batch: int, max_len: int):
+        _same_config(model, cfg)
+        device = next(model.parameters()).device
+        self._model = weakref.ref(model)  # weak: the registry keyed on the model keeps the decoder
+        self._ptrs = _param_ptrs(model)
+        self.cfg = cfg
+        self.batch, self.max_len = batch, max_len
+        with torch.inference_mode():
+            self.cache = transformer.init_cache(cfg, batch, max_len, device=device)
+            self.token = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+            self.position = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+            self.logits = torch.zeros((batch, cfg.vocab_size), dtype=dtype_of(cfg), device=device)
+            self.tokens = torch.zeros((batch, max_len + 1), dtype=torch.int64, device=device)
+        self._graphs = GraphRunner("serve.decode", device)
+        self._body = Body(self._step)
+        self._length = 0  # positions in the cache, known on the host
+
+    @property
+    def n_captures(self) -> int:
+        """Captures of the step (on the CPU: the runs that would capture)."""
+        return self._graphs.n_traces
+
+    @property
+    def capture_s(self) -> float | None:
+        """Host seconds of the step's capture (None before it, or on the CPU)."""
+        return self._body.capture_s
+
+    def _serves(self, model: transformer.LM, batch: int, max_len: int) -> bool:
+        """Whether this decoder decodes ``model``'s current weights at this shape."""
+        return (self._model() is model and (self.batch, self.max_len) == (batch, max_len)
+                and self._ptrs == _param_ptrs(model))
+
+    @torch.inference_mode()
+    def start(self, prompt: torch.Tensor) -> None:
+        """Prefill ``prompt`` (B, S) into the zeroed cache; ``token`` becomes
+        the greedy token at position S."""
+        B, S = prompt.shape
+        if B != self.batch:
+            raise ValueError(f"the decoder serves batches of {self.batch}, got {B}")
+        check_fits(self.max_len, 0, S)
+        for layer in self.cache:
+            for t in layer.values():
+                t.zero_()
+        logits = _prefill_into(self._model(), self.cfg, prompt, self.cache)
+        self.position.fill_(S - 1)
+        self._take(logits)
+        self._length = S
+
+    @torch.inference_mode()
+    def step(self, token: torch.Tensor | None = None) -> None:
+        """Decode ``token`` ((B, 1); None: the last greedy token) at
+        ``position``; ``token`` becomes the next greedy token, at the next
+        position."""
+        check_fits(self.max_len, self._length, 1)
+        if token is not None:
+            self.token.copy_(token)
+        self._length += 1
+        self._graphs.run(self._body, "decode step")
+
+    def _step(self) -> None:
+        logits, _ = decode_step(self._model(), self.cfg, self.token, self.position, self.cache)
+        self._take(logits)
+
+    def _take(self, logits: torch.Tensor) -> None:
+        self.logits.copy_(logits)
+        self.token.copy_(logits.argmax(dim=-1, keepdim=True))
+        self.position.add_(1)
+        self.tokens.scatter_(1, self.position, self.token)
+
+
+_DECODERS: "weakref.WeakKeyDictionary[transformer.LM, Decoder]" = weakref.WeakKeyDictionary()
+
+
+def decoder_for(model: transformer.LM, cfg: ModelConfig, batch: int, max_len: int) -> Decoder:
+    """``model``'s decoder at ``(batch, max_len)``: the one it kept, if it
+    serves that shape and the model's weights, else a new one (which
+    replaces it)."""
+    _same_config(model, cfg)
+    dec = _DECODERS.get(model)
+    if dec is None or not dec._serves(model, batch, max_len):
+        dec = _DECODERS[model] = Decoder(model, cfg, batch, max_len)
+    return dec
+
+
 def generate(
     model: transformer.LM,
     cfg: ModelConfig,
@@ -67,21 +206,18 @@ def generate(
     """Greedy generation: (B, max_new_tokens) int64 tokens on ``device``.
 
     ``prompt`` is a (B, S) integer array or tensor; ``device`` (None =
-    CUDA) must be the model's device.
+    CUDA) must be the model's device. The decode steps run through the
+    model's :class:`Decoder` at ``(B, S + max_new_tokens + 1)``.
     """
     device = resolve_device(device)
     model_device = next(model.parameters()).device
     if model_device.type != device.type:
         raise ValueError(f"the model is on {model_device}, generate was asked for {device}")
-    if model.cfg != cfg:
-        raise ValueError(f"model was built for {model.cfg.name!r}, not for this config")
     prompt = torch.as_tensor(prompt, dtype=torch.int64, device=model_device)
     B, S = prompt.shape
+    dec = decoder_for(model, cfg, B, S + max_new_tokens + 1)
+    dec.start(prompt)
+    for _ in range(max_new_tokens - 1):
+        dec.step()
     with torch.inference_mode():
-        logits, cache = prefill(model, cfg, prompt, max_len=S + max_new_tokens + 1)
-        toks = [logits.argmax(dim=-1)[:, None]]
-        for pos in range(S, S + max_new_tokens - 1):
-            position = torch.full((B, 1), pos, dtype=torch.int64, device=model_device)
-            logits, cache = decode_step(model, cfg, toks[-1], position, cache)
-            toks.append(logits.argmax(dim=-1)[:, None])
-    return torch.cat(toks, dim=1)
+        return dec.tokens[:, S : S + max(max_new_tokens, 1)].clone()

@@ -15,20 +15,16 @@ rollout is a CUDA graph:
   (``shape``: the schedule's ``l_max``, or None for a static W or
   ``BirkhoffSchedule``) and fills its inputs before each run.
 * :meth:`SegmentRunner.run_segment` runs a segment as bodies of at most
-  ``MAX_GRAPH_STEPS`` steps, each executed as follows. With ``captured=True`` the
-  first run of a key is the warm-up: the body runs eagerly, on a side
-  stream on the card, and computes its segment for real -- the kernels
-  are built and loaded, their one-time ``cudaFuncSetAttribute`` /
-  ``cudaDeviceGetAttribute`` / occupancy calls run, cuBLAS and autograd
-  set up their state, all outside any capture. The second run of the
-  key captures the body into a ``torch.cuda.CUDAGraph`` (one capture,
-  recorded under the runner's name in the ``RetraceGuard``) and replays
-  it; later runs replay. A body that runs only once is never captured.
-  On the CPU the body runs eagerly every time, with the same counting,
-  so CPU tests hold the capture counts. With ``captured=False`` (the
-  ``"loop"`` rollout) every run is eager and the runner counts one body
-  per distinct ``shape``, as the reference's jitted step traces once per
-  shape.
+  ``MAX_GRAPH_STEPS`` steps. With ``captured=True`` each body runs through
+  ``repro_torch.graphs.GraphRunner``: its first run is the eager warm-up
+  on a side stream, its second the capture into a CUDA graph (one
+  capture, recorded under the runner's name in the ``RetraceGuard``)
+  and a replay, later runs replays; a body that runs only once is never
+  captured. On the CPU the body runs eagerly every time, with the same
+  counting, so CPU tests hold the capture counts. With ``captured=False``
+  (the ``"loop"`` rollout) every run is eager and the runner counts one
+  body per distinct ``shape``, as the reference's jitted step traces
+  once per shape.
 * :meth:`SegmentRunner.swap` copies a new schedule into the static
   ``gammas`` / ``perms`` the bodies read (``copy_``, never a rebind), so
   a swap changes values and recaptures nothing; a schedule of another
@@ -51,18 +47,12 @@ rollout is a CUDA graph:
   repaired schedule stream) or a restored checkpoint are all values:
   none adds a capture.
 
-Two things a graph freezes at capture are handled here. Kernel launch
-counts: a wrapper adds one to its count when the capture records its
-launch, but the kernel runs only at replays, so the runner takes the
-recorded launches back after the capture and adds them once per replay.
-Random draws: the generators a body draws from are registered with each
-graph (``CUDAGraph.register_generator_state``), so replays draw what the
-eager steps would have drawn and advance the generator alike.
-
-A failed capture raises; the runner never falls back to the eager body
-on the card. Captures use the default ``"global"`` capture mode: the
-online controller's overlap worker, the only other thread that may run
-during a capture, makes no CUDA call (``online/refresh.py``).
+What a graph freezes at capture (kernel launch counts, the generators'
+states) and the refusal to fall back to the eager body on the card are
+``GraphRunner``'s (``repro_torch/graphs.py``). Captures use the default
+``"global"`` capture mode: the online controller's overlap worker, the
+only other thread that may run during a capture, makes no CUDA call
+(``online/refresh.py``).
 """
 
 from __future__ import annotations
@@ -73,9 +63,7 @@ from typing import Callable, Hashable
 import torch
 
 from repro_torch.core.mixing import ScheduleArrays
-from repro_torch.kernels.flash_attention import ops as _flash_ops
-from repro_torch.kernels.gossip_mix import ops as _gossip_ops
-from repro_torch.kernels.rglru_scan import ops as _scan_ops
+from repro_torch.graphs import Body, GraphRunner
 
 __all__ = ["MAX_GRAPH_STEPS", "SegmentRunner", "chunks"]
 
@@ -83,8 +71,6 @@ __all__ = ["MAX_GRAPH_STEPS", "SegmentRunner", "chunks"]
 # steps (and one shorter remainder), so a long static run replays one
 # bounded graph instead of capturing every step into a single graph.
 MAX_GRAPH_STEPS = 64
-
-_LAUNCH_COUNTS = (_gossip_ops.launch_counts, _flash_ops.launch_counts, _scan_ops.launch_counts)
 
 
 def chunks(length: int) -> list[int]:
@@ -97,13 +83,9 @@ Outputs = torch.Tensor | tuple[torch.Tensor, ...]
 
 
 @dataclasses.dataclass
-class _Body:
-    fn: Callable[[], None]
-    inputs: object
-    outputs: Outputs
-    runs: int = 0
-    graph: "torch.cuda.CUDAGraph | None" = None
-    launches: list[dict[str, int]] = dataclasses.field(default_factory=list)
+class _Body(Body):
+    inputs: object = None
+    outputs: Outputs | None = None
 
 
 class SegmentRunner:
@@ -132,15 +114,19 @@ class SegmentRunner:
         self.name = name
         self.device = device
         self.captured = captured
-        self.retrace_guard = retrace_guard
-        self.generators = tuple(generators)
-        self.n_traces = 0
+        self._graphs = GraphRunner(
+            name, device, retrace_guard=retrace_guard, generators=generators,
+            fallback=" (run with rollout='loop')",
+        )
         self._bodies: dict[Hashable, _Body] = {}
         self._shapes: set = set()
         self._schedules: dict[int, ScheduleArrays] = {}
         self._carry: dict[str, torch.Tensor] = {}
-        # warm-ups and captures run on this side stream
-        self._stream = torch.cuda.Stream(device) if captured and device.type == "cuda" else None
+
+    @property
+    def n_traces(self) -> int:
+        """Captures (``"scan"``) or distinct schedule shapes (``"loop"``)."""
+        return self._graphs.n_traces
 
     # -- schedule buffers --------------------------------------------------
 
@@ -219,7 +205,8 @@ class SegmentRunner:
         for k in chunks(length):
             key = (k, shape)
             if key not in self._bodies:
-                self._bodies[key] = _Body(*make_body(k, schedule))
+                fn, inputs, outputs = make_body(k, schedule)
+                self._bodies[key] = _Body(fn, inputs=inputs, outputs=outputs)
             body = self._bodies[key]
             fill(body.inputs, t, k)
             self._run(key, shape)
@@ -234,68 +221,13 @@ class SegmentRunner:
         return torch.cat(outs)
 
     def _run(self, key: Hashable, shape: Hashable) -> None:
-        """Run the body of ``key`` once (eagerly, by capture + replay, or
-        by replay; see the module docstring)."""
+        """Run the body of ``key`` once (eagerly, or through the graph runner;
+        see the module docstring)."""
         body = self._bodies[key]
-        body.runs += 1
-        if not self.captured:
-            if shape not in self._shapes:
-                self._shapes.add(shape)
-                self._count()
-            body.fn()
+        if self.captured:
+            self._graphs.run(body, f"segment body {key!r}")
             return
-        if body.runs == 1:
-            self._warm_up(body)
-            return
-        if body.runs == 2:
-            self._count()
-            if self.device.type == "cuda":
-                self._capture(key, body)
-        if body.graph is None:  # the CPU: eager, counted as on the card
-            body.fn()
-            return
-        body.graph.replay()
-        for counts, added in zip(_LAUNCH_COUNTS, body.launches):
-            for kernel, k in added.items():
-                counts[kernel] += k
-
-    def _count(self) -> None:
-        self.n_traces += 1
-        if self.retrace_guard is not None:
-            self.retrace_guard.record(self.name)
-
-    def _warm_up(self, body: _Body) -> None:
-        if self._stream is None:
-            body.fn()
-            return
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            body.fn()
-        current.wait_stream(self._stream)
-
-    def _capture(self, key: Hashable, body: _Body) -> None:
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        before = [dict(counts) for counts in _LAUNCH_COUNTS]
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        try:
-            with torch.cuda.graph(graph, stream=self._stream):
-                body.fn()
-        except Exception as exc:
-            raise RuntimeError(
-                f"{self.name}: capturing the segment body {key!r} as a CUDA graph "
-                f"failed ({exc!r}); the captured rollout does not fall back to the "
-                "eager loop (run with rollout='loop')"
-            ) from exc
-        current.wait_stream(self._stream)
-        # the capture recorded these launches; they run at each replay
-        body.launches = []
-        for counts, was in zip(_LAUNCH_COUNTS, before):
-            added = {k: counts[k] - was.get(k, 0) for k in counts if counts[k] != was.get(k, 0)}
-            for kernel, k in added.items():
-                counts[kernel] -= k
-            body.launches.append(added)
-        body.graph = graph
+        if shape not in self._shapes:
+            self._shapes.add(shape)
+            self._graphs.count()
+        body.fn()

@@ -82,6 +82,26 @@ def test_flash_attention_headline_shape_bf16_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,H,Hkv,D,window,softcap", [
+    (4096, 16, 8, 128, None, 0.0),    # qwen3-0.6b: 2-way GQA
+    (4096, 40, 8, 128, None, 0.0),    # qwen2.5-14b: 5-way GQA
+    (4096, 8, 1, 256, None, 0.0),     # gemma-2b: MQA
+    (8192, 8, 4, 256, 4096, 50.0),    # gemma2-2b local layer, past its window
+    (4096, 8, 4, 256, None, 50.0),    # gemma2-2b global layer
+])
+def test_flash_attention_dense_family_shapes_bf16_on_card(cuda, S, H, Hkv, D, window, softcap):
+    """The dense families' scoring layers at B = 2, bfloat16."""
+    q = _randn((2, S, H, D), torch.bfloat16, cuda, 7)
+    k = _randn((2, S, Hkv, D), torch.bfloat16, cuda, 8)
+    v = _randn((2, S, Hkv, D), torch.bfloat16, cuda, 9)
+    out = fa_ops.flash_attention(q, k, v, window=window, softcap=softcap)
+    plain = flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain.float(), atol=1e-2, rtol=1e-2)
+    assert fa_ops.launch_counts["flash_attention"] == 1
+
+
+@pytest.mark.cuda
 def test_flash_attention_non_causal_on_card(cuda):
     q, k, v = (_randn((1, 300, 4, 64), torch.float32, cuda, s) for s in range(3))
     out = fa_ops.flash_attention(q, k, v, causal=False, window=77)
