@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-table PATH]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels`` (one
 nvcc per source, all at once) and then, on the card:
@@ -24,11 +24,25 @@ nvcc per source, all at once) and then, on the card:
    case, and bfloat16 at (2, 4096, 2560) and (2, 32768, 2560)); the
    flash rows include phase 8's layers (qwen3-0.6b, qwen2.5-14b, gemma-2b,
    gemma2-2b local at S = 8192 and global, softcap 50; SDPA has no
-   softcap, so those rows time it without one, beside the row);
+   softcap, so those rows time it without one, beside the row); the
+   device auction LMO on the cold and warm STL-FW gradients of phase 6b's
+   label-shard Pi (n = 100), of a Dirichlet(0.1) label partition at n =
+   128, 512, 1024 and 2048, and on tied integers: its assignment, prices
+   and counters identical to the plain version's (run on the host, in
+   worker processes), its objective scipy's within 1e-9; the kernel's ms
+   beside the whole call's, the plain version's, the numpy auction's and
+   scipy's (host times the median of 3, taken with no worker running);
 2. drives the D-SGD main path through the user's entry points -- Pi from
    a label-skew partition, ``learn_topology``, ``schedule_from_result``,
    ``run_classification`` / ``run_mean_estimation`` on ``cuda`` -- and
    checks accuracies, losses, errors and the kernels' launch counts;
+   ``learn_topology(lmo="auction_jit")`` at n = 512, budget 64, against
+   ``lmo="scipy"`` (the objective and step-size traces within 1e-9); 2d,
+   the transport table: ``autotune_transport(measure=True)`` over n 64-
+   2048 x L 2-64 into a temporary file (``--save-table`` copies it out),
+   each bucket's two transport times (``mix_stacked`` on a pytree of
+   phase 2b's leaf widths) beside the closed form's pick; phase 6b holds
+   the pick at phase 2b's bucket to the two arms' ms/step;
 3. scores sequences with recurrentgemma-2b at its full width (random
    weights from seed 0, bfloat16, B = 2, S = 4096) through
    ``registry.loss_fn`` / ``model_forward``: 8 flash_attention and 18
@@ -55,8 +69,11 @@ nvcc per source, all at once) and then, on the card:
    on a ``ScheduleArrays`` with an ``OnlineTopologyController`` (inline:
    graph against loop, equal losses and swaps, one capture; overlap:
    every swap collected without blocking, a final flush), and, printed,
-   loop against graph ms/step and device busy share on phase 2b's arms;
-   6c, a cold and a warm STL-FW refresh at n = 512;
+   loop against graph ms/step and device busy share on phase 2b's arms
+   (the transport phase 2d's table picks there must be within 5% of the
+   faster arm's graph ms/step); 6c, a cold solve and a warm STL-FW refresh at n = 512 with the scipy
+   and the device LMO (equal objectives), and 6b's controller with the
+   device LMO, inline and in overlap mode (one capture an arm);
 7. drives the robustness layer in the captured rollout: 7a, phase 6b's
    run with health probes (tau_bar at the controller's live Pi_hat)
    bitwise the probes-off run, and the probes' cost per step; 7b, phase
@@ -93,6 +110,8 @@ import functools
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -104,22 +123,31 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from scipy.optimize import linear_sum_assignment  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import topology as T  # noqa: E402
+from repro_torch.core.assignment import _quantize, auction_assignment  # noqa: E402
+from repro_torch.core.assignment_jit import AuctionWorkspace, auction_assignment_jit  # noqa: E402
 from repro_torch.core.mixing import (  # noqa: E402
     ScheduleArrays,
     StragglerPolicy,
+    _bucket_key,
     arrays_to_matrix,
+    autotune_transport,
+    preferred_transport,
     schedule_from_result,
     schedule_to_arrays,
 )
-from repro_torch.core.stl_fw import learn_topology  # noqa: E402
+from repro_torch.core.stl_fw import LMOSolver, learn_topology  # noqa: E402
 from repro_torch.data.drift import AbruptLabelSwap, labels_stream  # noqa: E402
 from repro_torch.data.partition import dirichlet_partition, shard_partition  # noqa: E402
 from repro_torch.data.synthetic import gaussian_blobs, mean_estimation_clusters  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.auction import ops as auction_ops  # noqa: E402
+from repro_torch.kernels.auction.ref import STATS as AUCTION_STATS  # noqa: E402
+from repro_torch.kernels.auction.ref import auction_ref  # noqa: E402
 from repro_torch.kernels.gossip_mix import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
@@ -167,6 +195,11 @@ KERNELS = {
     "rglru_scan": {
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/rglru_scan.py:56",
+    },
+    # no Pallas counterpart: the reference's lax.while_loop auction
+    "auction": {
+        "source": "src/repro_torch/kernels/auction/csrc/auction.cu",
+        "replaces": "src/repro/core/assignment_jit.py:184",
     },
 }
 
@@ -499,16 +532,226 @@ def phase_kernels(Pi_mnist: np.ndarray) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 1 (continued): the device auction LMO
+# ---------------------------------------------------------------------------
+
+# n = 100 is phase 6b's controller on its own label-shard Pi (not a
+# multiple of 64: partial warps and lane loops); the others are
+# Dirichlet(0.1) label partitions
+AUCTION_SIZES = (100, 128, 512, 1024, 2048)
+AUCTION_LAUNCHES = 5  # a solve is one launch of up to ~0.5 s: fewer than 30 timed
+AUCTION_REPEATS = 3  # host yardsticks: the median of 3, timed with no worker running
+AUCTION_HEADLINE = 512  # the warm solve at n = 512 (phase 6c's and phase 2's n)
+
+
+class _GradRecorder(LMOSolver):
+    """The scipy LMO, keeping each STL-FW gradient it is given."""
+
+    def __init__(self):
+        super().__init__("scipy")
+        self.grads = []
+
+    def __call__(self, grad):
+        self.grads.append(np.array(grad, dtype=np.float64))
+        return super().__call__(grad)
+
+
+def fw_gradients(n: int, Pi: np.ndarray | None = None,
+                 steps: int = 3) -> tuple[np.ndarray, np.ndarray, float]:
+    """Two consecutive STL-FW gradients of ``Pi`` (None:
+    ``dirichlet_pi(n, alpha=0.1)``) and the contraction ``1 - gamma``
+    between them: a cold and a warm LMO solve as ``learn_topology`` makes
+    them."""
+    rec = _GradRecorder()
+    Pi = dirichlet_pi(n, alpha=0.1) if Pi is None else Pi
+    res = learn_topology(Pi, budget=steps, lam=0.1, lmo=rec)
+    k = steps - 2
+    return rec.grads[k], rec.grads[k + 1], 1.0 - float(res.gamma_trace[k])
+
+
+def auction_bound(n: int, phases: int) -> tuple[float, str]:
+    """Least time of a solve in ms: one pass over the float64 cost matrix
+    per phase (and the prepare pass) at the memory rate, beside the
+    vectors read and written once; bytes bound it."""
+    t_bytes = ((max(phases, 1) + 1) * n * n * 8 + 28 * n) / HBM_BYTES_PER_S
+    return 1e3 * t_bytes, "bytes"
+
+
+def _objective(cost: np.ndarray, col) -> float:
+    col = np.asarray(col)
+    return float(cost[np.arange(len(col)), col].sum())
+
+
+def _auction_kw(n: int, scale: float, have_warm: bool) -> dict:
+    """The LMO's solve on the card: validate=False, Jacobi above 64 bidders."""
+    return dict(warm_scale=scale, have_warm=have_warm, rel_grid=1e-12, scaling=3000.0,
+                forward_reverse=False, validate=False, gs_threshold=64,
+                max_iters=500 * n + 200_000)
+
+
+def plain_auction_job(cost: np.ndarray, warm, kw: dict) -> tuple:
+    """The plain version on the host (a worker process: its branches read
+    every scalar back, ~0.1 ms a bid on the host, ~0.3 ms on the card)."""
+    torch.set_num_threads(1)
+    n = cost.shape[0]
+    if warm is None:
+        warm = (np.zeros(n), np.full(n, -1, dtype=np.int32))
+    t0 = time.perf_counter()
+    out = auction_ref(torch.from_numpy(cost), torch.from_numpy(warm[0]),
+                      torch.from_numpy(warm[1]), **kw)
+    return tuple(x.numpy() for x in out) + (time.perf_counter() - t0,)
+
+
+def _median_ms(fn, repeats: int = AUCTION_REPEATS):
+    """``fn()``'s last result and the median of its host ms over ``repeats``."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, float(np.median(times))
+
+
+def auction_case(n: int, Pi: np.ndarray | None) -> dict:
+    """Cold and warm FW-gradient solves at n on the card: the kernel's
+    results, the objective held to scipy's, and the host times -- a whole
+    ``auction_assignment_jit`` (the pinned copy up, the launch, the
+    read-back), scipy and the numpy auction (warm-started as the LMO
+    does) -- each the median of ``AUCTION_REPEATS``, taken while no
+    worker runs. Device times and the plain version come later."""
+    g0, g1, scale = fw_gradients(n, Pi)
+    c0 = torch.as_tensor(g0, dtype=torch.float64, device="cuda")
+    c1 = torch.as_tensor(g1, dtype=torch.float64, device="cuda")
+    ws = AuctionWorkspace(n, "cuda")
+    unset = (torch.zeros(n, dtype=torch.float64, device="cuda"),
+             torch.full((n,), -1, dtype=torch.int32, device="cuda"))
+    kw0, kw1 = _auction_kw(n, 1.0, False), _auction_kw(n, scale, True)
+    cold = tuple(x.clone() for x in auction_ops.auction(c0, *unset, **ws.buffers, **kw0))
+    warm_in = (cold[1].clone(), cold[0].clone())
+    warm = tuple(x.clone() for x in auction_ops.auction(c1, *warm_in, **ws.buffers, **kw1))
+    torch.cuda.synchronize()
+    # the warm state's prices stay on a workspace of their own, so every
+    # timed warm solve starts from the same cold prices
+    lmo, held = AuctionWorkspace(n, "cuda"), AuctionWorkspace(n, "cuda")
+    (col_cold, _), solve_cold = _median_ms(
+        lambda: auction_assignment_jit(g0, validate=False, workspace=lmo))
+    _, state = auction_assignment_jit(g0, validate=False, workspace=held)
+    (col_warm, _), solve_warm = _median_ms(
+        lambda: auction_assignment_jit(g1, state.scaled(scale), validate=False, workspace=lmo))
+    check(np.array_equal(col_cold, cold[0].cpu().numpy()) and
+          np.array_equal(col_warm, warm[0].cpu().numpy()),
+          f"1 auction n={n}: auction_assignment_jit does not return the kernel's assignment")
+    q0, q1 = _quantize(g0, 1e-12)[0], _quantize(g1, 1e-12)[0]
+    (_, np_state), np_cold = _median_ms(lambda: auction_assignment(q0))
+    _, np_warm = _median_ms(lambda: auction_assignment(q1, np_state.scaled(scale)))
+    pi_name = "Dirichlet(0.1)" if Pi is None else "phase 6b's label shards"
+    rows = []
+    for kind, cost, k, solve_ms, np_ms in (("cold", g0, cold, solve_cold, np_cold),
+                                           ("warm", g1, warm, solve_warm, np_warm)):
+        ref_col, scipy_ms = _median_ms(lambda: linear_sum_assignment(cost)[1])
+        obj, ref_obj = _objective(cost, k[0].cpu().numpy()), _objective(cost, ref_col)
+        check(abs(obj - ref_obj) <= 1e-9 * max(1.0, abs(ref_obj)),
+              f"1 auction n={n} {kind}: objective {obj!r} is not scipy's {ref_obj!r}")
+        stats = dict(zip(AUCTION_STATS, k[2].tolist()))
+        bound, bound_by = auction_bound(n, stats["phases"])
+        rows.append({
+            "kernel": "auction", "case": f"n={n} {kind} FW-gradient solve, {pi_name} Pi",
+            "n": n, "shape": [n, n], "dtype": "float64", "phases": stats["phases"],
+            "rounds": stats["rounds"], "rebid_rows": stats["rebid"], "solve_ms": solve_ms,
+            "scipy_ms": scipy_ms, "numpy_auction_ms": np_ms, "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "objective_minus_scipy": obj - ref_obj,
+            "kernel_out": tuple(x.cpu().numpy() for x in k),
+        })
+    timed = {"cold": (c0, unset, kw0), "warm": (c1, warm_in, kw1)}
+    plain = {"cold": (g0, None, kw0), "warm": (g1, tuple(x.cpu().numpy() for x in warm_in), kw1)}
+    return {"n": n, "rows": rows, "ws": ws, "timed": timed, "plain": plain}
+
+
+def _time_kernel(case: dict) -> None:
+    """The kernel's device ms (CUDA events) of each row of ``case``."""
+    ws = case["ws"]
+    for row, kind in zip(case["rows"], ("cold", "warm")):
+        cost, warm, kw = case["timed"][kind]
+        row["kernel_ms"] = device_ms(lambda: auction_ops.auction(cost, *warm, **ws.buffers, **kw),
+                                     launches=AUCTION_LAUNCHES, warmup=1)
+
+
+def _collect_auction(case: dict, jobs: list) -> None:
+    """The plain version's results beside the kernel's: identical
+    assignment, prices and counters."""
+    for row, job in zip(case["rows"], jobs):
+        plain = job.result()
+        kernel = row.pop("kernel_out")
+        for name, a, b in zip(("col_of_row", "prices", "stats"), kernel, plain[:3]):
+            check(np.array_equal(a, b), f"1 auction {row['case']}: the kernel's {name} is not "
+                  f"the plain version's (kernel stats {kernel[2].tolist()}, plain "
+                  f"{plain[2].tolist()})")
+        row.update({"max_abs_err": float(np.abs(kernel[1] - plain[1]).max()),
+                    "plain_ms": 1e3 * plain[3], "plain_on": "host"})
+
+
+def auction_tied_case(n: int = 128) -> tuple:
+    """Small-integer costs (exact ties: the price wars the rescue ends),
+    Jacobi rounds carrying the bidding: the kernel's results, checked
+    against scipy's objective here and the plain version's later."""
+    cost = np.random.default_rng(3).integers(0, 3, size=(n, n)).astype(np.float64)
+    kw = _auction_kw(n, 1.0, False)
+    ws = AuctionWorkspace(n, "cuda")
+    k = auction_ops.auction(torch.as_tensor(cost, device="cuda"),
+                            torch.zeros(n, dtype=torch.float64, device="cuda"),
+                            torch.full((n,), -1, dtype=torch.int32, device="cuda"),
+                            **ws.buffers, **kw)
+    k = tuple(x.cpu().numpy() for x in k)
+    check(_objective(cost, k[0]) == _objective(cost, linear_sum_assignment(cost)[1]),
+          "1 auction tied integers: objective is not scipy's")
+    return cost, kw, k
+
+
+def phase_auction(Pi_mnist: np.ndarray) -> list[dict]:
+    """Phase 1's auction rows (the headline first: the warm solve at
+    n = 512). The host yardsticks are timed first, with no worker
+    running; then the plain version runs in worker processes while the
+    card is timed."""
+    import concurrent.futures
+    import multiprocessing
+
+    cases = [auction_case(n, Pi_mnist if n == len(Pi_mnist) else None)
+             for n in AUCTION_SIZES]
+    tied_cost, tied_kw, tied = auction_tied_case()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=4, mp_context=ctx) as pool:
+        jobs = [[pool.submit(plain_auction_job, *c["plain"][kind]) for kind in ("cold", "warm")]
+                for c in cases]
+        tied_job = pool.submit(plain_auction_job, tied_cost, None, tied_kw)
+        for c in cases:
+            _time_kernel(c)
+        rows = []
+        for c, case_jobs in zip(cases, jobs):
+            _collect_auction(c, case_jobs)
+            rows += c["rows"]
+        plain = tied_job.result()
+    for name, a, b in zip(("col_of_row", "prices", "stats"), tied, plain[:3]):
+        check(np.array_equal(a, b),
+              f"1 auction tied integers: the kernel's {name} is not the plain version's")
+    note(f"# 1 auction n={len(tied_cost)} tied integer costs: identical to the plain version, "
+         f"scipy's objective; stats {dict(zip(AUCTION_STATS, tied[2].tolist()))}, plain "
+         f"version {plain[3]:.2f} s on the host")
+    head = next(r for r in rows if r["n"] == AUCTION_HEADLINE and "warm" in r["case"])
+    return [head] + [r for r in rows if r is not head]
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: the main path through the user's entry points
 # ---------------------------------------------------------------------------
 
 def reset_launch_counts() -> None:
-    for mod in (ops, fa_ops, scan_ops):
+    for mod in (ops, fa_ops, scan_ops, auction_ops):
         mod.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {**ops.launch_counts, **fa_ops.launch_counts, **scan_ops.launch_counts}
+    return {**ops.launch_counts, **fa_ops.launch_counts, **scan_ops.launch_counts,
+            **auction_ops.launch_counts}
 
 
 def counted(fn, *args, **kwargs):
@@ -584,7 +827,7 @@ def phase_main_path(mnist) -> dict:
 
     def expect(label, counts, schedule, mix):
         check(counts == {"gossip_schedule": schedule, "gossip_mix": mix,
-                         "flash_attention": 0, "rglru_scan": 0},
+                         "flash_attention": 0, "rglru_scan": 0, "auction": 0},
               f"{label}: launches {counts}, expected schedule={schedule} mix={mix}")
         for k in launches:
             launches[k] += counts[k]
@@ -623,6 +866,7 @@ def phase_main_path(mnist) -> dict:
     check(bool(np.isfinite(c["stl"]).all()), "2c: non-finite error")
     check(c["stl"][-1] < c["stl"][0], "2c: final mean_sq_error is not below the first")
     check(c["stl"][-1] < 0.5 * c["random"][-1], "2c: stl-fw is not 2x below random(d9)")
+    launches["auction"] = phase_device_lmo()
     return launches
 
 
@@ -678,6 +922,83 @@ def phase_cross_device() -> None:
               f": max |diff| {err:.3e}")
         check(np.allclose(gpu["mean_sq_error"], cpu["mean_sq_error"], rtol=1e-5, atol=1e-6),
               "2d: cuda and cpu error traces disagree")
+
+
+def phase_device_lmo() -> int:
+    """Phase 2 (continued): ``learn_topology(lmo="auction_jit")`` at n = 512,
+    budget 64, on a generic Pi (Dirichlet(0.1), K = 64), against
+    ``lmo="scipy"``: the objective and step-size traces within 1e-9 (the
+    reference test's bar; atoms may differ where the LMO has exact ties).
+    Returns the auction's launches: one a FW step and the final gap."""
+    n, K, budget = 512, 64, 64
+    Pi = np.random.default_rng(0).dirichlet(0.1 * np.ones(K), size=n)
+    ref, _, scipy_s = counted(learn_topology, Pi, budget=budget, lam=0.1, lmo="scipy")
+    jit, counts, jit_s = counted(learn_topology, Pi, budget=budget, lam=0.1,
+                                 lmo="auction_jit")
+    same = sum(np.array_equal(a, b) for a, b in zip(jit.perms, ref.perms))
+    obj_err = float(np.abs(jit.objective_trace - ref.objective_trace).max())
+    gamma_err = float(np.abs(jit.gamma_trace - ref.gamma_trace).max())
+    out = {"n": n, "budget": budget, "auction_jit_s": jit_s, "scipy_s": scipy_s,
+           "launches": counts["auction"], "atoms": [len(jit.perms), len(ref.perms)],
+           "atoms_identical": int(same), "objective_max_abs_diff": obj_err,
+           "gamma_max_abs_diff": gamma_err, "objective_final": float(jit.objective_trace[-1]),
+           "lmo_backend": jit.lmo_backend}
+    note("# 2 learn_topology auction_jit against scipy " + json.dumps(out))
+    check(jit.lmo_backend == "auction_jit", "2: learn_topology does not report auction_jit")
+    check(counts["auction"] == len(jit.gap_trace),
+          f"2: {counts['auction']} auction launches for {len(jit.gap_trace)} LMO solves")
+    check(len(jit.objective_trace) == len(ref.objective_trace) and obj_err <= 1e-9
+          and gamma_err <= 1e-9, "2: the auction_jit trajectory is not scipy's")
+    return counts["auction"]
+
+
+TABLE_NODES = (64, 128, 256, 512, 1024, 2048)
+TABLE_ATOMS = (2, 4, 8, 16, 32, 64)
+TABLE_LEAVES = (50176, 64, 640, 10)  # phase 2b's MLP leaves per node: w1, b1, w2, b2
+TABLE_P = sum(TABLE_LEAVES)  # 50890; bucket 65536
+END_TO_END_NOISE = 1.05  # the two arms of 6b's graph ms/step have differed by up to 4.5%
+
+
+def phase_transport_table(Pi_2b: np.ndarray, save: str | None = None) -> dict:
+    """Phase 2d: the transport table on the card. ``autotune_transport``
+    measures every (n, L) bucket of the grid (L < n, P bucketed and
+    capped as the reference caps it) into a temporary table -- never the
+    committed one -- timing both transports through ``mix_stacked`` on a
+    pytree of phase 2b's leaf widths, as the trainers run them; printed
+    beside the closed form's pick. ``save`` copies the measured table
+    there. Phase 6b holds the pick at 2b's bucket to its ms/step."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "transport_autotune.json")
+        for n in TABLE_NODES:
+            for L in TABLE_ATOMS:
+                if L < n:
+                    autotune_transport(n, L, TABLE_P, measure=True, path=path, device="cuda",
+                                       leaf_sizes=TABLE_LEAVES)
+        with open(path) as f:
+            table = json.load(f)
+        if save:
+            shutil.copyfile(path, save)
+    seconds = time.perf_counter() - t0
+    losses = []
+    for key, r in sorted(table.items(), key=lambda kv: (kv[1]["n_nodes"], kv[1]["n_atoms"])):
+        closed = preferred_transport(r["n_nodes"], r["n_atoms"])
+        us = {"schedule": r["schedule_us"], "dense": r["dense_us"]}
+        if closed != r["winner"]:
+            losses.append(us[closed] / us[r["winner"]])
+        note(f"# 2d n={r['n_nodes']} L={r['n_atoms']} P={r['p']} (timed {r['p_measured']}): "
+             f"schedule {us['schedule']:.1f} us, dense {us['dense']:.1f} us, winner "
+             f"{r['winner']}, closed form {closed}")
+        check(r["card"] == torch.cuda.get_device_name(0) and r["power_limit"],
+              f"2d {key}: the record does not name the card and its power limit")
+    sched_2b = schedule_from_result(learn_topology(Pi_2b, budget=10, lam=0.1))
+    head = table[_bucket_key(sched_2b.n_nodes, sched_2b.n_communication_atoms, TABLE_P,
+                             torch.device("cuda"))]
+    out = {"buckets": len(table), "disagree": len(losses),
+           "largest_closed_form_loss": max(losses, default=1.0), "seconds": seconds,
+           "phase_2b_bucket": {k: head[k] for k in ("n_nodes", "n_atoms", "p", "winner")}}
+    note("# 2d transport table " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -798,8 +1119,9 @@ def phase_drift_recovery(launches: dict) -> dict:
     return out
 
 
-def _online_controller(Pi0: np.ndarray, res0, **kw):
-    ref = TopologyRefresher(res0, RefreshConfig(budget=10, lam=0.1, l_max=11), device="cuda")
+def _online_controller(Pi0: np.ndarray, res0, lmo: str = "auto", **kw):
+    ref = TopologyRefresher(res0, RefreshConfig(budget=10, lam=0.1, l_max=11), lmo=lmo,
+                            device="cuda")
     return OnlineTopologyController(ref, Pi0=Pi0, **kw)
 
 
@@ -921,34 +1243,113 @@ def graph_step_times(data, steps: int = 256, every: int = 32) -> dict:
 
 
 def phase_warm_refresh() -> dict:
-    """Phase 6c: one cold and one warm refresh at n = 512, budget 64 (the
-    reference's ``bench_online`` claim 1): host seconds, printed."""
+    """Phase 6c: a cold solve and a warm refresh at n = 512, budget 64 (the
+    reference's ``bench_online`` claim 1), with the scipy LMO and with the
+    device auction: equal cold objectives, the device LMO's warm refresh
+    reaching the scipy refresh's objective; seconds and FW iterations of
+    each, printed. Returns the auction's launches."""
     n, K, budget = 512, 64, 64
     rng = np.random.default_rng(0)
     Pi0 = rng.dirichlet(0.1 * np.ones(K), size=n)
     res0 = learn_topology(Pi0, budget=budget, lam=0.1)
-    ref = TopologyRefresher(res0, RefreshConfig(budget=budget // 4, lam=0.1), device="cuda")
     Pi1 = Pi0[rng.permutation(n)]
-    t0 = time.perf_counter()
-    cold = learn_topology(Pi1, budget=budget, lam=0.1)
-    cold_s = time.perf_counter() - t0
-    warm = ref.refresh(Pi1)
-    out = {"cold_s": cold_s, "warm_s": ref.last_refresh_s, "warm_iters": ref.last_iters,
-           "objective_cold": float(cold.objective_trace[-1]),
-           "objective_warm": float(warm.objective_trace[-1])}
+    out, launches = {}, 0
+    for lmo in ("scipy", "auction_jit"):
+        cold, counts_cold, cold_s = counted(learn_topology, Pi1, budget=budget, lam=0.1, lmo=lmo)
+        ref = TopologyRefresher(res0, RefreshConfig(budget=budget // 4, lam=0.1), lmo=lmo,
+                                device="cuda")
+        warm, counts_warm, _ = counted(ref.refresh, Pi1)
+        launches += counts_cold["auction"] + counts_warm["auction"]
+        out[lmo] = {"cold_s": cold_s, "cold_iters": len(cold.gamma_trace),
+                    "warm_s": ref.last_refresh_s, "warm_iters": ref.last_iters,
+                    "objective_cold": float(cold.objective_trace[-1]),
+                    "objective_warm": float(warm.objective_trace[-1]),
+                    "lmo_solves": len(cold.gap_trace) + len(warm.gap_trace),
+                    "auction_launches": counts_cold["auction"] + counts_warm["auction"]}
     note("# 6c " + json.dumps(out))
-    return out
+    s_, j_ = out["scipy"], out["auction_jit"]
+    check(abs(j_["objective_cold"] - s_["objective_cold"]) <= 1e-9 * max(1.0, s_["objective_cold"]),
+          "6c: the device LMO's cold objective is not scipy's")
+    check(j_["objective_warm"] <= s_["objective_warm"] + 1e-9 * max(1.0, s_["objective_warm"]),
+          "6c: the device LMO's warm refresh does not reach the scipy refresh's objective")
+    check(j_["auction_launches"] == j_["lmo_solves"] and s_["auction_launches"] == 0,
+          f"6c: {j_['auction_launches']} auction launches for {j_['lmo_solves']} LMO solves")
+    return launches
 
 
-def phase_online(mnist) -> dict:
+def phase_online_device_lmo(data, launches: dict, steps: int = 200) -> int:
+    """Phase 6c (continued): phase 6b's controller with ``lmo="auction_jit"``
+    (its LMO on the card, its prices kept there across refreshes), inline
+    and in overlap mode -- the worker's solves next to the trainer's
+    captures -- in the captured rollout: one capture per arm, every swap
+    collected, no failed refresh. Returns the auction's launches."""
+    X, y, idx, Pi0 = data
+    n, n_train = len(idx), sum(len(i) for i in idx)
+    res0 = learn_topology(Pi0, budget=10, lam=0.1)
+    labels = labels_stream(
+        AbruptLabelSwap(Pi0, t_drift=steps // 2,
+                        node_perm=np.random.default_rng(11).permutation(n)),
+        steps, 64, seed=0)
+    kw = dict(model="mlp", hidden=64, steps=steps, batch_size=64, lr=0.2, eval_every=20,
+              X_test=X[n_train:], y_test=y[n_train:], seed=0, device="cuda")
+    out, auction = {}, 0
+    for overlap in (False, True):
+        ctl = _online_controller(Pi0, res0, lmo="auction_jit", overlap=overlap)
+        try:
+            log, counts, secs = counted(run_classification, X[:n_train], y[:n_train], idx, None,
+                                        schedule=ctl.schedule_arrays(),
+                                        on_segment=_feed(ctl, labels), rollout="scan", **kw)
+            final = ctl.flush(steps) if ctl.refresh_pending else None
+        finally:
+            ctl.close()
+        arm = "overlap" if overlap else "inline"
+        check(counts["gossip_schedule"] == steps, f"6c {arm} auction_jit: launches {counts}")
+        launches["gossip_schedule"] += counts["gossip_schedule"]
+        auction += counts["auction"]
+        check(log.aux["n_traces"] == 1, f"6c {arm} auction_jit: {log.aux['n_traces']} captures")
+        # inline a refresh swaps at its boundary; in overlap mode it lands
+        # at the first boundary after the solve, or at the final flush
+        in_run = [r for r in ctl.refresh_log if r["t_collect"] < steps]
+        check(ctl.failed_refreshes == 0 and counts["auction"] >= 1
+              and len(log.aux["swaps"]) == len(in_run) and (in_run or final is not None)
+              and all(r["blocked_s"] == 0.0 for r in in_run),
+              f"6c {arm} auction_jit: refreshes {ctl.refresh_log}, swaps {log.aux['swaps']}")
+        out[arm] = {"swaps": log.aux["swaps"], "n_traces": log.aux["n_traces"],
+                    "refreshes": ctl.refresher.n_refreshes, "auction_launches": counts["auction"],
+                    "seconds": secs, "acc_mean": _final(log)["acc_mean"],
+                    "refresh_log": [{k: r[k] for k in ("t_submit", "t_collect", "solve_s",
+                                                       "pending_segments", "blocked_s")}
+                                    for r in ctl.refresh_log]}
+    note("# 6c online auction_jit " + json.dumps(out))
+    return auction
+
+
+def check_table_pick(pick: str, timing: dict) -> None:
+    """Phase 2b's learned topology (n 100, 10 communication atoms, P
+    50890) runs under the graph as a schedule arm and a dense arm: the
+    transport phase 2d's table picks for that bucket must not be slower
+    end to end than the other beyond the arms' run-to-run noise."""
+    ms = {arm: timing[f"{arm} scan"]["ms_per_step"] for arm in ("schedule", "dense")}
+    other = "dense" if pick == "schedule" else "schedule"
+    note(f"# 6b table pick at phase 2b's bucket: {pick} ({ms[pick]:.4f} ms/step under the "
+         f"graph), {other} {ms[other]:.4f}")
+    check(ms[pick] <= END_TO_END_NOISE * ms[other],
+          f"6b: the table picks {pick} at phase 2b's bucket, {ms[pick]:.4f} ms/step against "
+          f"{other}'s {ms[other]:.4f}")
+
+
+def phase_online(mnist, table_pick: str) -> dict:
     """Phase 6; returns the gossip kernels' launches over its counted runs."""
-    launches = {"gossip_schedule": 0, "gossip_mix": 0}
+    launches = {"gossip_schedule": 0, "gossip_mix": 0, "auction": 0}
     phase_capture_kernels()
     phase_drift_recovery(launches)
     phase_online_full_width(mnist, launches)
-    for label, r in graph_step_times(mnist).items():
+    timing = graph_step_times(mnist)
+    for label, r in timing.items():
         note(f"# 6b timing {label} " + json.dumps(r))
-    phase_warm_refresh()
+    check_table_pick(table_pick, timing)
+    launches["auction"] += phase_warm_refresh()
+    launches["auction"] += phase_online_device_lmo(mnist, launches)
     note(f"# 6 launches {launches}")
     return launches
 
@@ -1307,7 +1708,8 @@ def expect_lm(label: str, counts: dict, flash: int, scan: int, device: torch.dev
     """The LM kernels' launches of one counted run (none on the CPU)."""
     if device.type != "cuda":
         flash = scan = 0
-    want = {"gossip_schedule": 0, "gossip_mix": 0, "flash_attention": flash, "rglru_scan": scan}
+    want = {"gossip_schedule": 0, "gossip_mix": 0, "flash_attention": flash, "rglru_scan": scan,
+            "auction": 0}
     check(counts == want, f"{label}: launches {counts}, expected {want}")
     note(f"# {label}: launches flash_attention={flash} rglru_scan={scan}")
 
@@ -1680,7 +2082,13 @@ def phase_dense_families(device: torch.device) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    parser.add_argument("--save-table", metavar="PATH",
+                        help="also write phase 2d's measured transport table to PATH")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
@@ -1695,8 +2103,13 @@ def main() -> int:
           f"kernels built in {build_s:.1f} s")
 
     mnist = mnist_width_data()
-    rows = phase_kernels(mnist[3]) + phase_lm_kernels()
+    rows = phase_kernels(mnist[3]) + phase_lm_kernels() + phase_auction(mnist[3])
     for r in rows:
+        if r["kernel"] == "auction":
+            note(f"# 1 auction {r['case']}: kernel_ms={r['kernel_ms']:.3f} "
+                 f"solve_ms={r['solve_ms']:.3f} plain_ms={r['plain_ms']:.1f} (host) "
+                 f"numpy_auction_ms={r['numpy_auction_ms']:.1f} scipy_ms={r['scipy_ms']:.1f} "
+                 f"bound_ms={r['bound_ms']:.4f} phases={r['phases']} rounds={r['rounds']}")
         if "design" in r:  # the redesigned kernels: which design ran, and its numbers
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             note(f"# 1 {r['kernel']} {r['case']} {r['dtype']}: {r['design']}; "
@@ -1711,9 +2124,10 @@ def main() -> int:
               f"the library call's {head['library_ms']:.4f} ms")
     launches = phase_main_path(mnist)
     phase_cross_device()
+    table = phase_transport_table(mnist[3], args.save_table)
     for arm, r in step_breakdown(mnist).items():
         note(f"# 2e {arm} " + json.dumps(r))
-    online = phase_online(mnist)
+    online = phase_online(mnist, table["phase_2b_bucket"]["winner"])
     for k, v in online.items():
         launches[k] += v
     robust = phase_robustness(mnist)

@@ -43,9 +43,17 @@
         every case the W-resident FMA kernel takes to the K-tiled FMA
         kernel instead, and times both, and ``torch.matmul``, at the
         shapes the resident kernel serves.
+    python3 scripts/kernel_ab.py auction OLD_CSRC
+        Builds ``auction.cu`` from this checkout and from OLD_CSRC, runs
+        both on the cold and warm STL-FW gradients of ``chip_smoke.py``'s
+        phase 1 (``fw_gradients``) at n = 128, 512, 1024 and 2048 and
+        checks that they return the same assignment, prices and counters
+        (each kernel is held to the plain version by ``chip_smoke.py``),
+        then times both, old and new alternating, 5 launches each (a
+        solve is one launch of up to ~1 s).
 
 Times are medians of 30 launches (CUDA events, a device sleep queued
-ahead of each). Libraries and ptxas reports go to ``build/kernel_ab/``.
+ahead of each) unless a mode says otherwise. Libraries and ptxas reports go to ``build/kernel_ab/``.
 Prints the card's name and power limit first.
 """
 
@@ -508,6 +516,74 @@ def scan_floor() -> None:
         print(json.dumps(row), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# auction: this checkout's device auction against another version
+# ---------------------------------------------------------------------------
+
+def _auction_fn(lib: ctypes.CDLL):
+    from repro_torch.kernels.auction import ops
+
+    fn = lib.auction_f64
+    fn.argtypes = ops._ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def auction(old_csrc: str) -> None:
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import fw_gradients  # noqa: E402  (its STL-FW gradients)
+    from repro_torch.kernels.auction import ops  # noqa: E402
+
+    libs = nvcc_all({"auction_old": Path(old_csrc) / "auction.cu",
+                     "auction_new": KERNELS / "auction" / "csrc" / "auction.cu"})
+    fns = {"old": _auction_fn(libs["auction_old"]), "new": _auction_fn(libs["auction_new"])}
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in (128, 512, 1024, 2048):
+        g0, g1, scale = fw_gradients(n)
+        nf, ni = ops.work_sizes(n)
+        cost = {k: torch.as_tensor(g, device="cuda") for k, g in (("cold", g0), ("warm", g1))}
+        benefit = torch.empty((n, n), dtype=torch.float64, device="cuda")
+        work = (torch.empty(nf, dtype=torch.float64, device="cuda"),
+                torch.empty(ni, dtype=torch.int32, device="cuda"))
+
+        def outputs():
+            return (torch.empty(n, dtype=torch.int32, device="cuda"),
+                    torch.empty(n, dtype=torch.float64, device="cuda"),
+                    torch.empty(9, dtype=torch.int64, device="cuda"))
+
+        def call(fn, kind, warm, out):
+            wp, wc, scale_, have = warm
+            col, prices, stats = out
+            status = fn(cost[kind].data_ptr(), benefit.data_ptr(), wp.data_ptr(), wc.data_ptr(),
+                        scale_, have, 1e-12, 3000.0, 0, 0, 64, 500 * n + 200_000, n,
+                        prices.data_ptr(), col.data_ptr(), stats.data_ptr(),
+                        work[0].data_ptr(), work[1].data_ptr(), stream)
+            assert status == 0, status
+
+        unset = (torch.zeros(n, dtype=torch.float64, device="cuda"),
+                 torch.full((n,), -1, dtype=torch.int32, device="cuda"), 1.0, 0)
+        results = {}
+        for name, fn in fns.items():
+            cold = outputs()
+            call(fn, "cold", unset, cold)
+            warm_in = (cold[1].clone(), cold[0].clone(), scale, 1)
+            warm = outputs()
+            call(fn, "warm", warm_in, warm)
+            torch.cuda.synchronize()
+            results[name] = (cold, warm, warm_in)
+        same = all(torch.equal(a, b) for a, b in zip(results["old"][0] + results["old"][1],
+                                                      results["new"][0] + results["new"][1]))
+        assert same, f"n={n}: the two kernels disagree"
+        for kind, warm_in in (("cold", unset), ("warm", results["new"][2])):
+            out = outputs()
+            row = {"n": n, "solve": kind, "rounds": int(results["new"][0 if kind == "cold" else 1][2][6]),
+                   "old_ms": [], "new_ms": []}
+            for name in ("old", "new", "new", "old"):
+                row[f"{name}_ms"].append(device_ms(lambda: call(fns[name], kind, warm_in, out),
+                                                   launches=5, warmup=1))
+            print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
@@ -524,6 +600,8 @@ def main() -> int:
         schedule(sys.argv[2])
     elif sys.argv[1:2] == ["scan"] and len(sys.argv) == 3:
         scan(sys.argv[2])
+    elif sys.argv[1:2] == ["auction"] and len(sys.argv) == 3:
+        auction(sys.argv[2])
     elif sys.argv[1:] == ["flash-check"]:
         flash_check()
     elif sys.argv[1:] == ["schedule-check"]:

@@ -542,6 +542,7 @@ def solve_lmo(
     grad: np.ndarray,
     *,
     backend: str = "scipy",
+    device=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Frank-Wolfe LMO over the Birkhoff polytope (single cold solve).
 
@@ -549,16 +550,21 @@ def solve_lmo(
 
     ``backend`` selects the solver: ``"scipy"`` (the reference
     ``linear_assignment``), ``"hungarian"`` (numpy O(n^3)),
-    or ``"auction"`` (epsilon-scaling auction; ``"auction_jit"``, the
-    reference's compiled twin, is not part of this package and runs the
-    numpy auction). This function is stateless; for the warm-started
-    auction that carries dual prices across FW iterations, use
-    ``repro_torch.core.stl_fw.LMOSolver`` (or
-    ``learn_topology(lmo=...)``), or call ``auction_assignment`` directly
-    and thread the returned state yourself.
+    ``"auction"`` (epsilon-scaling auction), or ``"auction_jit"`` (the
+    device auction, ``repro_torch.core.assignment_jit``, on ``device``:
+    None = CUDA, ``"cpu"`` for its plain version). This function is
+    stateless; for the warm-started auctions that carry dual prices
+    across FW iterations, use ``repro_torch.core.stl_fw.LMOSolver`` (or
+    ``learn_topology(lmo=...)``), or call ``auction_assignment`` /
+    ``auction_assignment_jit`` directly and thread the returned state
+    yourself.
     """
-    if backend in ("auction", "auction_jit"):
+    if backend == "auction":
         col_of_row, _ = auction_assignment(grad)
+    elif backend == "auction_jit":
+        from .assignment_jit import auction_assignment_jit
+
+        col_of_row, _ = auction_assignment_jit(grad, device=device)
     elif backend == "hungarian":
         col_of_row = hungarian(grad)
     elif backend == "scipy":

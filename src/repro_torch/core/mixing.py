@@ -11,8 +11,9 @@ step ``theta_i <- sum_j W_ij theta_j`` over a leading node axis, as
 3. ``mix_schedule_arrays``  -- the same with the schedule as fixed-shape
                                tensors (``ScheduleArrays``).
 
-``mix_stacked`` picks between (1) and (2) with the closed-form
-``preferred_transport`` cost model.
+``mix_stacked`` picks between (1) and (2) by a table measured on the
+hardware (``autotune_transport``), or where it has no entry by the
+closed-form ``preferred_transport`` cost model.
 
 The fault layer's transports ride the same data plane:
 ``degrade_schedule`` repairs a schedule around crashed nodes and dropped
@@ -37,7 +38,7 @@ are taken in sorted key order, as ``jax.tree_util`` orders them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping, NamedTuple
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -59,6 +60,10 @@ __all__ = [
     "unravel_stack",
     "preferred_transport",
     "DENSE_THROUGHPUT_ADVANTAGE",
+    "transport_autotune_path",
+    "measure_transport",
+    "autotune_transport",
+    "select_transport",
     "mix_dense",
     "mix_schedule_stacked",
     "mix_stacked",
@@ -676,8 +681,9 @@ def unravel_stack(flat: torch.Tensor, spec: StackRavelSpec) -> PyTree:
 
 # Per-element throughput advantage of the dense transport over gather
 # AXPYs in the reference's closed form, calibrated there on CPU BLAS. The
-# port keeps the same rule so that ``transport="auto"`` picks what the
-# reference picks; an H100 table keyed on the card's name is later work.
+# port keeps the same rule, so that ``transport="auto"`` falls back to
+# what the reference picks; the measured table below, not this constant,
+# carries the card's crossover.
 DENSE_THROUGHPUT_ADVANTAGE = 4.0
 
 
@@ -697,6 +703,337 @@ def preferred_transport(
     if dense_speedup <= 0:
         raise ValueError(f"dense_speedup must be positive, got {dense_speedup}")
     return "schedule" if n_atoms <= max(1, int(n_nodes / dense_speedup)) else "dense"
+
+
+# ---------------------------------------------------------------------------
+# Measured transport autotune table
+# ---------------------------------------------------------------------------
+#
+# The reference's table (``mixing.py:1705-1913``) with the port's own file
+# and tags: each (hardware, n_nodes, n_atoms, P) bucket -- sizes rounded
+# up to powers of two, keyed by a hardware tag (the CUDA device name on
+# the card, core count and architecture on the CPU) -- is timed once,
+# both transports as the trainers run them (``mix_stacked`` on a pytree of
+# the caller's leaf widths: on the card the ravel copy and one
+# gossip_schedule launch against one gossip_mix launch a leaf), and
+# memoized to experiments/torch/transport_autotune.json, never the
+# reference's file. The key holds no leaf widths: the first pytree to
+# miss a bucket sets its record. Lookups never measure;
+# ``transport="autotune"`` measures on a miss.
+
+_AUTOTUNE_ENV = "REPRO_TORCH_TRANSPORT_AUTOTUNE"
+_autotune_cache: dict[str, dict] | None = None
+_autotune_cache_path: str | None = None
+
+# Measuring caps the timed buffer at this many elements (n * P): both
+# transports are linear in P, so the winner at the capped width carries
+# over to wider buffers.
+_MEASURE_MAX_ELEMENTS = 1 << 24  # 64 MiB of f32
+_TIMED_LAUNCHES = 30
+_WARMUP_LAUNCHES = 5
+
+
+def transport_autotune_path() -> str:
+    """Location of the port's table (override via $REPRO_TORCH_TRANSPORT_AUTOTUNE)."""
+    import os
+
+    env = os.environ.get(_AUTOTUNE_ENV)
+    if env:
+        return env
+    return os.path.normpath(os.path.join(
+        os.path.dirname(__file__), "..", "..", "..",
+        "experiments", "torch", "transport_autotune.json",
+    ))
+
+
+def _pow2_up(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+def _p_measured(n_nodes: int, p: int) -> int:
+    """The width a measurement times: ``p``, capped at
+    ``_MEASURE_MAX_ELEMENTS`` elements in all (but never below 4096)."""
+    return min(int(p), max(4096, _MEASURE_MAX_ELEMENTS // max(1, n_nodes)))
+
+
+def _timed_leaves(leaf_sizes: Sequence[int], p_measured: int) -> list[int]:
+    """Per-node leaf widths in the proportions of ``leaf_sizes``, summing
+    to ``p_measured``. Each keeps the power-of-two alignment of its width
+    up to 16 elements (the kernels' fast paths need 16-byte rows); the
+    smallest leaf takes the rounding."""
+    sizes = [int(s) for s in leaf_sizes]
+    if not sizes or min(sizes) < 1:
+        raise ValueError(f"leaf sizes must be positive, got {tuple(leaf_sizes)}")
+    total = sum(sizes)
+    timed = []
+    for s in sizes:
+        align = min(16, s & -s)
+        timed.append(max(align, s * p_measured // total // align * align))
+    small = int(np.argmin(sizes))
+    timed[small] = 0
+    rest = p_measured - sum(timed)
+    if rest < 1:
+        return [p_measured]
+    timed[small] = rest
+    return timed
+
+
+def _hw_tag(device: torch.device) -> str:
+    """Hardware tag of autotune keys: the CUDA device name, normalised as
+    the reference normalises a device kind, or ``cpu<cores>-<arch>``."""
+    import os
+    import platform
+    import re
+
+    if device.type == "cuda":
+        kind = torch.cuda.get_device_name(device)
+        return re.sub(r"[^A-Za-z0-9]+", "-", str(kind)).strip("-").lower()
+    arch = platform.machine() or "unknown"
+    return f"cpu{os.cpu_count()}-{arch.lower()}"
+
+
+def _bucket_key(n_nodes: int, n_atoms: int, p: int, device: torch.device) -> str:
+    return (
+        f"{_hw_tag(device)}_n{_pow2_up(n_nodes)}"
+        f"_L{_pow2_up(n_atoms)}_P{_pow2_up(p)}"
+    )
+
+
+def _load_autotune(path: str) -> dict[str, dict]:
+    global _autotune_cache, _autotune_cache_path
+    if _autotune_cache is not None and _autotune_cache_path == path:
+        return _autotune_cache
+    import json
+    import os
+
+    table: dict[str, dict] = {}
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                table = json.load(f)
+        except (OSError, ValueError):  # unreadable table == no table
+            table = {}
+    _autotune_cache, _autotune_cache_path = table, path
+    return table
+
+
+def _persist_autotune(path: str, table: dict) -> None:
+    """Atomically write the table, but only into a directory that already
+    exists; otherwise the measurement stays in memory."""
+    global _autotune_cache, _autotune_cache_path
+    import json
+    import os
+
+    try:
+        if os.path.isdir(os.path.dirname(path)):
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(table, f, indent=2, sort_keys=True)
+            os.replace(tmp, path)
+    except OSError:
+        pass
+    _autotune_cache, _autotune_cache_path = table, path
+
+
+def _card(device: torch.device) -> tuple[str, str | None]:
+    """The card's name and its power limit as ``nvidia-smi`` reports it
+    (None where it cannot be read)."""
+    import subprocess
+
+    name = torch.cuda.get_device_name(device)
+    try:
+        uuid = str(torch.cuda.get_device_properties(device).uuid)
+        rows = subprocess.run(
+            ["nvidia-smi", "--query-gpu=uuid,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True,
+        ).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError, AttributeError, RuntimeError):
+        return name, None
+    for row in rows:
+        gpu, _, limit = row.partition(",")
+        if gpu.strip().lower().endswith(uuid.lower()):
+            return name, limit.strip()
+    return name, None
+
+
+def _median_device_us(fn) -> float:
+    """Median device time of ``fn()`` in us over ``_TIMED_LAUNCHES``
+    launches, one CUDA event pair each, a ~0.5 ms device sleep queued
+    before each so that the pair brackets device work."""
+    times = []
+    for _ in range(_TIMED_LAUNCHES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3)
+    return float(np.median(times))
+
+
+def _best_host_us(fn, iters: int, repeats: int) -> float:
+    """On the CPU: the min over ``repeats`` of an ``iters``-call average."""
+    import time
+
+    best = np.inf
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / iters * 1e6)
+    return best
+
+
+def _measure(n_nodes: int, n_atoms: int, p: int, leaf_sizes: Sequence[int], seed: int,
+             device: torch.device, iters: int, repeats: int) -> tuple[dict, dict]:
+    """Both transports' times in us at this bucket, and the record's sizes."""
+    p_measured = _p_measured(n_nodes, p)
+    rng = np.random.default_rng(seed)
+    perms = [rng.permutation(n_nodes) for _ in range(n_atoms)]
+    sched = BirkhoffSchedule(
+        coeffs=tuple(float(c) for c in np.full(n_atoms, 1.0 / n_atoms)),
+        perms=tuple(tuple(int(x) for x in p_) for p_ in perms),
+    )
+    gen = torch.Generator(device=device).manual_seed(seed)
+    leaves = [torch.randn((n_nodes, w), generator=gen, device=device)
+              for w in _timed_leaves(leaf_sizes, p_measured)]
+    tree = leaves[0] if len(leaves) == 1 else {f"{i:03d}": x for i, x in enumerate(leaves)}
+    W = torch.as_tensor(sched.to_matrix(), dtype=torch.float32, device=device)
+    sched.operands(leaves[0].device)  # made once, as the trainers make them before a run
+    # both transports as a training step runs them: on the card the ravel
+    # copy and one gossip_schedule launch, against one gossip_mix launch a
+    # leaf; on the CPU the plain per-leaf paths
+    runs = {
+        "schedule": lambda: mix_stacked(tree, schedule=sched, transport="schedule"),
+        "dense": lambda: mix_stacked(tree, W, transport="dense"),
+    }
+    record = {"n_nodes": n_nodes, "n_atoms": n_atoms, "p": p, "p_measured": p_measured,
+              "leaf_sizes": [int(s) for s in leaf_sizes]}
+    if device.type == "cuda":
+        for fn in runs.values():  # warm both (their libraries load) before timing either
+            for _ in range(_WARMUP_LAUNCHES):
+                fn()
+        torch.cuda.synchronize(device)
+        return {k: _median_device_us(fn) for k, fn in runs.items()}, record
+    for fn in runs.values():
+        fn()
+    return {k: _best_host_us(fn, iters, repeats) for k, fn in runs.items()}, record
+
+
+def measure_transport(
+    n_nodes: int, n_atoms: int, p: int, *, leaf_sizes: Sequence[int] | None = None,
+    iters: int = 5, repeats: int = 3, seed: int = 0,
+    device: torch.device | str | None = None,
+) -> dict:
+    """Time both stacked transports once at this bucket size (synthetic
+    float32 data) and return the measurement record.
+
+    The two transports run as a training step runs them: ``mix_stacked``
+    on a pytree whose leaves have the per-node widths ``leaf_sizes``
+    (None: one leaf of ``p``), scaled to the timed width. On the card
+    that is the ravel copy and one ``gossip_schedule`` launch against
+    one ``gossip_mix`` launch a leaf; both are warmed up first, then
+    each is timed as the median of 30 calls with CUDA events. On the CPU
+    the plain per-leaf paths are timed on the host clock (``iters`` and
+    ``repeats``). The width is capped so the buffer stays at most
+    ``_MEASURE_MAX_ELEMENTS``; the record keeps the requested ``p`` and
+    the ``p_measured`` timed, the reference's fields, the leaf widths,
+    and the card's name and power limit. Raises inside a CUDA graph
+    capture.
+    """
+    device = resolve_device(device)
+    leaf_sizes = tuple(leaf_sizes) if leaf_sizes else (p,)
+    if device.type == "cuda":
+        from repro_torch.graphs import device_work
+
+        with device_work():  # raises inside a capture
+            us, record = _measure(n_nodes, n_atoms, p, leaf_sizes, seed, device, iters, repeats)
+        card, limit = _card(device)
+        timing = f"median of {_TIMED_LAUNCHES} calls, CUDA events"
+    else:
+        us, record = _measure(n_nodes, n_atoms, p, leaf_sizes, seed, device, iters, repeats)
+        card, limit = None, None
+        timing = f"min over {repeats} of {iters}-call averages, host clock"
+    record.update({
+        "schedule_us": us["schedule"],
+        "dense_us": us["dense"],
+        "winner": "schedule" if us["schedule"] <= us["dense"] else "dense",
+        "backend": device.type,
+        "hw": _hw_tag(device),
+        "card": card,
+        "power_limit": limit,
+        "timing": timing,
+    })
+    return record
+
+
+def autotune_transport(
+    n_nodes: int,
+    n_atoms: int,
+    p: int,
+    *,
+    measure: bool = False,
+    path: str | None = None,
+    dense_speedup: float = DENSE_THROUGHPUT_ADVANTAGE,
+    device: torch.device | str | None = None,
+    leaf_sizes: Sequence[int] | None = None,
+) -> str:
+    """``"schedule"`` or ``"dense"`` from the measured table.
+
+    Looks up the power-of-two bucket of ``(n_nodes, n_atoms, p)`` on
+    ``device``'s hardware (None = CUDA) in ``transport_autotune_path()``.
+    On a hit, returns the measured winner. On a miss: with
+    ``measure=True`` times both transports at the bucket-rounded sizes
+    on a pytree of ``leaf_sizes`` (per-node leaf widths summing to ``p``;
+    None: one leaf), memoizes the record and returns its winner;
+    otherwise falls back to the closed-form :func:`preferred_transport`.
+    """
+    device = resolve_device(device)
+    path = path or transport_autotune_path()
+    key = _bucket_key(n_nodes, n_atoms, p, device)
+    table = _load_autotune(path)
+    entry = table.get(key)
+    if entry is not None and entry.get("winner") in ("schedule", "dense"):
+        return entry["winner"]
+    if not measure:
+        return preferred_transport(n_nodes, n_atoms, dense_speedup)
+    entry = measure_transport(_pow2_up(n_nodes), _pow2_up(n_atoms), _pow2_up(p),
+                              leaf_sizes=leaf_sizes, device=device)
+    table = dict(table)
+    table[key] = entry
+    _persist_autotune(path, table)
+    return entry["winner"]
+
+
+def select_transport(
+    transport: str,
+    params_stack: PyTree,
+    W,
+    schedule: "BirkhoffSchedule | None",
+    dense_speedup: float = DENSE_THROUGHPUT_ADVANTAGE,
+) -> str:
+    """What ``"auto"`` / ``"autotune"`` resolve to for a static schedule:
+    ``"dense"`` without a schedule, ``"schedule"`` without a W (a stored
+    ``"dense"`` never wins there: densifying per call is a cost the
+    measurement leaves out), else the table's winner on the
+    communication atoms (``autotune`` measuring on a miss), or the closed
+    form. ``"dense"`` and ``"schedule"`` pass through."""
+    if transport not in ("auto", "autotune"):
+        return transport
+    if schedule is None:
+        return "dense"
+    if W is None:
+        return "schedule"
+    leaves = tree_leaves(params_stack)
+    sizes = [int(np.prod(leaf.shape[1:], dtype=np.int64)) if leaf.ndim > 1 else 1
+             for leaf in leaves]
+    return autotune_transport(
+        schedule.n_nodes, schedule.n_communication_atoms, sum(sizes),
+        measure=transport == "autotune", dense_speedup=dense_speedup,
+        device=leaves[0].device, leaf_sizes=sizes,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -805,21 +1142,24 @@ def mix_stacked(
     schedule swap), so ``transport="dense"`` is refused for it.
 
     ``transport``:
-      * ``"auto"``     -- the ``preferred_transport`` closed form on the
-                          communication atoms, when both a schedule and a
-                          W are usable -- else whichever is available.
-                          ``dense_speedup`` tunes its crossover.
+      * ``"auto"``     -- the measured table's winner for this (n, L, P)
+                          bucket on this hardware when a measurement
+                          exists (``autotune_transport``; lookup only),
+                          else the ``preferred_transport`` closed form on
+                          the communication atoms, when both a schedule
+                          and a W are usable -- else whichever is
+                          available. ``dense_speedup`` tunes the closed
+                          form's crossover.
+      * ``"autotune"`` -- like ``"auto"``, but on a table miss time both
+                          transports once at this bucket and memoize the
+                          record to ``transport_autotune_path()``. Not
+                          inside a CUDA graph capture: the trainers resolve
+                          it before any (``train/trainer.py``).
       * ``"dense"``    -- the dense path (W required, or densified from
                           the schedule per call).
       * ``"schedule"`` -- the Birkhoff gather path (schedule required).
-    The reference's ``"autotune"`` (a measured table) is not ported yet.
     """
-    if transport == "autotune":
-        raise NotImplementedError(
-            "transport='autotune' needs a transport table measured on the card; "
-            "use 'auto' (the closed-form preferred_transport)"
-        )
-    if transport not in ("auto", "dense", "schedule"):
+    if transport not in ("auto", "autotune", "dense", "schedule"):
         raise ValueError(f"unknown transport {transport!r}")
     if isinstance(schedule, ScheduleArrays):
         if transport == "dense":
@@ -832,17 +1172,7 @@ def mix_stacked(
             params_stack, schedule,
             single_buffer=single_buffer, use_kernel=use_kernel,
         )
-    if transport == "auto":
-        if schedule is None:
-            transport = "dense"
-        elif W is None:
-            transport = "schedule"
-        else:
-            # identity atoms fold into a free scale in the reference's
-            # schedule path, so only communication atoms count as cost
-            transport = preferred_transport(
-                schedule.n_nodes, schedule.n_communication_atoms, dense_speedup
-            )
+    transport = select_transport(transport, params_stack, W, schedule, dense_speedup)
     if transport == "schedule":
         if schedule is None:
             raise ValueError("transport='schedule' requires a BirkhoffSchedule")

@@ -1,9 +1,10 @@
 """STL-FW: Sparse Topology Learning with Frank-Wolfe (paper, Algorithm 2).
 
-Host-side numpy, copied from ``repro.core.stl_fw`` with the compiled
-``auction_jit`` LMO backend removed: that backend runs on JAX, and this
-package imports none of it. ``"auction_jit"`` resolves to the numpy
-``"auction"`` here, as the reference does when jax is missing.
+Host-side numpy, copied from ``repro.core.stl_fw``. The one device
+piece is the ``"auction_jit"`` LMO backend: the reference's compiled
+auction, here a hand-written CUDA kernel (``core/assignment_jit.py``;
+its plain PyTorch version on the CPU), reached through
+:class:`LMOSolver`, which takes a ``device``.
 
 Learns a sparse doubly-stochastic mixing matrix ``W`` minimizing the
 neighborhood-heterogeneity surrogate (paper, Eq. 8)
@@ -28,6 +29,7 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from .assignment import (
     AUCTION_REL_GRID,
@@ -128,7 +130,7 @@ class STLFWResult:
       gamma_trace: line-search step sizes per iteration.
       bias_trace / variance_trace: the two terms of Eq. (8) per iteration.
       lmo_backend: the resolved LMO solver that produced the atoms
-        (``"scipy"``, ``"hungarian"`` or ``"auction"``).
+        (``"scipy"``, ``"hungarian"``, ``"auction"`` or ``"auction_jit"``).
       gap_trace: Frank-Wolfe duality gap ``<grad, W - P>`` per iteration
         (an upper bound on ``g(W) - g*``). The last entry always
         certifies the RETURNED W: a full-budget solve spends one extra
@@ -189,6 +191,7 @@ def learn_topology(
     init: "STLFWResult | tuple | None" = None,
     stop_tol: float | None = None,
     stop_gap: float | None = None,
+    device: "str | None" = None,
 ) -> STLFWResult:
     """Run STL-FW (Algorithm 2) for ``budget`` Frank-Wolfe iterations.
 
@@ -211,7 +214,8 @@ def learn_topology(
         / ``"hungarian"`` are the cold exact references; ``"auction"``
         is the warm-started epsilon-scaling numpy auction, carrying dual
         prices across FW iterations (contracted by ``1 - gamma``
-        alongside W); ``"auction_jit"`` is accepted and runs it.
+        alongside W); ``"auction_jit"`` is the same auction as one CUDA
+        kernel launch per solve, its prices kept on the card.
         All backends solve the same 1e-12-quantized gradient exactly,
         so ``<P, G>`` objective values agree to far better than 1e-9;
         assignments (and hence trajectories) may only differ where the
@@ -236,6 +240,10 @@ def learn_topology(
         budget. Both stops may be combined (first to fire wins);
         ``None``/``None`` always runs ``budget`` iterations (the
         paper's fixed-budget Algorithm 2).
+      device: where the ``"auction_jit"`` LMO solves (None = CUDA;
+        ``"cpu"`` runs its plain version) when ``lmo`` is a name; a
+        passed ``LMOSolver`` keeps its own. The reference has no such
+        argument: its compiled auction runs on JAX's default device.
 
     Returns:
       STLFWResult with the learned W, its Birkhoff decomposition and traces.
@@ -245,7 +253,7 @@ def learn_topology(
         raise ValueError("Pi must be (n, K)")
     if not np.allclose(Pi.sum(axis=1), 1.0, atol=1e-6):
         raise ValueError("rows of Pi must sum to 1 (class proportions)")
-    solver = lmo if isinstance(lmo, LMOSolver) else LMOSolver(lmo)
+    solver = lmo if isinstance(lmo, LMOSolver) else LMOSolver(lmo, device=device)
     solver.resolve(n=Pi.shape[0], budget=budget)
     atoms = _normalize_init(init, Pi.shape[0])
     if method == "incremental":
@@ -319,32 +327,55 @@ def _merge_atom(
     coeffs.append(gamma)
 
 
+def _jit_amortizes(n: int | None, budget: int | None) -> bool:
+    """Does ``auction_jit`` pay for itself here? The reference's rule
+    (its compile amortized over ``budget`` warm re-solves), kept so that
+    ``"auto"`` resolves as the reference's does; ``budget=None`` means an
+    open-ended solver (online re-learning), assumed to amortize from
+    n = 512."""
+    if n is None:
+        return False
+    if budget is None:
+        return n >= 512
+    return (
+        (n >= 1024 and budget >= 8)
+        or (n >= 512 and budget >= 24)
+        or (n >= 256 and budget >= 64)
+        or (n >= 128 and budget >= 128)
+    )
+
+
 def resolve_lmo_backend(lmo: str, n: int | None = None, budget: int | None = None) -> str:
     """Resolve the ``lmo=`` argument of :func:`learn_topology`.
 
-    ``"auto"`` is ``"scipy"`` when scipy is importable, else the
-    warm-started numpy ``"auction"`` (which beats the pure python
-    ``"hungarian"`` by ~2 orders of magnitude at n >= 128). ``n`` and
-    ``budget`` are accepted for signature parity with the reference,
-    whose ``"auto"`` may pick the compiled auction by problem shape.
+    ``"auto"`` is ``"scipy"`` when scipy is importable; else
+    ``"auction_jit"`` when the problem is big enough
+    (:func:`_jit_amortizes`) and a CUDA device is available (the
+    reference asks for jax instead); else the warm-started numpy
+    ``"auction"`` (which beats the pure python ``"hungarian"`` by ~2
+    orders of magnitude at n >= 128). With ``n=None`` ``"auto"`` keeps the
+    scipy-else-auction rule; :class:`LMOSolver` defers its resolution to
+    the first gradient when constructed with ``"auto"``.
 
     An explicit ``"scipy"`` without scipy installed resolves to
     ``"hungarian"`` -- that is what ``linear_assignment`` would actually
     run, and the resolved name is what ``STLFWResult.lmo_backend``
     reports, so the result never claims a solver that did not execute.
-    An explicit ``"auction_jit"`` resolves to ``"auction"`` for the same
-    reason: the compiled auction is not part of this package.
+    An explicit ``"auction_jit"`` stays itself: it runs on the card, or
+    in its plain version on the CPU.
     """
     from . import assignment as _assignment
 
     have_scipy = _assignment._scipy_lsa is not None
     if lmo == "auto":
-        return "scipy" if have_scipy else "auction"
+        if have_scipy:
+            return "scipy"
+        if _jit_amortizes(n, budget) and torch.cuda.is_available():
+            return "auction_jit"
+        return "auction"
     if lmo == "scipy" and not have_scipy:
         return "hungarian"
-    if lmo == "auction_jit":
-        return "auction"
-    if lmo in ("scipy", "hungarian", "auction"):
+    if lmo in ("scipy", "hungarian", "auction", "auction_jit"):
         return lmo
     raise ValueError(
         f"unknown LMO backend {lmo!r}; expected auto|scipy|hungarian|auction|auction_jit"
@@ -364,23 +395,32 @@ class LMOSolver:
     identical traces. The same grid doubles as the auction backend's
     exactness certificate (see ``repro_torch.core.assignment``).
 
-    Warm start: with ``backend="auction"`` the dual prices of each solve
-    seed the next one. The FW update contracts the
+    Warm start: with ``backend="auction"`` or ``"auction_jit"`` the dual
+    prices of each solve seed the next one. The FW update contracts the
     gradient by ``(1 - gamma)`` before adding the new atom's
     contribution; :meth:`contract` applies the matching contraction to
     the carried prices (eps-CS is invariant under joint positive
     scaling), so only the genuinely-changed entries force re-bidding.
+    For ``"auction_jit"`` the prices stay on the solve's device and the
+    contraction is deferred into the next solve.
+
+    ``device`` is where ``"auction_jit"`` solves (None = CUDA, ``"cpu"``
+    for its plain version). On the card the solver's buffers are made
+    once for a size n, by :meth:`prepare` or at the first solve, and
+    every later solve of that size reuses them.
 
     Auto resolution: ``backend="auto"`` is resolved against the problem
     shape -- either eagerly via :meth:`resolve` (``learn_topology`` calls
     it with ``(n, budget)``) or lazily at the first gradient.
     """
 
-    def __init__(self, backend: str = "auto"):
+    def __init__(self, backend: str = "auto", device: "str | torch.device | None" = None):
         # validate eagerly (unknown names must fail fast) but keep "auto"
         # unresolved until a problem shape is known
         self.backend = backend if backend == "auto" else resolve_lmo_backend(backend)
-        self.state = None  # AuctionState for the auction backend
+        self.device = device
+        self.state = None  # AuctionState / AuctionJitState for the auction backends
+        self.workspace = None  # the card's buffers for auction_jit
 
     def resolve(self, n: int | None = None, budget: int | None = None) -> str:
         """Finalize an ``"auto"`` backend for the given problem shape."""
@@ -388,10 +428,38 @@ class LMOSolver:
             self.backend = resolve_lmo_backend("auto", n=n, budget=budget)
         return self.backend
 
+    def prepare(self, n: int) -> None:
+        """Make the ``"auction_jit"`` buffers for size ``n`` now, on the
+        calling thread (before any CUDA graph capture), so that solves
+        on another thread allocate nothing. A no-op for other backends
+        and on the CPU."""
+        if self.backend != "auction_jit":
+            return
+        from repro_torch.device import resolve_device
+
+        from .assignment_jit import AuctionWorkspace
+
+        dev = resolve_device(self.device)
+        self.device = dev
+        if dev.type == "cuda" and (self.workspace is None or not self.workspace.fits(n, dev)):
+            self.workspace = AuctionWorkspace(n, dev)
+
     def __call__(self, grad: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         grad = np.asarray(grad, dtype=np.float64)
         if self.backend == "auto":
             self.resolve(n=grad.shape[0] if grad.ndim == 2 else None)
+        if self.backend == "auction_jit":
+            # the solve applies the identical grid snap on the device --
+            # quantizing here would add an O(n^2) host pass per FW step
+            from .assignment_jit import auction_assignment_jit
+
+            if self.workspace is None or self.workspace.n != grad.shape[0]:
+                self.prepare(grad.shape[0])
+            col_of_row, self.state = auction_assignment_jit(
+                grad, self.state, validate=False, device=self.device,
+                workspace=self.workspace,
+            )
+            return assignment_to_permutation(col_of_row), col_of_row
         # Same grid the auction derives its exactness certificate from:
         # quantizing here makes the snap a no-op inside auction_assignment
         # and keeps every backend solving the identical matrix.

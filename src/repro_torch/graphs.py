@@ -25,14 +25,22 @@ graph (``CUDAGraph.register_generator_state``), so replays draw what the
 eager runs would have drawn and advance the generator alike.
 
 A failed capture raises; the runner never falls back to the eager body
-on the card. Captures use the default ``"global"`` capture mode.
+on the card. Captures use the default ``"global"`` capture mode, in
+which a synchronising call or an allocation from ANY thread invalidates
+an open capture. Device work started from another thread -- the online
+controller's overlap worker solving with the device auction LMO --
+therefore runs under :func:`device_work`, which holds the same lock a
+capture holds: a capture waits for a solve in flight to end, and a solve
+waits for an open capture to close.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -40,9 +48,25 @@ from repro_torch.kernels.flash_attention import ops as _flash_ops
 from repro_torch.kernels.gossip_mix import ops as _gossip_ops
 from repro_torch.kernels.rglru_scan import ops as _scan_ops
 
-__all__ = ["Body", "GraphRunner"]
+__all__ = ["Body", "GraphRunner", "device_work"]
 
 _LAUNCH_COUNTS = (_gossip_ops.launch_counts, _flash_ops.launch_counts, _scan_ops.launch_counts)
+# held by every capture and by device work run outside the captured bodies
+_capture_lock = threading.Lock()
+_this_thread = threading.local()
+
+
+@contextlib.contextmanager
+def device_work() -> Iterator[None]:
+    """Run device work that synchronises (a solve on a stream of its own)
+    with no capture open: waits for a capture in another thread to close,
+    and raises inside a capture, where the work could not run."""
+    if getattr(_this_thread, "capturing", False):
+        raise RuntimeError("device work cannot run inside a CUDA graph capture")
+    with _capture_lock:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("device work cannot run inside a CUDA graph capture")
+        yield
 
 
 @dataclasses.dataclass
@@ -134,8 +158,13 @@ class GraphRunner:
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
         try:
-            with torch.cuda.graph(graph, stream=self._stream):
-                body.fn()
+            with _capture_lock:
+                _this_thread.capturing = True
+                try:
+                    with torch.cuda.graph(graph, stream=self._stream):
+                        body.fn()
+                finally:
+                    _this_thread.capturing = False
         except Exception as exc:
             raise RuntimeError(
                 f"{self.name}: capturing the {what} as a CUDA graph failed ({exc!r}); "

@@ -9,6 +9,6 @@ Each kernel follows the reference's convention (``repro/kernels``):
 with ctypes. Nothing is built or imported from CUDA at import time.
 """
 
-from . import flash_attention, gossip_mix, rglru_scan
+from . import auction, flash_attention, gossip_mix, rglru_scan
 
-__all__ = ["flash_attention", "gossip_mix", "rglru_scan"]
+__all__ = ["auction", "flash_attention", "gossip_mix", "rglru_scan"]

@@ -34,6 +34,7 @@ KERNEL_SOURCES = {
     "gossip_mix": "gossip_mix/csrc/gossip_mix.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
+    "auction": "auction/csrc/auction.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

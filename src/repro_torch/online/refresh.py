@@ -25,9 +25,14 @@ The pieces the streaming estimator feeds:
 The port of ``repro.online.refresh``: the same behaviour, with one
 addition. The ``ScheduleArrays`` a refresher hands out are tensors on
 its ``device`` (None = CUDA). They are made only on the calling thread,
-in ``schedule_arrays`` / ``_emit``; a solve -- which overlap mode runs
-on a worker thread -- does numpy and scipy only and makes no CUDA call,
-so it can run while the trainer captures a CUDA graph.
+in ``schedule_arrays`` / ``_emit``. A solve -- which overlap mode runs
+on a worker thread -- is host numpy and scipy, except with
+``lmo="auction_jit"``: then each LMO solve is one launch of the device
+auction on a stream of its own, into buffers the refresher made on the
+calling thread when it was built, and it runs under
+``repro_torch.graphs.device_work``, so it never overlaps a CUDA graph
+capture on the trainer's thread (the capture waits for the one LMO
+solve in flight, and the worker's next solve waits for the capture).
 
 Layering: this module imports core + data only. The trainers never
 import it -- they accept any object with the ``on_segment`` protocol --
@@ -145,10 +150,13 @@ class TopologyRefresher:
       config: refresh policy.
       lmo: LMO backend name, or a pre-built persistent ``LMOSolver``.
         The same solver instance is reused across every refresh, so the
-        auction backend's dual prices warm-start each solve; ``"auto"``
-        resolves with ``budget=None`` -- the open-ended online rule.
-      device: where :meth:`schedule_arrays` puts its tensors (None =
-        CUDA; ``"cpu"`` for the plain path).
+        auction backends' dual prices warm-start each solve (with
+        ``"auction_jit"`` they stay on the card across refreshes);
+        ``"auto"`` resolves with ``budget=None`` -- the open-ended online
+        rule.
+      device: where :meth:`schedule_arrays` puts its tensors and where
+        an ``lmo`` given by name solves (None = CUDA; ``"cpu"`` for the
+        plain path).
     """
 
     def __init__(
@@ -162,8 +170,10 @@ class TopologyRefresher:
         self.config = config or RefreshConfig()
         self.tracer = tracer
         self.device = resolve_device(device)
-        self.solver = lmo if isinstance(lmo, LMOSolver) else LMOSolver(lmo)
+        self.solver = lmo if isinstance(lmo, LMOSolver) else LMOSolver(lmo, device=self.device)
         self.solver.resolve(n=initial.W.shape[0], budget=None)
+        # the device LMO's buffers, made here on the calling thread
+        self.solver.prepare(initial.W.shape[0])
         sched = schedule_from_result(initial)
         # `is None`, not truthiness: an explicit l_max=0 must hit
         # truncate_schedule's validation, not silently become the default
@@ -284,7 +294,8 @@ class OnlineTopologyController:
       overlap: run each refresh solve in a background worker thread
         instead of inline. The numpy/scipy LMO releases the GIL in
         BLAS, so the solve overlaps the captured rollout (the worker
-        makes no CUDA call, so it cannot invalidate a capture): the
+        makes no CUDA call, or with ``lmo="auction_jit"`` only under
+        ``graphs.device_work``, so it cannot invalidate a capture): the
         triggering ``on_segment`` SUBMITS and returns ``None`` (the
         rollout launches its next segment immediately); the first
         boundary after the solve finishes collects the result and
@@ -542,9 +553,9 @@ class OnlineTopologyController:
 
     def _solve(self, Pi_snapshot: np.ndarray) -> None:
         # runs on the worker thread in overlap mode: refresher state is
-        # only read back on the main thread after fut.done(). numpy and
-        # scipy only: the schedule's tensors are made later, in _emit,
-        # on the calling thread
+        # only read back on the main thread after fut.done(). The
+        # schedule's tensors are made later, in _emit, on the calling
+        # thread; a device LMO solves under graphs.device_work
         attempt = 0
         while True:
             try:

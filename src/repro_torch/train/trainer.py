@@ -73,6 +73,7 @@ from repro_torch.core.mixing import (
     StragglerPolicy,
     mix_schedule_arrays_stale,
     ravel_stack,
+    select_transport,
     stale_push,
     straggler_stream,
     unravel_stack,
@@ -242,15 +243,21 @@ def _check_update(update) -> ScheduleArrays:
     return update
 
 
-def _device_mixing(W, schedule, transport: str, device: torch.device):
-    """W on the device, and a static dense transport's W made once: a body
-    that runs inside a CUDA graph copies nothing from the host."""
+def _device_mixing(W, schedule, transport: str, device: torch.device, params_stack):
+    """W on the device, a static dense transport's W made once, and the
+    transport resolved: a body that runs inside a CUDA graph copies
+    nothing from the host and measures nothing. ``"auto"`` /
+    ``"autotune"`` on a static schedule become ``"schedule"`` or
+    ``"dense"`` here, on the host, once per run (the table looked up, or
+    measured on a miss, before any capture)."""
+    if schedule is None or isinstance(schedule, BirkhoffSchedule):
+        transport = select_transport(transport, params_stack, W, schedule)
     Wt = torch.as_tensor(W, dtype=torch.float32, device=device) if W is not None else None
     if Wt is None and isinstance(schedule, BirkhoffSchedule) and transport == "dense":
         Wt = torch.as_tensor(schedule.to_matrix(), dtype=torch.float32, device=device)
     if isinstance(schedule, BirkhoffSchedule):
         schedule.operands(device)  # made and checked once, before any capture
-    return Wt
+    return Wt, transport
 
 
 class _StaleStreams:
@@ -431,7 +438,7 @@ def run_mean_estimation(
     theta = runner.carry("theta", torch.zeros((n, 1)))
     state = dsgd_init(theta)
     use_ef = compressor is not None and not compressor.routes_to_plain
-    Wt = _device_mixing(W, schedule, transport, device)
+    Wt, transport = _device_mixing(W, schedule, transport, device, theta)
     theta_star = torch.tensor(task.theta_star, dtype=torch.float32, device=device)
     stale = None
     if staleness is not None:
@@ -752,7 +759,7 @@ def run_classification(
     params = {k: runner.carry(k, p.detach()) for k, p in net.named_parameters()}
     state = dsgd_init(params)
     use_ef = compressor is not None and not compressor.routes_to_plain
-    Wt = _device_mixing(W, schedule, transport, device)
+    Wt, transport = _device_mixing(W, schedule, transport, device, params)
     if batch_indices is not None:
         batch_idx = torch.as_tensor(np.asarray(batch_indices), dtype=torch.long, device=device)
         if batch_idx.shape != (steps, n, batch_size):

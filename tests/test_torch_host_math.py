@@ -121,11 +121,15 @@ def test_learn_topology_reference_method_equal():
 
 
 def test_lmo_resolution_without_the_jitted_auction():
-    assert T_fw.resolve_lmo_backend("auto", n=1024, budget=64) == "scipy"
-    assert T_fw.resolve_lmo_backend("auction_jit") == "auction"
-    res = T_fw.learn_topology(_pi("one-hot", 12), budget=3, lmo="auction_jit")
-    assert res.lmo_backend == "auction"
-    P, col = T_asg.solve_lmo(np.random.default_rng(0).normal(size=(8, 8)), backend="auction_jit")
+    # the port's device auction resolves, and reports itself, as the
+    # reference's compiled auction does
+    for args in [("auto",), ("auto", 1024, 64), ("auto", 2048, 8), ("auction_jit",),
+                 ("scipy",), ("hungarian",), ("auction",)]:
+        assert T_fw.resolve_lmo_backend(*args) == J_fw.resolve_lmo_backend(*args)
+    res = T_fw.learn_topology(_pi("one-hot", 12), budget=3, lmo="auction_jit", device="cpu")
+    assert res.lmo_backend == "auction_jit"
+    P, col = T_asg.solve_lmo(np.random.default_rng(0).normal(size=(8, 8)), backend="auction_jit",
+                             device="cpu")
     assert np.array_equal(P[np.arange(8), col], np.ones(8))
     with pytest.raises(ValueError):
         T_fw.resolve_lmo_backend("bogus")

@@ -103,7 +103,7 @@ def test_mix_stacked_schedule_arrays(pad, use_kernel):
         T_mix.mix_stacked(t, W=torch.eye(n), schedule=ta, transport="dense")
 
 
-def test_auto_transport_picks_as_the_reference():
+def test_auto_transport_picks_as_the_reference(tmp_path, monkeypatch):
     n = 33
     W, res = _topology(n)
     js, ts = _schedules(res)
@@ -113,8 +113,14 @@ def test_auto_transport_picks_as_the_reference():
     ref = J_mix.mix_stacked(j, W=jnp.asarray(W), schedule=js)
     port = T_mix.mix_stacked(t, W=torch.from_numpy(W), schedule=ts)
     _assert_tree_close(port, ref)
-    with pytest.raises(NotImplementedError):
-        T_mix.mix_stacked(t, W=torch.from_numpy(W), schedule=ts, transport="autotune")
+    # "autotune" measures on a table miss, each package into a table of
+    # its own here, and mixes as the reference's does
+    monkeypatch.setenv("REPRO_TORCH_TRANSPORT_AUTOTUNE", str(tmp_path / "port.json"))
+    monkeypatch.setenv("REPRO_TRANSPORT_AUTOTUNE", str(tmp_path / "reference.json"))
+    ref = J_mix.mix_stacked(j, W=jnp.asarray(W), schedule=js, transport="autotune")
+    port = T_mix.mix_stacked(t, W=torch.from_numpy(W), schedule=ts, transport="autotune")
+    _assert_tree_close(port, ref)
+    assert (tmp_path / "port.json").exists() and (tmp_path / "reference.json").exists()
 
 
 def test_mix_dense_densifies_schedule_without_w():
