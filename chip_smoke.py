@@ -22,9 +22,10 @@ nvcc per source, all at once) and then, on the card:
    and flash_attention must be faster than the library call; two launches
    of rglru_scan on the same inputs must be bitwise equal (every scan
    case, and bfloat16 at (2, 4096, 2560) and (2, 32768, 2560)); the
-   flash rows include phase 8's layers (qwen3-0.6b, qwen2.5-14b, gemma-2b,
-   gemma2-2b local at S = 8192 and global, softcap 50; SDPA has no
-   softcap, so those rows time it without one, beside the row); the
+   flash rows include phase 8's and 9's layers (qwen3-0.6b, qwen2.5-14b,
+   qwen3-moe-30b-a3b, gemma-2b, gemma2-2b local at S = 8192 and global,
+   softcap 50; SDPA has no softcap, so those rows time it without one,
+   beside the row); the
    device auction LMO on the cold and warm STL-FW gradients of phase 6b's
    label-shard Pi (n = 100), of a Dirichlet(0.1) label partition at n =
    128, 512, 1024 and 2048, and on tied integers: its assignment, prices
@@ -94,7 +95,21 @@ nvcc per source, all at once) and then, on the card:
    the decoder within 2e-3 of the full forward), serving as in phase 4
    (a 2560-token prompt, gemma2 4608 to overrun its 4096 window; 32 new
    tokens; graph against eager), and the phase's seconds;
-9. prints one JSON line per kernel set, then the card's name and power
+9. drives the MoE families the same way, one at a time after phase 8
+   has freed its models: qwen3-moe-30b-a3b at its published widths and
+   full depth (48 flash_attention launches a scoring forward) and
+   deepseek-v2-236b at its published widths cut to 4 layers (MLA is plain
+   on every path: no flash_attention launch), random bf16 weights from
+   seed 0, B = 2: scoring at S = 4096 (the loss within 1e-2 of the plain
+   path, the NLL above ln(vocab) - 1, the router aux and the share of
+   token-choices dropped at capacity factor 1.25), serving (a 2560-token
+   prompt, 32 new tokens, the captured decode bitwise the eager loop, one
+   capture; decode ms/token beside the weights' bound), f32 at depth 3
+   (kernel against plain path at 1e-4, the kernel path routed to the plain
+   path's experts; the unpinned error and its swapped routes printed) and
+   decode through the decoder within 2e-3 of the full forward at capacity
+   factor E / K (nothing drops: a listed cut), and the phase's seconds;
+10. prints one JSON line per kernel set, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Every ``#`` result line ends with the card's name and power limit.
@@ -104,6 +119,7 @@ result; so it does without CUDA or outside a checkout of the repo.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -154,6 +170,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa:
 from repro_torch.kernels.gossip_mix.ref import gossip_mix_ref, gossip_schedule_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry, transformer  # noqa: E402
 from repro_torch.models.layers import unembed  # noqa: E402
 from repro_torch.faults import run_faulty_mean_estimation  # noqa: E402
@@ -469,6 +486,8 @@ def phase_lm_kernels() -> list[dict]:
         # the dense families' layers (phase 8's scoring shapes)
         flash_case("qwen3-0.6b layer", 2, 4096, 16, 8, 128, None, bf16, 40),
         flash_case("qwen2.5-14b layer", 2, 4096, 40, 8, 128, None, bf16, 43),
+        # qwen3-moe-30b-a3b's layer (phase 9's scoring shape)
+        flash_case("qwen3-moe-30b-a3b layer", 2, 4096, 32, 4, 128, None, bf16, 55),
         flash_case("gemma-2b layer", 2, 4096, 8, 1, 256, None, bf16, 46),
         flash_case("gemma2-2b local layer, S=8192", 2, 8192, 8, 4, 256, 4096, bf16, 49,
                    softcap=50.0),
@@ -1699,9 +1718,12 @@ def phase_robustness(mnist) -> dict:
 # ---------------------------------------------------------------------------
 
 def layer_counts(cfg) -> tuple[int, int]:
-    """(attention layers, RG-LRU layers) of ``cfg``."""
+    """(flash_attention layers, RG-LRU layers) of ``cfg``: every attention
+    layer, but none with MLA (plain PyTorch, as it is plain XLA in the
+    reference: there is no Pallas MLA kernel to port)."""
     kinds = [cfg.kind(i) for i in range(cfg.num_layers)]
-    return sum(k in ("attn", "local_attn") for k in kinds), kinds.count("rglru")
+    n_attn = sum(k in ("attn", "local_attn") for k in kinds) if cfg.mla is None else 0
+    return n_attn, kinds.count("rglru")
 
 
 def expect_lm(label: str, counts: dict, flash: int, scan: int, device: torch.device) -> None:
@@ -1754,8 +1776,10 @@ def phase_scoring(cfg, B: int, S: int, device: torch.device,
     batch = registry.make_inputs(cfg, B, S, seed=0, device=device)
     out: dict = {"params": sum(p.numel() for p in model.parameters())}
     with torch.inference_mode():
-        (loss, _), counts, out["loss_s"] = counted(registry.loss_fn, model, cfg, batch,
-                                                   impl="kernel")
+        (loss, metrics), counts, out["loss_s"] = counted(registry.loss_fn, model, cfg, batch,
+                                                         impl="kernel")
+        # the loss is the NLL, plus router_aux_coef * aux with MoE
+        out["nll"], out["aux"] = float(metrics["nll"]), float(metrics["aux"])
         expect_lm(f"{label} loss_fn kernel path", counts, n_attn, n_rglru, device)
         launches = counts
         torch.cuda.reset_peak_memory_stats()
@@ -1780,13 +1804,14 @@ def phase_scoring(cfg, B: int, S: int, device: torch.device,
         out["loss_from_logits"] = float(torch.cat(nll).mean())
         out["own_token_logit_mean"] = float(torch.cat(own).mean())
         out["ln_vocab"] = math.log(cfg.vocab_size)
-        note(f"# {label} loss {out['loss']:.5f} (plain {out['plain_loss']:.5f}, from the forward's "
-              f"logits {out['loss_from_logits']:.5f}), ln(vocab) {out['ln_vocab']:.5f}, mean "
-              f"logit of the input token {out['own_token_logit_mean']:.3f}")
+        note(f"# {label} loss {out['loss']:.5f} (plain {out['plain_loss']:.5f}; nll "
+             f"{out['nll']:.5f}, from the forward's logits {out['loss_from_logits']:.5f}; aux "
+             f"{out['aux']:.5f}), ln(vocab) {out['ln_vocab']:.5f}, mean logit of the input "
+             f"token {out['own_token_logit_mean']:.3f}")
         check(math.isfinite(out["loss"]), f"{label}: non-finite loss")
-        check(out["loss"] >= out["ln_vocab"] - 1.0,
+        check(out["nll"] >= out["ln_vocab"] - 1.0,
               f"{label}: loss below ln(vocab) - 1 on random labels")
-        check(abs(out["loss"] - out["loss_from_logits"]) <= 1e-2,
+        check(abs(out["nll"] - out["loss_from_logits"]) <= 1e-2,
               f"{label}: loss_fn and the forward's logits give losses more than 1e-2 apart")
         check(abs(out["loss"] - out["plain_loss"]) <= 1e-2,
               f"{label}: kernel and plain losses differ by more than 1e-2")
@@ -1807,27 +1832,49 @@ def phase_scoring(cfg, B: int, S: int, device: torch.device,
 
 def phase_f32_depth3(cfg_full, B: int, S: int, device: torch.device,
                      label: str = "3b") -> tuple[dict, object]:
-    """Phase 3b (and 8): the same forward in float32 at depth 3 (for
+    """Phase 3b (and 8, 9): the same forward in float32 at depth 3 (for
     recurrentgemma-2b rglru, rglru, local_attn), kernel path against plain
-    path at 1e-4."""
+    path at 1e-4; with MoE, the kernel path routed as the plain path."""
     cfg = dataclasses.replace(cfg_full, num_layers=3, dtype="float32")
     n_attn, n_rglru = layer_counts(cfg)
     model = registry.init_model(cfg, seed=2, device=device)
     batch = registry.make_inputs(cfg, B, S, seed=2, device=device)
+    out: dict = {}
+    # MoE: a router top-k is a threshold, and the kernel path's ~1e-6 moves
+    # can swap near-tied experts; with capacity drops a swap reorders both
+    # experts' queues, so the paths are compared with the kernel path routed
+    # to the plain path's experts (its own gate values), and the swaps of
+    # the unpinned kernel path are counted
+    pinned = cfg.moe is not None
     with torch.inference_mode():
-        (kernel, _, _), counts, _ = counted(registry.model_forward, model, cfg, batch,
-                                            impl="kernel")
+        with moe_routes() as plain_routes:
+            plain, _, _ = registry.model_forward(model, cfg, batch, impl="plain")
+        with moe_routes() as kernel_routes:
+            (kernel, _, _), counts, _ = counted(registry.model_forward, model, cfg, batch,
+                                                impl="kernel")
         expect_lm(f"{label} f32 depth-3 forward, kernel path", counts, n_attn, n_rglru, device)
-        plain, _, _ = registry.model_forward(model, cfg, batch, impl="plain")
-        err = float((kernel - plain).abs().max())
-        note(f"# {label} f32 depth 3: max |kernel - plain| logits {err:.3e}")
+        if pinned:
+            out["unpinned_max_abs_err"] = float((kernel - plain).abs().max())
+            out["swapped_choices_by_layer"] = [
+                int((torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1).sum())
+                for a, b in zip(plain_routes, kernel_routes)]
+            with moe_routes(plain_routes):
+                kernel, _, _ = registry.model_forward(model, cfg, batch, impl="kernel")
+        err = out["max_abs_err"] = float((kernel - plain).abs().max())
+        note(f"# {label} f32 depth 3: max |kernel - plain| logits {err:.3e}"
+             + ("" if not pinned else
+                f" (routes pinned; unpinned {out['unpinned_max_abs_err']:.3e}, token-layers "
+                f"with swapped experts {out['swapped_choices_by_layer']})"))
         check(torch.allclose(kernel, plain, atol=1e-4, rtol=1e-4),
               f"{label}: f32 kernel and plain logits differ by {err:.3e} (atol = rtol = 1e-4)")
         del kernel, plain
-        k_loss = float(registry.loss_fn(model, cfg, batch, impl="kernel")[0])
-        p_loss = float(registry.loss_fn(model, cfg, batch, impl="plain")[0])
-        check(abs(k_loss - p_loss) <= 1e-4, f"{label}: f32 kernel and plain losses differ")
-    return {"max_abs_err": err, "loss": k_loss, "plain_loss": p_loss}, model
+        with moe_routes() as loss_routes:
+            out["plain_loss"] = float(registry.loss_fn(model, cfg, batch, impl="plain")[0])
+        with moe_routes(loss_routes if pinned else None):
+            out["loss"] = float(registry.loss_fn(model, cfg, batch, impl="kernel")[0])
+        check(abs(out["loss"] - out["plain_loss"]) <= 1e-4,
+              f"{label}: f32 kernel and plain losses differ")
+    return out, model
 
 
 def eager_generate(model, cfg, prompt: torch.Tensor, new_tokens: int):
@@ -2046,16 +2093,25 @@ def phase_dense(name: str, device: torch.device) -> dict:
                                                          device, label)
     del model32
     free_card()
-    seconds = {"scoring": t1 - t0, "serving": t2 - t1, "f32": time.perf_counter() - t2}
-    sv = serving["serving"]
-    summary = {
-        "family": name, "params": scoring["scoring"]["params"],
-        "flash_launches_per_forward": n_attn,
-        "loss": scoring["scoring"]["loss"], "plain_loss": scoring["scoring"]["plain_loss"],
-        "ln_vocab": scoring["scoring"]["ln_vocab"],
-        "scoring_tokens_per_s": scoring["scoring"]["tokens_per_s"],
-        "scoring_device_busy_share": scoring["scoring"]["device_busy_share"],
-        "flash_attention_device_ms": scoring["scoring"]["flash_attention_device_ms"],
+    note(f"# {label} " + json.dumps(family_summary(name, n_attn, scoring, serving, f32,
+                                                    (t0, t1, t2))))
+    return {k: scoring["launches"][k] + serving["launches"][k]
+            for k in ("flash_attention", "rglru_scan")}
+
+
+def family_summary(name: str, flash: int, scoring: dict, serving: dict, f32: dict,
+                   starts: tuple, **extra) -> dict:
+    """Phases 8 and 9's summary line of one family: its parts' headline
+    numbers and seconds (``starts``: the scoring, serving and f32 parts')."""
+    sc, sv = scoring["scoring"], serving["serving"]
+    t0, t1, t2 = starts
+    return {
+        "family": name, **extra, "params": sc["params"],
+        "flash_launches_per_forward": flash,
+        "loss": sc["loss"], "plain_loss": sc["plain_loss"], "ln_vocab": sc["ln_vocab"],
+        "scoring_tokens_per_s": sc["tokens_per_s"],
+        "scoring_device_busy_share": sc["device_busy_share"],
+        "flash_attention_device_ms": sc["flash_attention_device_ms"],
         "f32_depth3": f32, "prefill_tokens_per_s": sv["prefill_tokens_per_s"],
         "decode_ms_per_token": sv["decode_ms_per_token"],
         "eager_decode_ms_per_token": sv["eager_decode_ms_per_token"],
@@ -2064,11 +2120,9 @@ def phase_dense(name: str, device: torch.device) -> dict:
         "eager_decode_device_busy_share": sv["eager_decode_device_busy_share"],
         "decode_device_ops_per_token": sv["decode_device_ops_per_token"],
         "capture_ms": sv["capture_ms"], "seconds": time.perf_counter() - t0,
-        "seconds_by_part": seconds,
+        "seconds_by_part": {"scoring": t1 - t0, "serving": t2 - t1,
+                            "f32": time.perf_counter() - t2},
     }
-    note(f"# {label} " + json.dumps(summary))
-    return {k: scoring["launches"][k] + serving["launches"][k]
-            for k in ("flash_attention", "rglru_scan")}
 
 
 def phase_dense_families(device: torch.device) -> dict:
@@ -2079,6 +2133,133 @@ def phase_dense_families(device: torch.device) -> dict:
         for k, v in phase_dense(name, device).items():
             launches[k] += v
     check(launches["rglru_scan"] == 0, "8: the dense families launched rglru_scan")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the MoE families
+# ---------------------------------------------------------------------------
+
+# name -> (depth run, flash_attention launches a forward, decode-consistency
+# S): qwen3-moe-30b-a3b at its full depth (61.1 GB of bf16 weights fit one
+# card); deepseek-v2-236b at its published widths cut to 4 of its 60 layers
+# (~8.1 GB of bf16 a layer), its MLA plain on every path (no flash
+# attention), and its decode consistency at S = 512: with C >= S at float32
+# its expert buffers at 2560 would not fit beside the model
+MOE = {"qwen3-moe-30b-a3b": (48, 48, 2560), "deepseek-v2-236b": (4, 0, 512)}
+
+
+@contextlib.contextmanager
+def moe_routes(replay: list | None = None):
+    """Record each MoE layer's router top-k in call order (yields the list
+    of (B, S, K) expert ids), or, with ``replay``, route each call to the
+    recorded experts instead: the gate values are still the call's own
+    probabilities of those experts, renormalised. The model returns no
+    routes; this wraps ``models.moe.route`` for the smoke's measurements."""
+    route, seen = moe_mod.route, []
+
+    def wrapped(params, c, x):
+        probs, gate_vals, ids = route(params, c, x)
+        if replay is not None:
+            ids = replay[len(seen)]
+            gate_vals = probs.gather(-1, ids)
+            gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+        seen.append(ids)
+        return probs, gate_vals, ids
+
+    moe_mod.route = wrapped
+    try:
+        yield seen
+    finally:
+        moe_mod.route = route
+
+
+def drop_share(model, cfg, batch: dict) -> dict:
+    """The share of token-choices past their expert's capacity in one
+    forward, from each MoE layer's router top-k."""
+    with moe_routes() as routes, torch.inference_mode():
+        registry.model_forward(model, cfg, batch, impl="kernel")
+    B, S = batch["tokens"].shape
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    C = moe_mod.capacity(S, cfg)
+    per_layer = []
+    for ids in routes:
+        counts = torch.zeros((B, E), dtype=torch.int64, device=ids.device)
+        counts.scatter_add_(1, ids.reshape(B, -1), torch.ones_like(ids.reshape(B, -1)))
+        per_layer.append(float((counts - C).clamp(min=0).sum()) / (B * S * K))
+    return {"capacity": C, "capacity_factor": cfg.moe.capacity_factor,
+            "dropped_share": sum(per_layer) / len(per_layer),
+            "dropped_share_by_layer_min_max": [min(per_layer), max(per_layer)]}
+
+
+def decode_weight_bound_ms(model) -> float:
+    """Least ms of a decode step from its weights alone: every weight read
+    once (the reference's dispatch multiplies every expert, even at one
+    token), the token table aside (a decode step gathers B rows of it)."""
+    n_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                  if n != "embed.table")
+    return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def phase_moe(name: str, device: torch.device) -> dict:
+    """Phase 9 for one family, random bf16 weights from seed 0, B = 2:
+    scoring at S = 4096 (flash_attention launches, the loss against the
+    plain path, the aux and the dropped share at the config's capacity
+    factor), serving (a 2560-token prompt, 32 new tokens, captured decode
+    bitwise eager, one capture), f32 at depth 3 (kernel against plain path
+    at 1e-4), and decode through the decoder against the full forward
+    within 2e-3 at capacity factor E / K (C >= S: nothing drops; at 1.25 the
+    full forward drops overflow choices that a one-token step never does)."""
+    t0 = time.perf_counter()
+    label = f"9 {name}"
+    depth, flash, decode_S = MOE[name]
+    cfg = dataclasses.replace(get_config(name), num_layers=depth)
+    check(layer_counts(cfg) == (flash, 0), f"{name}: {layer_counts(cfg)} kernel layers")
+    scoring, model = phase_scoring(cfg, 2, 4096, device, label)
+    sc = scoring["scoring"]
+    sc["gigabytes"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    sc.update(drop_share(model, cfg, registry.make_inputs(cfg, 2, 4096, seed=0, device=device)))
+    note(f"# {label} scoring " + json.dumps(sc))
+    t1 = time.perf_counter()
+    serving = phase_serving(model, cfg, 2, 2560, 32, device, label)
+    sv = serving["serving"]
+    sv["decode_weight_bound_ms"] = decode_weight_bound_ms(model)
+    note(f"# {label} serving " + json.dumps(sv))
+    del model
+    free_card()
+    t2 = time.perf_counter()
+    f32, model32 = phase_f32_depth3(cfg, 2, 4096, device, label)
+    note(f"# {label} f32 depth 3 " + json.dumps(f32))
+    m = cfg.moe
+    no_drop = dataclasses.replace(
+        model32.cfg, moe=dataclasses.replace(m, capacity_factor=m.num_experts / m.top_k))
+    check(moe_mod.capacity(decode_S, no_drop) >= decode_S, f"{label}: C < S at cf = E / K")
+    note(f"# {label} cut: decode consistency at capacity_factor E / K = "
+         f"{no_drop.moe.capacity_factor:.4f} (C >= S = {decode_S}, nothing drops), not "
+         f"{m.capacity_factor}")
+    model32.cfg = no_drop  # the same weights; the capacity factor is read at each forward
+    f32["decode_max_abs_err"] = phase_decode_consistency(model32, no_drop, 2, decode_S, device,
+                                                         label)
+    del model32
+    free_card()
+    note(f"# {label} " + json.dumps(family_summary(
+        name, flash, scoring, serving, f32, (t0, t1, t2), layers=depth,
+        published_layers=get_config(name).num_layers, gigabytes=sc["gigabytes"],
+        nll=sc["nll"], aux=sc["aux"], dropped_share=sc["dropped_share"],
+        decode_weight_bound_ms=sv["decode_weight_bound_ms"],
+        decode_device_ms_per_token=sv["decode_device_ms_per_token"])))
+    return {k: scoring["launches"][k] + serving["launches"][k]
+            for k in ("flash_attention", "rglru_scan")}
+
+
+def phase_moe_families(device: torch.device) -> dict:
+    """Phase 9: both MoE families, one at a time, after phase 8 has freed
+    its models; returns their main-path launches."""
+    launches = {"flash_attention": 0, "rglru_scan": 0}
+    for name in MOE:
+        for k, v in phase_moe(name, device).items():
+            launches[k] += v
+    check(launches["rglru_scan"] == 0, "9: the MoE families launched rglru_scan")
     return launches
 
 
@@ -2137,6 +2318,8 @@ def main(argv: list[str] | None = None) -> int:
     launches.update(lm["launches"])
     dense = phase_dense_families(torch.device("cuda"))
     launches["flash_attention"] += dense["flash_attention"]
+    moe = phase_moe_families(torch.device("cuda"))
+    launches["flash_attention"] += moe["flash_attention"]
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2159,6 +2342,7 @@ def main(argv: list[str] | None = None) -> int:
             kernels[-1]["launches_phase7"] = robust[name]
         if name == "flash_attention":
             kernels[-1]["launches_phase8"] = dense[name]
+            kernels[-1]["launches_phase9"] = moe[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

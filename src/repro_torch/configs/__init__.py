@@ -5,8 +5,9 @@ returns the reduced same-family variant the CPU tests use. Names are the
 reference's (``repro/configs/__init__.py``), hyphenated or as module names.
 
 The port runs the dense GQA families (qwen3-0.6b, gemma-2b, gemma2-2b,
-qwen2.5-14b) and recurrentgemma-2b. Every other architecture of the
-reference raises ``NotImplementedError``: its blocks (MoE, MLA, xLSTM,
+qwen2.5-14b), recurrentgemma-2b and the MoE families (qwen3-moe-30b-a3b;
+deepseek-v2-236b, with MLA and shared experts). Every other architecture
+of the reference raises ``NotImplementedError``: its blocks (xLSTM,
 whisper, the VLM stub) wait for ROADMAP queue 1 item 12.
 
 Input shapes (the reference's):
@@ -37,7 +38,8 @@ ARCH_IDS = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
-PORTED = ("qwen3_0_6b", "gemma_2b", "gemma2_2b", "qwen2_5_14b", "recurrentgemma_2b")
+PORTED = ("qwen3_0_6b", "gemma_2b", "gemma2_2b", "qwen2_5_14b", "recurrentgemma_2b",
+          "qwen3_moe_30b_a3b", "deepseek_v2_236b")
 
 INPUT_SHAPES = {
     "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},

@@ -15,8 +15,13 @@ Layout conventions, as in the reference: activations (B, S, D); q/k/v
   softmax below.
 
 With a cache (prefill and decode) attention is plain PyTorch whatever
-``impl`` says, as it is plain XLA in the reference. MLA and
-cross-attention wait for their families (ROADMAP queue 1 item 12).
+``impl`` says, as it is plain XLA in the reference.
+
+DeepSeek-V2's multi-head latent attention (``MLAAttention``,
+``mla_attention``) is plain PyTorch on every path, as it is plain XLA in
+the reference (which has no Pallas MLA kernel): its cache holds the
+compressed latents, decompressed per head at every call. Cross-attention
+waits for whisper (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from .common import IMPLS, ModelConfig, dtype_of, truncated_normal_
 from .kvcache import (
     init_full_cache,
+    init_mla_cache,
     init_window_cache,
     update_full_cache,
+    update_mla_cache,
     update_window_cache,
 )
 from .layers import RMSNorm, apply_rope, rms_norm, rotary_embedding
@@ -42,6 +49,10 @@ __all__ = [
     "init_attention",
     "attention",
     "init_attention_cache",
+    "MLAAttention",
+    "init_mla_attention",
+    "mla_attention",
+    "init_mla_attention_cache",
 ]
 
 
@@ -291,3 +302,183 @@ def init_attention_cache(
         w = min(w, max_len)
         return init_window_cache(batch, w, cfg.num_kv_heads, dh, dt, device)
     return init_full_cache(batch, max_len, cfg.num_kv_heads, dh, dt, device)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLAAttention(nn.Module):
+    """``wq`` (d, H (dn + dr)), ``w_dkv`` (d, r), ``w_krope`` (d, dr),
+    ``kv_norm`` (an RMS norm of the r latents), ``w_uk`` (r, H dn),
+    ``w_uv`` (r, H dv), ``wo`` (H dv, d). ``q_lora_rank`` is not used:
+    the q projection is full rank, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device | str):
+        super().__init__()
+        m = cfg.mla
+        dt = dtype_of(cfg)
+        d, h = cfg.d_model, cfg.num_heads
+
+        def empty(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device))
+
+        self.wq = empty(d, h * (m.qk_nope_head_dim + m.qk_rope_head_dim))
+        self.w_dkv = empty(d, m.kv_lora_rank)
+        self.w_krope = empty(d, m.qk_rope_head_dim)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, dt, device)
+        self.w_uk = empty(m.kv_lora_rank, h * m.qk_nope_head_dim)
+        self.w_uv = empty(m.kv_lora_rank, h * m.v_head_dim)
+        self.wo = empty(h * m.v_head_dim, d)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        std = self.wq.shape[0] ** -0.5
+        for w in (self.wq, self.w_dkv, self.w_krope):
+            truncated_normal_(w, std, generator)
+        r_std = self.w_uk.shape[0] ** -0.5
+        truncated_normal_(self.w_uk, r_std, generator)
+        truncated_normal_(self.w_uv, r_std, generator)
+        truncated_normal_(self.wo, self.wo.shape[0] ** -0.5, generator)
+
+
+def init_mla_attention(
+    cfg: ModelConfig, *, generator: torch.Generator, device: torch.device | str
+) -> MLAAttention:
+    attn = MLAAttention(cfg, device)
+    attn.init_weights(generator)
+    return attn
+
+
+def _decompress(params: MLAAttention, cfg: ModelConfig, c_kv: torch.Tensor):
+    """Per-head keys (B, Sk, H, dn) and values (B, Sk, H, dv) of the latents."""
+    m = cfg.mla
+    B, Sk, _ = c_kv.shape
+    k_nope = (c_kv @ params.w_uk).reshape(B, Sk, cfg.num_heads, m.qk_nope_head_dim)
+    v = (c_kv @ params.w_uv).reshape(B, Sk, cfg.num_heads, m.v_head_dim)
+    return k_nope, v
+
+
+def _mla_attend(
+    params: MLAAttention,
+    cfg: ModelConfig,
+    q_nope: torch.Tensor,
+    q_rope: torch.Tensor,
+    c_kv: torch.Tensor,
+    k_rope: torch.Tensor,
+    mask: torch.Tensor | None,
+) -> torch.Tensor:
+    """Attention over compressed latents, float32 throughout. q_*:
+    (B, Sq, H, *); c_kv: (B, Sk, r); k_rope: (B, Sk, dr); mask
+    broadcastable to (B, H, Sq, Sk)."""
+    m = cfg.mla
+    B, Sq, H, _ = q_nope.shape
+    k_nope, v = _decompress(params, cfg, c_kv)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    logits = (
+        torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+        + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
+    ) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.reshape(B, Sq, H * m.v_head_dim).to(q_nope.dtype)
+
+
+def _mla_attend_chunked(
+    params: MLAAttention,
+    cfg: ModelConfig,
+    q_nope: torch.Tensor,
+    q_rope: torch.Tensor,
+    c_kv: torch.Tensor,
+    k_rope: torch.Tensor,
+    window: int | None,
+    chunk_q: int = _CHUNK_Q,
+) -> torch.Tensor:
+    """Chunked causal MLA: k / v decompressed once, then a loop over q
+    chunks with a full-k softmax each, so the (H, S, S) logits never
+    materialise. Products sum in float32 (the reference's
+    ``preferred_element_type``); p is cast to v's dtype before the product
+    with v and the output normalised after it, as the reference does."""
+    m = cfg.mla
+    B, S, H, _ = q_nope.shape
+    k_nope, v = _decompress(params, cfg, c_kv)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    kf, krf, vf = k_nope.float(), k_rope.float(), v.float()
+    kpos = torch.arange(S, device=q_nope.device)
+    chunks = []
+    for ci in range(S // chunk_q):
+        rows = slice(ci * chunk_q, (ci + 1) * chunk_q)
+        logits = (
+            torch.einsum("bqhd,bkhd->bhqk", q_nope[:, rows].float(), kf)
+            + torch.einsum("bqhd,bkd->bhqk", q_rope[:, rows].float(), krf)
+        ) * scale
+        qpos = ci * chunk_q + torch.arange(chunk_q, device=q_nope.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        logits = torch.where(mask, logits, _NEG_INF)
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        del logits
+        out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf)
+        out = out / p.sum(dim=-1).permute(0, 2, 1)[..., None]
+        chunks.append(out.reshape(B, chunk_q, H * m.v_head_dim).to(q_nope.dtype))
+    return torch.cat(chunks, dim=1)
+
+
+def mla_attention(
+    params: MLAAttention,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    cache: dict | None = None,
+    window: int | None = None,
+) -> tuple[torch.Tensor, dict | None]:
+    """MLA self-attention; the cache stores the normalised latents
+    ``c_kv`` and the rotated ``k_rope`` only (written in place, see
+    ``models/kvcache.py``). Returns (output, updated cache)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q = (x @ params.wq).reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    cos, sin = rotary_embedding(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_kv = rms_norm(params.kv_norm, x @ params.w_dkv, cfg.norm_eps)
+    # the rope key is shared by the heads: rotated with a singleton head axis
+    k_rope = apply_rope((x @ params.w_krope)[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    long_seq = S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0
+    if cache is None or S > 1:
+        # full sequence, or a prefill from a fresh cache: attention over
+        # the new positions, then (prefill) the cache write
+        if long_seq:
+            out = _mla_attend_chunked(params, cfg, q_nope, q_rope, c_kv, k_rope, window)
+        else:
+            mask = _causal_mask(S, S, window, x.device)
+            out = _mla_attend(params, cfg, q_nope, q_rope, c_kv, k_rope, mask)
+        new_cache = None if cache is None else update_mla_cache(cache, c_kv, k_rope)
+    else:
+        new_cache = update_mla_cache(cache, c_kv, k_rope)
+        L = new_cache["c_kv"].shape[1]
+        slot = torch.arange(L, device=x.device)
+        idx = new_cache["index"]  # on the device: a replayed step reads its own
+        # the reference's ring formula; with no wrap (check_fits) a slot
+        # holds its own position, or a negative one when still unwritten
+        abs_pos = ((idx - 1) - torch.remainder(idx - 1 - slot, L))[None, None, :]
+        qpos = positions[:, :, None]  # (B, Sq, 1)
+        mask = (abs_pos >= 0) & (abs_pos <= qpos)
+        if window is not None:
+            mask = mask & (abs_pos > qpos - window)
+        out = _mla_attend(params, cfg, q_nope, q_rope, new_cache["c_kv"], new_cache["k_rope"],
+                          mask[:, None])
+    return out @ params.wo, new_cache
+
+
+def init_mla_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
+                             device: torch.device | str | None = None) -> dict:
+    """An MLA layer's cache of ``max_len`` positions on ``device`` (None = CUDA)."""
+    m = cfg.mla
+    return init_mla_cache(batch, max_len, m.kv_lora_rank, m.qk_rope_head_dim, dtype_of(cfg),
+                          device)

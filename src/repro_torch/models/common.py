@@ -5,8 +5,10 @@ per-layer block pattern (attention / local attention / mLSTM / sLSTM /
 RG-LRU) plus optional MoE / MLA / encoder / vision / audio sub-configs.
 The dataclasses are copies of the reference's ``models/common.py`` (same
 fields, same defaults), so a config built for one package builds for the
-other. The sub-configs are carried as data only: the blocks that read
-them wait for their families (ROADMAP queue 1 item 12).
+other. ``moe`` and ``mla`` build the MoE block and MLA attention
+(``models/moe.py``, ``models/attention.py``); ``encoder``, ``vision``
+and ``audio`` are carried as data only: the blocks that read them wait
+for their families (ROADMAP queue 1 item 12).
 
 Parameters live in ``nn.Module``s (``models/layers.py`` and up), each
 parameter named as the reference's pytree leaf, so the reference's

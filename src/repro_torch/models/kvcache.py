@@ -1,8 +1,12 @@
-"""KV caches for serving: full and window (ring) caches.
+"""KV caches for serving: full and window (ring) caches, and MLA's.
 
 * ``init_full_cache``    -- (B, S_max, H_kv, D_h) keys/values + write index.
 * ``init_window_cache``  -- ring buffer of size ``window``; used by
                             local-attention layers.
+* ``init_mla_cache``     -- (B, S_max, r) compressed latents ``c_kv`` and
+                            (B, S_max, d_rope) rotated ``k_rope`` + write
+                            index (DeepSeek-V2's multi-head latent
+                            attention caches no per-head keys).
 
 Recurrent states belong to their blocks (``models.rglru``). Keys are
 stored post-RoPE, so decode never re-rotates history.
@@ -33,7 +37,9 @@ from repro_torch.device import resolve_device
 __all__ = [
     "init_full_cache",
     "init_window_cache",
+    "init_mla_cache",
     "update_full_cache",
+    "update_mla_cache",
     "update_window_cache",
     "check_fits",
 ]
@@ -66,6 +72,19 @@ def init_window_cache(batch: int, window: int, n_kv: int, head_dim: int, dtype,
     }
 
 
+def init_mla_cache(batch: int, max_len: int, kv_lora_rank: int, rope_dim: int, dtype,
+                   device: torch.device | str | None = None) -> dict:
+    """MLA's cache. The reference's is a ring (its writes wrap modulo the
+    length); here, as for the full caches, a write past ``max_len`` is
+    refused on the host (``check_fits``) before it can happen."""
+    device = resolve_device(device)
+    return {
+        "c_kv": torch.zeros((batch, max_len, kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, rope_dim), dtype=dtype, device=device),
+        "index": _index(device),  # number of valid positions
+    }
+
+
 def check_fits(max_len: int, index: int, s_new: int) -> None:
     """Raise before a write of ``s_new`` positions at ``index`` (both known
     on the host) overruns a full cache of ``max_len`` positions."""
@@ -73,24 +92,30 @@ def check_fits(max_len: int, index: int, s_new: int) -> None:
         raise ValueError(f"full cache of {max_len} positions cannot take {s_new} more at {index}")
 
 
-def _write(cache: dict, slots: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
-           advance: int) -> dict:
-    cache["k"].index_copy_(1, slots, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slots, v_new.to(cache["v"].dtype))
+def _write(cache: dict, slots: torch.Tensor, advance: int, **new: torch.Tensor) -> dict:
+    """Write each ``new[name]`` into ``cache[name]`` at ``slots`` (axis 1)
+    and advance the index, in place; a new dict sharing the tensors."""
+    for name, values in new.items():
+        cache[name].index_copy_(1, slots, values.to(cache[name].dtype))
     cache["index"].add_(advance)
-    return {"k": cache["k"], "v": cache["v"], "index": cache["index"]}
+    return dict(cache)
+
+
+def _append(cache: dict, kind: str, **new: torch.Tensor) -> dict:
+    """Write ``S_new`` positions at the current index. Only a write longer
+    than the whole cache raises here; one that starts too late is the
+    caller's to refuse (``check_fits``)."""
+    first = next(iter(new))
+    length, s_new = cache[first].shape[1], new[first].shape[1]
+    if s_new > length:
+        raise ValueError(f"{kind} cache of {length} positions cannot take {s_new} more")
+    slots = cache["index"] + torch.arange(s_new, device=cache[first].device)
+    return _write(cache, slots, s_new, **new)
 
 
 def update_full_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
-    """Append ``S_new`` positions at the current index (decode: S_new = 1).
-
-    Only a write longer than the whole cache raises here; one that starts
-    too late is the caller's to refuse (``check_fits``)."""
-    length, s_new = cache["k"].shape[1], k_new.shape[1]
-    if s_new > length:
-        raise ValueError(f"full cache of {length} positions cannot take {s_new} more")
-    slots = cache["index"] + torch.arange(s_new, device=cache["k"].device)
-    return _write(cache, slots, k_new, v_new, s_new)
+    """Append ``S_new`` positions at the current index (decode: S_new = 1)."""
+    return _append(cache, "full", k=k_new, v=v_new)
 
 
 def update_window_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
@@ -102,5 +127,11 @@ def update_window_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -
     window, s_new = cache["k"].shape[1], k_new.shape[1]
     skip = max(s_new - window, 0)
     positions = cache["index"] + torch.arange(skip, s_new, device=cache["k"].device)
-    return _write(cache, torch.remainder(positions, window), k_new[:, skip:], v_new[:, skip:],
-                  s_new)
+    return _write(cache, torch.remainder(positions, window), s_new,
+                  k=k_new[:, skip:], v=v_new[:, skip:])
+
+
+def update_mla_cache(cache: dict, c_kv: torch.Tensor, k_rope: torch.Tensor) -> dict:
+    """Append ``S_new`` latents at the current index, as ``update_full_cache``
+    does keys and values."""
+    return _append(cache, "MLA", c_kv=c_kv, k_rope=k_rope)

@@ -2,13 +2,15 @@
 
 ``LM`` holds ``embed``, a ``ModuleList`` of blocks (``layers``) and
 ``final_norm``. Each block is built for its kind in the config's layer
-pattern: ``attn`` / ``local_attn`` (GQA attention + MLP) or ``rglru``
+pattern: ``attn`` / ``local_attn`` (GQA attention, or MLA with
+``cfg.mla``, + an MLP, or the MoE block with ``cfg.moe``) or ``rglru``
 (Griffin recurrent block + MLP). The reference stacks the layers of each
 pattern position on a group axis and runs ``lax.scan`` over the groups
 (plus an unrolled tail); here a plain Python loop runs the layers in
 order (``repro_torch.convert`` maps the reference's stacked layout onto
-``layers``). MoE, MLA and the xLSTM blocks raise ``NotImplementedError``
-until their families are ported (ROADMAP queue 1 item 12).
+``layers``) and sums the MoE layers' auxiliary losses as the scan's carry
+does. The xLSTM blocks raise ``NotImplementedError`` until their family
+is ported (ROADMAP queue 1 item 12).
 
 API:
   init_lm(cfg, seed=, device=)          -> LM (weights drawn, no grad)
@@ -24,9 +26,17 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
-from .attention import Attention, attention, init_attention_cache
+from .attention import (
+    Attention,
+    MLAAttention,
+    attention,
+    init_attention_cache,
+    init_mla_attention_cache,
+    mla_attention,
+)
 from .common import IMPLS, NOT_PORTED, ModelConfig, dtype_of
 from .layers import MLP, Embedding, RMSNorm, embed, mlp_forward, rms_norm, unembed
+from .moe import MoE, moe_forward
 from .rglru import RGLRUBlock, init_rglru_state, rglru_block
 
 __all__ = [
@@ -43,21 +53,18 @@ _ATTN_KINDS = ("attn", "local_attn")
 
 
 class Layer(nn.Module):
-    """One block of kind ``attn`` / ``local_attn`` (``ln1``, ``attn``) or
-    ``rglru`` (``block``), then ``ln2`` and ``mlp`` when ``d_ff > 0``;
+    """One block of kind ``attn`` / ``local_attn`` (``ln1``, ``attn``: GQA,
+    or MLA with ``cfg.mla``) or ``rglru`` (``block``), then ``ln2`` and
+    ``mlp`` (an MLP, or the MoE block with ``cfg.moe``) when ``d_ff > 0``;
     ``post_ln1`` / ``post_ln2`` with gemma2's post-block norms."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device: torch.device | str):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(f"MoE MLP blocks: {NOT_PORTED}")
-        if cfg.mla is not None:
-            raise NotImplementedError(f"MLA attention: {NOT_PORTED}")
         dt = dtype_of(cfg)
         self.kind = kind
         if kind in _ATTN_KINDS:
             self.ln1 = RMSNorm(cfg.d_model, dt, device)
-            self.attn = Attention(cfg, device)
+            self.attn = MLAAttention(cfg, device) if cfg.mla is not None else Attention(cfg, device)
             if cfg.post_block_norms:
                 self.post_ln1 = RMSNorm(cfg.d_model, dt, device)
         elif kind == "rglru":
@@ -68,7 +75,7 @@ class Layer(nn.Module):
             raise ValueError(f"unknown layer kind {kind}")
         if cfg.d_ff > 0:
             self.ln2 = RMSNorm(cfg.d_model, dt, device)
-            self.mlp = MLP(cfg, device)
+            self.mlp = MoE(cfg, device) if cfg.moe is not None else MLP(cfg, device)
             if cfg.post_block_norms:
                 self.post_ln2 = RMSNorm(cfg.d_model, dt, device)
 
@@ -87,19 +94,26 @@ def _layer_forward(
     cache_layer: dict | None,
     window_override: int | None,
     impl: str,
-) -> tuple[torch.Tensor, dict | None]:
-    new_cache = None
+) -> tuple[torch.Tensor, dict | None, torch.Tensor | None]:
+    """One layer: (x, new cache, the MoE block's aux loss or None)."""
+    new_cache = aux = None
     if lp.kind in _ATTN_KINDS:
         h = rms_norm(lp.ln1, x, cfg.norm_eps)
         local = lp.kind == "local_attn" or window_override is not None
-        attn_out, new_cache = attention(
-            lp.attn, cfg, h,
-            positions=positions,
-            local=local,
-            window=window_override,
-            cache=cache_layer,
-            impl=impl,
-        )
+        if cfg.mla is not None:
+            win = window_override if window_override is not None else (
+                cfg.sliding_window if lp.kind == "local_attn" else None)
+            attn_out, new_cache = mla_attention(
+                lp.attn, cfg, h, positions=positions, cache=cache_layer, window=win)
+        else:
+            attn_out, new_cache = attention(
+                lp.attn, cfg, h,
+                positions=positions,
+                local=local,
+                window=window_override,
+                cache=cache_layer,
+                impl=impl,
+            )
         if cfg.post_block_norms:
             attn_out = rms_norm(lp.post_ln1, attn_out, cfg.norm_eps)
         x = x + attn_out
@@ -108,11 +122,14 @@ def _layer_forward(
 
     if cfg.d_ff > 0:
         h = rms_norm(lp.ln2, x, cfg.norm_eps)
-        mlp_out = mlp_forward(lp.mlp, h, cfg.mlp_type)
+        if cfg.moe is not None:
+            mlp_out, aux = moe_forward(lp.mlp, cfg, h)
+        else:
+            mlp_out = mlp_forward(lp.mlp, h, cfg.mlp_type)
         if cfg.post_block_norms:
             mlp_out = rms_norm(lp.post_ln2, mlp_out, cfg.norm_eps)
         x = x + mlp_out
-    return x, new_cache
+    return x, new_cache, aux
 
 
 class LM(nn.Module):
@@ -159,8 +176,8 @@ class LM(nn.Module):
             RG-LRU scan kernels) or "plain" (the reference's "xla").
           return_hidden: skip the unembedding (used by the fused loss).
 
-        Returns (logits | hidden, new_cache, aux); aux is the MoE
-        auxiliary loss of the reference, 0 for the families ported here.
+        Returns (logits | hidden, new_cache, aux); aux is the sum of the
+        MoE layers' router losses (float32; 0 without MoE).
         """
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -174,13 +191,15 @@ class LM(nn.Module):
                 raise ValueError("positions are required with a cache")
             positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         new_cache = [] if cache is not None else None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             cl = cache[i] if cache is not None else None
-            x, nc = _layer_forward(layer, cfg, x, positions, cl, window_override, impl)
+            x, nc, a = _layer_forward(layer, cfg, x, positions, cl, window_override, impl)
+            if a is not None:
+                aux = aux + a
             if new_cache is not None:
                 new_cache.append(nc)
         x = rms_norm(self.final_norm, x, cfg.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return x, new_cache, aux
         return unembed(self.embed, x, cfg), new_cache, aux
@@ -202,6 +221,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device: torch.device | str | Non
 
 def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device) -> dict:
     if kind in _ATTN_KINDS:
+        if cfg.mla is not None:
+            return init_mla_attention_cache(cfg, batch, max_len, device)
         return init_attention_cache(cfg, batch, max_len, local=kind == "local_attn",
                                     device=device)
     if kind == "rglru":
@@ -274,7 +295,11 @@ def lm_loss(
     *,
     impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
-    """Next-token cross-entropy. Returns (loss, {"nll", "aux"})."""
+    """Next-token cross-entropy, plus ``router_aux_coef * aux`` with MoE.
+    Returns (loss, {"nll", "aux"})."""
     hidden, _, aux = model(tokens, impl=impl, return_hidden=True)
-    loss = fused_unembed_xent(model.embed, cfg, hidden, labels)
-    return loss, {"nll": loss, "aux": aux}
+    nll = fused_unembed_xent(model.embed, cfg, hidden, labels)
+    total = nll
+    if cfg.moe is not None:
+        total = total + cfg.moe.router_aux_coef * aux
+    return total, {"nll": nll, "aux": aux}

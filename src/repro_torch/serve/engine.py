@@ -1,7 +1,8 @@
 """Serving engine: batched prefill + single-token greedy decode with caches.
 
 ``prefill`` runs the prompt through the model and builds the per-layer
-caches (full caches and window rings for attention, RG-LRU states);
+caches (full caches and window rings for attention, MLA's latent caches,
+RG-LRU states);
 ``decode_step`` takes one new token against them. Both are the eager
 counterparts of the reference's functions. Prefill attention and decode
 are plain PyTorch, as they are plain XLA in the reference; the RG-LRU
