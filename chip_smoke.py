@@ -22,10 +22,10 @@ nvcc per source, all at once) and then, on the card:
    and flash_attention must be faster than the library call; two launches
    of rglru_scan on the same inputs must be bitwise equal (every scan
    case, and bfloat16 at (2, 4096, 2560) and (2, 32768, 2560)); the
-   flash rows include phase 8's and 9's layers (qwen3-0.6b, qwen2.5-14b,
-   qwen3-moe-30b-a3b, gemma-2b, gemma2-2b local at S = 8192 and global,
-   softcap 50; SDPA has no softcap, so those rows time it without one,
-   beside the row); the
+   flash rows include phase 8's, 9's and 10's layers (qwen3-0.6b,
+   qwen2.5-14b, qwen3-moe-30b-a3b, llava-next-mistral-7b, gemma-2b,
+   gemma2-2b local at S = 8192 and global, softcap 50; SDPA has no
+   softcap, so those rows time it without one, beside the row); the
    device auction LMO on the cold and warm STL-FW gradients of phase 6b's
    label-shard Pi (n = 100), of a Dirichlet(0.1) label partition at n =
    128, 512, 1024 and 2048, and on tied integers: its assignment, prices
@@ -56,12 +56,13 @@ nvcc per source, all at once) and then, on the card:
    the chunked attention and the ring clamp, and decode wraps the ring),
    whose decode step is a CUDA graph, against an eager loop over
    ``decode_step``: identical tokens, each step's logits bitwise equal,
-   one capture; prefill launches; graph and eager decode ms/token
-   (``generate`` less its prefill), device busy shares, device operations
+   one capture; prefill launches; graph and eager decode ms/token (the
+   decode steps alone, after an untimed prefill), device busy shares, device operations
    per token, the capture's ms; 4b, decode consistency in float32 at
    depth 3 through the decoder (three steps: warm-up, capture, replay);
-5. runs the smoke config's kernel path on the card against its plain
-   path on the CPU;
+5. runs the smoke configs' kernel paths on the card against their plain
+   paths on the CPU (recurrentgemma-2b, xlstm-350m, whisper-small,
+   llava-next-mistral-7b);
 6. drives the captured D-SGD rollout (``rollout="scan"``: CUDA graphs)
    and online topology adaptation: both gossip kernels captured in a
    graph and swapped by ``copy_``; 6a, the reference's online acceptance
@@ -109,7 +110,23 @@ nvcc per source, all at once) and then, on the card:
    path's experts; the unpinned error and its swapped routes printed) and
    decode through the decoder within 2e-3 of the full forward at capacity
    factor E / K (nothing drops: a listed cut), and the phase's seconds;
-10. prints one JSON line per kernel set, then the card's name and power
+10. drives the last three families the same way, one at a time after
+   phase 9 has freed its models, random bf16 weights from seed 0, B = 2,
+   stub frames and patch embeddings N(0, 0.1) from seed 0:
+   xlstm-350m (scoring at S = 4096: the chunkwise mLSTM and the sLSTM time
+   loop as CUDA graphs, bitwise the eager loop over the whole forward,
+   tokens/s for both loops, no kernel launch; serving a 2560-token prompt,
+   32 new tokens; f32 at depth 4, where the pattern's sLSTM is layer 3:
+   decode through the decoder within 2e-3 of the full forward);
+   whisper-small (scoring 1500 frames and 448 decoder tokens, its
+   attention plain; serving a 64-token prompt, 32 new tokens; f32 at full
+   depth, decode within 2e-3); llava-next-mistral-7b at full depth
+   (scoring 2880 patches and 1216 tokens with 32 flash_attention launches
+   a forward; f32 at depth 3, kernel against plain path at 1e-4, decode
+   within 2e-3; serving 2880 patches, a 512-token prompt, 32 new tokens);
+   each family's captured decode bitwise its eager loop with one capture,
+   decode ms/token beside the weight bound, and its seconds;
+11. prints one JSON line per kernel set, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Every ``#`` result line ends with the card's name and power limit.
@@ -172,6 +189,9 @@ from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry, transformer  # noqa: E402
+from repro_torch.models import whisper as whisper_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
+from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models.layers import unembed  # noqa: E402
 from repro_torch.faults import run_faulty_mean_estimation  # noqa: E402
 from repro_torch.obs import HealthProbes, Tracer  # noqa: E402
@@ -488,6 +508,9 @@ def phase_lm_kernels() -> list[dict]:
         flash_case("qwen2.5-14b layer", 2, 4096, 40, 8, 128, None, bf16, 43),
         # qwen3-moe-30b-a3b's layer (phase 9's scoring shape)
         flash_case("qwen3-moe-30b-a3b layer", 2, 4096, 32, 4, 128, None, bf16, 55),
+        # llava-next-mistral-7b's layer (phase 10's scoring shape: 2880
+        # patches + 1216 tokens)
+        flash_case("llava-next-mistral-7b layer", 2, 4096, 32, 8, 128, None, bf16, 58),
         flash_case("gemma-2b layer", 2, 4096, 8, 1, 256, None, bf16, 46),
         flash_case("gemma2-2b local layer, S=8192", 2, 8192, 8, 4, 256, 4096, bf16, 49,
                    softcap=50.0),
@@ -1719,10 +1742,11 @@ def phase_robustness(mnist) -> dict:
 
 def layer_counts(cfg) -> tuple[int, int]:
     """(flash_attention layers, RG-LRU layers) of ``cfg``: every attention
-    layer, but none with MLA (plain PyTorch, as it is plain XLA in the
-    reference: there is no Pallas MLA kernel to port)."""
+    layer, but none with MLA or in whisper (plain PyTorch, as they are
+    plain XLA in the reference: no Pallas kernel is on their path)."""
     kinds = [cfg.kind(i) for i in range(cfg.num_layers)]
-    n_attn = sum(k in ("attn", "local_attn") for k in kinds) if cfg.mla is None else 0
+    plain = cfg.mla is not None or cfg.arch_type == "audio"
+    n_attn = 0 if plain else sum(k in ("attn", "local_attn") for k in kinds)
     return n_attn, kinds.count("rglru")
 
 
@@ -1742,17 +1766,20 @@ def _median_s(fn, *args, repeats: int = 3, **kwargs) -> float:
 
 def device_profile(fn, *args, **kwargs) -> tuple[dict, int]:
     """Device ms of one ``fn(...)`` by kernel (and copy) from
-    ``torch.profiler``, and the number of device operations it ran."""
+    ``torch.profiler``, and the number of device operations it ran. Reads
+    the profiler's raw events: building ``key_averages()``'s event tree
+    costs ~0.1 ms an event on the host, minutes for a forward of the
+    xLSTM's ~580k small kernels."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         counted(fn, *args, **kwargs)
     per_kernel: dict[str, float] = {}
     n_ops = 0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
-            n_ops += e.count
+    for e in prof.profiler.kineto_results.events():
+        ns = e.duration_ns()
+        if e.device_type() == torch.autograd.DeviceType.CUDA and ns > 0:
+            per_kernel[e.name()] = per_kernel.get(e.name(), 0.0) + ns / 1e6
+            n_ops += 1
     return per_kernel, n_ops
 
 
@@ -1767,14 +1794,40 @@ def top_kernels(per_kernel: dict) -> dict:
     return {k[:90]: round(v, 3) for k, v in top}
 
 
+def stub_inputs(cfg, B: int, device, seed: int = 0) -> dict:
+    """Whisper's frames or the VLM's patch embeddings, N(0, 0.1) from
+    ``seed`` in the model's dtype (``make_inputs`` gives the reference's
+    zeros); none for the other families."""
+    if cfg.arch_type == "audio":
+        key, shape = "frames", (B, cfg.encoder.num_frames, cfg.d_model)
+    elif cfg.arch_type == "vlm":
+        key, shape = "image_embeds", (B, cfg.vision.num_patches, cfg.d_model)
+    else:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device) * 0.1
+    return {key: x.to(dtype_of(cfg))}
+
+
+def image_positions(cfg) -> int:
+    """Positions the VLM's patches take before the text (0 otherwise)."""
+    return cfg.vision.num_patches if cfg.arch_type == "vlm" else 0
+
+
 def phase_scoring(cfg, B: int, S: int, device: torch.device,
                   label: str = "3") -> tuple[dict, object]:
-    """Phase 3 (and 8): ``loss_fn`` / ``model_forward`` with the kernels at
-    full width; ``label`` heads the result lines and checks."""
+    """Phase 3 (and 8-10): ``loss_fn`` / ``model_forward`` with the kernels
+    at full width; ``label`` heads the result lines and checks. The VLM's
+    S positions hold its patches and ``S - patches`` tokens; whisper's
+    decoder takes min(S, 448) tokens against its encoded frames."""
     n_attn, n_rglru = layer_counts(cfg)
     model = registry.init_model(cfg, seed=0, device=device)
     batch = registry.make_inputs(cfg, B, S, seed=0, device=device)
-    out: dict = {"params": sum(p.numel() for p in model.parameters())}
+    batch.update(stub_inputs(cfg, B, device))
+    S_text = batch["tokens"].shape[1]
+    S = image_positions(cfg) + S_text  # the forward's positions
+    out: dict = {"params": sum(p.numel() for p in model.parameters()), "positions": S,
+                 "text_tokens": S_text}
     with torch.inference_mode():
         (loss, metrics), counts, out["loss_s"] = counted(registry.loss_fn, model, cfg, batch,
                                                          impl="kernel")
@@ -1790,12 +1843,12 @@ def phase_scoring(cfg, B: int, S: int, device: torch.device,
         launches = {k: launches[k] + counts[k] for k in launches}
         check(tuple(logits.shape) == (B, S, cfg.vocab_size), f"{label}: logits shape")
         check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
-        # the loss recomputed from the forward's logits, one row at a time in
-        # float64, and the logit of each position's own input token: with the
-        # tied, sqrt(d)-scaled embedding it dominates at random init
+        # the loss recomputed from the forward's text logits, one row at a
+        # time in float64, and the logit of each position's own input token:
+        # with the tied, sqrt(d)-scaled embedding it dominates at random init
         nll, own = [], []
         for b in range(B):
-            lf = logits[b].double()
+            lf = logits[b, S - S_text :].double()
             nll.append(torch.logsumexp(lf, -1) - lf.gather(-1, batch["labels"][b, :, None])[:, 0])
             own.append(lf.gather(-1, batch["tokens"][b, :, None])[:, 0])
         del logits, lf
@@ -1831,15 +1884,17 @@ def phase_scoring(cfg, B: int, S: int, device: torch.device,
 
 
 def phase_f32_depth3(cfg_full, B: int, S: int, device: torch.device,
-                     label: str = "3b") -> tuple[dict, object]:
-    """Phase 3b (and 8, 9): the same forward in float32 at depth 3 (for
-    recurrentgemma-2b rglru, rglru, local_attn), kernel path against plain
-    path at 1e-4; with MoE, the kernel path routed as the plain path."""
-    cfg = dataclasses.replace(cfg_full, num_layers=3, dtype="float32")
+                     label: str = "3b", depth: int = 3) -> tuple[dict, object]:
+    """Phase 3b (and 8-10): the same forward in float32 at ``depth`` layers
+    (3: for recurrentgemma-2b rglru, rglru, local_attn), kernel path
+    against plain path at 1e-4; with MoE, the kernel path routed as the
+    plain path."""
+    cfg = dataclasses.replace(cfg_full, num_layers=depth, dtype="float32")
     n_attn, n_rglru = layer_counts(cfg)
     model = registry.init_model(cfg, seed=2, device=device)
     batch = registry.make_inputs(cfg, B, S, seed=2, device=device)
-    out: dict = {}
+    batch.update(stub_inputs(cfg, B, device, seed=2))
+    out: dict = {"depth": depth}
     # MoE: a router top-k is a threshold, and the kernel path's ~1e-6 moves
     # can swap near-tied experts; with capacity drops a swap reorders both
     # experts' queues, so the paths are compared with the kernel path routed
@@ -1852,7 +1907,8 @@ def phase_f32_depth3(cfg_full, B: int, S: int, device: torch.device,
         with moe_routes() as kernel_routes:
             (kernel, _, _), counts, _ = counted(registry.model_forward, model, cfg, batch,
                                                 impl="kernel")
-        expect_lm(f"{label} f32 depth-3 forward, kernel path", counts, n_attn, n_rglru, device)
+        expect_lm(f"{label} f32 depth-{depth} forward, kernel path", counts, n_attn, n_rglru,
+                  device)
         if pinned:
             out["unpinned_max_abs_err"] = float((kernel - plain).abs().max())
             out["swapped_choices_by_layer"] = [
@@ -1861,7 +1917,7 @@ def phase_f32_depth3(cfg_full, B: int, S: int, device: torch.device,
             with moe_routes(plain_routes):
                 kernel, _, _ = registry.model_forward(model, cfg, batch, impl="kernel")
         err = out["max_abs_err"] = float((kernel - plain).abs().max())
-        note(f"# {label} f32 depth 3: max |kernel - plain| logits {err:.3e}"
+        note(f"# {label} f32 depth {depth}: max |kernel - plain| logits {err:.3e}"
              + ("" if not pinned else
                 f" (routes pinned; unpinned {out['unpinned_max_abs_err']:.3e}, token-layers "
                 f"with swapped experts {out['swapped_choices_by_layer']})"))
@@ -1877,24 +1933,43 @@ def phase_f32_depth3(cfg_full, B: int, S: int, device: torch.device,
     return out, model
 
 
-def eager_generate(model, cfg, prompt: torch.Tensor, new_tokens: int):
+def eager_generate(model, cfg, prompt: torch.Tensor, new_tokens: int, extra: dict | None = None):
     """The eager reference of ``generate``: ``prefill``, then a loop over
-    ``decode_step``. Returns (tokens (B, new_tokens), each step's logits)."""
+    ``decode_step``; ``extra``: the frames or patch embeddings. Returns
+    (tokens (B, new_tokens), each step's logits, the decode loop's wall
+    seconds)."""
+    extra = extra or {}
     B, S = prompt.shape
+    S += image_positions(cfg)
     with torch.inference_mode():
-        logits, cache = engine.prefill(model, cfg, prompt, max_len=S + new_tokens + 1)
+        logits, cache = engine.prefill(model, cfg, prompt, max_len=S + new_tokens + 1, **extra)
         toks, all_logits = [logits.argmax(-1, keepdim=True)], [logits]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for pos in range(S, S + new_tokens - 1):
             position = torch.full((B, 1), pos, device=prompt.device)
             logits, cache = engine.decode_step(model, cfg, toks[-1], position, cache)
             toks.append(logits.argmax(-1, keepdim=True))
             all_logits.append(logits)
-        return torch.cat(toks, dim=1), all_logits
+        torch.cuda.synchronize()
+        return torch.cat(toks, dim=1), all_logits, time.perf_counter() - t0
 
 
-def decoder_logits(dec, prompt: torch.Tensor, new_tokens: int) -> list:
+def decode_steps(dec, steps: int) -> None:
+    """``steps`` steps of a started decoder (replays, once it has captured)."""
+    for _ in range(steps):
+        dec.step()
+
+
+def timed_decode(dec, prompt: torch.Tensor, steps: int, extra: dict) -> float:
+    """Wall seconds of ``steps`` decoder steps after a (untimed) start."""
+    dec.start(prompt, **extra)
+    return counted(decode_steps, dec, steps)[2]
+
+
+def decoder_logits(dec, prompt: torch.Tensor, new_tokens: int, extra: dict | None = None) -> list:
     """Each step's logits of the decoder ``generate`` uses, stepped by hand."""
-    dec.start(prompt)
+    dec.start(prompt, **(extra or {}))
     out = [dec.logits.clone()]
     for _ in range(new_tokens - 1):
         dec.step()
@@ -1904,35 +1979,42 @@ def decoder_logits(dec, prompt: torch.Tensor, new_tokens: int) -> list:
 
 def phase_serving(model, cfg, B: int, prompt_len: int, new_tokens: int,
                   device: torch.device, label: str = "4") -> dict:
-    """Phase 4 (and 8): prefill and greedy ``generate`` at full width.
+    """Phase 4 (and 8-10): prefill and greedy ``generate`` at full width.
     ``generate`` runs its decode step as a CUDA graph (``serve.engine.
     Decoder``); the eager reference is a loop over ``decode_step``. The
     graph's tokens must be the loop's and each step's logits bitwise the
-    loop's, with one capture. Decode is timed and profiled through whole
-    runs less a prefill's, over their ``new_tokens - 1`` decode steps; the
-    busy shares are profiler device time over unprofiled wall time."""
+    loop's, with one capture. Decode is timed and profiled over the
+    ``new_tokens - 1`` decode steps alone, after a prefill outside the
+    timed region (the graph's on the started decoder); the busy shares are
+    profiler device time over unprofiled wall time. The VLM's prompt
+    follows its patches (the prefill's positions count them); whisper's
+    prefill encodes its frames first."""
     _, n_rglru = layer_counts(cfg)
-    prompt = registry.make_inputs(cfg, B, prompt_len, seed=1, device=device)["tokens"]
-    max_len = prompt_len + new_tokens + 1
+    positions = image_positions(cfg) + prompt_len
+    prompt = registry.make_inputs(cfg, B, positions, seed=1, device=device)["tokens"]
+    check(prompt.shape[1] == prompt_len, f"{label}: a prompt of {prompt.shape[1]} tokens")
+    extra = stub_inputs(cfg, B, device, seed=1)
+    max_len = positions + new_tokens + 1
     steps = new_tokens - 1
-    out: dict = {"prompt_len": prompt_len, "new_tokens": new_tokens}
+    out: dict = {"prompt_len": prompt_len, "prefill_positions": positions,
+                 "new_tokens": new_tokens}
     with torch.inference_mode():
-        _, counts, _ = counted(engine.prefill, model, cfg, prompt, max_len=max_len)
+        _, counts, _ = counted(engine.prefill, model, cfg, prompt, max_len=max_len, **extra)
         expect_lm(f"{label} prefill", counts, 0, n_rglru, device)
         launches = counts
-        out["prefill_s"] = _median_s(engine.prefill, model, cfg, prompt, max_len=max_len)
-        out["prefill_tokens_per_s"] = B * prompt_len / out["prefill_s"]
+        out["prefill_s"] = _median_s(engine.prefill, model, cfg, prompt, max_len=max_len, **extra)
+        out["prefill_tokens_per_s"] = B * positions / out["prefill_s"]
         prefill_kernels, prefill_ops = device_profile(engine.prefill, model, cfg, prompt,
-                                                      max_len=max_len)
+                                                      max_len=max_len, **extra)
     out["prefill_device_ops"] = prefill_ops
     out["prefill_top_kernels_ms"] = top_kernels(prefill_kernels)
     out["prefill_rglru_scan_device_ms"] = kernel_ms(prefill_kernels, "rglru_scan_kernel")
     out["prefill_device_busy_share"] = sum(prefill_kernels.values()) / (1e3 * out["prefill_s"])
 
-    (eager_toks, eager_logits), counts, _ = counted(eager_generate, model, cfg, prompt,
-                                                    new_tokens)
+    (eager_toks, eager_logits, _), counts, _ = counted(eager_generate, model, cfg, prompt,
+                                                       new_tokens, extra)
     expect_lm(f"{label} eager decode loop (prefill + decode)", counts, 0, n_rglru, device)
-    gen_kw = dict(max_new_tokens=new_tokens, device=device)
+    gen_kw = dict(max_new_tokens=new_tokens, device=device, **extra)
     toks, counts, _ = counted(engine.generate, model, cfg, prompt, **gen_kw)
     expect_lm(f"{label} generate (prefill + captured decode)", counts, 0, n_rglru, device)
     launches = {k: launches[k] + counts[k] for k in launches}
@@ -1942,7 +2024,7 @@ def phase_serving(model, cfg, B: int, prompt_len: int, new_tokens: int,
     check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
           f"{label}: tokens out of range")
     check(torch.equal(toks, eager_toks), f"{label}: captured and eager greedy tokens differ")
-    graph_logits = decoder_logits(dec, prompt, new_tokens)  # replays only
+    graph_logits = decoder_logits(dec, prompt, new_tokens, extra)  # replays only
     differ = [i for i, (a, b) in enumerate(zip(graph_logits, eager_logits))
               if not torch.equal(a, b)]
     out["logits_bitwise_steps"] = len(graph_logits) - len(differ)
@@ -1957,13 +2039,17 @@ def phase_serving(model, cfg, B: int, prompt_len: int, new_tokens: int,
     del graph_logits, eager_logits
 
     out["generate_s"] = _median_s(engine.generate, model, cfg, prompt, **gen_kw)
-    out["eager_generate_s"] = _median_s(eager_generate, model, cfg, prompt, new_tokens)
-    for arm, total in (("", out["generate_s"]), ("eager_", out["eager_generate_s"])):
-        out[f"{arm}decode_ms_per_token"] = 1e3 * (total - out["prefill_s"]) / steps
+    # the decode steps alone, timed after an untimed prefill (a difference of
+    # two whole runs was mostly noise where the prefill dominates, xLSTM's)
+    graph_s = np.median([timed_decode(dec, prompt, steps, extra) for _ in range(3)])
+    eager_s = np.median([eager_generate(model, cfg, prompt, new_tokens, extra)[2]
+                         for _ in range(3)])
+    for arm, seconds in (("", graph_s), ("eager_", eager_s)):
+        out[f"{arm}decode_ms_per_token"] = 1e3 * float(seconds) / steps
     out["decode_tokens_per_s"] = B * 1e3 / out["decode_ms_per_token"]
-    gen_kernels, gen_ops = device_profile(engine.generate, model, cfg, prompt, **gen_kw)
-    decode_kernels = {k: v - prefill_kernels.get(k, 0.0) for k, v in gen_kernels.items()}
-    out["decode_device_ops_per_token"] = (gen_ops - prefill_ops) / steps
+    dec.start(prompt, **extra)
+    decode_kernels, decode_ops = device_profile(decode_steps, dec, steps)
+    out["decode_device_ops_per_token"] = decode_ops / steps
     out["decode_device_ms_per_token"] = sum(decode_kernels.values()) / steps
     out["decode_top_kernels_ms"] = top_kernels(decode_kernels)
     # the eager loop launches the same kernels (profiled on an H100, its
@@ -1977,50 +2063,70 @@ def phase_serving(model, cfg, B: int, prompt_len: int, new_tokens: int,
 
 def phase_decode_consistency(model, cfg_f32, B: int, S: int, device: torch.device,
                              label: str = "4b") -> float:
-    """Phase 4b (and 8): prefill S - 3 tokens into the decoder, decode the
-    last three through it (the warm-up, the capture, a replay) and compare
-    each step's logits with the full forward's at the reference's 2e-3
+    """Phase 4b (and 8-10): prefill S - 3 tokens (after the VLM's patches,
+    or against whisper's encoded frames) into the decoder, decode the last
+    three through it (the warm-up, the capture, a replay) and compare each
+    step's logits with the full forward's at the reference's 2e-3
     (tests/test_decode_consistency.py)."""
     toks = registry.make_inputs(cfg_f32, B, S, seed=3, device=device)["tokens"]
-    dec = engine.Decoder(model, cfg_f32, B, S + 8)
+    S = toks.shape[1]
+    extra = stub_inputs(cfg_f32, B, device, seed=3)
+    dec = engine.Decoder(model, cfg_f32, B, image_positions(cfg_f32) + S + 8)
     with torch.inference_mode():
-        hidden, _, _ = model(toks, return_hidden=True)
-        full = unembed(model.embed, hidden[:, -3:], cfg_f32)
+        if cfg_f32.arch_type == "audio":
+            hidden, _, _ = whisper_mod.whisper_forward(model, cfg_f32, extra["frames"], toks,
+                                                       return_hidden=True)
+            full = whisper_mod.unembed(model, hidden[:, -3:])
+        else:
+            hidden, _, _ = model(toks, return_hidden=True, **extra)
+            full = unembed(model.embed, hidden[:, -3:], cfg_f32)
         del hidden
-        dec.start(toks[:, : S - 3])
+        dec.start(toks[:, : S - 3], **extra)
         errs = []
         for i in range(3):
             dec.step(toks[:, S - 3 + i : S - 2 + i])
             errs.append(float((dec.logits - full[:, i]).abs().max()))
     err = max(errs)
-    note(f"# {label} f32 depth-3 decode (through the decoder) vs full forward at positions "
-         f"{S - 3}-{S - 1}: max |diff| {', '.join(f'{e:.3e}' for e in errs)}; "
+    note(f"# {label} f32 depth-{cfg_f32.num_layers} decode (through the decoder) vs full "
+         f"forward at positions {S - 3}-{S - 1} of the text: max |diff| "
+         f"{', '.join(f'{e:.3e}' for e in errs)}; "
          f"captures {dec.n_captures}")
     check(err < 2e-3, f"{label}: decode and full forward differ by {err:.3e} (limit 2e-3)")
     check(dec.n_captures == 1, f"{label}: {dec.n_captures} captures of the decode step")
     return err
 
 
+SMOKE_CROSS_DEVICE = {"recurrentgemma-2b": 5, "xlstm-350m": None, "whisper-small": None,
+                      "llava-next-mistral-7b": None}  # name -> num_layers (None: the smoke's)
+
+
 def phase_lm_cross_device() -> float:
-    """Phase 5: the smoke config's kernel path on the card against its plain
-    path on the CPU (float32, num_layers = 5), within 1e-4."""
-    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"), num_layers=5)
-    cpu_model = registry.init_model(cfg, seed=0, device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    batch = registry.make_inputs(cfg, 2, 256, seed=0, device="cpu")
-    gpu_batch = {k: v.cuda() for k, v in batch.items()}
-    with torch.inference_mode():
-        gpu, _, _ = registry.model_forward(gpu_model, cfg, gpu_batch, impl="kernel")
-        cpu, _, _ = registry.model_forward(cpu_model, cfg, batch, impl="plain")
-        gpu_loss = float(registry.loss_fn(gpu_model, cfg, gpu_batch, impl="kernel")[0])
-        cpu_loss = float(registry.loss_fn(cpu_model, cfg, batch, impl="plain")[0])
-    err = float((gpu.cpu() - cpu).abs().max())
-    note(f"# 5 smoke config, max |cuda kernel path - cpu plain path| {err:.3e}, losses "
-          f"{gpu_loss:.6f} and {cpu_loss:.6f}")
-    check(torch.allclose(gpu.cpu(), cpu, atol=1e-4, rtol=1e-4),
-          f"5: cuda kernel path and cpu plain path differ by {err:.3e}")
-    check(abs(gpu_loss - cpu_loss) <= 1e-4, "5: cuda and cpu losses differ")
-    return err
+    """Phase 5: each smoke config's kernel path on the card against its
+    plain path on the CPU (float32; recurrentgemma-2b at num_layers = 5),
+    within 1e-4. Returns the largest error."""
+    errs = []
+    for name, layers in SMOKE_CROSS_DEVICE.items():
+        cfg = get_smoke_config(name)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cpu_model = registry.init_model(cfg, seed=0, device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        batch = registry.make_inputs(cfg, 2, 256, seed=0, device="cpu")
+        batch.update(stub_inputs(cfg, 2, "cpu"))
+        gpu_batch = {k: v.cuda() for k, v in batch.items()}
+        with torch.inference_mode():
+            gpu, _, _ = registry.model_forward(gpu_model, cfg, gpu_batch, impl="kernel")
+            cpu, _, _ = registry.model_forward(cpu_model, cfg, batch, impl="plain")
+            gpu_loss = float(registry.loss_fn(gpu_model, cfg, gpu_batch, impl="kernel")[0])
+            cpu_loss = float(registry.loss_fn(cpu_model, cfg, batch, impl="plain")[0])
+        err = float((gpu.cpu() - cpu).abs().max())
+        note(f"# 5 {name} smoke config, max |cuda kernel path - cpu plain path| {err:.3e}, "
+             f"losses {gpu_loss:.6f} and {cpu_loss:.6f}")
+        check(torch.allclose(gpu.cpu(), cpu, atol=1e-4, rtol=1e-4),
+              f"5 {name}: cuda kernel path and cpu plain path differ by {err:.3e}")
+        check(abs(gpu_loss - cpu_loss) <= 1e-4, f"5 {name}: cuda and cpu losses differ")
+        errs.append(err)
+    return max(errs)
 
 
 def phase_lm(device: torch.device) -> dict:
@@ -2195,9 +2301,11 @@ def drop_share(model, cfg, batch: dict) -> dict:
 def decode_weight_bound_ms(model) -> float:
     """Least ms of a decode step from its weights alone: every weight read
     once (the reference's dispatch multiplies every expert, even at one
-    token), the token table aside (a decode step gathers B rows of it)."""
+    token), an untied token table aside (a decode step gathers B rows of
+    it; a tied one is also the unembedding, read whole)."""
+    untied = any(n == "embed.unembed" for n, _ in model.named_parameters())
     n_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
-                  if n != "embed.table")
+                  if not (untied and n == "embed.table"))
     return 1e3 * n_bytes / HBM_BYTES_PER_S
 
 
@@ -2263,6 +2371,104 @@ def phase_moe_families(device: torch.device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the last three families (xLSTM, whisper, the VLM)
+# ---------------------------------------------------------------------------
+
+# name -> (scoring S, serving prompt length, depth of the f32 checks,
+# decode-consistency S): xlstm-350m's f32 depth 4 reaches the pattern's
+# sLSTM (layer 3) and its decode S = 2560 takes the chunkwise mLSTM in the
+# full forward; whisper at full depth (its decoder takes at most 448
+# tokens); llava's S counts its 2880 patches (1216 and 512 text tokens)
+LAST = {"xlstm-350m": (4096, 2560, 4, 2560), "whisper-small": (448, 64, 12, 448),
+        "llava-next-mistral-7b": (4096, 512, 3, 2880 + 512)}
+
+
+def slstm_loops(model, cfg, B: int, S: int, device: torch.device, fwd_s: float,
+                device_ms: float, label: str) -> dict:
+    """xLSTM's scoring forward with the sLSTM time loop as CUDA graphs (the
+    default) and eagerly, step by step: bitwise equal logits, and both
+    loops' tokens/s; the eager loop's busy share is the captured forward's
+    device time over its own wall time (the same kernels run)."""
+    batch = registry.make_inputs(cfg, B, S, seed=0, device=device)
+    before = xlstm_mod.loop_captures()
+    with torch.inference_mode():
+        captured, _, _ = registry.model_forward(model, cfg, batch)
+        with xlstm_mod.slstm_loop("eager"):  # host-bound and steady: timed once
+            (eager, _, _), counts, eager_s = counted(registry.model_forward, model, cfg, batch)
+    expect_lm(f"{label} eager sLSTM loop", counts, 0, 0, device)
+    differ = float((captured.float() - eager.float()).abs().max())
+    check(torch.equal(captured, eager), f"{label}: the captured sLSTM loop's logits differ "
+          f"from the eager loop's (max |diff| {differ:.3e})")
+    out = {"slstm_loop_bitwise": True, "captured_loop_tokens_per_s": B * S / fwd_s,
+           "eager_loop_tokens_per_s": B * S / eager_s, "eager_loop_forward_s": eager_s,
+           "eager_loop_device_busy_share": device_ms / (1e3 * eager_s),
+           "slstm_loop_captures_so_far": xlstm_mod.loop_captures(),
+           "slstm_loop_captures_here": xlstm_mod.loop_captures() - before}
+    note(f"# {label} sLSTM loop: captured bitwise eager over the whole forward; "
+         f"{out['captured_loop_tokens_per_s']:.0f} against {out['eager_loop_tokens_per_s']:.0f} "
+         f"tokens/s")
+    return out
+
+
+def phase_last(name: str, device: torch.device) -> dict:
+    """Phase 10 for one family, random bf16 weights from seed 0, B = 2:
+    scoring (xLSTM also with its eager sLSTM loop), serving (32 new
+    tokens, the captured decode bitwise the eager loop, one capture;
+    decode ms/token beside the weight bound), the f32 checks (kernel
+    against plain path at 1e-4, decode through the decoder within 2e-3 of
+    the full forward), and the family's seconds."""
+    t0 = time.perf_counter()
+    label = f"10 {name}"
+    S, prompt_len, depth, decode_S = LAST[name]
+    cfg = get_config(name)
+    flash = cfg.num_layers if cfg.arch_type == "vlm" else 0
+    check(layer_counts(cfg) == (flash, 0), f"{name}: {layer_counts(cfg)} kernel layers")
+    scoring, model = phase_scoring(cfg, 2, S, device, label)
+    sc = scoring["scoring"]
+    sc["gigabytes"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    if cfg.arch_type == "audio":
+        sc["encoder_frames"] = cfg.encoder.num_frames
+    if "slstm" in cfg.layer_pattern:
+        sc.update(slstm_loops(model, cfg, 2, S, device, sc["forward_steady_s"], sc["device_ms"],
+                              label))
+    note(f"# {label} scoring " + json.dumps(sc))
+    t1 = time.perf_counter()
+    serving = phase_serving(model, cfg, 2, prompt_len, 32, device, label)
+    sv = serving["serving"]
+    sv["decode_weight_bound_ms"] = decode_weight_bound_ms(model)
+    note(f"# {label} serving " + json.dumps(sv))
+    del model
+    free_card()
+    t2 = time.perf_counter()
+    f32, model32 = phase_f32_depth3(cfg, 2, S, device, label, depth=depth)
+    note(f"# {label} f32 depth {depth} " + json.dumps(f32))
+    f32["decode_max_abs_err"] = phase_decode_consistency(model32, model32.cfg, 2, decode_S,
+                                                         device, label)
+    del model32
+    free_card()
+    note(f"# {label} " + json.dumps(family_summary(
+        name, flash, scoring, serving, f32, (t0, t1, t2), gigabytes=sc["gigabytes"],
+        decode_weight_bound_ms=sv["decode_weight_bound_ms"],
+        decode_device_ms_per_token=sv["decode_device_ms_per_token"],
+        prefill_positions=sv["prefill_positions"],
+        **{k: sc[k] for k in ("eager_loop_tokens_per_s", "slstm_loop_bitwise") if k in sc})))
+    return {k: scoring["launches"][k] + serving["launches"][k]
+            for k in ("flash_attention", "rglru_scan")}
+
+
+def phase_last_families(device: torch.device) -> dict:
+    """Phase 10: xlstm-350m, whisper-small and llava-next-mistral-7b, one
+    at a time, after phase 9 has freed its models; returns their main-path
+    launches."""
+    launches = {"flash_attention": 0, "rglru_scan": 0}
+    for name in LAST:
+        for k, v in phase_last(name, device).items():
+            launches[k] += v
+    check(launches["rglru_scan"] == 0, "10: the last families launched rglru_scan")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2320,6 +2526,8 @@ def main(argv: list[str] | None = None) -> int:
     launches["flash_attention"] += dense["flash_attention"]
     moe = phase_moe_families(torch.device("cuda"))
     launches["flash_attention"] += moe["flash_attention"]
+    last = phase_last_families(torch.device("cuda"))
+    launches["flash_attention"] += last["flash_attention"]
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2343,6 +2551,7 @@ def main(argv: list[str] | None = None) -> int:
         if name == "flash_attention":
             kernels[-1]["launches_phase8"] = dense[name]
             kernels[-1]["launches_phase9"] = moe[name]
+            kernels[-1]["launches_phase10"] = last[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

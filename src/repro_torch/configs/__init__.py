@@ -4,11 +4,12 @@
 returns the reduced same-family variant the CPU tests use. Names are the
 reference's (``repro/configs/__init__.py``), hyphenated or as module names.
 
-The port runs the dense GQA families (qwen3-0.6b, gemma-2b, gemma2-2b,
-qwen2.5-14b), recurrentgemma-2b and the MoE families (qwen3-moe-30b-a3b;
-deepseek-v2-236b, with MLA and shared experts). Every other architecture
-of the reference raises ``NotImplementedError``: its blocks (xLSTM,
-whisper, the VLM stub) wait for ROADMAP queue 1 item 12.
+The port runs every architecture of the reference: the dense GQA
+families (qwen3-0.6b, gemma-2b, gemma2-2b, qwen2.5-14b), recurrentgemma-2b,
+the MoE families (qwen3-moe-30b-a3b; deepseek-v2-236b, with MLA and shared
+experts), xlstm-350m, whisper-small (encoder-decoder) and
+llava-next-mistral-7b (stub patch embeddings). An unknown name raises
+``ValueError``.
 
 Input shapes (the reference's):
   train_4k     seq 4096,   global batch 256   (train_step)
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.common import NOT_PORTED, ModelConfig
+from repro_torch.models.common import ModelConfig
 
 __all__ = ["ARCH_IDS", "PORTED", "INPUT_SHAPES", "get_config", "get_smoke_config"]
 
@@ -38,8 +39,7 @@ ARCH_IDS = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
-PORTED = ("qwen3_0_6b", "gemma_2b", "gemma2_2b", "qwen2_5_14b", "recurrentgemma_2b",
-          "qwen3_moe_30b_a3b", "deepseek_v2_236b")
+PORTED = tuple(ARCH_IDS.values())
 
 INPUT_SHAPES = {
     "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},
@@ -52,9 +52,7 @@ INPUT_SHAPES = {
 def _module(name: str):
     mod = ARCH_IDS.get(name, name).replace("-", "_").replace(".", "_")
     if mod not in PORTED:
-        if mod not in ARCH_IDS.values():
-            raise ValueError(f"unknown architecture {name!r}")
-        raise NotImplementedError(f"{name}: {NOT_PORTED}; the port runs {', '.join(PORTED)}")
+        raise ValueError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -13,8 +13,13 @@ reference stacks the layers of pattern position j on a group axis,
 ``params["tail"][t]`` (``repro/models/transformer.py:173-197``): group g,
 position j is layer ``g * len(pattern) + j`` of the port, tail t is layer
 ``reps * len(pattern) + t``. Leaf names map onto parameter names
-(``attn/wq`` -> ``layers.<i>.attn.wq``). bfloat16 leaves travel as their
-bits, so a round trip is bitwise.
+(``attn/wq`` -> ``layers.<i>.attn.wq``). The xLSTM blocks' leaves
+(``block/r``, ``block/b_if`` ...) travel the same way. Whisper's pytree
+(``init_whisper``) is flat: its layer lists ``enc_layers`` /
+``dec_layers`` map onto the ``Whisper`` module's ``ModuleList``s by
+index; both functions take it where the config's ``arch_type`` is
+``"audio"``. bfloat16 leaves travel as their bits, so a round trip is
+bitwise.
 """
 
 from __future__ import annotations
@@ -87,9 +92,10 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def _flatten(prefix: str, node, out: dict) -> None:
-    if isinstance(node, dict):
-        for key, child in node.items():
-            _flatten(f"{prefix}.{key}" if prefix else key, child, out)
+    if isinstance(node, (dict, list)):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for key, child in items:
+            _flatten(f"{prefix}.{key}" if prefix else str(key), child, out)
     else:
         out[prefix] = node
 
@@ -143,11 +149,17 @@ def module_params_from_numpy(module: torch.nn.Module, tree: dict) -> torch.nn.Mo
 
 def lm_params_from_numpy(tree: dict, cfg, device: torch.device | str | None = None):
     """The port's ``LM`` for ``cfg`` on ``device`` (None = CUDA), with the
-    reference's ``init_lm`` weights ``tree`` (leaves as numpy arrays);
+    reference's ``init_lm`` weights ``tree`` (leaves as numpy arrays), or
+    its ``Whisper`` with the ``init_whisper`` weights for an audio config;
     gradients off, eval mode. Names, shapes and dtypes must all match."""
     from repro_torch.models.transformer import LM
+    from repro_torch.models.whisper import Whisper
 
     device = resolve_device(device)
+    if cfg.arch_type == "audio":
+        flat: dict[str, np.ndarray] = {}
+        _flatten("", tree, flat)
+        return _load_flat(Whisper(cfg, device), flat)
     reps, plen = _layer_slots(cfg)
     flat: dict[str, np.ndarray] = {}
     _flatten("embed", tree["embed"], flat)
@@ -167,8 +179,18 @@ def lm_params_from_numpy(tree: dict, cfg, device: torch.device | str | None = No
 def lm_params_to_numpy(model) -> dict:
     """The reference's ``init_lm`` pytree of ``model``'s weights, as numpy
     arrays: ``embed``, ``stages`` (stacked per pattern position; None
-    where there is no whole group), ``tail`` and ``final_norm``."""
+    where there is no whole group), ``tail`` and ``final_norm``; for a
+    ``Whisper``, the ``init_whisper`` pytree (layer lists as lists)."""
     cfg = model.cfg
+    if cfg.arch_type == "audio":
+        def tree(module):
+            return _nest({n: _array(p) for n, p in module.named_parameters()})
+
+        return {"token_embed": _array(model.token_embed),
+                "enc_layers": [tree(layer) for layer in model.enc_layers],
+                "enc_final_ln": tree(model.enc_final_ln),
+                "dec_layers": [tree(layer) for layer in model.dec_layers],
+                "dec_final_ln": tree(model.dec_final_ln)}
     reps, plen = _layer_slots(cfg)
     layers = [_nest({n: _array(p) for n, p in layer.named_parameters()})
               for layer in model.layers]

@@ -1,14 +1,28 @@
 """The LM stack of the port: configs' models as ``nn.Module``s.
 
-Ported so far: the pieces recurrentgemma-2b and the dense GQA families
-run (RMS norm, rope, MLPs, embeddings, GQA attention with full and ring
-caches, the RG-LRU block, the decoder assembly and its losses) and those
-of the MoE families (the capacity-dispatch MoE block, ``moe``, and
-DeepSeek-V2's multi-head latent attention with its latent cache). xLSTM,
-whisper and the VLM stub wait for ROADMAP queue 1 item 12.
+Every family of the reference: the pieces recurrentgemma-2b and the dense
+GQA families run (RMS norm, rope, MLPs, embeddings, GQA attention with
+full and ring caches, the RG-LRU block, the decoder assembly and its
+losses), those of the MoE families (the capacity-dispatch MoE block,
+``moe``, and DeepSeek-V2's multi-head latent attention with its latent
+cache), the xLSTM blocks (``xlstm``: mLSTM, and sLSTM with its captured
+time loop), whisper's encoder-decoder (``whisper``: layer norms,
+sinusoidal positions, cross-attention) and the VLM's stub patch
+embeddings (``transformer``).
 """
 
-from . import attention, common, kvcache, layers, moe, registry, rglru, transformer
+from . import (
+    attention,
+    common,
+    kvcache,
+    layers,
+    moe,
+    registry,
+    rglru,
+    transformer,
+    whisper,
+    xlstm,
+)
 from .common import ModelConfig, param_count
 from .registry import init_model, loss_fn, make_inputs, model_forward
 
@@ -21,6 +35,8 @@ __all__ = [
     "registry",
     "rglru",
     "transformer",
+    "whisper",
+    "xlstm",
     "ModelConfig",
     "param_count",
     "init_model",

@@ -20,8 +20,12 @@ With a cache (prefill and decode) attention is plain PyTorch whatever
 DeepSeek-V2's multi-head latent attention (``MLAAttention``,
 ``mla_attention``) is plain PyTorch on every path, as it is plain XLA in
 the reference (which has no Pallas MLA kernel): its cache holds the
-compressed latents, decompressed per head at every call. Cross-attention
-waits for whisper (ROADMAP queue 1 item 12).
+compressed latents, decompressed per head at every call.
+
+Whisper's decoder attends to the encoder's states through
+``cross_attention``: queries from the decoder, keys and values projected
+from ``encoder_out`` at every call (decode steps too, as the reference
+does), no RoPE, plain ``_sdpa`` with no mask.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ __all__ = [
     "init_mla_attention",
     "mla_attention",
     "init_mla_attention_cache",
+    "init_cross_attention",
+    "cross_attention",
 ]
 
 
@@ -482,3 +488,31 @@ def init_mla_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
     m = cfg.mla
     return init_mla_cache(batch, max_len, m.kv_lora_rank, m.qk_rope_head_dim, dtype_of(cfg),
                           device)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(
+    cfg: ModelConfig, *, generator: torch.Generator, device: torch.device | str
+) -> Attention:
+    return init_attention(cfg, generator=generator, device=device)
+
+
+def cross_attention(
+    params: Attention,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    encoder_out: torch.Tensor,
+) -> torch.Tensor:
+    """Query from decoder x, keys/values from encoder output (no RoPE --
+    whisper uses sinusoidal absolute positions)."""
+    B, S, _ = x.shape
+    Se = encoder_out.shape[1]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ params.wq).reshape(B, S, h, dh)
+    k = (encoder_out @ params.wk).reshape(B, Se, hkv, dh)
+    v = (encoder_out @ params.wv).reshape(B, Se, hkv, dh)
+    out = _sdpa(q, k, v, None, cfg)
+    return out.reshape(B, S, -1) @ params.wo

@@ -6,9 +6,10 @@ RG-LRU) plus optional MoE / MLA / encoder / vision / audio sub-configs.
 The dataclasses are copies of the reference's ``models/common.py`` (same
 fields, same defaults), so a config built for one package builds for the
 other. ``moe`` and ``mla`` build the MoE block and MLA attention
-(``models/moe.py``, ``models/attention.py``); ``encoder``, ``vision``
-and ``audio`` are carried as data only: the blocks that read them wait
-for their families (ROADMAP queue 1 item 12).
+(``models/moe.py``, ``models/attention.py``); ``encoder`` sizes whisper's
+encoder (``models/whisper.py``), ``vision`` the VLM's stub patch
+embeddings (``registry.make_inputs``); ``audio`` is carried as data only
+(its frontend is a stub, as in the reference).
 
 Parameters live in ``nn.Module``s (``models/layers.py`` and up), each
 parameter named as the reference's pytree leaf, so the reference's
@@ -36,8 +37,9 @@ __all__ = [
     "NOT_PORTED",
 ]
 
-# what a family, block or entry point still to port raises with
-NOT_PORTED = "not ported yet (ROADMAP queue 1 item 12, the LM stack)"
+# what an entry point still to port raises with: every model family runs;
+# the mesh trainer, LM training, long-context serving and launch/ do not
+NOT_PORTED = "not ported yet (ROADMAP queue 1 items 13 and 15)"
 # full-sequence implementations: the reference's "xla" and "pallas"
 IMPLS = ("plain", "kernel")
 

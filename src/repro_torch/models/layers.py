@@ -1,7 +1,8 @@
-"""Shared layers: RMS norm, rotary embeddings, MLPs, embedding tables.
+"""Shared layers: RMS and layer norms, rotary and sinusoidal positions,
+MLPs, embedding tables.
 
 Each parameterised piece is an ``nn.Module`` whose parameters carry the
-reference's pytree names (``scale``; ``w_gate`` / ``w_up`` / ``w_down``;
+reference's pytree names (``scale``, ``bias``; ``w_gate`` / ``w_up`` / ``w_down``;
 ``table`` / ``unembed``), stored as the reference stores them: weights as
 (in, out) matrices used as ``x @ W``. The functions keep the reference's
 names and signatures, with the module in place of the params dict.
@@ -14,6 +15,7 @@ A module is built with uninitialised weights on an explicit device;
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -23,12 +25,17 @@ from .common import ModelConfig, dtype_of, truncated_normal_
 
 __all__ = [
     "RMSNorm",
+    "LayerNorm",
     "MLP",
     "Embedding",
     "rms_norm",
     "init_rms_norm",
+    "layer_norm",
+    "init_layer_norm",
     "rotary_embedding",
     "apply_rope",
+    "sinusoidal_positions",
+    "causal_conv1d",
     "init_mlp",
     "mlp_forward",
     "init_embedding",
@@ -68,6 +75,29 @@ def rms_norm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return (normed * params.scale.float()).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Layer norm with a learned ``scale`` (ones) and ``bias`` (zeros)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype, device: torch.device | str):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+
+
+def init_layer_norm(dim: int, dtype: torch.dtype, device: torch.device | str) -> LayerNorm:
+    return LayerNorm(dim, dtype, device)
+
+
+def layer_norm(params: LayerNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``(x - mean) / sqrt(var + eps) * scale + bias``, statistics in float32,
+    cast back to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return (normed * params.scale.float() + params.bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -90,6 +120,42 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, dtype: torch.dtype,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position table (length, dim): sin in
+    the even columns, cos in the odd ones; computed in float32, cast to
+    ``dtype``."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+    div = torch.exp(-math.log(10000.0) * exps / dim)
+    tab = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    tab[:, 0::2] = torch.sin(pos * div)
+    tab[:, 1::2] = torch.cos(pos * div)
+    return tab.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Causal conv (the recurrent blocks: RG-LRU, mLSTM)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = None):
+    """Depthwise causal conv. x: (B,S,C); w: (width, C); the taps summed in
+    x's dtype, in tap order.
+
+    Returns (y, new_state) where state caches the last ``width-1`` inputs
+    for decode. With ``state=None`` the sequence is left-padded with zeros.
+    """
+    width = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = state
+    xp = torch.cat([pad, x], dim=1)  # (B, S+width-1, C)
+    y = sum(xp[:, i : i + x.shape[1], :] * w[i] for i in range(width))
+    new_state = xp[:, -(width - 1) :, :] if width > 1 else pad
+    return y, new_state
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
 from .common import IMPLS, ModelConfig, dtype_of, truncated_normal_
-from .layers import RMSNorm, rms_norm
+from .layers import RMSNorm, causal_conv1d, rms_norm
 
 __all__ = ["RGLRUBlock", "init_rglru_block", "rglru_block", "init_rglru_state"]
 
@@ -94,22 +94,6 @@ def init_rglru_state(
     }
 
 
-def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None) -> torch.Tensor:
-    """The causal conv of ``x`` after the tail ``state`` (zeros when None);
-    a given ``state`` is overwritten in place with the new tail."""
-    width = w.shape[0]
-    pad = (
-        torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-        if state is None
-        else state
-    )
-    xp = torch.cat([pad, x], dim=1)
-    y = sum(xp[:, i : i + x.shape[1], :] * w[i] for i in range(width))
-    if state is not None:
-        state.copy_(xp[:, -(width - 1) :, :])
-    return y
-
-
 def rglru_block(
     params: RGLRUBlock,
     cfg: ModelConfig,
@@ -129,7 +113,10 @@ def rglru_block(
     xn = rms_norm(params.norm, x, cfg.norm_eps)
     gate = F.gelu(xn @ params.w_gate, approximate="tanh")  # (B,S,dr)
     rnn_in = xn @ params.w_rnn_in
-    rnn_in = _causal_conv1d(rnn_in, params.conv_w, None if state is None else state["conv"])
+    rnn_in, new_conv = causal_conv1d(rnn_in, params.conv_w,
+                                     None if state is None else state["conv"])
+    if state is not None:
+        state["conv"].copy_(new_conv)
 
     r = torch.sigmoid((rnn_in @ params.w_a).float())
     i = torch.sigmoid((rnn_in @ params.w_x).float())

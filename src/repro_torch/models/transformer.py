@@ -3,19 +3,21 @@
 ``LM`` holds ``embed``, a ``ModuleList`` of blocks (``layers``) and
 ``final_norm``. Each block is built for its kind in the config's layer
 pattern: ``attn`` / ``local_attn`` (GQA attention, or MLA with
-``cfg.mla``, + an MLP, or the MoE block with ``cfg.moe``) or ``rglru``
-(Griffin recurrent block + MLP). The reference stacks the layers of each
-pattern position on a group axis and runs ``lax.scan`` over the groups
-(plus an unrolled tail); here a plain Python loop runs the layers in
-order (``repro_torch.convert`` maps the reference's stacked layout onto
+``cfg.mla``, + an MLP, or the MoE block with ``cfg.moe``), ``mlstm`` /
+``slstm`` (the self-contained xLSTM blocks, no MLP) or ``rglru`` (Griffin
+recurrent block + MLP). The reference stacks the layers of each pattern
+position on a group axis and runs ``lax.scan`` over the groups (plus an
+unrolled tail); here a plain Python loop runs the layers in order
+(``repro_torch.convert`` maps the reference's stacked layout onto
 ``layers``) and sums the MoE layers' auxiliary losses as the scan's carry
-does. The xLSTM blocks raise ``NotImplementedError`` until their family
-is ported (ROADMAP queue 1 item 12).
+does. VLM (llava) inputs prepend stub patch embeddings to the token
+embeddings. The encoder-decoder (whisper) is ``models/whisper.py``.
 
 API:
   init_lm(cfg, seed=, device=)          -> LM (weights drawn, no grad)
-  LM.forward(tokens, ...)                -> (logits|hidden, new_cache, aux)
+  LM.forward(tokens, image_embeds=, ...) -> (logits|hidden, new_cache, aux)
   init_cache(cfg, batch, max_len, device=) -> per-layer caches
+  reset_cache_(cfg, cache)               -> the caches back to their initial values
   lm_loss(model, cfg, tokens, labels)    -> (loss, metrics)
 """
 
@@ -34,7 +36,8 @@ from .attention import (
     init_mla_attention_cache,
     mla_attention,
 )
-from .common import IMPLS, NOT_PORTED, ModelConfig, dtype_of
+from . import xlstm
+from .common import IMPLS, ModelConfig, dtype_of
 from .layers import MLP, Embedding, RMSNorm, embed, mlp_forward, rms_norm, unembed
 from .moe import MoE, moe_forward
 from .rglru import RGLRUBlock, init_rglru_state, rglru_block
@@ -44,19 +47,22 @@ __all__ = [
     "LM",
     "init_lm",
     "init_cache",
+    "reset_cache_",
     "lm_loss",
     "softmax_xent",
     "fused_unembed_xent",
 ]
 
 _ATTN_KINDS = ("attn", "local_attn")
+_XLSTM_KINDS = ("mlstm", "slstm")
 
 
 class Layer(nn.Module):
     """One block of kind ``attn`` / ``local_attn`` (``ln1``, ``attn``: GQA,
-    or MLA with ``cfg.mla``) or ``rglru`` (``block``), then ``ln2`` and
-    ``mlp`` (an MLP, or the MoE block with ``cfg.moe``) when ``d_ff > 0``;
-    ``post_ln1`` / ``post_ln2`` with gemma2's post-block norms."""
+    or MLA with ``cfg.mla``), ``mlstm`` / ``slstm`` or ``rglru``
+    (``block``), then, but for the xLSTM kinds, ``ln2`` and ``mlp`` (an
+    MLP, or the MoE block with ``cfg.moe``) when ``d_ff > 0``; ``post_ln1``
+    / ``post_ln2`` with gemma2's post-block norms."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device: torch.device | str):
         super().__init__()
@@ -67,13 +73,15 @@ class Layer(nn.Module):
             self.attn = MLAAttention(cfg, device) if cfg.mla is not None else Attention(cfg, device)
             if cfg.post_block_norms:
                 self.post_ln1 = RMSNorm(cfg.d_model, dt, device)
+        elif kind == "mlstm":
+            self.block = xlstm.MLSTMBlock(cfg, device)
+        elif kind == "slstm":
+            self.block = xlstm.SLSTMBlock(cfg, device)
         elif kind == "rglru":
             self.block = RGLRUBlock(cfg, device)
-        elif kind in ("mlstm", "slstm"):
-            raise NotImplementedError(f"{kind} blocks: {NOT_PORTED}")
         else:
             raise ValueError(f"unknown layer kind {kind}")
-        if cfg.d_ff > 0:
+        if cfg.d_ff > 0 and kind not in _XLSTM_KINDS:
             self.ln2 = RMSNorm(cfg.d_model, dt, device)
             self.mlp = MoE(cfg, device) if cfg.moe is not None else MLP(cfg, device)
             if cfg.post_block_norms:
@@ -117,10 +125,14 @@ def _layer_forward(
         if cfg.post_block_norms:
             attn_out = rms_norm(lp.post_ln1, attn_out, cfg.norm_eps)
         x = x + attn_out
+    elif lp.kind == "mlstm":
+        x, new_cache = xlstm.mlstm_block(lp.block, cfg, x, cache_layer)
+    elif lp.kind == "slstm":
+        x, new_cache = xlstm.slstm_block(lp.block, cfg, x, cache_layer)
     else:  # rglru
         x, new_cache = rglru_block(lp.block, cfg, x, cache_layer, impl=impl)
 
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and lp.kind not in _XLSTM_KINDS:
         h = rms_norm(lp.ln2, x, cfg.norm_eps)
         if cfg.moe is not None:
             mlp_out, aux = moe_forward(lp.mlp, cfg, h)
@@ -139,8 +151,9 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device: torch.device | str):
         super().__init__()
-        if cfg.arch_type in ("audio", "vlm"):
-            raise NotImplementedError(f"the {cfg.arch_type} family: {NOT_PORTED}")
+        if cfg.arch_type == "audio":
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it with "
+                             "models.whisper.init_whisper (or registry.init_model)")
         self.cfg = cfg
         self.embed = Embedding(cfg, device)
         self.layers = nn.ModuleList(
@@ -157,6 +170,7 @@ class LM(nn.Module):
         self,
         tokens: torch.Tensor,
         *,
+        image_embeds: torch.Tensor | None = None,
         cache: list | None = None,
         positions: torch.Tensor | None = None,
         window_override: int | None = None,
@@ -166,10 +180,13 @@ class LM(nn.Module):
         """Decoder forward.
 
         Args:
-          tokens: (B, S) int tokens.
+          tokens: (B, S_text) int tokens.
+          image_embeds: optional (B, P, D) stub patch embeddings (VLM),
+            prepended to the token embeddings (prefill and scoring).
           cache: per-layer caches from ``init_cache`` (prefill / decode);
             None = full sequence. Attention buffers are written in place.
-          positions: (B, S) absolute positions (required with a cache).
+          positions: (B, P + S_text) absolute positions (required with a
+            cache).
           window_override: force every attention layer to a sliding window
             (the long_500k sub-quadratic serving mode).
           impl: "kernel" (the reference's "pallas": the flash-attention and
@@ -185,6 +202,8 @@ class LM(nn.Module):
         if cache is not None and len(cache) != len(self.layers):
             raise ValueError(f"cache has {len(cache)} layers, the model {len(self.layers)}")
         x = embed(self.embed, tokens, cfg)
+        if image_embeds is not None:
+            x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         if positions is None:
             if cache is not None:
@@ -225,9 +244,13 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev
             return init_mla_attention_cache(cfg, batch, max_len, device)
         return init_attention_cache(cfg, batch, max_len, local=kind == "local_attn",
                                     device=device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_state(cfg, batch, device)
     if kind == "rglru":
         return init_rglru_state(cfg, batch, device)
-    raise NotImplementedError(f"{kind} caches: {NOT_PORTED}")
+    raise ValueError(f"unknown layer kind {kind}")
 
 
 def init_cache(
@@ -249,6 +272,20 @@ def init_cache(
         _init_layer_cache(cfg, cfg.kind(i), batch, max_len, device)
         for i in range(cfg.num_layers)
     ]
+
+
+def reset_cache_(cfg: ModelConfig, cache: list) -> list:
+    """Put every layer's cache back to the values ``init_cache`` gives, in
+    place (the tensors stay the same): zeros, but -1e30 for the xLSTM
+    stabiliser states ``m`` -- a prefill's sLSTM loop starts from the
+    incoming state, so an ``m`` of 0 would change every output."""
+    for i, layer in enumerate(cache):
+        if cfg.kind(i) in _XLSTM_KINDS:
+            xlstm.reset_state_(layer)
+        else:
+            for t in layer.values():
+                t.zero_()
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -293,11 +330,15 @@ def lm_loss(
     tokens: torch.Tensor,
     labels: torch.Tensor,
     *,
+    image_embeds: torch.Tensor | None = None,
     impl: str = "kernel",
 ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy, plus ``router_aux_coef * aux`` with MoE.
-    Returns (loss, {"nll", "aux"})."""
-    hidden, _, aux = model(tokens, impl=impl, return_hidden=True)
+    Labels align with the text tokens: the image positions are dropped
+    before the loss. Returns (loss, {"nll", "aux"})."""
+    hidden, _, aux = model(tokens, image_embeds=image_embeds, impl=impl, return_hidden=True)
+    if image_embeds is not None:
+        hidden = hidden[:, image_embeds.shape[1] :, :]
     nll = fused_unembed_xent(model.embed, cfg, hidden, labels)
     total = nll
     if cfg.moe is not None:

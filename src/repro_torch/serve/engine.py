@@ -1,28 +1,32 @@
 """Serving engine: batched prefill + single-token greedy decode with caches.
 
-``prefill`` runs the prompt through the model and builds the per-layer
+``prefill`` runs the prompt through the model and builds the decode
 caches (full caches and window rings for attention, MLA's latent caches,
-RG-LRU states);
-``decode_step`` takes one new token against them. Both are the eager
-counterparts of the reference's functions. Prefill attention and decode
-are plain PyTorch, as they are plain XLA in the reference; the RG-LRU
-recurrence of the prefill goes through ``kernels.rglru_scan``
-(``impl="kernel"``).
+RG-LRU and xLSTM states; for whisper the encoder's states and its
+decoder's self-attention caches); ``decode_step`` takes one new token
+against them. Both are the eager counterparts of the reference's
+functions. The VLM's prompt follows its ``image_embeds`` (the positions
+count the patches first); whisper's decoder reads the encoder's states of
+``frames``. Prefill attention and decode are plain PyTorch, as they are
+plain XLA in the reference; the RG-LRU recurrence of the prefill goes
+through ``kernels.rglru_scan`` (``impl="kernel"``), the sLSTM's through
+its captured time loop (``models/xlstm.py``).
 
 ``generate`` is greedy decoding through a :class:`Decoder`, the port's
 counterpart of the reference's jitted decode step: the decoder owns
-static buffers (the cache at ``(B, max_len)``, the current token and
-position, the logits, the generated tokens), and its step -- one
-``decode_step`` into those buffers, the greedy argmax, the position
-advanced, all on the device -- runs through ``repro_torch.graphs``: an
-eager warm-up on a side stream, a CUDA-graph capture at its second run,
-replays after that. The cache's ``index`` is a device tensor
-(``models/kvcache.py``), so a replay writes the slot of the step it
-replays. Nothing reads the device between two steps; lengths are checked
-on the host before a step runs. Each model keeps at most one decoder,
-for the ``(B, max_len)`` of its last ``generate``, so repeated calls at
-that shape capture once. On the CPU the step runs eagerly, counted as on
-the card. A failed capture raises; nothing falls back to the eager step.
+static buffers (the cache at ``(B, max_len)``, with whisper's encoder
+states, the current token and position, the logits, the generated
+tokens), and its step -- one ``decode_step`` into those buffers, the
+greedy argmax, the position advanced, all on the device -- runs through
+``repro_torch.graphs``: an eager warm-up on a side stream, a CUDA-graph
+capture at its second run, replays after that. The cache's ``index`` is
+a device tensor (``models/kvcache.py``), so a replay writes the slot of
+the step it replays. Nothing reads the device between two steps; lengths
+are checked on the host before a step runs. Each model keeps at most one
+decoder, for the ``(B, max_len)`` of its last ``generate``, so repeated
+calls at that shape capture once. On the CPU the step runs eagerly,
+counted as on the card. A failed capture raises; nothing falls back to
+the eager step.
 
 The reference's ``long_context`` mode (a window cache on every
 attention layer) and ``make_serve_setup`` (its sharded dry-run serve
@@ -37,7 +41,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Body, GraphRunner
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 from repro_torch.models.common import ModelConfig, dtype_of
 from repro_torch.models.kvcache import check_fits
 from repro_torch.models.layers import unembed
@@ -45,82 +49,140 @@ from repro_torch.models.layers import unembed
 __all__ = ["prefill", "decode_step", "generate", "Decoder", "decoder_for"]
 
 
+def _offset(image_embeds: torch.Tensor | None) -> int:
+    """Positions the image patches take before the prompt (0 without)."""
+    return 0 if image_embeds is None else image_embeds.shape[1]
+
+
+def _check_positions(cfg: ModelConfig, max_len: int) -> None:
+    """Whisper's decoder positions index a table of ``MAX_POSITIONS`` rows:
+    refuse a cache that would reach past it, on the host."""
+    if cfg.arch_type == "audio" and max_len > whisper.MAX_POSITIONS:
+        raise ValueError(f"whisper's position table has {whisper.MAX_POSITIONS} rows, "
+                         f"a cache of {max_len} positions would index past it")
+
+
+def _init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list | dict:
+    if cfg.arch_type == "audio":
+        return whisper.init_whisper_cache(cfg, batch, max_len, device=device)
+    return transformer.init_cache(cfg, batch, max_len, device=device)
+
+
+def _reset_cache_(cfg: ModelConfig, cache: list | dict) -> None:
+    """The cache back to its initial values in place (whisper's encoder
+    states are overwritten by the next prefill)."""
+    if cfg.arch_type == "audio":
+        for layer in cache["self"]:
+            for t in layer.values():
+                t.zero_()
+    else:
+        transformer.reset_cache_(cfg, cache)
+
+
 def _prefill_into(
-    model: transformer.LM, cfg: ModelConfig, tokens: torch.Tensor, cache: list
+    model, cfg: ModelConfig, tokens: torch.Tensor, cache: list | dict, *,
+    image_embeds: torch.Tensor | None = None, frames: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Run the prompt (B, S) into the fresh ``cache``; the last position's logits."""
+    """Run the prompt (B, S) -- after the image patches, or against the
+    encoder's states of ``frames`` -- into the fresh ``cache``; the last
+    position's logits."""
     B, S = tokens.shape
-    pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    total = _offset(image_embeds) + S
+    pos = torch.arange(total, device=tokens.device)[None].expand(B, total)
+    if cfg.arch_type == "audio":
+        if frames is None:
+            raise ValueError("whisper's prefill needs frames")
+        cache["encoder_out"].copy_(whisper.encode(model, cfg, frames))
+        hidden, _, _ = whisper.whisper_forward(model, cfg, None, tokens, cache=cache,
+                                               positions=pos, return_hidden=True)
+        return whisper.unembed(model, hidden[:, -1:])[:, 0]
     # impl="kernel" (the default): the RG-LRU recurrence in its kernel
-    hidden, _, _ = model(tokens, cache=cache, positions=pos, return_hidden=True)
+    hidden, _, _ = model(tokens, image_embeds=image_embeds, cache=cache, positions=pos,
+                         return_hidden=True)
     return unembed(model.embed, hidden[:, -1:], cfg)[:, 0]
 
 
 def prefill(
-    model: transformer.LM,
+    model,
     cfg: ModelConfig,
     tokens: torch.Tensor,
     *,
     max_len: int,
-) -> tuple[torch.Tensor, list]:
-    """Run the prompt (B, S) through the model, building the decode cache.
+    image_embeds: torch.Tensor | None = None,
+    frames: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, list | dict]:
+    """Run the prompt (B, S) through the model, building the decode cache
+    of ``max_len`` positions (the VLM's image patches come first and take
+    positions too; whisper encodes ``frames`` into the cache).
 
     Returns (last-position logits (B, V), cache). Only the last position
     is unembedded (the reference unembeds all S and keeps the last).
     """
     B, S = tokens.shape
-    check_fits(max_len, 0, S)
-    cache = transformer.init_cache(cfg, B, max_len, device=tokens.device)
-    return _prefill_into(model, cfg, tokens, cache), cache
+    check_fits(max_len, 0, _offset(image_embeds) + S)
+    _check_positions(cfg, max_len)
+    cache = _init_cache(cfg, B, max_len, tokens.device)
+    logits = _prefill_into(model, cfg, tokens, cache, image_embeds=image_embeds, frames=frames)
+    return logits, cache
 
 
 def decode_step(
-    model: transformer.LM,
+    model,
     cfg: ModelConfig,
     token: torch.Tensor,  # (B, 1)
     position: torch.Tensor,  # (B, 1) absolute position of the new token
-    cache: list,
-) -> tuple[torch.Tensor, list]:
+    cache: list | dict,
+) -> tuple[torch.Tensor, list | dict]:
     """One new token against the cache. Returns (logits (B, V), new cache)."""
-    logits, cache, _ = model(token, cache=cache, positions=position)
+    if cfg.arch_type == "audio":
+        logits, cache, _ = whisper.whisper_forward(model, cfg, None, token, cache=cache,
+                                                   positions=position)
+    else:
+        logits, cache, _ = model(token, cache=cache, positions=position)
     return logits[:, 0], cache
 
 
-def _same_config(model: transformer.LM, cfg: ModelConfig) -> None:
+def _same_config(model, cfg: ModelConfig) -> None:
     if model.cfg != cfg:
         raise ValueError(f"model was built for {model.cfg.name!r}, not for this config")
 
 
-def _param_ptrs(model: transformer.LM) -> tuple[int, ...]:
+def _param_ptrs(model) -> tuple[int, ...]:
     return tuple(p.data_ptr() for p in model.parameters())
 
 
 class Decoder:
     """Greedy decoding of ``model`` for ``batch`` sequences of at most
-    ``max_len`` positions, on the model's device.
+    ``max_len`` positions (the VLM's image patches included), on the
+    model's device.
 
     Static buffers, read and written in place by every step:
-      ``cache``     the per-layer caches (``transformer.init_cache``);
+      ``cache``     the per-layer caches (``transformer.init_cache``), or
+                    whisper's (``whisper.init_whisper_cache``: the
+                    encoder's states, filled by :meth:`start`, and the
+                    self-attention caches);
       ``token``     (B, 1) int64, the token the next step feeds;
       ``position``  (B, 1) int64, its absolute position;
       ``logits``    (B, V) in the model's dtype, the last logits;
       ``tokens``    (B, max_len + 1) int64, each greedy token at the
-                    position it takes (the prompt's columns stay 0).
+                    position it takes (the image's and the prompt's
+                    columns stay 0).
 
-    :meth:`start` prefills a prompt; :meth:`step` decodes ``token`` (the
+    :meth:`start` resets the cache and prefills a prompt; :meth:`step` decodes ``token`` (the
     last greedy token, or one the caller gives) -- eagerly at its first
     run, by capture and replay after (``n_captures``).
     """
 
-    def __init__(self, model: transformer.LM, cfg: ModelConfig, batch: int, max_len: int):
+    def __init__(self, model, cfg: ModelConfig, batch: int, max_len: int):
         _same_config(model, cfg)
+        _check_positions(cfg, max_len)
         device = next(model.parameters()).device
         self._model = weakref.ref(model)  # weak: the registry keyed on the model keeps the decoder
         self._ptrs = _param_ptrs(model)
         self.cfg = cfg
         self.batch, self.max_len = batch, max_len
         with torch.inference_mode():
-            self.cache = transformer.init_cache(cfg, batch, max_len, device=device)
+            self.cache = _init_cache(cfg, batch, max_len, device)
             self.token = torch.zeros((batch, 1), dtype=torch.int64, device=device)
             self.position = torch.zeros((batch, 1), dtype=torch.int64, device=device)
             self.logits = torch.zeros((batch, cfg.vocab_size), dtype=dtype_of(cfg), device=device)
@@ -139,26 +201,29 @@ class Decoder:
         """Host seconds of the step's capture (None before it, or on the CPU)."""
         return self._body.capture_s
 
-    def _serves(self, model: transformer.LM, batch: int, max_len: int) -> bool:
+    def _serves(self, model, batch: int, max_len: int) -> bool:
         """Whether this decoder decodes ``model``'s current weights at this shape."""
         return (self._model() is model and (self.batch, self.max_len) == (batch, max_len)
                 and self._ptrs == _param_ptrs(model))
 
     @torch.inference_mode()
-    def start(self, prompt: torch.Tensor) -> None:
-        """Prefill ``prompt`` (B, S) into the zeroed cache; ``token`` becomes
-        the greedy token at position S."""
+    def start(self, prompt: torch.Tensor, *, image_embeds: torch.Tensor | None = None,
+              frames: torch.Tensor | None = None) -> None:
+        """Prefill ``prompt`` (B, S), after ``image_embeds`` (B, P, d) or
+        against the encoder's states of ``frames``, into the cache reset to
+        its initial values (``transformer.reset_cache_``); ``token`` becomes
+        the greedy token at position P + S."""
         B, S = prompt.shape
         if B != self.batch:
             raise ValueError(f"the decoder serves batches of {self.batch}, got {B}")
-        check_fits(self.max_len, 0, S)
-        for layer in self.cache:
-            for t in layer.values():
-                t.zero_()
-        logits = _prefill_into(self._model(), self.cfg, prompt, self.cache)
-        self.position.fill_(S - 1)
+        total = _offset(image_embeds) + S
+        check_fits(self.max_len, 0, total)
+        _reset_cache_(self.cfg, self.cache)
+        logits = _prefill_into(self._model(), self.cfg, prompt, self.cache,
+                               image_embeds=image_embeds, frames=frames)
+        self.position.fill_(total - 1)
         self._take(logits)
-        self._length = S
+        self._length = total
 
     @torch.inference_mode()
     def step(self, token: torch.Tensor | None = None) -> None:
@@ -182,10 +247,10 @@ class Decoder:
         self.tokens.scatter_(1, self.position, self.token)
 
 
-_DECODERS: "weakref.WeakKeyDictionary[transformer.LM, Decoder]" = weakref.WeakKeyDictionary()
+_DECODERS: "weakref.WeakKeyDictionary[torch.nn.Module, Decoder]" = weakref.WeakKeyDictionary()
 
 
-def decoder_for(model: transformer.LM, cfg: ModelConfig, batch: int, max_len: int) -> Decoder:
+def decoder_for(model, cfg: ModelConfig, batch: int, max_len: int) -> Decoder:
     """``model``'s decoder at ``(batch, max_len)``: the one it kept, if it
     serves that shape and the model's weights, else a new one (which
     replaces it)."""
@@ -197,18 +262,23 @@ def decoder_for(model: transformer.LM, cfg: ModelConfig, batch: int, max_len: in
 
 
 def generate(
-    model: transformer.LM,
+    model,
     cfg: ModelConfig,
     prompt,
     *,
     max_new_tokens: int = 16,
+    image_embeds: torch.Tensor | None = None,
+    frames: torch.Tensor | None = None,
     device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Greedy generation: (B, max_new_tokens) int64 tokens on ``device``.
 
     ``prompt`` is a (B, S) integer array or tensor; ``device`` (None =
-    CUDA) must be the model's device. The decode steps run through the
-    model's :class:`Decoder` at ``(B, S + max_new_tokens + 1)``.
+    CUDA) must be the model's device. The VLM's prompt follows its
+    ``image_embeds`` (B, P, d); whisper's decoder reads the encoder's
+    states of ``frames`` (B, num_frames, d). The decode steps run through
+    the model's :class:`Decoder` at ``(B, P + S + max_new_tokens + 1)``;
+    the tokens returned are those after the image and the prompt.
     """
     device = resolve_device(device)
     model_device = next(model.parameters()).device
@@ -216,9 +286,10 @@ def generate(
         raise ValueError(f"the model is on {model_device}, generate was asked for {device}")
     prompt = torch.as_tensor(prompt, dtype=torch.int64, device=model_device)
     B, S = prompt.shape
-    dec = decoder_for(model, cfg, B, S + max_new_tokens + 1)
-    dec.start(prompt)
+    total = _offset(image_embeds) + S
+    dec = decoder_for(model, cfg, B, total + max_new_tokens + 1)
+    dec.start(prompt, image_embeds=image_embeds, frames=frames)
     for _ in range(max_new_tokens - 1):
         dec.step()
     with torch.inference_mode():
-        return dec.tokens[:, S : S + max(max_new_tokens, 1)].clone()
+        return dec.tokens[:, total : total + max(max_new_tokens, 1)].clone()

@@ -27,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS  # noqa: E402
 from repro.configs import get_config as J_get_config  # noqa: E402
 from repro.configs import get_smoke_config as J_get_smoke  # noqa: E402
 from repro.models import param_count as J_param_count  # noqa: E402
@@ -34,7 +35,7 @@ from repro.models import registry as J_registry  # noqa: E402
 from repro.models import transformer as J_transformer  # noqa: E402
 from repro.serve import engine as J_engine  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
 from repro_torch.models import param_count, registry, transformer  # noqa: E402
@@ -215,15 +216,26 @@ def test_full_config_matches_reference_and_counts_its_parameters():
     assert 2.6e9 < n < 3.0e9  # ~2.9 B parameters, ~5.8 GB in bfloat16
 
 
-@pytest.mark.parametrize("name", ["whisper-small", "xlstm-350m", "llava-next-mistral-7b"])
-def test_families_still_to_port_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        get_config(name)
-    # the blocks the port lacks (audio, VLM, xLSTM) raise when built
-    jcfg = J_get_smoke(name)
-    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        registry.init_model(type(get_config(NAME))(**fields), device="cpu")
+def test_get_config_refuses_an_unknown_name():
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("gpt-2")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_smoke_config("gpt_2")
+
+
+@pytest.mark.parametrize("name", list(J_ARCH_IDS))
+def test_get_config_builds_every_reference_architecture(name):
+    """Each of the reference's ten architectures: the full config field for
+    field (by id and by module name), and its smoke model built and run."""
+    assert list(ARCH_IDS) == list(J_ARCH_IDS)
+    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(J_get_config(name))
+    assert get_config(ARCH_IDS[name]) == get_config(name)
+    cfg = get_smoke_config(name)
+    model = registry.init_model(cfg, seed=0, device="cpu")
+    batch = registry.make_inputs(cfg, 1, 24, device="cpu")
+    with torch.inference_mode():
+        loss, metrics = registry.loss_fn(model, cfg, batch, impl="plain")
+    assert np.isfinite(float(loss)) and float(metrics["nll"]) > 0.0
 
 
 def test_make_inputs_is_seeded_numpy():
