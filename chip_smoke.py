@@ -126,7 +126,39 @@ nvcc per source, all at once) and then, on the card:
    within 2e-3; serving 2880 patches, a 512-token prompt, 32 new tokens);
    each family's captured decode bitwise its eager loop with one capture,
    decode ms/token beside the weight bound, and its seconds;
-11. prints one JSON line per kernel set, then the card's name and power
+11. serves in the long-context mode (``generate(long_context=True)``: a
+   window ring of ``long_context_window`` = 4096 slots on every attention
+   layer, MLA's latent ring of 4096 that wraps), random bf16 weights from
+   seed 0, B = 2, 32 new tokens: qwen3-0.6b at full width and depth (an
+   8192-token prompt: 28 flash_attention launches with the window in the
+   prefill) and deepseek-v2-236b at phase 9's 4 layers (a 4608-token
+   prompt: the MLA ring wraps in the prefill and again while decoding).
+   The captured long-context decode bitwise its eager loop, one capture;
+   decode ms/token with the rings beside the full caches (8225 / 4641
+   slots, a decoder of its own: its captures printed); prefill ms of both
+   modes. In float32 at depth 3 and B = 1 (deepseek at capacity factor
+   E / K, so nothing drops, and at a window of 512 after a 1024-token
+   prompt), 8 long-context decode steps after the prompt within 2e-3 of
+   the full forward with ``window_override`` at the same positions;
+12. trains qwen3-0.6b at full width and depth in bf16 with the LM trainer
+   (``train.lm_trainer.make_train_setup``): 4 stacked nodes, per-node
+   batch 2 x 1024 tokens (8192 a step), lr 1e-3, the STL-FW topology of
+   a 4-domain, one-domain-per-node Pi at budget 2; batches drawn on the
+   card from the ``DomainSkewCorpus`` domains (the host ``TokenBatcher``
+   is timed once: ~0.3 G Gumbel draws a node-batch at this vocabulary).
+   Arms, 24 steps in segments of 8: (a) dsgd, static schedule,
+   ``rollout="scan"``; (b) the same with ``"loop"``, bitwise (a); (c)
+   ``online_w`` on its ``ScheduleArrays`` through ``run_segments`` with
+   one swap (no capture added); (d) fsdp on the same 8192 tokens, in 4
+   microbatches of 2 sequences (``grad_accum``); (e)
+   momentum 0.9, ``gossip_every`` 2; (f) the complete graph (the dense
+   mix). Each arm's ms/step, training tokens/s, first and last losses
+   (the last lower), peak memory, gossip launches, and the step's bound
+   (6 x params x tokens at 989 TFLOP/s) with the share reached; one
+   step's mixed parameters through ``gossip_schedule`` and ``gossip_mix``
+   within 3e-2 of their plain versions, the step's parameters bitwise
+   the kernel mix;
+13. prints one JSON line per kernel set, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Every ``#`` result line ends with the card's name and power limit.
@@ -164,17 +196,21 @@ from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core.assignment import _quantize, auction_assignment  # noqa: E402
 from repro_torch.core.assignment_jit import AuctionWorkspace, auction_assignment_jit  # noqa: E402
 from repro_torch.core.mixing import (  # noqa: E402
+    KERNEL_ROW_ALIGN,
     ScheduleArrays,
     StragglerPolicy,
     _bucket_key,
     arrays_to_matrix,
     autotune_transport,
     preferred_transport,
+    ravel_stack,
     schedule_from_result,
     schedule_to_arrays,
+    unravel_stack,
 )
 from repro_torch.core.stl_fw import LMOSolver, learn_topology  # noqa: E402
 from repro_torch.data.drift import AbruptLabelSwap, labels_stream  # noqa: E402
+from repro_torch.data.tokens import DomainSkewCorpus, TokenBatcher  # noqa: E402
 from repro_torch.data.partition import dirichlet_partition, shard_partition  # noqa: E402
 from repro_torch.data.synthetic import gaussian_blobs, mean_estimation_clusters  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -202,6 +238,7 @@ from repro_torch.online import (  # noqa: E402
     TopologyRefresher,
 )
 from repro_torch.serve import engine  # noqa: E402
+from repro_torch.train.lm_trainer import _sgd_update, gossip_fn, make_train_setup  # noqa: E402
 from repro_torch.train.trainer import run_classification, run_mean_estimation  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, no sparsity)
@@ -1933,22 +1970,25 @@ def phase_f32_depth3(cfg_full, B: int, S: int, device: torch.device,
     return out, model
 
 
-def eager_generate(model, cfg, prompt: torch.Tensor, new_tokens: int, extra: dict | None = None):
+def eager_generate(model, cfg, prompt: torch.Tensor, new_tokens: int, extra: dict | None = None,
+                   long_context: bool = False):
     """The eager reference of ``generate``: ``prefill``, then a loop over
-    ``decode_step``; ``extra``: the frames or patch embeddings. Returns
-    (tokens (B, new_tokens), each step's logits, the decode loop's wall
-    seconds)."""
+    ``decode_step`` (both in the mode of ``long_context``); ``extra``: the
+    frames or patch embeddings. Returns (tokens (B, new_tokens), each
+    step's logits, the decode loop's wall seconds)."""
     extra = extra or {}
     B, S = prompt.shape
     S += image_positions(cfg)
     with torch.inference_mode():
-        logits, cache = engine.prefill(model, cfg, prompt, max_len=S + new_tokens + 1, **extra)
+        logits, cache = engine.prefill(model, cfg, prompt, max_len=S + new_tokens + 1,
+                                       long_context=long_context, **extra)
         toks, all_logits = [logits.argmax(-1, keepdim=True)], [logits]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for pos in range(S, S + new_tokens - 1):
             position = torch.full((B, 1), pos, device=prompt.device)
-            logits, cache = engine.decode_step(model, cfg, toks[-1], position, cache)
+            logits, cache = engine.decode_step(model, cfg, toks[-1], position, cache,
+                                               long_context=long_context)
             toks.append(logits.argmax(-1, keepdim=True))
             all_logits.append(logits)
         torch.cuda.synchronize()
@@ -2469,6 +2509,351 @@ def phase_last_families(device: torch.device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: long-context serving (window rings, MLA's wrapping ring)
+# ---------------------------------------------------------------------------
+
+# name -> (layers, None: the published depth; prompt length; the f32
+# check's window and prompt): qwen3's prompt is twice its 4096 window,
+# deepseek's overruns its MLA ring; deepseek's f32 check wraps a ring of
+# 512 (at capacity factor E / K, C = S, its f32 dispatch buffers at S 5120
+# and depth 3 outgrow the card)
+LONG = {"qwen3-0.6b": (None, 8192, 4096, 8192), "deepseek-v2-236b": (4, 4608, 512, 1024)}
+LONG_NEW = 32
+LONG_CHECKED = 8  # f32 decode steps held to the windowed full forward
+
+
+def ring_slots(cache: list) -> set:
+    """The slots of every attention layer's cache."""
+    return {(layer["c_kv"] if "c_kv" in layer else layer["k"]).shape[1]
+            for layer in cache if "c_kv" in layer or "k" in layer}
+
+
+def long_consistency(name: str, window: int, prompt_len: int, device: torch.device,
+                     label: str) -> float:
+    """Float32 at depth 3, B = 1, ``long_context_window = window`` (MoE at
+    capacity factor E / K, so nothing drops): prefill the prompt in the
+    long-context mode, decode
+    ``LONG_CHECKED`` teacher-forced tokens with
+    ``decode_step(long_context=True)``, and hold each step's logits to the
+    full forward with ``window_override`` at the same positions (the
+    forward runs over the sequence padded to a multiple of 512, so MLA
+    takes its chunked path; positions past the decoded ones cannot reach
+    them: causal)."""
+    cfg = dataclasses.replace(get_config(name), num_layers=3, dtype="float32",
+                              long_context_window=window)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    model = registry.init_model(cfg, seed=2, device=device)
+    toks = registry.make_inputs(cfg, 1, prompt_len + 512, seed=3, device=device)["tokens"]
+    with torch.inference_mode():
+        hidden, _, _ = model(toks, window_override=window, return_hidden=True)
+        full = unembed(model.embed, hidden[:, prompt_len - 1: prompt_len + LONG_CHECKED], cfg)
+        del hidden
+        logits, cache = engine.prefill(model, cfg, toks[:, :prompt_len],
+                                       max_len=prompt_len + LONG_CHECKED + 1, long_context=True)
+        errs = [float((logits - full[:, 0]).abs().max())]
+        for i in range(LONG_CHECKED):
+            pos = prompt_len + i
+            logits, cache = engine.decode_step(model, cfg, toks[:, pos:pos + 1],
+                                               torch.full((1, 1), pos, device=device), cache,
+                                               long_context=True)
+            errs.append(float((logits - full[:, i + 1]).abs().max()))
+    check(ring_slots(cache) == {window}, f"{label}: f32 ring slots {ring_slots(cache)}")
+    err = max(errs)
+    note(f"# {label} f32 depth 3: long-context prefill and {LONG_CHECKED} decode steps vs the "
+         f"full forward with window_override={window} at positions {prompt_len - 1}-"
+         f"{prompt_len + LONG_CHECKED - 1}: max |diff| {err:.3e}")
+    check(err < 2e-3, f"{label}: long-context decode and the windowed full forward differ by "
+          f"{err:.3e} (limit 2e-3)")
+    del model
+    free_card()
+    return err
+
+
+def phase_long(name: str, device: torch.device) -> dict:
+    """Phase 11 for one family (module docstring)."""
+    t0 = time.perf_counter()
+    label = f"11 {name}"
+    depth, prompt_len, f32_window, f32_prompt = LONG[name]
+    cfg = get_config(name)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    window = cfg.long_context_window
+    n_attn, _ = layer_counts(cfg)
+    model = registry.init_model(cfg, seed=0, device=device)
+    prompt = registry.make_inputs(cfg, 2, prompt_len, seed=1, device=device)["tokens"]
+    max_len = prompt_len + LONG_NEW + 1
+    steps = LONG_NEW - 1
+    out: dict = {"layers": cfg.num_layers, "prompt_len": prompt_len, "window": window,
+                 "new_tokens": LONG_NEW}
+    gen_kw = dict(max_new_tokens=LONG_NEW, device=device, long_context=True)
+    with torch.inference_mode():
+        toks, counts, _ = counted(engine.generate, model, cfg, prompt, **gen_kw)
+    expect_lm(f"{label} generate(long_context=True)", counts, n_attn, 0, device)
+    launches = counts["flash_attention"]
+    ring = engine.decoder_for(model, cfg, 2, max_len, long_context=True)
+    check(ring.long_context and ring.n_captures == 1, f"{label}: {ring.n_captures} captures")
+    check(ring_slots(ring.cache) == {window}, f"{label}: ring slots {ring_slots(ring.cache)}")
+    eager_toks, eager_logits, _ = eager_generate(model, cfg, prompt, LONG_NEW,
+                                                 long_context=True)
+    check(torch.equal(toks, eager_toks), f"{label}: captured and eager long-context tokens differ")
+    graph_logits = decoder_logits(ring, prompt, LONG_NEW)
+    differ = [i for i, (a, b) in enumerate(zip(graph_logits, eager_logits))
+              if not torch.equal(a, b)]
+    check(not differ, f"{label}: captured long-context logits differ from the eager loop's at "
+          f"steps {differ}")
+    out["logits_bitwise_steps"] = len(graph_logits)
+    del graph_logits, eager_logits
+    out["first_tokens"] = toks[:, :8].tolist()
+    with torch.inference_mode():
+        for arm, lc in (("long_", True), ("full_", False)):
+            out[f"{arm}prefill_ms"] = 1e3 * _median_s(engine.prefill, model, cfg, prompt,
+                                                      max_len=max_len, long_context=lc)
+    dec_s = np.median([timed_decode(ring, prompt, steps, {}) for _ in range(3)])
+    out["long_decode_ms_per_token"] = 1e3 * float(dec_s) / steps
+    out["long_slots"] = window
+    out["long_captures"] = ring.n_captures
+    full = engine.decoder_for(model, cfg, 2, max_len)  # the full caches: a decoder of its own
+    check(full is not ring and not full.long_context, f"{label}: the full decoder")
+    full.start(prompt)
+    decode_steps(full, steps)  # warm-up and capture
+    dec_s = np.median([timed_decode(full, prompt, steps, {}) for _ in range(3)])
+    out["full_decode_ms_per_token"] = 1e3 * float(dec_s) / steps
+    out["full_slots"] = max(ring_slots(full.cache))
+    out["full_captures"] = full.n_captures
+    check(out["full_slots"] == max_len, f"{label}: full cache of {out['full_slots']} slots")
+    check(ring.n_captures == 1 and full.n_captures == 1, f"{label}: captures "
+          f"{ring.n_captures} / {full.n_captures}")
+    del model, ring, full
+    free_card()
+    out["f32_depth3_max_abs_err"] = long_consistency(name, f32_window, f32_prompt, device,
+                                                     label)
+    out["f32_window"], out["f32_prompt_len"] = f32_window, f32_prompt
+    out["seconds"] = time.perf_counter() - t0
+    note(f"# {label} " + json.dumps(out))
+    return {"flash_attention": launches}
+
+
+def phase_long_context(device: torch.device) -> dict:
+    """Phase 11: long-context serving, each family in turn."""
+    launches = {"flash_attention": 0}
+    for name in LONG:
+        launches["flash_attention"] += phase_long(name, device)["flash_attention"]
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: LM D-SGD training on one card
+# ---------------------------------------------------------------------------
+
+TRAIN = {"name": "qwen3-0.6b", "nodes": 4, "batch": 2, "seq": 1024, "lr": 1e-3, "steps": 24,
+         "segment": 8, "budget": 2}
+GOSSIP = ("gossip_schedule", "gossip_mix")
+
+
+def card_batches(corpus: DomainSkewCorpus, Pi: np.ndarray, steps: int, batch: int, seq: int,
+                 device: torch.device, seed: int = 0) -> dict:
+    """Each step's per-node batches drawn on the card from the corpus's
+    domain distributions: a domain per sequence from the node's row of
+    ``Pi`` (numpy), its tokens i.i.d. from that domain's unigram
+    (``torch.multinomial``), as ``TokenBatcher`` draws them on the host
+    with a counter-based generator of its own; labels next-token shifted."""
+    rng = np.random.default_rng(seed)
+    probs = torch.as_tensor(np.stack([corpus.domain_probs(k) for k in range(corpus.n_domains)]),
+                            dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = Pi.shape[0]
+    toks = torch.empty((steps, n, batch, seq + 1), dtype=torch.int64, device=device)
+    for t in range(steps):
+        for i in range(n):
+            for b, dom in enumerate(rng.choice(corpus.n_domains, size=batch, p=Pi[i])):
+                toks[t, i, b] = torch.multinomial(probs[dom], seq + 1, replacement=True,
+                                                  generator=gen)
+    return {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
+
+
+def train_arm(label: str, setup, params, opt, batches: dict, mix=None, rollout: str = "scan",
+              swap=None, profile: bool = False) -> dict:
+    """Run ``TRAIN["steps"]`` steps in segments of ``TRAIN["segment"]``
+    (multi-step calls, or ``run_segments`` when ``swap`` is given); the
+    launch counts, the losses, the last segment's ms/step (a replay under
+    ``"scan"``), the peak memory; with ``profile``, the device time by
+    kernel of one more segment (the first one's batches again)."""
+    seg = TRAIN["segment"]
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    if swap is not None:
+        res = setup.run_segments(params, opt, batches, mix, segment_len=seg, rollout=rollout,
+                                 on_segment=lambda t: swap if t == seg - 1 else None)
+        losses, seg_s, n_traces = res["losses"], res["segment_s"], res["n_traces"]
+        params, opt = res["params"], res["opt_state"]
+        check(res["swaps"] == [seg - 1], f"{label}: swaps {res['swaps']}")
+    else:
+        multi = setup.multi_step_fn(rollout)
+        extra = (mix,) if mix is not None else ()
+        losses, seg_s = [], []
+        for t0 in range(0, TRAIN["steps"], seg):
+            tic = time.perf_counter()
+            params, opt, lo = multi(params, opt, {k: v[t0:t0 + seg] for k, v in batches.items()},
+                                    *extra)
+            losses.append(lo.cpu().numpy())
+            seg_s.append(time.perf_counter() - tic)
+        losses, n_traces = np.concatenate(losses), multi.n_traces
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prof = None
+    if profile:
+        first = {k: v[:seg] for k, v in batches.items()}
+        wall_s = counted(multi, params, opt, first, *extra)[2]
+        per_kernel, n_ops = device_profile(multi, params, opt, first, *extra)
+        device_ms = sum(per_kernel.values())
+        prof = {"device_ms_per_step": device_ms / seg, "device_ops_per_step": n_ops / seg,
+                "device_busy_share": device_ms / (1e3 * wall_s),
+                "top_kernels_ms": top_kernels(per_kernel)}
+    if swap is None:
+        del multi
+    free_card()  # the arm's graphs and their memory pools go before the next arm's state
+    tokens = TRAIN["nodes"] * TRAIN["batch"] * TRAIN["seq"]
+    ms = 1e3 * seg_s[-1] / seg
+    out = {"ms_per_step": ms, "tokens_per_s": tokens * 1e3 / ms, "profile": prof,
+           "segment_ms": [1e3 * s for s in seg_s], "first_loss": float(losses[0]),
+           "last_loss": float(losses[-1]), "captures": n_traces,
+           "max_memory_gb": peak / 1e9,
+           "launches": {k: counts[k] for k in GOSSIP}}
+    check(np.isfinite(losses).all(), f"{label}: non-finite losses")
+    check(out["last_loss"] < out["first_loss"], f"{label}: the loss went {out['first_loss']:.4f}"
+          f" -> {out['last_loss']:.4f}")
+    return {"row": out, "params": params, "opt": opt, "losses": losses, "counts": counts}
+
+
+def mix_check(label: str, setup, params, batch: dict, schedule) -> float:
+    """One step's mixed parameters through the kernel (``gossip_schedule``
+    for a schedule, ``gossip_mix`` for the complete graph) against the
+    plain version (``kernels/gossip_mix/ref.py``, on the card) on the same
+    half-step; the step's parameters must be the kernel mix, bitwise."""
+    n = TRAIN["nodes"]
+    _, grads = setup.grad_fn(params, batch)
+    half, _ = _sgd_update(params, grads, None, TRAIN["lr"], 0.0)
+    del grads
+    after, _, _ = setup.train_step(params, None, batch)
+    mixed = gossip_fn(schedule, n)(half)
+    check(all(torch.equal(after[k], mixed[k]) for k in after),
+          f"{label}: the step's parameters are not the kernel mix")
+    del after
+    flat, spec = ravel_stack(half, pad_to=KERNEL_ROW_ALIGN)
+    del half
+    if schedule is not None:
+        plain = gossip_schedule_ref(flat, *schedule.operands(flat.device))
+    else:
+        plain = gossip_mix_ref(flat, torch.full((n, n), 1.0 / n, device=flat.device))
+    del flat
+    plain = unravel_stack(plain, spec)
+    err = max(float((mixed[k].float() - plain[k].float()).abs().max()) for k in mixed)
+    check(err <= TOL[torch.bfloat16], f"{label}: kernel and plain mix differ by {err:.3e}")
+    return err
+
+
+def phase_lm_training(device: torch.device) -> dict:
+    """Phase 12 (module docstring): qwen3-0.6b D-SGD on 4 stacked nodes."""
+    t_phase = time.perf_counter()
+    label = "12 qwen3-0.6b"
+    cfg = get_config(TRAIN["name"])
+    n, b, S, steps = TRAIN["nodes"], TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    Pi = np.eye(n)  # 4 domains, one a node
+    res = learn_topology(Pi, budget=TRAIN["budget"])
+    sched = schedule_from_result(res)
+    arrays = schedule_to_arrays(sched, device=device)
+    corpus = DomainSkewCorpus(cfg.vocab_size, n_domains=n, seed=0)
+    # the host batcher draws vocab Gumbel values per token: timed on one
+    # 128-token sequence, its rate scaled to a step's (n, b, S + 1) tokens
+    batcher = TokenBatcher(corpus, Pi, 1, 127, seed=0)
+    tic = time.perf_counter()
+    x, y = batcher.node_batch(0, 0)
+    batcher_s = time.perf_counter() - tic
+    check(x.shape == (1, 127) and np.array_equal(x[:, 1:], y[:, :-1]), f"{label}: batcher")
+    batcher_step_s = batcher_s * n * b * (S + 1) / 128
+    batches = card_batches(corpus, Pi, steps, b, S, device)
+    tokens = n * b * S
+    common = dict(n_nodes=n, lr=TRAIN["lr"], device=device)
+    setup_a = make_train_setup(cfg, schedule=sched, **common)
+    params0 = setup_a.init_params(0)
+    n_params = sum(v[0].numel() for v in params0.values())
+    bound_ms = 1e3 * n * 6 * n_params * (b * S) / PEAK_OPS_PER_S[torch.bfloat16]
+    head = {"nodes": n, "tokens_per_step": tokens, "params_per_node": n_params,
+            "schedule_atoms": sched.n_atoms, "communication_atoms": sched.n_communication_atoms,
+            "batcher_128_tokens_s": batcher_s, "batcher_step_s_estimate": batcher_step_s,
+            "step_bound_ms": bound_ms}
+    note(f"# {label} setup " + json.dumps(head))
+    rows, launches = {}, {k: 0 for k in GOSSIP}
+
+    def record(arm: str, out: dict) -> None:
+        row = out["row"]
+        row["bound_share"] = bound_ms / row["ms_per_step"]
+        rows[arm] = row
+        for k in GOSSIP:
+            launches[k] += out["counts"][k]
+        note(f"# {label} arm {arm} " + json.dumps(row))
+
+    a = train_arm("(a)", setup_a, params0, None, batches, profile=True)
+    record("a_dsgd_schedule_scan", a)
+    check(a["row"]["captures"] == 1, f"{label} (a): {a['row']['captures']} captures")
+    check(a["counts"]["gossip_schedule"] == steps and a["counts"]["gossip_mix"] == 0,
+          f"{label} (a): launches {a['counts']}")
+    b_ = train_arm("(b)", setup_a, params0, None, batches, rollout="loop")
+    record("b_dsgd_schedule_loop", b_)
+    check(np.array_equal(a["losses"], b_["losses"]), f"{label}: scan and loop losses differ")
+    check(all(torch.equal(a["params"][k], b_["params"][k]) for k in params0),
+          f"{label}: scan and loop parameters differ")
+    del b_
+    setup_f = make_train_setup(cfg, **common)
+    batch0 = {k: v[0] for k, v in batches.items()}
+    errs = {"gossip_schedule": mix_check(f"{label} mix", setup_a, a["params"], batch0, sched),
+            "gossip_mix": mix_check(f"{label} mix", setup_f, a["params"], batch0, None)}
+    note(f"# {label} kernel mix vs plain (bf16, limit 3e-2): " + json.dumps(errs))
+    del a
+    setup_c = make_train_setup(cfg, online_w=True, **common)
+    L = arrays.l_max
+    swap = ScheduleArrays(gammas=torch.full((L,), 1.0 / L, device=device),
+                          perms=torch.stack([torch.roll(torch.arange(n, device=device), j)
+                                             for j in range(L)]).to(torch.int32))
+    c = train_arm("(c)", setup_c, params0, None, batches, mix=arrays, swap=swap)
+    record("c_online_arrays_swap", c)
+    check(c["row"]["captures"] == 1, f"{label} (c): the swap added a capture")
+    check(c["counts"]["gossip_schedule"] == steps, f"{label} (c): launches {c['counts']}")
+    del c
+    # the global batch in microbatches of a node's 2 sequences: one pass over
+    # all 8 captures ~63 GB of activations beside the stacked states
+    setup_d = make_train_setup(cfg, mode="fsdp", lr=TRAIN["lr"], grad_accum=n, device=device)
+    flat_batches = {k: v.reshape(steps, n * b, S) for k, v in batches.items()}
+    d = train_arm("(d)", setup_d, {k: v[0] for k, v in params0.items()}, None, flat_batches)
+    record("d_fsdp", d)
+    check(sum(d["counts"][k] for k in GOSSIP) == 0, f"{label} (d): fsdp mixed")
+    del d
+    setup_e = make_train_setup(cfg, schedule=sched, momentum=0.9, gossip_every=2, **common)
+    e = train_arm("(e)", setup_e, params0, setup_e.init_opt_state(params0), batches)
+    record("e_momentum_gossip_every_2", e)
+    check(e["counts"]["gossip_schedule"] == steps // 2, f"{label} (e): launches {e['counts']}")
+    check(int(e["opt"]["step"]) == steps, f"{label} (e): the step counter")
+    del e
+    f = train_arm("(f)", setup_f, params0, None, batches)
+    record("f_dsgd_complete_graph", f)
+    check(f["counts"]["gossip_mix"] == steps * len(params0),
+          f"{label} (f): launches {f['counts']}")
+    del f, params0
+    free_card()
+    note(f"# {label} " + json.dumps({
+        "seconds": time.perf_counter() - t_phase, "step_bound_ms": bound_ms,
+        "ms_per_step": {k: r["ms_per_step"] for k, r in rows.items()},
+        "tokens_per_s": {k: r["tokens_per_s"] for k, r in rows.items()},
+        "mix_max_abs_err": errs, "launches": launches}))
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2528,6 +2913,11 @@ def main(argv: list[str] | None = None) -> int:
     launches["flash_attention"] += moe["flash_attention"]
     last = phase_last_families(torch.device("cuda"))
     launches["flash_attention"] += last["flash_attention"]
+    long = phase_long_context(torch.device("cuda"))
+    launches["flash_attention"] += long["flash_attention"]
+    train = phase_lm_training(torch.device("cuda"))
+    for k, v in train.items():
+        launches[k] += v
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2552,6 +2942,9 @@ def main(argv: list[str] | None = None) -> int:
             kernels[-1]["launches_phase8"] = dense[name]
             kernels[-1]["launches_phase9"] = moe[name]
             kernels[-1]["launches_phase10"] = last[name]
+            kernels[-1]["launches_phase11"] = long[name]
+        if name in train:
+            kernels[-1]["launches_phase12"] = train[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,8 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-__all__ = ["ARCH_IDS", "PORTED", "INPUT_SHAPES", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "PORTED", "INPUT_SHAPES", "get_config", "get_smoke_config",
+           "all_configs"]
 
 # canonical ids (hyphenated) -> module names, as in the reference
 ARCH_IDS = {
@@ -62,3 +63,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke_config()
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    return {name: get_config(name) for name in ARCH_IDS}

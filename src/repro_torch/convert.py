@@ -20,6 +20,15 @@ position j is layer ``g * len(pattern) + j`` of the port, tail t is layer
 index; both functions take it where the config's ``arch_type`` is
 ``"audio"``. bfloat16 leaves travel as their bits, so a round trip is
 bitwise.
+
+``lm_stacked_from_numpy`` / ``lm_stacked_to_numpy`` carry the LM
+trainer's parameters: the reference's ``make_train_setup(...).init_params``
+pytree has a leading node axis on every leaf, before the ``stages``
+group axis (none in ``fsdp`` mode); the port's trainer keeps a dict of
+tensors named as ``LM.named_parameters()``, each with that node axis
+first (``train/lm_trainer.py``). These are plain tensors: the trainer
+owns its leaves and their gradients, where ``lm_params_from_numpy``
+gives a serving model with gradients off.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ __all__ = [
     "lm_params_from_numpy",
     "lm_params_to_numpy",
     "module_params_from_numpy",
+    "lm_stacked_from_numpy",
+    "lm_stacked_to_numpy",
 ]
 
 
@@ -111,9 +122,9 @@ def _nest(flat: dict[str, np.ndarray]) -> dict:
     return tree
 
 
-def _stack(trees: list[dict]) -> dict:
-    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-            else np.stack([t[k] for t in trees]) for k in trees[0]}
+def _stack(trees: list[dict], axis: int = 0) -> dict:
+    return {k: _stack([t[k] for t in trees], axis) if isinstance(trees[0][k], dict)
+            else np.stack([t[k] for t in trees], axis) for k in trees[0]}
 
 
 def _layer_slots(cfg) -> tuple[int, int]:
@@ -147,6 +158,28 @@ def module_params_from_numpy(module: torch.nn.Module, tree: dict) -> torch.nn.Mo
     return _load_flat(module, flat)
 
 
+def _lm_flat(tree: dict, cfg, node_axis: bool) -> dict[str, np.ndarray]:
+    """The reference's LM pytree (leaves with a leading node axis when
+    ``node_axis``) as a flat dict named as ``LM.named_parameters()``."""
+    flat: dict[str, np.ndarray] = {}
+    if cfg.arch_type == "audio":
+        _flatten("", tree, flat)
+        return flat
+    reps, plen = _layer_slots(cfg)
+    _flatten("embed", tree["embed"], flat)
+    _flatten("final_norm", tree["final_norm"], flat)
+    for j in range(plen if reps else 0):
+        stage: dict = {}
+        _flatten("", tree["stages"][j], stage)
+        for g in range(reps):
+            for name, leaf in stage.items():
+                leaf = np.asarray(leaf)
+                flat[f"layers.{g * plen + j}.{name}"] = leaf[:, g] if node_axis else leaf[g]
+    for t, layer in enumerate(tree["tail"]):
+        _flatten(f"layers.{reps * plen + t}", layer, flat)
+    return flat
+
+
 def lm_params_from_numpy(tree: dict, cfg, device: torch.device | str | None = None):
     """The port's ``LM`` for ``cfg`` on ``device`` (None = CUDA), with the
     reference's ``init_lm`` weights ``tree`` (leaves as numpy arrays), or
@@ -156,24 +189,59 @@ def lm_params_from_numpy(tree: dict, cfg, device: torch.device | str | None = No
     from repro_torch.models.whisper import Whisper
 
     device = resolve_device(device)
-    if cfg.arch_type == "audio":
-        flat: dict[str, np.ndarray] = {}
-        _flatten("", tree, flat)
-        return _load_flat(Whisper(cfg, device), flat)
-    reps, plen = _layer_slots(cfg)
-    flat: dict[str, np.ndarray] = {}
-    _flatten("embed", tree["embed"], flat)
-    _flatten("final_norm", tree["final_norm"], flat)
-    for j in range(plen if reps else 0):
-        stage: dict = {}
-        _flatten("", tree["stages"][j], stage)
-        for g in range(reps):
-            for name, leaf in stage.items():
-                flat[f"layers.{g * plen + j}.{name}"] = np.asarray(leaf)[g]
-    for t, layer in enumerate(tree["tail"]):
-        _flatten(f"layers.{reps * plen + t}", layer, flat)
+    module = Whisper(cfg, device) if cfg.arch_type == "audio" else LM(cfg, device)
+    return _load_flat(module, _lm_flat(tree, cfg, node_axis=False))
 
-    return _load_flat(LM(cfg, device), flat)
+
+def lm_stacked_from_numpy(tree: dict, cfg, *, node_axis: bool = True,
+                          device: torch.device | str | None = None) -> dict[str, torch.Tensor]:
+    """The LM trainer's parameters from the reference's
+    ``make_train_setup(...).init_params`` pytree (numpy leaves): a dict
+    ``LM.named_parameters()`` name -> tensor on ``device`` (None = CUDA),
+    with the leading node axis when ``node_axis`` (the ``dsgd`` modes),
+    without it (``fsdp``). Names are checked against the model's; the
+    tensors do not require gradients."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.models.whisper import Whisper
+
+    device = resolve_device(device)
+    flat = _lm_flat(tree, cfg, node_axis)
+    meta = Whisper(cfg, "meta") if cfg.arch_type == "audio" else LM(cfg, "meta")
+    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    if set(flat) != set(shapes):
+        raise ValueError(f"parameter names differ: missing {sorted(set(shapes) - set(flat))}, "
+                         f"unexpected {sorted(set(flat) - set(shapes))}")
+    out = {}
+    for name, leaf in flat.items():
+        t = _tensor(leaf)
+        if tuple(t.shape[1:] if node_axis else t.shape) != shapes[name]:
+            raise ValueError(f"{name}: got {tuple(t.shape)}, the model holds {shapes[name]}")
+        out[name] = t.to(device)
+    return out
+
+
+def lm_stacked_to_numpy(params: dict[str, torch.Tensor], cfg, *, node_axis: bool = True) -> dict:
+    """The reference's ``init_params`` pytree of the trainer's parameters
+    (``lm_stacked_from_numpy``'s inverse), as numpy arrays: ``stages``
+    leaves stacked on the group axis after the node axis."""
+    flat = {name: _array(t) for name, t in params.items()}
+    if cfg.arch_type == "audio":
+        tree = _nest(flat)
+        for key in ("enc_layers", "dec_layers"):
+            tree[key] = [tree[key][str(i)] for i in range(len(tree[key]))]
+        return tree
+    reps, plen = _layer_slots(cfg)
+    axis = 1 if node_axis else 0
+    layers = [_nest({n[len(f"layers.{i}."):]: v for n, v in flat.items()
+                     if n.startswith(f"layers.{i}.")}) for i in range(cfg.num_layers)]
+    return {
+        "embed": _nest({n[len("embed."):]: v for n, v in flat.items() if n.startswith("embed.")}),
+        "stages": [_stack(layers[j : reps * plen : plen], axis) if reps else None
+                   for j in range(plen)],
+        "tail": layers[reps * plen :],
+        "final_norm": _nest({n[len("final_norm."):]: v for n, v in flat.items()
+                             if n.startswith("final_norm.")}),
+    }
 
 
 def lm_params_to_numpy(model) -> dict:

@@ -1,7 +1,7 @@
 """Data substrate: copies of the reference's numpy partitioners, synthetic
-sets and drift scenarios."""
+sets, drift scenarios and domain-skew LM token streams."""
 
-from . import drift, partition, synthetic
+from . import drift, partition, synthetic, tokens
 from .drift import (
     AbruptLabelSwap,
     ConceptShift,
@@ -19,11 +19,13 @@ from .partition import (
     shard_partition,
 )
 from .synthetic import MeanEstimationTask, gaussian_blobs, mean_estimation_clusters
+from .tokens import DomainSkewCorpus, TokenBatcher
 
 __all__ = [
     "drift",
     "partition",
     "synthetic",
+    "tokens",
     "AbruptLabelSwap",
     "ConceptShift",
     "FeatureDrift",
@@ -39,4 +41,6 @@ __all__ = [
     "MeanEstimationTask",
     "gaussian_blobs",
     "mean_estimation_clusters",
+    "DomainSkewCorpus",
+    "TokenBatcher",
 ]

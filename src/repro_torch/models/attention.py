@@ -14,13 +14,16 @@ Layout conventions, as in the reference: activations (B, S, D); q/k/v
   chunked online-softmax form above 2048 positions, one quadratic
   softmax below.
 
-With a cache (prefill and decode) attention is plain PyTorch whatever
-``impl`` says, as it is plain XLA in the reference.
+With a cache, decode is plain PyTorch whatever ``impl`` says, as it is
+plain XLA in the reference, and so is a prefill -- but for the
+long-context mode's (a ``window`` given): under ``"kernel"`` its prefill
+goes to the flash kernel with that window.
 
 DeepSeek-V2's multi-head latent attention (``MLAAttention``,
 ``mla_attention``) is plain PyTorch on every path, as it is plain XLA in
 the reference (which has no Pallas MLA kernel): its cache holds the
-compressed latents, decompressed per head at every call.
+compressed latents, decompressed per head at every call; in the
+long-context mode that cache is a ring (``ring=True``) that wraps.
 
 Whisper's decoder attends to the encoder's states through
 ``cross_attention``: queries from the decoder, keys and values projected
@@ -42,6 +45,7 @@ from .kvcache import (
     init_window_cache,
     update_full_cache,
     update_mla_cache,
+    update_mla_ring,
     update_window_cache,
 )
 from .layers import RMSNorm, apply_rope, rms_norm, rotary_embedding
@@ -255,10 +259,16 @@ def attention(
         new_cache = None
     elif S > 1:
         # Prefill (a multi-token append, from a fresh cache): attention on
-        # the full-sequence plain path, then the cache write. (A window
-        # ring cannot be the source while it is filled: early keys may be
-        # evicted before later queries need them.)
-        if causal and S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0:
+        # the full-sequence path, then the cache write. (A window ring
+        # cannot be the source while it is filled: early keys may be
+        # evicted before later queries need them.) The long-context
+        # prefill (a ``window`` given) takes the flash kernel under
+        # "kernel"; other prefills stay plain, as in the reference.
+        if impl == "kernel" and causal and window is not None:
+            out = fa_ops.flash_attention(
+                q, k, v, causal=True, window=eff_window, softcap=cfg.attn_logit_softcap
+            )
+        elif causal and S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0:
             out = _sdpa_chunked(q, k, v, cfg, eff_window)
         else:
             mask = _causal_mask(S, S, eff_window, x.device) if causal else None
@@ -440,10 +450,13 @@ def mla_attention(
     positions: torch.Tensor,
     cache: dict | None = None,
     window: int | None = None,
+    ring: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """MLA self-attention; the cache stores the normalised latents
     ``c_kv`` and the rotated ``k_rope`` only (written in place, see
-    ``models/kvcache.py``). Returns (output, updated cache)."""
+    ``models/kvcache.py``): appended, or with ``ring`` (the long-context
+    mode) written around a ring of the cache's length. Returns (output,
+    updated cache)."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
@@ -456,6 +469,7 @@ def mla_attention(
     k_rope = apply_rope((x @ params.w_krope)[:, :, None, :], cos, sin)[:, :, 0, :]
 
     long_seq = S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0
+    write = update_mla_ring if ring else update_mla_cache
     if cache is None or S > 1:
         # full sequence, or a prefill from a fresh cache: attention over
         # the new positions, then (prefill) the cache write
@@ -464,14 +478,15 @@ def mla_attention(
         else:
             mask = _causal_mask(S, S, window, x.device)
             out = _mla_attend(params, cfg, q_nope, q_rope, c_kv, k_rope, mask)
-        new_cache = None if cache is None else update_mla_cache(cache, c_kv, k_rope)
+        new_cache = None if cache is None else write(cache, c_kv, k_rope)
     else:
-        new_cache = update_mla_cache(cache, c_kv, k_rope)
+        new_cache = write(cache, c_kv, k_rope)
         L = new_cache["c_kv"].shape[1]
         slot = torch.arange(L, device=x.device)
         idx = new_cache["index"]  # on the device: a replayed step reads its own
-        # the reference's ring formula; with no wrap (check_fits) a slot
-        # holds its own position, or a negative one when still unwritten
+        # the reference's ring formula: the position a slot holds (the
+        # largest below idx congruent to it modulo L), negative while
+        # unwritten; an appended cache never wraps (check_fits)
         abs_pos = ((idx - 1) - torch.remainder(idx - 1 - slot, L))[None, None, :]
         qpos = positions[:, :, None]  # (B, Sq, 1)
         mask = (abs_pos >= 0) & (abs_pos <= qpos)
@@ -483,10 +498,15 @@ def mla_attention(
 
 
 def init_mla_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
-                             device: torch.device | str | None = None) -> dict:
-    """An MLA layer's cache of ``max_len`` positions on ``device`` (None = CUDA)."""
+                             device: torch.device | str | None = None, *,
+                             ring: int | None = None) -> dict:
+    """An MLA layer's cache on ``device`` (None = CUDA): ``max_len``
+    positions, or a ring of ``ring`` slots (the long-context mode: the
+    reference's ring of exactly ``long_context_window``, with no ``min``
+    against ``max_len``)."""
     m = cfg.mla
-    return init_mla_cache(batch, max_len, m.kv_lora_rank, m.qk_rope_head_dim, dtype_of(cfg),
+    length = max_len if ring is None else ring
+    return init_mla_cache(batch, length, m.kv_lora_rank, m.qk_rope_head_dim, dtype_of(cfg),
                           device)
 
 

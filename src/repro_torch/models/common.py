@@ -34,12 +34,15 @@ __all__ = [
     "param_count",
     "truncated_normal_",
     "dtype_of",
+    "layer_kind",
     "NOT_PORTED",
 ]
 
-# what an entry point still to port raises with: every model family runs;
-# the mesh trainer, LM training, long-context serving and launch/ do not
-NOT_PORTED = "not ported yet (ROADMAP queue 1 items 13 and 15)"
+# what an entry point still to port raises with: every model family
+# scores, serves (long-context too) and trains on one card; the
+# multi-rank transports and mesh modes, the sharded serve setup and
+# launch/ do not
+NOT_PORTED = "not ported yet (ROADMAP queue 1 items 13c, 13d and 15)"
 # full-sequence implementations: the reference's "xla" and "pallas"
 IMPLS = ("plain", "kernel")
 
@@ -146,6 +149,10 @@ class ModelConfig:
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def layer_kind(cfg: ModelConfig, layer: int) -> str:
+    return cfg.kind(layer)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:

@@ -6,7 +6,10 @@
 * ``init_mla_cache``     -- (B, S_max, r) compressed latents ``c_kv`` and
                             (B, S_max, d_rope) rotated ``k_rope`` + write
                             index (DeepSeek-V2's multi-head latent
-                            attention caches no per-head keys).
+                            attention caches no per-head keys). In the
+                            long-context mode it is a ring of
+                            ``long_context_window`` slots
+                            (``update_mla_ring``).
 
 Recurrent states belong to their blocks (``models.rglru``). Keys are
 stored post-RoPE, so decode never re-rotates history.
@@ -24,8 +27,10 @@ new positions into the cache's ``k`` / ``v`` buffers and its ``index``
 in place, so decode allocates no new cache per token; they return a new
 dict that shares the tensors. A write past the end of a full cache
 cannot be seen without reading ``index``: the callers that know the
-lengths check them on the host first (``check_fits``). The ``init_*``
-functions put the cache on ``device`` (None = CUDA).
+lengths check them on the host first (``check_fits``). A ring (the
+window caches, MLA's long-context cache) has no end: its writes wrap,
+slot = absolute position mod its length, and nothing is refused. The
+``init_*`` functions put the cache on ``device`` (None = CUDA).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ __all__ = [
     "init_mla_cache",
     "update_full_cache",
     "update_mla_cache",
+    "update_mla_ring",
     "update_window_cache",
     "check_fits",
 ]
@@ -74,9 +80,10 @@ def init_window_cache(batch: int, window: int, n_kv: int, head_dim: int, dtype,
 
 def init_mla_cache(batch: int, max_len: int, kv_lora_rank: int, rope_dim: int, dtype,
                    device: torch.device | str | None = None) -> dict:
-    """MLA's cache. The reference's is a ring (its writes wrap modulo the
-    length); here, as for the full caches, a write past ``max_len`` is
-    refused on the host (``check_fits``) before it can happen."""
+    """MLA's cache of ``max_len`` slots. Written by ``update_mla_cache``
+    (an append: as for the full caches, a write past ``max_len`` is
+    refused on the host, ``check_fits``) or, in the long-context mode,
+    by ``update_mla_ring`` (a ring of ``max_len`` slots that wraps)."""
     device = resolve_device(device)
     return {
         "c_kv": torch.zeros((batch, max_len, kv_lora_rank), dtype=dtype, device=device),
@@ -87,7 +94,8 @@ def init_mla_cache(batch: int, max_len: int, kv_lora_rank: int, rope_dim: int, d
 
 def check_fits(max_len: int, index: int, s_new: int) -> None:
     """Raise before a write of ``s_new`` positions at ``index`` (both known
-    on the host) overruns a full cache of ``max_len`` positions."""
+    on the host) overruns a full cache of ``max_len`` positions. Rings
+    are not checked: their writes wrap."""
     if index + s_new > max_len:
         raise ValueError(f"full cache of {max_len} positions cannot take {s_new} more at {index}")
 
@@ -118,20 +126,41 @@ def update_full_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> 
     return _append(cache, "full", k=k_new, v=v_new)
 
 
+def _ring(cache: dict, **new: torch.Tensor) -> dict:
+    """Ring write of ``S_new`` positions (slot = absolute position mod the
+    ring's length, from the device ``index``). A write longer than the
+    ring keeps only its last ``length`` positions (the only ones that
+    survive), so slots stay unique."""
+    first = next(iter(new))
+    length, s_new = cache[first].shape[1], new[first].shape[1]
+    skip = max(s_new - length, 0)
+    positions = cache["index"] + torch.arange(skip, s_new, device=cache[first].device)
+    return _write(cache, torch.remainder(positions, length), s_new,
+                  **{name: values[:, skip:] for name, values in new.items()})
+
+
 def update_window_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
     """Ring-buffer write of ``S_new`` positions (slot = abs_pos mod window).
 
     A prefill longer than the window keeps only its last ``window``
     positions (the only ones that survive), so slots stay unique.
     """
-    window, s_new = cache["k"].shape[1], k_new.shape[1]
-    skip = max(s_new - window, 0)
-    positions = cache["index"] + torch.arange(skip, s_new, device=cache["k"].device)
-    return _write(cache, torch.remainder(positions, window), s_new,
-                  k=k_new[:, skip:], v=v_new[:, skip:])
+    return _ring(cache, k=k_new, v=v_new)
 
 
 def update_mla_cache(cache: dict, c_kv: torch.Tensor, k_rope: torch.Tensor) -> dict:
     """Append ``S_new`` latents at the current index, as ``update_full_cache``
     does keys and values."""
     return _append(cache, "MLA", c_kv=c_kv, k_rope=k_rope)
+
+
+def update_mla_ring(cache: dict, c_kv: torch.Tensor, k_rope: torch.Tensor) -> dict:
+    """Ring write of ``S_new`` latents (the long-context mode): slot =
+    absolute position mod the ring's length, the last ``length``
+    positions of a longer prefill kept. The reference means the same
+    ring (``attention.py:408-414``), but its prefill write is a
+    ``dynamic_update_slice`` that clamps its start: a prefill of S > L
+    positions lands at slots 0..L-1 whatever S mod L, where the decode
+    steps' ``index mod L`` expects position p at slot p mod L. The two
+    agree when S <= L or L divides S."""
+    return _ring(cache, c_kv=c_kv, k_rope=k_rope)

@@ -16,7 +16,7 @@ embeddings. The encoder-decoder (whisper) is ``models/whisper.py``.
 API:
   init_lm(cfg, seed=, device=)          -> LM (weights drawn, no grad)
   LM.forward(tokens, image_embeds=, ...) -> (logits|hidden, new_cache, aux)
-  init_cache(cfg, batch, max_len, device=) -> per-layer caches
+  init_cache(cfg, batch, max_len, long_context=, device=) -> per-layer caches
   reset_cache_(cfg, cache)               -> the caches back to their initial values
   lm_loss(model, cfg, tokens, labels)    -> (loss, metrics)
 """
@@ -112,7 +112,8 @@ def _layer_forward(
             win = window_override if window_override is not None else (
                 cfg.sliding_window if lp.kind == "local_attn" else None)
             attn_out, new_cache = mla_attention(
-                lp.attn, cfg, h, positions=positions, cache=cache_layer, window=win)
+                lp.attn, cfg, h, positions=positions, cache=cache_layer, window=win,
+                ring=window_override is not None)
         else:
             attn_out, new_cache = attention(
                 lp.attn, cfg, h,
@@ -238,12 +239,16 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device: torch.device | str | Non
 # Caches
 # ---------------------------------------------------------------------------
 
-def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device) -> dict:
+def _init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                      long_context: bool, device) -> dict:
     if kind in _ATTN_KINDS:
         if cfg.mla is not None:
-            return init_mla_attention_cache(cfg, batch, max_len, device)
-        return init_attention_cache(cfg, batch, max_len, local=kind == "local_attn",
-                                    device=device)
+            ring = cfg.long_context_window if long_context else None
+            return init_mla_attention_cache(cfg, batch, max_len, device, ring=ring)
+        window = cfg.long_context_window if long_context else None
+        return init_attention_cache(cfg, batch, max_len,
+                                    local=kind == "local_attn" or long_context,
+                                    window=window, device=device)
     if kind == "mlstm":
         return xlstm.init_mlstm_state(cfg, batch, device)
     if kind == "slstm":
@@ -258,18 +263,21 @@ def init_cache(
     batch: int,
     max_len: int,
     *,
+    long_context: bool = False,
     device: torch.device | str | None = None,
 ) -> list:
     """One cache per layer, in layer order (the reference groups them as
     its stacked parameters are grouped), on ``device`` (None = CUDA).
 
-    The reference's ``long_context`` mode (a window cache on every
-    attention layer) waits for the long-context serving slice (ROADMAP
-    queue 1 item 13).
+    ``long_context=True`` is the reference's sub-quadratic mode: every
+    attention layer but MLA gets a window ring of ``min(long_context_window,
+    max_len)`` slots, an MLA layer a latent ring of exactly
+    ``long_context_window`` slots; recurrent layers keep their O(1)
+    state. Its forwards pass ``window_override=cfg.long_context_window``.
     """
     device = resolve_device(device)
     return [
-        _init_layer_cache(cfg, cfg.kind(i), batch, max_len, device)
+        _init_layer_cache(cfg, cfg.kind(i), batch, max_len, long_context, device)
         for i in range(cfg.num_layers)
     ]
 

@@ -28,9 +28,17 @@ calls at that shape capture once. On the CPU the step runs eagerly,
 counted as on the card. A failed capture raises; nothing falls back to
 the eager step.
 
-The reference's ``long_context`` mode (a window cache on every
-attention layer) and ``make_serve_setup`` (its sharded dry-run serve
-step) wait for the mesh slice (ROADMAP queue 1 item 13).
+``long_context=True`` (``prefill``, ``decode_step``, ``Decoder``,
+``generate``) is the reference's sub-quadratic mode: the caches of
+``transformer.init_cache(long_context=True)`` (a window ring on every
+attention layer, a latent ring of ``long_context_window`` slots on an MLA
+layer, recurrent states as they are) and ``window_override =
+cfg.long_context_window`` on every forward; its prefill attention runs
+in the flash kernel with that window. A decoder serves one mode: a
+``generate`` in the other mode builds a new decoder, captured anew.
+Whisper takes the flag and ignores it, as the reference does.
+``make_serve_setup`` (the reference's sharded dry-run serve step) waits
+for the mesh slice (ROADMAP queue 1 item 13d).
 """
 
 from __future__ import annotations
@@ -62,10 +70,20 @@ def _check_positions(cfg: ModelConfig, max_len: int) -> None:
                          f"a cache of {max_len} positions would index past it")
 
 
-def _init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> list | dict:
+def _long_context(cfg: ModelConfig, long_context: bool) -> bool:
+    """Whether the long-context mode applies: whisper ignores the flag."""
+    return long_context and cfg.arch_type != "audio"
+
+
+def _window(cfg: ModelConfig, long_context: bool) -> int | None:
+    return cfg.long_context_window if long_context else None
+
+
+def _init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                long_context: bool = False) -> list | dict:
     if cfg.arch_type == "audio":
         return whisper.init_whisper_cache(cfg, batch, max_len, device=device)
-    return transformer.init_cache(cfg, batch, max_len, device=device)
+    return transformer.init_cache(cfg, batch, max_len, long_context=long_context, device=device)
 
 
 def _reset_cache_(cfg: ModelConfig, cache: list | dict) -> None:
@@ -82,6 +100,7 @@ def _reset_cache_(cfg: ModelConfig, cache: list | dict) -> None:
 def _prefill_into(
     model, cfg: ModelConfig, tokens: torch.Tensor, cache: list | dict, *,
     image_embeds: torch.Tensor | None = None, frames: torch.Tensor | None = None,
+    long_context: bool = False,
 ) -> torch.Tensor:
     """Run the prompt (B, S) -- after the image patches, or against the
     encoder's states of ``frames`` -- into the fresh ``cache``; the last
@@ -96,9 +115,10 @@ def _prefill_into(
         hidden, _, _ = whisper.whisper_forward(model, cfg, None, tokens, cache=cache,
                                                positions=pos, return_hidden=True)
         return whisper.unembed(model, hidden[:, -1:])[:, 0]
-    # impl="kernel" (the default): the RG-LRU recurrence in its kernel
+    # impl="kernel" (the default): the RG-LRU recurrence in its kernel, a
+    # long-context prefill's attention in the flash kernel
     hidden, _, _ = model(tokens, image_embeds=image_embeds, cache=cache, positions=pos,
-                         return_hidden=True)
+                         window_override=_window(cfg, long_context), return_hidden=True)
     return unembed(model.embed, hidden[:, -1:], cfg)[:, 0]
 
 
@@ -110,19 +130,25 @@ def prefill(
     max_len: int,
     image_embeds: torch.Tensor | None = None,
     frames: torch.Tensor | None = None,
+    long_context: bool = False,
 ) -> tuple[torch.Tensor, list | dict]:
     """Run the prompt (B, S) through the model, building the decode cache
     of ``max_len`` positions (the VLM's image patches come first and take
-    positions too; whisper encodes ``frames`` into the cache).
+    positions too; whisper encodes ``frames`` into the cache), or with
+    ``long_context`` the long-context mode's rings, which take a prompt
+    of any length.
 
     Returns (last-position logits (B, V), cache). Only the last position
     is unembedded (the reference unembeds all S and keeps the last).
     """
     B, S = tokens.shape
-    check_fits(max_len, 0, _offset(image_embeds) + S)
+    long_context = _long_context(cfg, long_context)
+    if not long_context:
+        check_fits(max_len, 0, _offset(image_embeds) + S)
     _check_positions(cfg, max_len)
-    cache = _init_cache(cfg, B, max_len, tokens.device)
-    logits = _prefill_into(model, cfg, tokens, cache, image_embeds=image_embeds, frames=frames)
+    cache = _init_cache(cfg, B, max_len, tokens.device, long_context)
+    logits = _prefill_into(model, cfg, tokens, cache, image_embeds=image_embeds, frames=frames,
+                           long_context=long_context)
     return logits, cache
 
 
@@ -132,13 +158,17 @@ def decode_step(
     token: torch.Tensor,  # (B, 1)
     position: torch.Tensor,  # (B, 1) absolute position of the new token
     cache: list | dict,
+    *,
+    long_context: bool = False,
 ) -> tuple[torch.Tensor, list | dict]:
-    """One new token against the cache. Returns (logits (B, V), new cache)."""
+    """One new token against the cache (of the same mode as
+    ``long_context``). Returns (logits (B, V), new cache)."""
     if cfg.arch_type == "audio":
         logits, cache, _ = whisper.whisper_forward(model, cfg, None, token, cache=cache,
                                                    positions=position)
     else:
-        logits, cache, _ = model(token, cache=cache, positions=position)
+        logits, cache, _ = model(token, cache=cache, positions=position,
+                                 window_override=_window(cfg, long_context))
     return logits[:, 0], cache
 
 
@@ -154,7 +184,8 @@ def _param_ptrs(model) -> tuple[int, ...]:
 class Decoder:
     """Greedy decoding of ``model`` for ``batch`` sequences of at most
     ``max_len`` positions (the VLM's image patches included), on the
-    model's device.
+    model's device; with ``long_context``, in the long-context mode (its
+    rings; ``max_len`` then bounds only ``tokens``).
 
     Static buffers, read and written in place by every step:
       ``cache``     the per-layer caches (``transformer.init_cache``), or
@@ -173,7 +204,8 @@ class Decoder:
     run, by capture and replay after (``n_captures``).
     """
 
-    def __init__(self, model, cfg: ModelConfig, batch: int, max_len: int):
+    def __init__(self, model, cfg: ModelConfig, batch: int, max_len: int, *,
+                 long_context: bool = False):
         _same_config(model, cfg)
         _check_positions(cfg, max_len)
         device = next(model.parameters()).device
@@ -181,8 +213,9 @@ class Decoder:
         self._ptrs = _param_ptrs(model)
         self.cfg = cfg
         self.batch, self.max_len = batch, max_len
+        self.long_context = _long_context(cfg, long_context)
         with torch.inference_mode():
-            self.cache = _init_cache(cfg, batch, max_len, device)
+            self.cache = _init_cache(cfg, batch, max_len, device, self.long_context)
             self.token = torch.zeros((batch, 1), dtype=torch.int64, device=device)
             self.position = torch.zeros((batch, 1), dtype=torch.int64, device=device)
             self.logits = torch.zeros((batch, cfg.vocab_size), dtype=dtype_of(cfg), device=device)
@@ -201,9 +234,11 @@ class Decoder:
         """Host seconds of the step's capture (None before it, or on the CPU)."""
         return self._body.capture_s
 
-    def _serves(self, model, batch: int, max_len: int) -> bool:
-        """Whether this decoder decodes ``model``'s current weights at this shape."""
+    def _serves(self, model, batch: int, max_len: int, long_context: bool) -> bool:
+        """Whether this decoder decodes ``model``'s current weights at this
+        shape, in this mode."""
         return (self._model() is model and (self.batch, self.max_len) == (batch, max_len)
+                and self.long_context == _long_context(self.cfg, long_context)
                 and self._ptrs == _param_ptrs(model))
 
     @torch.inference_mode()
@@ -220,7 +255,8 @@ class Decoder:
         check_fits(self.max_len, 0, total)
         _reset_cache_(self.cfg, self.cache)
         logits = _prefill_into(self._model(), self.cfg, prompt, self.cache,
-                               image_embeds=image_embeds, frames=frames)
+                               image_embeds=image_embeds, frames=frames,
+                               long_context=self.long_context)
         self.position.fill_(total - 1)
         self._take(logits)
         self._length = total
@@ -237,7 +273,8 @@ class Decoder:
         self._graphs.run(self._body, "decode step")
 
     def _step(self) -> None:
-        logits, _ = decode_step(self._model(), self.cfg, self.token, self.position, self.cache)
+        logits, _ = decode_step(self._model(), self.cfg, self.token, self.position, self.cache,
+                                long_context=self.long_context)
         self._take(logits)
 
     def _take(self, logits: torch.Tensor) -> None:
@@ -250,14 +287,15 @@ class Decoder:
 _DECODERS: "weakref.WeakKeyDictionary[torch.nn.Module, Decoder]" = weakref.WeakKeyDictionary()
 
 
-def decoder_for(model, cfg: ModelConfig, batch: int, max_len: int) -> Decoder:
-    """``model``'s decoder at ``(batch, max_len)``: the one it kept, if it
-    serves that shape and the model's weights, else a new one (which
-    replaces it)."""
+def decoder_for(model, cfg: ModelConfig, batch: int, max_len: int, *,
+                long_context: bool = False) -> Decoder:
+    """``model``'s decoder at ``(batch, max_len)`` in the mode of
+    ``long_context``: the one it kept, if it serves that shape, that mode
+    and the model's weights, else a new one (which replaces it)."""
     _same_config(model, cfg)
     dec = _DECODERS.get(model)
-    if dec is None or not dec._serves(model, batch, max_len):
-        dec = _DECODERS[model] = Decoder(model, cfg, batch, max_len)
+    if dec is None or not dec._serves(model, batch, max_len, long_context):
+        dec = _DECODERS[model] = Decoder(model, cfg, batch, max_len, long_context=long_context)
     return dec
 
 
@@ -269,6 +307,7 @@ def generate(
     max_new_tokens: int = 16,
     image_embeds: torch.Tensor | None = None,
     frames: torch.Tensor | None = None,
+    long_context: bool = False,
     device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Greedy generation: (B, max_new_tokens) int64 tokens on ``device``.
@@ -279,6 +318,8 @@ def generate(
     states of ``frames`` (B, num_frames, d). The decode steps run through
     the model's :class:`Decoder` at ``(B, P + S + max_new_tokens + 1)``;
     the tokens returned are those after the image and the prompt.
+    ``long_context=True`` decodes in the long-context mode (a decoder of
+    its own).
     """
     device = resolve_device(device)
     model_device = next(model.parameters()).device
@@ -287,7 +328,7 @@ def generate(
     prompt = torch.as_tensor(prompt, dtype=torch.int64, device=model_device)
     B, S = prompt.shape
     total = _offset(image_embeds) + S
-    dec = decoder_for(model, cfg, B, total + max_new_tokens + 1)
+    dec = decoder_for(model, cfg, B, total + max_new_tokens + 1, long_context=long_context)
     dec.start(prompt, image_embeds=image_embeds, frames=frames)
     for _ in range(max_new_tokens - 1):
         dec.step()

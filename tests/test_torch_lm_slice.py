@@ -245,3 +245,25 @@ def test_make_inputs_is_seeded_numpy():
     assert a["tokens"].shape == (2, 16) and a["tokens"].dtype == torch.int64
     assert torch.equal(a["tokens"], b["tokens"]) and torch.equal(a["labels"], b["labels"])
     assert int(a["tokens"].max()) < pcfg.vocab_size and int(a["tokens"].min()) >= 0
+
+
+def test_all_configs_match_reference():
+    """``configs.all_configs`` gives every architecture's full config, field
+    for field the reference's."""
+    from repro.configs import all_configs as J_all_configs
+    from repro_torch.configs import all_configs
+
+    ours, ref = all_configs(), J_all_configs()
+    assert list(ours) == list(ref)
+    for name in ref:
+        assert dataclasses.asdict(ours[name]) == dataclasses.asdict(ref[name]), name
+
+
+@pytest.mark.parametrize("name", list(J_ARCH_IDS))
+def test_layer_kind_matches_reference(name):
+    from repro.models.common import layer_kind as J_layer_kind
+    from repro_torch.models.common import layer_kind
+
+    cfg, jcfg = get_config(name), J_get_config(name)
+    kinds = [layer_kind(cfg, i) for i in range(cfg.num_layers + 3)]
+    assert kinds == [J_layer_kind(jcfg, i) for i in range(jcfg.num_layers + 3)]

@@ -66,7 +66,8 @@ def test_sources_import_no_jax_and_no_reference(path):
     "module",
     ["data/synthetic.py", "data/partition.py", "core/topology.py",
      "core/heterogeneity.py", "core/dcliques.py", "core/theory.py", "core/dynamic.py",
-     "data/drift.py", "online/streaming.py", "obs/trace.py", "obs/report.py"],
+     "data/drift.py", "online/streaming.py", "obs/trace.py", "obs/report.py",
+     "data/tokens.py"],
 )
 def test_host_copies_stay_verbatim(module):
     reference = ROOT / "src" / "repro" / module
