@@ -715,11 +715,15 @@ def preferred_transport(
 # the card, core count and architecture on the CPU) -- is timed once,
 # both transports as the trainers run them (``mix_stacked`` on a pytree of
 # the caller's leaf widths: on the card the ravel copy and one
-# gossip_schedule launch against one gossip_mix launch a leaf), and
+# gossip_schedule launch against one gossip_mix launch a leaf, each
+# followed by the local update that reads its output), and
 # memoized to experiments/torch/transport_autotune.json, never the
-# reference's file. The key holds no leaf widths: the first pytree to
-# miss a bucket sets its record. Lookups never measure;
-# ``transport="autotune"`` measures on a miss.
+# reference's file. The first caller to miss a bucket sets its record: it
+# is timed at that caller's n_nodes, n_atoms and leaf widths (P rounded
+# up: both transports are linear in it), not at the bucket's powers of
+# two as the reference times it -- near the crossover the two picks can
+# differ (n 100, L 10 against the (128, 16) corner on the H100). Lookups
+# never measure; ``transport="autotune"`` measures on a miss.
 
 _AUTOTUNE_ENV = "REPRO_TORCH_TRANSPORT_AUTOTUNE"
 _autotune_cache: dict[str, dict] | None = None
@@ -902,12 +906,21 @@ def _measure(n_nodes: int, n_atoms: int, p: int, leaf_sizes: Sequence[int], seed
     tree = leaves[0] if len(leaves) == 1 else {f"{i:03d}": x for i, x in enumerate(leaves)}
     W = torch.as_tensor(sched.to_matrix(), dtype=torch.float32, device=device)
     sched.operands(leaves[0].device)  # made once, as the trainers make them before a run
+    grads = [torch.randn(x.shape, generator=gen, device=device) for x in leaves]
+
+    def then_update(mixed) -> list:
+        # the next step's local update reads the mix's output (``p - lr g``,
+        # core/dsgd.py); on the card the schedule transport's leaves are
+        # views of its padded buffer, which that update reads strided
+        return [p - 0.1 * g for p, g in zip(tree_leaves(mixed), grads)]
+
     # both transports as a training step runs them: on the card the ravel
     # copy and one gossip_schedule launch, against one gossip_mix launch a
-    # leaf; on the CPU the plain per-leaf paths
+    # leaf, each followed by the update; on the CPU the plain per-leaf paths
     runs = {
-        "schedule": lambda: mix_stacked(tree, schedule=sched, transport="schedule"),
-        "dense": lambda: mix_stacked(tree, W, transport="dense"),
+        "schedule": lambda: then_update(mix_stacked(tree, schedule=sched,
+                                                    transport="schedule")),
+        "dense": lambda: then_update(mix_stacked(tree, W, transport="dense")),
     }
     record = {"n_nodes": n_nodes, "n_atoms": n_atoms, "p": p, "p_measured": p_measured,
               "leaf_sizes": [int(s) for s in leaf_sizes]}
@@ -932,9 +945,11 @@ def measure_transport(
 
     The two transports run as a training step runs them: ``mix_stacked``
     on a pytree whose leaves have the per-node widths ``leaf_sizes``
-    (None: one leaf of ``p``), scaled to the timed width. On the card
-    that is the ravel copy and one ``gossip_schedule`` launch against
-    one ``gossip_mix`` launch a leaf; both are warmed up first, then
+    (None: one leaf of ``p``), scaled to the timed width, then the next
+    step's local update ``p - lr g`` on its output. On the card that is
+    the ravel copy and one ``gossip_schedule`` launch, whose output
+    leaves the update reads strided (views of the padded buffer),
+    against one ``gossip_mix`` launch a leaf; both are warmed up first, then
     each is timed as the median of 30 calls with CUDA events. On the CPU
     the plain per-leaf paths are timed on the host clock (``iters`` and
     ``repeats``). The width is capped so the buffer stays at most
@@ -985,9 +1000,10 @@ def autotune_transport(
     Looks up the power-of-two bucket of ``(n_nodes, n_atoms, p)`` on
     ``device``'s hardware (None = CUDA) in ``transport_autotune_path()``.
     On a hit, returns the measured winner. On a miss: with
-    ``measure=True`` times both transports at the bucket-rounded sizes
-    on a pytree of ``leaf_sizes`` (per-node leaf widths summing to ``p``;
-    None: one leaf), memoizes the record and returns its winner;
+    ``measure=True`` times both transports at ``n_nodes`` and
+    ``n_atoms`` and the bucket-rounded ``p`` on a pytree of
+    ``leaf_sizes`` (per-node leaf widths summing to ``p``; None: one
+    leaf), memoizes the record under the bucket and returns its winner;
     otherwise falls back to the closed-form :func:`preferred_transport`.
     """
     device = resolve_device(device)
@@ -999,8 +1015,8 @@ def autotune_transport(
         return entry["winner"]
     if not measure:
         return preferred_transport(n_nodes, n_atoms, dense_speedup)
-    entry = measure_transport(_pow2_up(n_nodes), _pow2_up(n_atoms), _pow2_up(p),
-                              leaf_sizes=leaf_sizes, device=device)
+    entry = measure_transport(n_nodes, n_atoms, _pow2_up(p), leaf_sizes=leaf_sizes,
+                              device=device)
     table = dict(table)
     table[key] = entry
     _persist_autotune(path, table)

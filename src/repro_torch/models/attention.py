@@ -15,15 +15,17 @@ Layout conventions, as in the reference: activations (B, S, D); q/k/v
   softmax below.
 
 With a cache, decode is plain PyTorch whatever ``impl`` says, as it is
-plain XLA in the reference, and so is a prefill -- but for the
-long-context mode's (a ``window`` given): under ``"kernel"`` its prefill
-goes to the flash kernel with that window.
+plain XLA in the reference. A causal prefill (from a fresh cache) takes
+the full-sequence path above: under ``"kernel"`` the flash kernel, with
+the layer's window or the long-context mode's ``window`` (the reference
+runs every prefill in plain XLA).
 
 DeepSeek-V2's multi-head latent attention (``MLAAttention``,
 ``mla_attention``) is plain PyTorch on every path, as it is plain XLA in
 the reference (which has no Pallas MLA kernel): its cache holds the
 compressed latents, decompressed per head at every call; in the
-long-context mode that cache is a ring (``ring=True``) that wraps.
+long-context mode that cache is a ring that wraps (the cache says so:
+``kvcache.init_mla_cache(ring=True)``).
 
 Whisper's decoder attends to the encoder's states through
 ``cross_attention``: queries from the decoder, keys and values projected
@@ -44,8 +46,7 @@ from .kvcache import (
     init_mla_cache,
     init_window_cache,
     update_full_cache,
-    update_mla_cache,
-    update_mla_ring,
+    update_mla,
     update_window_cache,
 )
 from .layers import RMSNorm, apply_rope, rms_norm, rotary_embedding
@@ -246,7 +247,12 @@ def attention(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if cache is None:
+    if cache is None or S > 1:
+        # The full sequence, or a prefill (a multi-token append, from a
+        # fresh cache): attention on the full-sequence path, then the
+        # prefill's cache write. (A window ring cannot be the source while
+        # it is filled: early keys may be evicted before later queries
+        # need them.)
         if impl == "kernel" and causal:
             out = fa_ops.flash_attention(
                 q, k, v, causal=True, window=eff_window, softcap=cfg.attn_logit_softcap
@@ -256,24 +262,9 @@ def attention(
         else:
             mask = _causal_mask(S, S, eff_window, x.device) if causal else None
             out = _sdpa(q, k, v, mask, cfg)
-        new_cache = None
-    elif S > 1:
-        # Prefill (a multi-token append, from a fresh cache): attention on
-        # the full-sequence path, then the cache write. (A window ring
-        # cannot be the source while it is filled: early keys may be
-        # evicted before later queries need them.) The long-context
-        # prefill (a ``window`` given) takes the flash kernel under
-        # "kernel"; other prefills stay plain, as in the reference.
-        if impl == "kernel" and causal and window is not None:
-            out = fa_ops.flash_attention(
-                q, k, v, causal=True, window=eff_window, softcap=cfg.attn_logit_softcap
-            )
-        elif causal and S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0:
-            out = _sdpa_chunked(q, k, v, cfg, eff_window)
-        else:
-            mask = _causal_mask(S, S, eff_window, x.device) if causal else None
-            out = _sdpa(q, k, v, mask, cfg)
-        if local or window is not None:
+        if cache is None:
+            new_cache = None
+        elif local or window is not None:
             new_cache = update_window_cache(cache, k, v)
         else:
             new_cache = update_full_cache(cache, k, v)
@@ -450,13 +441,11 @@ def mla_attention(
     positions: torch.Tensor,
     cache: dict | None = None,
     window: int | None = None,
-    ring: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """MLA self-attention; the cache stores the normalised latents
-    ``c_kv`` and the rotated ``k_rope`` only (written in place, see
-    ``models/kvcache.py``): appended, or with ``ring`` (the long-context
-    mode) written around a ring of the cache's length. Returns (output,
-    updated cache)."""
+    ``c_kv`` and the rotated ``k_rope`` only (written in place by
+    ``kvcache.update_mla``): appended, or around the ring if the cache
+    is one (the long-context mode's). Returns (output, updated cache)."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
@@ -469,7 +458,6 @@ def mla_attention(
     k_rope = apply_rope((x @ params.w_krope)[:, :, None, :], cos, sin)[:, :, 0, :]
 
     long_seq = S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0
-    write = update_mla_ring if ring else update_mla_cache
     if cache is None or S > 1:
         # full sequence, or a prefill from a fresh cache: attention over
         # the new positions, then (prefill) the cache write
@@ -478,9 +466,9 @@ def mla_attention(
         else:
             mask = _causal_mask(S, S, window, x.device)
             out = _mla_attend(params, cfg, q_nope, q_rope, c_kv, k_rope, mask)
-        new_cache = None if cache is None else write(cache, c_kv, k_rope)
+        new_cache = None if cache is None else update_mla(cache, c_kv, k_rope)
     else:
-        new_cache = write(cache, c_kv, k_rope)
+        new_cache = update_mla(cache, c_kv, k_rope)
         L = new_cache["c_kv"].shape[1]
         slot = torch.arange(L, device=x.device)
         idx = new_cache["index"]  # on the device: a replayed step reads its own
@@ -507,7 +495,7 @@ def init_mla_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
     m = cfg.mla
     length = max_len if ring is None else ring
     return init_mla_cache(batch, length, m.kv_lora_rank, m.qk_rope_head_dim, dtype_of(cfg),
-                          device)
+                          device, ring=ring is not None)
 
 
 # ---------------------------------------------------------------------------

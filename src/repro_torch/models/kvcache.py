@@ -9,7 +9,8 @@
                             attention caches no per-head keys). In the
                             long-context mode it is a ring of
                             ``long_context_window`` slots
-                            (``update_mla_ring``).
+                            (``ring=True``: ``update_mla`` writes it
+                            with ``update_mla_ring``).
 
 Recurrent states belong to their blocks (``models.rglru``). Keys are
 stored post-RoPE, so decode never re-rotates history.
@@ -44,6 +45,7 @@ __all__ = [
     "init_window_cache",
     "init_mla_cache",
     "update_full_cache",
+    "update_mla",
     "update_mla_cache",
     "update_mla_ring",
     "update_window_cache",
@@ -79,17 +81,21 @@ def init_window_cache(batch: int, window: int, n_kv: int, head_dim: int, dtype,
 
 
 def init_mla_cache(batch: int, max_len: int, kv_lora_rank: int, rope_dim: int, dtype,
-                   device: torch.device | str | None = None) -> dict:
-    """MLA's cache of ``max_len`` slots. Written by ``update_mla_cache``
-    (an append: as for the full caches, a write past ``max_len`` is
-    refused on the host, ``check_fits``) or, in the long-context mode,
-    by ``update_mla_ring`` (a ring of ``max_len`` slots that wraps)."""
+                   device: torch.device | str | None = None, *, ring: bool = False) -> dict:
+    """MLA's cache of ``max_len`` slots, written by ``update_mla``: an
+    append (``update_mla_cache``; as for the full caches, a write past
+    ``max_len`` is refused on the host, ``check_fits``) or, made with
+    ``ring`` (the long-context mode), a ring of ``max_len`` slots that
+    wraps (``update_mla_ring``). The cache says which: ``"ring": True``."""
     device = resolve_device(device)
-    return {
+    cache = {
         "c_kv": torch.zeros((batch, max_len, kv_lora_rank), dtype=dtype, device=device),
         "k_rope": torch.zeros((batch, max_len, rope_dim), dtype=dtype, device=device),
-        "index": _index(device),  # number of valid positions
+        "index": _index(device),  # positions written so far
     }
+    if ring:
+        cache["ring"] = True
+    return cache
 
 
 def check_fits(max_len: int, index: int, s_new: int) -> None:
@@ -164,3 +170,10 @@ def update_mla_ring(cache: dict, c_kv: torch.Tensor, k_rope: torch.Tensor) -> di
     steps' ``index mod L`` expects position p at slot p mod L. The two
     agree when S <= L or L divides S."""
     return _ring(cache, c_kv=c_kv, k_rope=k_rope)
+
+
+def update_mla(cache: dict, c_kv: torch.Tensor, k_rope: torch.Tensor) -> dict:
+    """The write the cache was made for (``init_mla_cache``): around the
+    ring if it is one, else an append."""
+    write = update_mla_ring if cache.get("ring", False) else update_mla_cache
+    return write(cache, c_kv, k_rope)

@@ -112,8 +112,7 @@ def _layer_forward(
             win = window_override if window_override is not None else (
                 cfg.sliding_window if lp.kind == "local_attn" else None)
             attn_out, new_cache = mla_attention(
-                lp.attn, cfg, h, positions=positions, cache=cache_layer, window=win,
-                ring=window_override is not None)
+                lp.attn, cfg, h, positions=positions, cache=cache_layer, window=win)
         else:
             attn_out, new_cache = attention(
                 lp.attn, cfg, h,
@@ -286,13 +285,15 @@ def reset_cache_(cfg: ModelConfig, cache: list) -> list:
     """Put every layer's cache back to the values ``init_cache`` gives, in
     place (the tensors stay the same): zeros, but -1e30 for the xLSTM
     stabiliser states ``m`` -- a prefill's sLSTM loop starts from the
-    incoming state, so an ``m`` of 0 would change every output."""
+    incoming state, so an ``m`` of 0 would change every output. (An MLA
+    ring's ``"ring"`` flag is no tensor and stays.)"""
     for i, layer in enumerate(cache):
         if cfg.kind(i) in _XLSTM_KINDS:
             xlstm.reset_state_(layer)
         else:
             for t in layer.values():
-                t.zero_()
+                if isinstance(t, torch.Tensor):
+                    t.zero_()
     return cache
 
 

@@ -7,10 +7,12 @@ decoder's self-attention caches); ``decode_step`` takes one new token
 against them. Both are the eager counterparts of the reference's
 functions. The VLM's prompt follows its ``image_embeds`` (the positions
 count the patches first); whisper's decoder reads the encoder's states of
-``frames``. Prefill attention and decode are plain PyTorch, as they are
-plain XLA in the reference; the RG-LRU recurrence of the prefill goes
-through ``kernels.rglru_scan`` (``impl="kernel"``), the sLSTM's through
-its captured time loop (``models/xlstm.py``).
+``frames``. Under ``impl="kernel"`` (the model's default) a prefill's
+causal attention runs in the flash kernel, with each layer's window (the
+reference's prefill is plain XLA); MLA, whisper's attention and decode
+are plain PyTorch, as they are plain XLA in the reference. The RG-LRU
+recurrence of the prefill goes through ``kernels.rglru_scan``, the
+sLSTM's through its captured time loop (``models/xlstm.py``).
 
 ``generate`` is greedy decoding through a :class:`Decoder`, the port's
 counterpart of the reference's jitted decode step: the decoder owns
@@ -34,7 +36,9 @@ the eager step.
 attention layer, a latent ring of ``long_context_window`` slots on an MLA
 layer, recurrent states as they are) and ``window_override =
 cfg.long_context_window`` on every forward; its prefill attention runs
-in the flash kernel with that window. A decoder serves one mode: a
+in the flash kernel with that window. An MLA layer's cache says whether
+it is a ring (``kvcache.init_mla_cache(ring=True)``), so its write never
+depends on the window a forward is given. A decoder serves one mode: a
 ``generate`` in the other mode builds a new decoder, captured anew.
 Whisper takes the flag and ignores it, as the reference does.
 ``make_serve_setup`` (the reference's sharded dry-run serve step) waits
@@ -115,8 +119,8 @@ def _prefill_into(
         hidden, _, _ = whisper.whisper_forward(model, cfg, None, tokens, cache=cache,
                                                positions=pos, return_hidden=True)
         return whisper.unembed(model, hidden[:, -1:])[:, 0]
-    # impl="kernel" (the default): the RG-LRU recurrence in its kernel, a
-    # long-context prefill's attention in the flash kernel
+    # impl="kernel" (the default): the RG-LRU recurrence in its kernel, the
+    # prefill's causal attention in the flash kernel
     hidden, _, _ = model(tokens, image_embeds=image_embeds, cache=cache, positions=pos,
                          window_override=_window(cfg, long_context), return_hidden=True)
     return unembed(model.embed, hidden[:, -1:], cfg)[:, 0]

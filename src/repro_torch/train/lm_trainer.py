@@ -206,17 +206,15 @@ class _Step:
 
     def __init__(self, cfg: ModelConfig, *, mode: str, n_nodes: int, lr: float,
                  momentum: float, impl: str, grad_accum: int, gossip_every: int,
-                 online_w: bool, schedule: BirkhoffSchedule | None, use_kernel: bool,
-                 device: torch.device):
+                 online_w: bool, schedule: BirkhoffSchedule | None, device: torch.device):
         self.mode, self.n_nodes = mode, n_nodes
         self.lr, self.momentum = lr, momentum
         self.grad_accum, self.gossip_every = grad_accum, gossip_every
-        self.use_kernel = use_kernel
         self.device = device
         meta = whisper.Whisper(cfg, "meta") if cfg.arch_type == "audio" else \
             transformer.LM(cfg, "meta")
         self.loss_module = _Loss(meta, cfg, impl)
-        self.static_mix = gossip_fn(schedule, n_nodes, use_kernel=use_kernel) \
+        self.static_mix = gossip_fn(schedule, n_nodes) \
             if mode == "dsgd" and not online_w else None
 
     # -- gradients -----------------------------------------------------------
@@ -271,8 +269,8 @@ class _Step:
         if operand is None:
             return self.static_mix(half)
         if isinstance(operand, ScheduleArrays):
-            return mix_schedule_arrays(half, operand, use_kernel=self.use_kernel)
-        return mix_dense(half, operand, use_kernel=self.use_kernel)
+            return mix_schedule_arrays(half, operand)
+        return mix_dense(half, operand)
 
     def step_(self, params: Params, opt, batch: dict, operand, gossip: bool,
               grads: Params) -> torch.Tensor:
@@ -640,7 +638,6 @@ def make_train_setup(
     compression=None,
     staleness=None,
     probes=None,
-    use_kernel: bool = False,
     device: torch.device | str | None = None,
 ) -> TrainSetup:
     """The train step for ``(cfg, mode)`` with ``n_nodes`` stacked nodes on
@@ -655,9 +652,9 @@ def make_train_setup(
     ``grad_accum > 1`` splits each node's batch into microbatches and
     takes the mean of their gradients (float32 accumulation);
     ``gossip_every = k > 1`` mixes only on steps whose counter (carried in
-    the opt state, see ``init_opt_state``) is a multiple of k.
-    ``use_kernel`` gives the gossip kernels' numerics on the CPU; a CUDA
-    run mixes in the kernels whatever it says.
+    the opt state, see ``init_opt_state``) is a multiple of k. The mix
+    runs in the gossip kernels on the card, in the reference's numerics
+    (sums in the leaf dtype) on the CPU.
     """
     if mode == "dsgd_pod":
         raise _not_ported("mode='dsgd_pod'")
@@ -693,7 +690,7 @@ def make_train_setup(
         schedule.operands(device)  # made and checked once, before any capture
     core = _Step(cfg, mode=mode, n_nodes=n, lr=lr, momentum=momentum, impl=impl,
                  grad_accum=grad_accum, gossip_every=gossip_every, online_w=online_w,
-                 schedule=schedule, use_kernel=use_kernel, device=device)
+                 schedule=schedule, device=device)
 
     def init_params(seed: int = 0) -> Params:
         model = registry.init_model(cfg, seed=seed, device=device)

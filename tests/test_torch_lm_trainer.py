@@ -9,7 +9,7 @@ the same numpy batches, and the subprocess writes the per-step losses,
 the final stacked parameters (through ``convert.lm_stacked_from_numpy``,
 so named as the port's), the initial ones and the STL-FW schedule to an
 ``.npz`` under ``tmp_path``. The port then runs each arm with 4 stacked
-nodes on the CPU (``use_kernel=False``: the reference's mixing numerics)
+nodes on the CPU (where the mix sums in the leaf dtype: the reference's)
 from those initial parameters.
 
 Arms: a static STL-FW schedule (``learn_topology`` on a 2-domain Pi,

@@ -211,7 +211,9 @@ def test_long_context_logits_match_the_windowed_full_forward(family):
 def test_long_context_cache_shapes_match_reference(name, max_len):
     """Every layer's cache in the long-context mode has the reference's
     shapes: window rings of min(window, max_len), MLA rings of exactly the
-    window, recurrent states as they are."""
+    window, recurrent states as they are. An MLA ring says it is one
+    (``"ring": True``, a key the reference's caches have not: its MLA
+    write always wraps)."""
     jcfg = dataclasses.replace(J_get_smoke(name), long_context_window=WINDOW)
     pcfg = dataclasses.replace(get_smoke_config(name), long_context_window=WINDOW)
     ref = J_transformer.init_cache(jcfg, 2, max_len, long_context=True)
@@ -227,8 +229,11 @@ def test_long_context_cache_shapes_match_reference(name, max_len):
     port = transformer.init_cache(pcfg, 2, max_len, long_context=True, device="cpu")
     assert len(port) == len(ref_layers)
     for layer, ref_layer in zip(port, ref_layers):
-        assert set(layer) == set(ref_layer)
+        assert set(layer) - {"ring"} == set(ref_layer)
+        assert layer.get("ring", False) == ("c_kv" in layer)
         for key, value in layer.items():
+            if key == "ring":
+                continue
             if key == "index":
                 assert value.shape == () and int(value) == 0
                 continue
@@ -266,6 +271,25 @@ def test_mla_ring_write_wraps_and_the_append_refuses():
     full = kvcache.init_mla_cache(1, 4, 2, 1, torch.float32, device="cpu")
     with pytest.raises(ValueError, match="cannot take"):
         kvcache.update_mla_cache(full, c, r)
+
+
+def test_mla_write_follows_the_cache_not_the_window():
+    """The MLA write is the cache's own: a full cache given
+    ``window_override`` still appends (and refuses a write past its end),
+    a long-context ring wraps."""
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b"), long_context_window=WINDOW)
+    model = registry.init_model(cfg, seed=0, device="cpu")
+    toks = torch.as_tensor(_tokens(cfg, 20))
+    pos = torch.arange(20)[None].expand(2, 20)
+    with torch.inference_mode():
+        full = transformer.init_cache(cfg, 2, 12, device="cpu")
+        with pytest.raises(ValueError, match="MLA cache of 12 positions cannot take 20"):
+            model(toks, cache=full, positions=pos, window_override=WINDOW)
+        ring = transformer.init_cache(cfg, 2, 12, long_context=True, device="cpu")
+        _, ring, _ = model(toks, cache=ring, positions=pos, window_override=WINDOW)
+        assert all(layer["ring"] and int(layer["index"]) == 20 for layer in ring)
+        transformer.reset_cache_(cfg, ring)
+    assert all(layer["ring"] and int(layer["index"]) == 0 for layer in ring)
 
 
 def test_long_context_generate_after_a_full_one_builds_a_new_decoder():

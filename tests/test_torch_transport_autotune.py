@@ -68,7 +68,10 @@ def test_committed_table_holds_only_card_entries(monkeypatch):
     for key, rec in table.items():
         assert rec["backend"] == "cuda" and rec["card"] and rec["power_limit"].endswith(" W")
         assert REFERENCE_FIELDS <= set(rec) and rec["leaf_sizes"]
-        assert key == (f"{rec['hw']}_n{rec['n_nodes']}_L{rec['n_atoms']}_P{rec['p']}")
+        # a record holds the sizes its first caller was timed at, P bucketed
+        assert key == (f"{rec['hw']}_n{T_mix._pow2_up(rec['n_nodes'])}"
+                       f"_L{T_mix._pow2_up(rec['n_atoms'])}_P{rec['p']}")
+        assert rec["p"] == T_mix._pow2_up(rec["p"])
         fastest = "schedule" if rec["schedule_us"] <= rec["dense_us"] else "dense"
         assert rec["winner"] == fastest
     # keyed by the card's name: no entry applies on this host's CPU tag
@@ -140,6 +143,17 @@ def test_measure_true_writes_a_record_with_the_reference_fields(tables, tmp_path
     missing = tmp_path / "no" / "such" / "dir" / "t.json"
     T_mix.autotune_transport(8, 2, 4096, measure=True, device=CPU, path=str(missing))
     assert not missing.parent.exists()
+
+
+def test_a_miss_is_timed_at_the_callers_sizes(tables):
+    """The first caller to miss a bucket sets its record at its own n and
+    L (P bucketed); a later caller in the bucket reads that record."""
+    winner = T_mix.autotune_transport(12, 3, 100, measure=True, device=CPU)
+    (key, rec), = json.loads(tables[0].read_text()).items()
+    assert key == T_mix._bucket_key(16, 4, 128, CPU)
+    assert (rec["n_nodes"], rec["n_atoms"], rec["p"], rec["winner"]) == (12, 3, 128, winner)
+    assert T_mix.autotune_transport(16, 4, 128, measure=True, device=CPU) == winner
+    assert len(json.loads(tables[0].read_text())) == 1
 
 
 @pytest.mark.parametrize("sizes,width", [((50176, 64, 640, 10), 65536),
