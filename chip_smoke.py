@@ -151,7 +151,8 @@ nvcc per source, all at once) and then, on the card:
    a 4-domain, one-domain-per-node Pi at budget 2; batches drawn on the
    card from the ``DomainSkewCorpus`` domains (the host ``TokenBatcher``
    is timed once: ~0.3 G Gumbel draws a node-batch at this vocabulary).
-   Arms, 24 steps in segments of 8: (a) dsgd, static schedule,
+   Arms, 12 steps in segments of 4 (a cut: phase 13 needs the time;
+   the forward keeps its activations, no recomputation): (a) dsgd, static schedule,
    ``rollout="scan"``; (b) the same with ``"loop"``, bitwise (a); (c)
    ``online_w`` on its ``ScheduleArrays`` through ``run_segments`` with
    one swap (no capture added); (d) fsdp on the same 8192 tokens, in 4
@@ -165,7 +166,43 @@ nvcc per source, all at once) and then, on the card:
    per node through each kernel within one bfloat16 rounding (2^-7
    relative, plus 1e-6) of the plain version, where the unmixed input
    misses by more than 10 times that;
-13. prints one JSON line per kernel set, then the card's name and power
+13. trains qwen3-0.6b at full width and depth in bf16 with one node per
+   rank (``make_train_setup(cfg, group=...)``): four rank processes
+   (spawned) share the card, each with its own ``NCCL_HOSTID`` (NCCL
+   refuses two ranks on one device otherwise, and then moves bytes over
+   its socket transport on loopback), phase 12's per-node batch, seed
+   and batches; each rank's allocator is held to a quarter of the card,
+   and each recomputes its layers' activations in the backward pass
+   (``remat=True``; the no-recomputation gradient pass in 2 microbatches
+   is measured beside it, its peak printed). First the transports on qwen3-0.6b's
+   distinct leaf widths (the embedding, one layer, the final norm; float32
+   nodes from a seed): each rank's output against the stacked kernels'
+   (``gossip_schedule`` / ``gossip_mix``) on the same four nodes within a
+   float32 rounding of each summed term (3xTF32 for ``gossip_mix``),
+   all-gather bitwise the pool, zero delays bitwise the fresh transports,
+   the identity wire bitwise no compression, and the all-gather's peak
+   within n gathered rows of the largest leaf, the outputs and four
+   leaf-sized temporaries (+10%). Then the arms, a few steps each
+   (``RANKS["steps"]``): (a) ``online_w`` on a ``ScheduleArrays``
+   (all-gather), its per-node losses of steps 1-3 within 1e-2 of phase
+   12's stacked run from the same initial parameters (checked by a
+   float64 checksum) and batches, its step's peak within its gradient
+   pass's plus n gathered rows of the largest leaf (+10%), then its
+   parameters of the distinct widths checkpointed (rank 0 writes the
+   stacked layout, node axis first; its peak within n rows of the largest
+   bfloat16 leaf, another rank's within one, +10%); (b) the staged
+   pool with an in-pool ``PoolSwap`` and then a restage from the hook (one
+   rebuild); (c) the pool with the bf16 wire and bounded delay (tau_max 1,
+   delays from ``straggler_pool_stream``); (d) a static schedule
+   (``mix_ppermute``) captured (``rollout="scan"``) bitwise its loop, and
+   the complete graph (``pmean``). Arm (a)'s ranks draw phase 12's
+   batches (their token sums checked). Every arm's loss on its
+   first batch falls. Printed: ms/step, the bytes a rank received a step
+   beside ``mix_bytes_per_step``'s model (the reference's float32
+   accounting: a bfloat16 leaf moves as bfloat16), each rank's peak memory, the
+   backend, the time to spawn and initialise the ranks; the yardstick's
+   kernel launches (in the ranks) count as the phase's;
+14. prints one JSON line per kernel set, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Every ``#`` result line ends with the card's name and power limit.
@@ -209,6 +246,9 @@ from repro_torch.core.mixing import (  # noqa: E402
     _bucket_key,
     arrays_to_matrix,
     autotune_transport,
+    mix_dense,
+    mix_schedule_arrays,
+    mix_stacked,
     preferred_transport,
     ravel_stack,
     schedule_from_result,
@@ -2664,8 +2704,8 @@ def phase_long_context(device: torch.device) -> dict:
 # Phase 12: LM D-SGD training on one card
 # ---------------------------------------------------------------------------
 
-TRAIN = {"name": "qwen3-0.6b", "nodes": 4, "batch": 2, "seq": 1024, "lr": 1e-3, "steps": 24,
-         "segment": 8, "budget": 2}
+TRAIN = {"name": "qwen3-0.6b", "nodes": 4, "batch": 2, "seq": 1024, "lr": 1e-3, "steps": 12,
+         "segment": 4, "budget": 2}
 GOSSIP = ("gossip_schedule", "gossip_mix")
 
 
@@ -2673,20 +2713,26 @@ def card_batches(corpus: DomainSkewCorpus, Pi: np.ndarray, steps: int, batch: in
                  device: torch.device, seed: int = 0) -> dict:
     """Each step's per-node batches drawn on the card from the corpus's
     domain distributions: a domain per sequence from the node's row of
-    ``Pi`` (numpy), its tokens i.i.d. from that domain's unigram
-    (``torch.multinomial``), as ``TokenBatcher`` draws them on the host
-    with a counter-based generator of its own; labels next-token shifted."""
+    ``Pi`` (numpy), its tokens i.i.d. from that domain's unigram, as
+    ``TokenBatcher`` draws them on the host with a counter-based generator
+    of its own; labels next-token shifted. A token is the first entry of
+    the domain's float64 CDF (summed on the host) above a uniform draw of
+    ``gen``: the same tokens in every process (``torch.multinomial`` sums
+    its CDF on the card in an order that varies from run to run, and then
+    draws other tokens)."""
     rng = np.random.default_rng(seed)
-    probs = torch.as_tensor(np.stack([corpus.domain_probs(k) for k in range(corpus.n_domains)]),
-                            dtype=torch.float32, device=device)
+    cdf = torch.as_tensor(np.cumsum(np.stack([corpus.domain_probs(k)
+                                              for k in range(corpus.n_domains)]), axis=1),
+                          dtype=torch.float64, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     n = Pi.shape[0]
     toks = torch.empty((steps, n, batch, seq + 1), dtype=torch.int64, device=device)
     for t in range(steps):
         for i in range(n):
             for b, dom in enumerate(rng.choice(corpus.n_domains, size=batch, p=Pi[i])):
-                toks[t, i, b] = torch.multinomial(probs[dom], seq + 1, replacement=True,
-                                                  generator=gen)
+                u = torch.rand((seq + 1,), generator=gen, dtype=torch.float64, device=device)
+                toks[t, i, b] = torch.searchsorted(cdf[dom], u * cdf[dom, -1], right=True
+                                                   ).clamp_(max=cdf.shape[1] - 1)
     return {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
 
 
@@ -2864,6 +2910,8 @@ def phase_lm_training(device: torch.device) -> dict:
     swap = ScheduleArrays(gammas=torch.full((L,), 1.0 / L, device=device),
                           perms=torch.stack([torch.roll(torch.arange(n, device=device), j)
                                              for j in range(L)]).to(torch.int32))
+    yard = rank_yardstick(setup_c, params0, batches, arrays, max(RANKS["steps"].values()))
+    note(f"# {label} phase 13's yardstick " + json.dumps(yard))
     c = train_arm("(c)", setup_c, params0, None, batches, mix=arrays, swap=swap)
     record("c_online_arrays_swap", c)
     check(c["row"]["captures"] == 1, f"{label} (c): the swap added a capture")
@@ -2894,6 +2942,534 @@ def phase_lm_training(device: torch.device) -> dict:
         "ms_per_step": {k: r["ms_per_step"] for k, r in rows.items()},
         "tokens_per_s": {k: r["tokens_per_s"] for k, r in rows.items()},
         "mix_check": errs, "launches": launches}))
+    return launches, yard
+
+
+def rank_yardstick(setup, params0: dict, batches: dict, arrays, steps: int) -> dict:
+    """Phase 13's yardstick: phase 12's online ``ScheduleArrays`` arm on
+    the stacked nodes, eagerly, its first ``steps`` steps: every node's
+    loss (``grad_fn``) and the step's mean, and a float64 checksum of the
+    initial parameters and each node's token sum over those steps (phase
+    13's ranks draw the same)."""
+    per_node, mean, p = [], [], params0
+    for t in range(steps):
+        batch = {k: v[t] for k, v in batches.items()}
+        per_node.append(setup.grad_fn(p, batch)[0].tolist())
+        p, _, loss = setup.train_step(p, None, batch, arrays)
+        mean.append(float(loss))
+    del p
+    free_card()
+    return {"per_node": per_node, "mean": mean,
+            "init_checksum": float(sum(v[0].double().sum() for v in params0.values())),
+            "token_sums": [int(batches["tokens"][:steps, i].sum())
+                           for i in range(batches["tokens"].shape[1])]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: D-SGD over ranks, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+RANKS = {"nodes": 4, "seed": 0, "timeout_s": 600,
+         # steps an arm takes (each moves the whole model over the socket)
+         "steps": {"a": 3, "b": 3, "c": 2, "d_schedule": 2, "d_pmean": 1}}
+# NCCL refuses two ranks on one device ("duplicate GPU"); a host id of its
+# own per rank makes it take the ranks for separate hosts and move bytes
+# over its socket transport (loopback), so the collectives below are real
+# NCCL collectives on CUDA tensors of the one card. Only the rank processes
+# this phase spawns get this environment; the library sets none of it.
+RANK_NCCL_ENV = {"NCCL_SOCKET_IFNAME": "lo"}
+# the four ranks' allocators share the card: each is held to a quarter
+# (less the contexts), and segments expand, so cached blocks are
+# reused rather than one rank's cache starving another's allocation
+RANK_MEMORY_FRACTION = 0.235
+
+
+def rank_env(rank: int) -> dict:
+    return {"NCCL_HOSTID": f"chip-smoke-rank-{rank}",
+            "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True", **RANK_NCCL_ENV}
+
+
+def _check_tree() -> dict:
+    """The distinct leaf widths of qwen3-0.6b: the embedding (the largest
+    leaf), one layer's leaves (every layer has the same) and the final
+    norm; shapes from the meta model."""
+    meta = transformer.LM(get_config(TRAIN["name"]), "meta")
+    return {k: tuple(p.shape) for k, p in meta.named_parameters()
+            if k.startswith(("embed.", "layers.0.", "final_norm."))}
+
+
+def _node_leaf(shape: tuple, node: int, leaf: int, device) -> torch.Tensor:
+    """Node ``node``'s float32 value of leaf ``leaf``: N(0, 1) from a seed
+    of both, so every rank can draw any node's leaf."""
+    gen = torch.Generator(device=device).manual_seed(1000 * leaf + node + 1)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+CHECK_CHUNK = 1 << 24  # columns of a leaf the stacked yardstick mixes at once
+
+
+def _f32_excess(out: torch.Tensor, want: torch.Tensor, mag: torch.Tensor, terms: int,
+                rel: float = 2.0 ** -24) -> float:
+    """max |out - want| / (terms x rel x mag + 1e-30): at most 1 is within
+    one float32 rounding of each summed term (``mag`` the sum of the terms'
+    magnitudes)."""
+    return float(((out - want).abs() / (terms * rel * mag + 1e-30)).max())
+
+
+def rank_transport_checks(rank: int, n: int, group, device, sched, W) -> dict:
+    """Phase 13's transports on the distinct leaf widths of qwen3-0.6b,
+    float32 nodes drawn from a seed: each rank's output against the stacked
+    kernels' on the same four nodes (``mix_schedule_arrays`` /
+    ``mix_stacked``: ``gossip_schedule``; ``mix_dense``: ``gossip_mix``),
+    leaf by leaf in chunks of columns; one transport's output held at a
+    time (and the two the bitwise claims compare)."""
+    from repro_torch.core import compression as C
+    from repro_torch.core import mixing as M
+
+    shapes = _check_tree()
+    names = sorted(shapes)
+    own = {k: _node_leaf(shapes[k], rank, i, device) for i, k in enumerate(names)}
+    pool = M.PermPool.from_schedule(sched)
+    gammas_np, _ = pool.project(sched)
+    gammas = torch.as_tensor(gammas_np, device=device)
+    arrays = pool.arrays_for(gammas_np, device=device)
+    abs_arrays = ScheduleArrays(arrays.gammas.abs(), arrays.perms)
+    s_arrays = schedule_to_arrays(sched, device=device)
+    abs_sched = ScheduleArrays(s_arrays.gammas.abs(), s_arrays.perms)
+    Wt = torch.as_tensor(W, dtype=torch.float32, device=device)
+    complete = torch.full((n, n), 1.0 / n, device=device)
+    zeros = torch.zeros((n,), dtype=torch.int32, device=device)
+    L = arrays.l_max
+    max_leaf = max(int(np.prod(s)) for s in shapes.values())
+    p_tree = sum(int(np.prod(s)) for s in shapes.values())
+    out: dict = {"leaves": len(names), "p_tree": p_tree, "max_leaf": max_leaf, "seconds": {},
+                 "bytes": {}, "peak_increment": {}, "excess": {}}
+
+    def run(label, fn):
+        M.reset_collective_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tic = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][label] = time.perf_counter() - tic
+        out["bytes"][label] = dict(M.collective_bytes)
+        out["peak_increment"][label] = torch.cuda.max_memory_allocated() - base
+        return res
+
+    def held(label, res, yard, terms: int, rel: float = 2.0 ** -24) -> None:
+        """``res`` against ``yard(stack) -> (this rank's row, its terms'
+        magnitudes)`` on the four nodes, chunk by chunk."""
+        worst = 0.0
+        for i, k in enumerate(names):
+            nodes = [_node_leaf(shapes[k], j, i, device).reshape(-1) for j in range(n)]
+            got = res[k].reshape(-1)
+            for c0 in range(0, got.numel(), CHECK_CHUNK):
+                want, mag = yard(torch.stack([x[c0:c0 + CHECK_CHUNK] for x in nodes]))
+                worst = max(worst, _f32_excess(got[c0:c0 + CHECK_CHUNK], want, mag, terms, rel))
+            del nodes
+        out["excess"][label] = worst
+
+    def schedule_yard(stack):
+        return (mix_schedule_arrays(stack, arrays)[rank],
+                mix_schedule_arrays(stack.abs(), abs_arrays)[rank])
+
+    def dense_yard(W_):  # gossip_mix multiplies as 3xTF32: ~1e-6 of f32
+        return lambda stack: (mix_dense(stack, W_)[rank], mix_dense(stack.abs(), W_.abs())[rank])
+
+    def ef_yard(stack):  # zero memory: x + sum_j W_ij c_j - c_i, c = bf16(x)
+        c = stack.to(torch.bfloat16).float()
+        return (stack[rank] + mix_schedule_arrays(c, arrays)[rank] - c[rank],
+                stack[rank].abs() + mix_schedule_arrays(c.abs(), abs_arrays)[rank]
+                + c[rank].abs())
+
+    ag = run("allgather_arrays", lambda: M.mix_arrays_sharded(own, arrays, group))
+    held("allgather_arrays", ag, schedule_yard, L + 1)
+    pl = run("pool", lambda: M.mix_ppermute_pool(own, gammas, pool, group))
+    held("pool", pl, schedule_yard, L + 1)
+    bit = lambda a, b: all(torch.equal(a[k], b[k]) for k in names)
+    out["bitwise"] = {"allgather_is_pool": bit(ag, pl)}
+    res = run("allgather_stale0", lambda: M.mix_arrays_sharded_stale(
+        own, M.shard_stale_init(own, 2), arrays, zeros, group)[0])
+    out["bitwise"]["allgather_stale0_is_fresh"] = bit(res, ag)
+    res = run("pool_stale0", lambda: M.mix_ppermute_pool_stale(
+        own, M.shard_stale_init(own, 2), gammas, pool, zeros, group)[0])
+    out["bitwise"]["pool_stale0_is_fresh"] = bit(res, pl)
+    res = run("ef_identity", lambda: C.mix_arrays_sharded_ef(own, C.ef_init(own), arrays,
+                                                             group, "identity")[0])
+    out["bitwise"]["identity_wire_is_plain"] = bit(res, ag)
+    del ag, pl, res
+    res = run("allgather_dense", lambda: M.mix_dense_sharded(own, Wt, group))
+    held("allgather_dense", res, dense_yard(Wt), n + 1, 2.0 ** -20)
+    res = run("allreduce", lambda: M.mix_allreduce(own, group))
+    held("allreduce", res, dense_yard(complete), n + 1, 2.0 ** -20)
+    res = run("ppermute", lambda: M.mix_ppermute(own, sched, group))
+    held("ppermute", res, lambda stack: (
+        mix_stacked(stack, schedule=sched, transport="schedule")[rank],
+        mix_schedule_arrays(stack.abs(), abs_sched)[rank]), s_arrays.l_max + 1)
+    res = run("ef_bf16_pool", lambda: C.mix_ppermute_pool_ef(own, C.ef_init(own), gammas,
+                                                             pool, group, "bf16")[0])
+    held("ef_bf16_pool", res, ef_yard, L + 3)
+    del res, own
+    return out
+
+
+def rank_checkpoint(rank: int, n: int, setup, params: dict, arrays, t: int) -> dict:
+    """Arm (a)'s parameters of the distinct leaf widths (``_check_tree``)
+    checkpointed as ``run_segments`` does (``TrainSetup._save``): rank 0
+    writes the stacked layout, each leaf
+    gathered to it alone when the writer reaches it. Returns the seconds,
+    this rank's peak over what it held before, and on rank 0 the written
+    embedding's shape and the archive's bytes."""
+    from repro_torch.train.checkpoints import latest_step
+
+    with tempfile.TemporaryDirectory(prefix="rank_ckpt_") as ck:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tic = time.perf_counter()
+        setup._save(ck, t, params, None, arrays)
+        torch.cuda.synchronize()
+        out = {"seconds": time.perf_counter() - tic,
+               "peak_increment": torch.cuda.max_memory_allocated() - base}
+        if rank == 0:
+            step = Path(ck) / f"step_{latest_step(ck):08d}"
+            manifest = json.loads((step / "manifest.json").read_text())
+            out["embed_shape"] = manifest["shapes"][manifest["keys"].index(
+                "['params']['embed.table']")]
+            out["archive_bytes"] = (step / "arrays.npz").stat().st_size
+    return out
+
+
+def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -> dict:
+    """Phase 13 on one rank (a spawned process; see ``phase_lm_ranks``):
+    NCCL on the card (gloo where a rehearsal passes the CPU)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mixing as M
+
+    t0 = time.perf_counter()
+    kw = {}
+    if device.type == "cuda":
+        device = torch.device("cuda:0")
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_per_process_memory_fraction(RANK_MEMORY_FRACTION, device)
+        kw["device_id"] = device
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init,
+                            rank=rank, world_size=n, timeout=datetime.timedelta(seconds=300),
+                            **kw)
+    group = dist.group.WORLD
+    dist.barrier(group=group)
+    out: dict = {"init_s": time.perf_counter() - t0, "backend": M.group_backend(group)}
+    reset_launch_counts()
+    cfg = get_config(TRAIN["name"])
+    b, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    Pi = np.eye(n)
+    sched = schedule_from_result(learn_topology(Pi, budget=TRAIN["budget"]))
+    W = sched.to_matrix()
+    tic = time.perf_counter()
+    out["transports"] = rank_transport_checks(rank, n, group, device, sched, W)
+    out["transports"]["phase_s"] = time.perf_counter() - tic
+    free_card()
+    steps = RANKS["steps"]
+    corpus = DomainSkewCorpus(cfg.vocab_size, n_domains=n, seed=0)
+    batches = card_batches(corpus, Pi, max(steps.values()), b, S, device)
+    mine = {k: v[:, rank].contiguous() for k, v in batches.items()}
+    out["token_sum"] = int(mine["tokens"].sum())
+    del batches
+    arrays = schedule_to_arrays(sched, device=device)
+    pool = M.PermPool.from_schedule(sched, capacity=sched.n_atoms + 1)
+    g0, _ = pool.project(sched)
+    # four ranks share the card: each recomputes its layers' activations in
+    # the backward pass (remat); the socket, not the compute, sets a step
+    common = dict(group=group, lr=lr, device=device, remat=True)
+    arms: dict = {}
+
+    def timed_steps(label, fn, k):
+        M.reset_collective_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - tic
+        arms[label] = {"steps": k, "ms_per_step": 1e3 * seconds / k,
+                       "bytes_per_step": {kk: v / k for kk, v in M.collective_bytes.items()},
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        return res
+
+    def falls(label, setup, params, loss0: float) -> None:
+        """The node's loss on its first batch, after the arm, against before."""
+        after = float(setup.grad_fn(params, {kk: v[0] for kk, v in mine.items()})[0])
+        arms[label].update({"first_batch_loss_before": loss0, "first_batch_loss_after": after})
+
+    # (a) online_w, a ScheduleArrays on the all-gather transport, loop
+    setup = make_train_setup(cfg, online_w=True, **common)
+    params0 = setup.init_params(RANKS["seed"])
+    out["init_checksum"] = float(sum(v.double().sum() for v in params0.values()))
+    own, means = [], []
+    torch.cuda.reset_peak_memory_stats()
+    grad_base = torch.cuda.memory_allocated()
+    l0, g = setup.grad_fn(params0, {k: v[0] for k, v in mine.items()})
+    peak_grad = torch.cuda.max_memory_allocated()
+    del g
+    # the same gradient pass keeping its activations, in 2 microbatches
+    # (what the ranks would run without remat; not used below)
+    kept = make_train_setup(cfg, online_w=True, grad_accum=2, group=group, lr=lr,
+                            device=device)
+    torch.cuda.reset_peak_memory_stats()
+    l_kept, g = kept.grad_fn(params0, {k: v[0] for k, v in mine.items()})
+    peak_kept = torch.cuda.max_memory_allocated()
+    del g, kept
+    free_card()
+    p = params0
+    for t in range(steps["a"]):
+        if t:
+            own.append(float(setup.grad_fn(p, {k: v[t] for k, v in mine.items()})[0]))
+        else:
+            own.append(float(l0))
+        M.reset_collective_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        p, _, loss = setup.train_step(p, None, {k: v[t] for k, v in mine.items()}, arrays)
+        means.append(float(loss))
+        torch.cuda.synchronize()
+        if t == 0:
+            arms["a_allgather_arrays"] = {
+                "steps": steps["a"], "ms_first_step": 1e3 * (time.perf_counter() - tic),
+                "bytes_per_step": dict(M.collective_bytes),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "peak_grad_gb": peak_grad / 1e9, "grad_base_gb": grad_base / 1e9,
+                "peak_grad_no_remat_accum2_gb": peak_kept / 1e9,
+                "no_remat_accum2_loss_diff": abs(float(l_kept) - float(l0))}
+    arms["a_allgather_arrays"].update({"own_losses": own, "mean_losses": means})
+    falls("a_allgather_arrays", setup, p, own[0])
+    out["checkpoint"] = rank_checkpoint(rank, n, setup, {k: p[k] for k in _check_tree()},
+                                        arrays, steps["a"])
+    comm = {"a": setup.comm_bytes_per_step}
+    del p, setup
+    free_card()
+    # (b) the staged pool: an in-pool swap, then a restage, from the hook
+    setup = make_train_setup(cfg, online_w=True, sharded_transport="pool", pool=pool, **common)
+    ident = pool.perms.index(tuple(range(n)), len(pool.perms) - 1)  # the headroom slot
+    swapped = 0.5 * np.asarray(g0, np.float32)
+    swapped[ident] += 0.5  # half the weight moves to the node itself: another W
+    shifted = [tuple(int((q + j) % n) for q in range(n)) for j in range(1, 3)]
+    new_pool = M.PermPool(perms=tuple(shifted) + (tuple(range(n)),))
+    hook = {0: M.PoolSwap(gammas=swapped),
+            1: M.PoolSwap(gammas=np.full(3, 1.0 / 3, np.float32), pool=new_pool)}
+    res = timed_steps("b_pool_swap_restage", lambda: setup.run_segments(
+        params0, None, {k: v[:steps["b"]] for k, v in mine.items()}, g0, segment_len=1,
+        rollout="loop", on_segment=hook.get), steps["b"])
+    arms["b_pool_swap_restage"].update({"losses": res["losses"].tolist(),
+                                        "swaps": res["swaps"], "recompiles": res["recompiles"],
+                                        "transport": res["setup"].sharded_transport})
+    falls("b_pool_swap_restage", setup, res["params"], own[0])
+    comm["b"] = setup.comm_bytes_per_step
+    comm["b_restaged"] = res["setup"].comm_bytes_per_step
+    del res, setup
+    free_card()
+    # (c) the pool with the bf16 wire and bounded delay (tau_max 1): the
+    # raw delays resolved by straggler_pool_stream, one multi-step call
+    # (a rank holds one copy of its EF memory and ring beside the step's)
+    policy = M.StragglerPolicy("wait", 1)
+    setup = make_train_setup(cfg, online_w=True, sharded_transport="pool", pool=pool,
+                             compression="bf16", staleness=policy, **common)
+    raw = np.random.default_rng(13).integers(0, 3, size=(steps["c"], n))
+    g_stack, eff = M.straggler_pool_stream(policy, g0, pool, raw)
+    p, opt, losses = timed_steps("c_pool_bf16_stale", lambda: setup.multi_step_fn("loop")(
+        params0, setup.init_opt_state(params0), {k: v[:steps["c"]] for k, v in mine.items()},
+        g_stack, eff), steps["c"])
+    arms["c_pool_bf16_stale"].update({"losses": losses.tolist(), "delays": raw.tolist(),
+                                      "effective_delays": eff.tolist(),
+                                      "ring_dtype": str(opt["stale"]["buf"][
+                                          next(iter(opt["stale"]["buf"]))].dtype)})
+    del opt
+    falls("c_pool_bf16_stale", setup, p, own[0])
+    comm["c"] = setup.comm_bytes_per_step
+    del p, setup
+    free_card()
+    # (d) a static schedule (mix_ppermute), the captured rollout against the
+    # loop; then the complete graph (pmean)
+    setup = make_train_setup(cfg, schedule=sched, **common)
+    k = steps["d_schedule"]
+    seg = {kk: v[:k] for kk, v in mine.items()}
+
+    def segments(rollout):
+        multi = setup.multi_step_fn(rollout)
+        q, ls = params0, []
+        for t in range(k):
+            q, _, lo = multi(q, None, {kk: v[t:t + 1] for kk, v in seg.items()})
+            ls.append(lo)
+        return q, torch.cat(ls), multi.n_traces
+
+    # gloo cannot capture: a CPU rehearsal runs both as the loop
+    pc, lc, traces = timed_steps("d_schedule_scan", lambda: segments(
+        "scan" if device.type == "cuda" else "loop"), k)
+    pl, ll, _ = timed_steps("d_schedule_loop", lambda: segments("loop"), k)
+    arms["d_schedule_scan"].update({"losses": lc.tolist(), "captures": traces})
+    arms["d_schedule_loop"]["losses"] = ll.tolist()
+    out["captured_is_loop"] = bool(torch.equal(lc, ll)) and all(
+        torch.equal(pc[kk], pl[kk]) for kk in pc)
+    falls("d_schedule_loop", setup, pl, own[0])
+    comm["d_schedule"] = setup.comm_bytes_per_step
+    del pc, pl, setup
+    free_card()
+    setup = make_train_setup(cfg, **common)
+    first = {kk: v[:steps["d_pmean"]] for kk, v in mine.items()}
+    p, _, losses = timed_steps("d_pmean", lambda: setup.multi_step_fn("loop")(
+        params0, None, first), steps["d_pmean"])
+    arms["d_pmean"]["losses"] = losses.tolist()
+    falls("d_pmean", setup, p, own[0])
+    comm["d_pmean"] = setup.comm_bytes_per_step
+    del p, setup
+    free_card()
+    out.update({"arms": arms, "comm_model": comm, "launches": launch_counts(),
+                "seconds": time.perf_counter() - t0,
+                "max_leaf": max(v.numel() for v in params0.values()),
+                "params": sum(v.numel() for v in params0.values())})
+    dist.barrier(group=group)
+    dist.destroy_process_group()
+    return out
+
+
+def _rank_worker(rank: int, n: int, init: str, yard: dict, device: torch.device,
+                 queue) -> None:
+    """A phase-13 rank process: its NCCL environment, then ``rank_phase``;
+    what it returns (or its traceback) goes back on ``queue``."""
+    import traceback
+
+    os.environ.update(rank_env(rank))
+    try:
+        queue.put((rank, rank_phase(rank, n, init, yard, device), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
+    """Phase 13 (module docstring): D-SGD over four NCCL ranks on the card."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    t_phase = time.perf_counter()
+    label = "13 qwen3-0.6b ranks"
+    n = RANKS["nodes"]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    results, errors = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/rendezvous"
+        procs = [ctx.Process(target=_rank_worker, args=(r, n, init, yard, device, q))
+                 for r in range(n)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + RANKS["timeout_s"]
+        try:
+            while len(results) + len(errors) < n and time.monotonic() < deadline:
+                try:
+                    rank, res, err = q.get(timeout=5)
+                except queue_mod.Empty:
+                    if not any(proc.is_alive() for proc in procs):
+                        break
+                    continue
+                (errors if err else results)[rank] = err or res
+        finally:
+            for proc in procs:
+                proc.join(timeout=30)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(timeout=10)
+    check(not errors, f"{label}: ranks failed:\n" + "\n".join(
+        f"rank {r}: {e[-3000:]}" for r, e in sorted(errors.items())))
+    check(len(results) == n, f"{label}: {n - len(results)} ranks hung or died "
+          f"(exit codes {[proc.exitcode for proc in procs]})")
+    wall = time.perf_counter() - t_phase
+    rows = [results[r] for r in range(n)]
+    n_params, max_leaf = rows[0]["params"], rows[0]["max_leaf"]
+    # transports against the stacked kernels, and the port's bitwise claims
+    for r, row in enumerate(rows):
+        tr = row["transports"]
+        check(all(tr["bitwise"].values()), f"{label} rank {r}: bitwise {tr['bitwise']}")
+        check(max(tr["excess"].values()) <= 1.0, f"{label} rank {r}: transports {tr['excess']}")
+        # one leaf's (n, P_leaf) gather live at a time: n gathered rows of the
+        # largest leaf, the outputs and four leaf-sized temporaries, float32
+        bound = 1.1 * 4 * ((n + 4) * tr["max_leaf"] + tr["p_tree"])
+        check(tr["peak_increment"]["allgather_arrays"] <= bound,
+              f"{label} rank {r}: the all-gather mix's peak "
+              f"{tr['peak_increment']['allgather_arrays']} B over {bound:.0f} B")
+        want = "nccl" if device.type == "cuda" else "gloo"
+        check(row["backend"] == want, f"{label} rank {r}: backend {row['backend']}")
+        check(abs(row["init_checksum"] - yard["init_checksum"]) == 0.0,
+              f"{label} rank {r}: the initial parameters are not phase 12's")
+        check(row["token_sum"] == yard["token_sums"][r],
+              f"{label} rank {r}: the batches are not phase 12's")
+    note(f"# {label} transports (rank 0; distinct leaf widths, float32) " + json.dumps(
+        rows[0]["transports"]))
+    a = [row["arms"]["a_allgather_arrays"] for row in rows]
+    # (a) against phase 12's stacked run: per-node and mean losses, steps 1-3
+    for r, arm in enumerate(a):
+        for t, loss in enumerate(arm["own_losses"]):
+            check(abs(loss - yard["per_node"][t][r]) <= 1e-2,
+                  f"{label} (a) rank {r} step {t + 1}: {loss} against phase 12's "
+                  f"{yard['per_node'][t][r]}")
+        # the step's peak against its gradient pass's, plus n gathered leaves
+        bound = 1.1 * (arm["peak_grad_gb"] * 1e9 + 4 * n * max_leaf)
+        check(arm["peak_gb"] * 1e9 <= bound, f"{label} (a) rank {r}: step peak "
+              f"{arm['peak_gb']:.2f} GB over {bound / 1e9:.2f} GB")
+        # the checkpoint: one bfloat16 leaf's (n, P_leaf) gather on rank 0
+        # at a time, nothing gathered elsewhere (the largest leaf's bytes)
+        ck = rows[r]["checkpoint"]
+        bound = 1.1 * 2 * max_leaf * (n if r == 0 else 1)
+        check(ck["peak_increment"] <= bound, f"{label} rank {r}: the checkpoint's peak "
+              f"{ck['peak_increment']} B over {bound:.0f} B")
+    cfg = get_config(TRAIN["name"])
+    check(rows[0]["checkpoint"]["embed_shape"] == [n, cfg.vocab_size, cfg.d_model],
+          f"{label}: checkpoint layout {rows[0]['checkpoint']}")
+    check(rows[0]["checkpoint"]["archive_bytes"] >= 2 * n * rows[0]["transports"]["p_tree"],
+          f"{label}: the checkpoint holds {rows[0]['checkpoint']['archive_bytes']} B")
+    check(all(row["captured_is_loop"] for row in rows),
+          f"{label}: the captured static schedule != loop")
+    check(all(row["arms"]["d_schedule_scan"]["captures"] >= 1 for row in rows),
+          f"{label}: the static schedule's rollout captured nothing")
+    for row in rows:
+        b = row["arms"]["b_pool_swap_restage"]
+        check(b["swaps"] == [0, 1] and b["recompiles"] == 1, f"{label} (b): {b}")
+        for arm_name, arm in row["arms"].items():
+            if "first_batch_loss_after" in arm:
+                check(arm["first_batch_loss_after"] < arm["first_batch_loss_before"],
+                      f"{label} {arm_name}: the loss did not fall: {arm}")
+    launches = {k: sum(row["launches"][k] for row in rows) for k in GOSSIP}
+    check(all(v > 0 for v in launches.values()), f"{label}: yardstick launches {launches}")
+    summary = {
+        "seconds": time.perf_counter() - t_phase, "ranks_wall_s": wall,
+        "init_s": [row["init_s"] for row in rows], "rank_seconds": [row["seconds"] for row in rows],
+        "backend": rows[0]["backend"], "nccl_env": {**rank_env(0), "NCCL_HOSTID": "per rank"},
+        "params_per_node": n_params,
+        "ms_per_step": {k: v.get("ms_per_step", v.get("ms_first_step"))
+                        for k, v in rows[0]["arms"].items()},
+        "bytes_per_step": {k: v["bytes_per_step"] for k, v in rows[0]["arms"].items()},
+        "bytes_model": rows[0]["comm_model"],
+        "peak_gb": [{k: v["peak_gb"] for k, v in row["arms"].items()} for row in rows],
+        "a_peak_grad_gb": [row["arms"]["a_allgather_arrays"]["peak_grad_gb"] for row in rows],
+        "a_peak_grad_no_remat_accum2_gb": [
+            row["arms"]["a_allgather_arrays"]["peak_grad_no_remat_accum2_gb"] for row in rows],
+        "a_no_remat_accum2_loss_diff": [
+            row["arms"]["a_allgather_arrays"]["no_remat_accum2_loss_diff"] for row in rows],
+        "checkpoint": [row["checkpoint"] for row in rows],
+        "losses": {k: v.get("losses", v.get("mean_losses")) for k, v in rows[0]["arms"].items()},
+        "phase12_mean_losses": yard["mean"],
+        "a_own_losses": [row["arms"]["a_allgather_arrays"]["own_losses"] for row in rows],
+        "phase12_per_node_losses": yard["per_node"], "launches": launches,
+        "note": "ranks share one card; NCCL moves bytes over its socket transport (loopback): "
+                "not a multi-card rate"}
+    note(f"# {label} " + json.dumps(summary))
     return launches
 
 
@@ -2958,8 +3534,12 @@ def main(argv: list[str] | None = None) -> int:
     launches["flash_attention"] += last["flash_attention"]
     long = phase_long_context(torch.device("cuda"))
     launches["flash_attention"] += long["flash_attention"]
-    train = phase_lm_training(torch.device("cuda"))
+    train, yard = phase_lm_training(torch.device("cuda"))
     for k, v in train.items():
+        launches[k] += v
+    free_card()
+    ranks = phase_lm_ranks(yard, torch.device("cuda"))
+    for k, v in ranks.items():
         launches[k] += v
 
     kernels = []
@@ -2988,6 +3568,8 @@ def main(argv: list[str] | None = None) -> int:
             kernels[-1]["launches_phase11"] = long[name]
         if name in train:
             kernels[-1]["launches_phase12"] = train[name]
+        if name in ranks:
+            kernels[-1]["launches_phase13"] = ranks[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,11 @@ index; both functions take it where the config's ``arch_type`` is
 ``"audio"``. bfloat16 leaves travel as their bits, so a round trip is
 bitwise.
 
+``lm_node_from_numpy`` gives one rank of the LM trainer's one-node-per-rank
+layout its row of the reference's node-stacked pytree: the parameters,
+the EF memory (the same tree in float32) or, with ``lead=1``, the stale
+ring (``(n, depth, ...)`` leaves, the ring's depth after the node axis).
+
 ``lm_stacked_from_numpy`` / ``lm_stacked_to_numpy`` carry the LM
 trainer's parameters: the reference's ``make_train_setup(...).init_params``
 pytree has a leading node axis on every leaf, before the ``stages``
@@ -47,6 +52,7 @@ __all__ = [
     "module_params_from_numpy",
     "lm_stacked_from_numpy",
     "lm_stacked_to_numpy",
+    "lm_node_from_numpy",
 ]
 
 
@@ -158,9 +164,10 @@ def module_params_from_numpy(module: torch.nn.Module, tree: dict) -> torch.nn.Mo
     return _load_flat(module, flat)
 
 
-def _lm_flat(tree: dict, cfg, node_axis: bool) -> dict[str, np.ndarray]:
+def _lm_flat(tree: dict, cfg, node_axis: bool, lead: int = 0) -> dict[str, np.ndarray]:
     """The reference's LM pytree (leaves with a leading node axis when
-    ``node_axis``) as a flat dict named as ``LM.named_parameters()``."""
+    ``node_axis``, then ``lead`` more axes) as a flat dict named as
+    ``LM.named_parameters()``."""
     flat: dict[str, np.ndarray] = {}
     if cfg.arch_type == "audio":
         _flatten("", tree, flat)
@@ -174,7 +181,8 @@ def _lm_flat(tree: dict, cfg, node_axis: bool) -> dict[str, np.ndarray]:
         for g in range(reps):
             for name, leaf in stage.items():
                 leaf = np.asarray(leaf)
-                flat[f"layers.{g * plen + j}.{name}"] = leaf[:, g] if node_axis else leaf[g]
+                flat[f"layers.{g * plen + j}.{name}"] = np.take(leaf, g,
+                                                                axis=int(node_axis) + lead)
     for t, layer in enumerate(tree["tail"]):
         _flatten(f"layers.{reps * plen + t}", layer, flat)
     return flat
@@ -218,6 +226,19 @@ def lm_stacked_from_numpy(tree: dict, cfg, *, node_axis: bool = True,
             raise ValueError(f"{name}: got {tuple(t.shape)}, the model holds {shapes[name]}")
         out[name] = t.to(device)
     return out
+
+
+def lm_node_from_numpy(tree: dict, cfg, i: int, *, lead: int = 0,
+                       device: torch.device | str | None = None) -> dict[str, torch.Tensor]:
+    """Rank ``i``'s row of the reference's node-stacked LM pytree (numpy
+    leaves with the node axis first, then ``lead`` axes before the layer
+    group axis): a dict ``LM.named_parameters()`` name -> tensor on
+    ``device`` (None = CUDA), dtypes kept (bfloat16 by its bits). The
+    parameters and the EF memory take ``lead=0``; the stale ring's
+    ``(n, depth, ...)`` leaves take ``lead=1``."""
+    device = resolve_device(device)
+    flat = _lm_flat(tree, cfg, node_axis=True, lead=lead)
+    return {name: _tensor(np.asarray(leaf)[i]).to(device) for name, leaf in flat.items()}
 
 
 def lm_stacked_to_numpy(params: dict[str, torch.Tensor], cfg, *, node_axis: bool = True) -> dict:

@@ -29,8 +29,14 @@ descending order with ties to the lowest index, exactly
 ``topk_keep_count`` kept -- is a stable ``torch.sort`` per node row
 (``torch.topk`` promises no order among ties).
 
-The sharded EF twins of the reference (``compression.py:442-782``) come
-with the mesh trainer (ROADMAP queue 1, item 13).
+**One node per rank** (the reference's sharded twins,
+``compression.py:442-782``): :func:`mix_arrays_sharded_ef`,
+:func:`mix_dense_sharded_ef`, :func:`mix_ppermute_pool_ef` and their
+bounded-delay forms compress each rank's own payload once and move the
+compressed views through the collectives of ``core.mixing``. The bf16
+wire moves bfloat16 (its views are bf16 values, so the float32 they land
+as is the reference's, bit for bit), as does a bfloat16 ring; top-k and
+a float32 ring move float32.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from typing import Any, Callable
 import torch
 
 from .mixing import (
+    PermPool,
+    ShardStaleState,
     ScheduleArrays,
     StaleBuffer,
     WireCorruption,
@@ -54,6 +62,22 @@ from .mixing import (
     tree_map,
     _mix_arrays_flat_corrupt,
     _flatten,
+    _axpy_slots,
+    _check_nodes,
+    _check_pool_gammas,
+    _corrupt_own,
+    _gather_mix,
+    _pool_axpy,
+    _pool_contribs,
+    _sendable,
+    _stale_slot,
+    axis_index,
+    mix_arrays_sharded,
+    mix_arrays_sharded_stale,
+    mix_dense_sharded,
+    mix_ppermute_pool,
+    mix_ppermute_pool_stale,
+
 )
 
 PyTree = Any
@@ -69,6 +93,11 @@ __all__ = [
     "ef_init",
     "ef_mix_schedule_arrays",
     "ef_stale_mix_flat",
+    "mix_arrays_sharded_ef",
+    "mix_dense_sharded_ef",
+    "mix_ppermute_pool_ef",
+    "mix_arrays_sharded_stale_ef",
+    "mix_ppermute_pool_stale_ef",
 ]
 
 # a bare callable compressor: no byte model, applied to the operand verbatim
@@ -382,3 +411,207 @@ def ef_stale_mix_flat(
     )
     mixed = flat_half + acc - c if g == 1.0 else flat_half + g * (acc - c)
     return mixed, new_ef, buffer
+
+
+# ---------------------------------------------------------------------------
+# One node per rank: the EF twins of the sharded transports
+# ---------------------------------------------------------------------------
+#
+# Each rank compresses its OWN payload once, ``c_i = C(theta_i + e_i)``,
+# keeps ``e_i <- theta_i + e_i - c_i`` and moves ``c_i`` (the metered
+# wire); the combine is ``theta_i + gamma (sum_j W_ij c_j - c_i)`` in
+# float32, in the fresh transports' accumulation order, so pool and
+# all-gather agree bitwise under one wire. The identity wire routes to the
+# uncompressed transports and returns ``ef`` untouched (bitwise them).
+
+
+def _narrow(compressor: Compressor, corrupt) -> torch.dtype | None:
+    """The dtype the wire can move in: bfloat16 for the bf16 wire (its
+    views are bf16 values; a corrupted payload keeps its float32 bits)."""
+    return torch.bfloat16 if compressor.kind == "bf16" and corrupt is None else None
+
+
+def _on_wire(c: torch.Tensor, compressor: Compressor, corrupt, i: int) -> torch.Tensor:
+    """What this rank sends: its view, corrupted if it lies, else in the
+    wire's dtype."""
+    wire = c if corrupt is None else _corrupt_own(c, corrupt, i)
+    narrow = _narrow(compressor, corrupt)
+    return wire if narrow is None else wire.to(narrow)
+
+
+def _combine(x32: torch.Tensor, acc: torch.Tensor, c: torch.Tensor, step: float) -> torch.Tensor:
+    return x32 + acc - c if step == 1.0 else x32 + step * (acc - c)
+
+
+def _ef_compress(x: torch.Tensor, e: torch.Tensor, compressor: Compressor):
+    """``(x32, c, new_e)`` of one leaf: the float32 payload, its view, the
+    memory left."""
+    x32 = x.to(torch.float32)
+    to_send = x32 + e.to(torch.float32)
+    c = compressor(to_send)
+    return x32, c, to_send - c
+
+
+def _ef_leaf_map(params: PyTree, ef: PyTree, fn) -> tuple[PyTree, PyTree]:
+    """Leaf by leaf over ``(params, ef)`` with ``fn(x, e) -> (out, new_e)``
+    (one leaf's gather live at a time, as in ``core.mixing``)."""
+    x_leaves, rebuild = _flatten(params)
+    e_leaves = tree_leaves(ef)
+    if len(e_leaves) != len(x_leaves):
+        raise ValueError("ef memory must mirror the parameter pytree")
+    outs, new_es = zip(*(fn(x, e) for x, e in zip(x_leaves, e_leaves))) if x_leaves else ((), ())
+    return rebuild(list(outs)), rebuild(list(new_es))
+
+
+def mix_arrays_sharded_ef(params: PyTree, ef: PyTree, arrays: ScheduleArrays, group,
+                          compressor: Compressor, *,
+                          corrupt: "WireCorruption | None" = None) -> tuple[PyTree, PyTree]:
+    """EF-compressed ``mix_arrays_sharded``: the all-gather moves the
+    compressed views; bitwise :func:`mix_ppermute_pool_ef` on the same
+    schedule. Returns ``(mixed, new_ef)``."""
+    compressor = _require_wire(compressor)
+    if compressor.routes_to_plain:
+        return mix_arrays_sharded(params, arrays, group, corrupt=corrupt), ef
+    step = compressor.gamma
+    i = axis_index(group)
+    _check_nodes(arrays.n_nodes, group, "the schedule")
+    srcs = arrays.perms[:, i]
+
+    def leaf(x, e):
+        x32, c, new_e = _ef_compress(x, e, compressor)
+        acc = _gather_mix(c, _on_wire(c, compressor, corrupt, i), group,
+                          lambda g: _axpy_slots(g, arrays.gammas, srcs), corrupt)
+        return _combine(x32, acc, c, step).to(x.dtype), new_e.to(e.dtype)
+
+    return _ef_leaf_map(params, ef, leaf)
+
+
+def mix_dense_sharded_ef(params: PyTree, ef: PyTree, W, group, compressor: Compressor, *,
+                         corrupt: "WireCorruption | None" = None) -> tuple[PyTree, PyTree]:
+    """EF-compressed ``mix_dense_sharded``: ``theta_i + sum_j W_ij c_j -
+    c_i`` over the gathered views. Returns ``(mixed, new_ef)``."""
+    compressor = _require_wire(compressor)
+    if compressor.routes_to_plain:
+        return mix_dense_sharded(params, W, group, corrupt=corrupt), ef
+    step = compressor.gamma
+    i = axis_index(group)
+    Wt = W if isinstance(W, torch.Tensor) else torch.as_tensor(W, dtype=torch.float32)
+    _check_nodes(Wt.shape[0], group, "W")
+    row = Wt.to(device=tree_leaves(params)[0].device, dtype=torch.float32)[i]
+
+    def leaf(x, e):
+        x32, c, new_e = _ef_compress(x, e, compressor)
+        acc = _gather_mix(c, _on_wire(c, compressor, corrupt, i), group, lambda g: (
+            row @ g.reshape(g.shape[0], -1).to(torch.float32)).reshape(x.shape), corrupt)
+        return _combine(x32, acc, c, step).to(x.dtype), new_e.to(e.dtype)
+
+    return _ef_leaf_map(params, ef, leaf)
+
+
+def mix_ppermute_pool_ef(params: PyTree, ef: PyTree, gammas: torch.Tensor, pool: PermPool,
+                         group, compressor: Compressor,
+                         corrupt: "WireCorruption | None" = None) -> tuple[PyTree, PyTree]:
+    """EF-compressed staged-pool mixing: the ppermutes ship compressed
+    views (``n_comm_slots x wire_bytes(P)`` a rank); gammas and the EF
+    memory are data. Returns ``(mixed, new_ef)``."""
+    compressor = _require_wire(compressor)
+    if compressor.routes_to_plain:
+        return mix_ppermute_pool(params, gammas, pool, group, corrupt), ef
+    _check_pool_gammas(gammas, pool)
+    _check_nodes(pool.n_nodes, group, "the pool")
+    step = compressor.gamma
+    i = axis_index(group)
+
+    def leaf(x, e):
+        x32, c, new_e = _ef_compress(x, e, compressor)
+        contribs = _pool_contribs(_on_wire(c, compressor, corrupt, i), c, pool, group)
+        acc = _pool_axpy(contribs, gammas, c)
+        return _combine(x32, acc, c, step).to(x.dtype), new_e.to(e.dtype)
+
+    return _ef_leaf_map(params, ef, leaf)
+
+
+def _ef_stale_push(params: PyTree, ef: PyTree, state: ShardStaleState,
+                   compressor: Compressor):
+    """Compress every leaf and push its view into the ring, leaf by leaf
+    (the head advanced once): returns ``(x leaves, rebuild, new ef)``. The
+    views are what the ring stores -- its head slot holds this step's --;
+    a node's own EF memory never travels, so it stays fresh."""
+    x_leaves, rebuild = _flatten(params)
+    e_leaves = tree_leaves(ef)
+    if len(e_leaves) != len(x_leaves):
+        raise ValueError("ef memory must mirror the parameter pytree")
+    state.head.add_(1).remainder_(state.depth)
+    idx = state.head.reshape(1)
+    new_es = []
+    for x, e, ring in zip(x_leaves, e_leaves, tree_leaves(state.rings)):
+        _, c, new_e = _ef_compress(x, e, compressor)
+        ring.index_copy_(0, idx, c.to(ring.dtype).unsqueeze(0))
+        new_es.append(new_e.to(e.dtype))
+    return x_leaves, rebuild, rebuild(new_es)
+
+
+def _ring_views(ring: torch.Tensor, head: torch.Tensor, slot: torch.Tensor, corrupt, i: int):
+    """``(c, d32, wire)`` of one leaf's ring: this step's view (the head
+    slot), the delayed payload as float32, and what this rank sends."""
+    c = ring.index_select(0, head.reshape(1))[0].to(torch.float32)
+    d = ring.index_select(0, slot)[0]
+    d32 = d.to(torch.float32)
+    return c, d32, _sendable(d, d32, corrupt, i)
+
+
+def mix_arrays_sharded_stale_ef(
+    params: PyTree, ef: PyTree, state: ShardStaleState, arrays: ScheduleArrays,
+    delays: torch.Tensor, group, compressor: Compressor, *,
+    corrupt: "WireCorruption | None" = None,
+) -> tuple[PyTree, PyTree, ShardStaleState]:
+    """EF-compressed bounded-delay ``mix_arrays_sharded``: the ring holds
+    the compressed views, the all-gather moves the delayed ones, the
+    combine subtracts the node's own fresh view. Returns ``(mixed,
+    new_ef, state)``; zero delays are :func:`mix_arrays_sharded_ef`."""
+    compressor = _require_wire(compressor)
+    if compressor.routes_to_plain:
+        mixed, state = mix_arrays_sharded_stale(params, state, arrays, delays, group,
+                                                corrupt=corrupt)
+        return mixed, ef, state
+    step = compressor.gamma
+    i = axis_index(group)
+    _check_nodes(arrays.n_nodes, group, "the schedule")
+    x_leaves, rebuild, new_ef = _ef_stale_push(params, ef, state, compressor)
+    slot = _stale_slot(state, delays, i)
+    srcs = arrays.perms[:, i]
+    outs = []
+    for x, ring in zip(x_leaves, tree_leaves(state.rings)):
+        c, d32, wire = _ring_views(ring, state.head, slot, corrupt, i)
+        acc = _gather_mix(d32, wire, group, lambda g: _axpy_slots(g, arrays.gammas, srcs),
+                          corrupt)
+        outs.append(_combine(x.to(torch.float32), acc, c, step).to(x.dtype))
+    return rebuild(outs), new_ef, state
+
+
+def mix_ppermute_pool_stale_ef(
+    params: PyTree, ef: PyTree, state: ShardStaleState, gammas: torch.Tensor, pool: PermPool,
+    delays: torch.Tensor, group, compressor: Compressor,
+    corrupt: "WireCorruption | None" = None,
+) -> tuple[PyTree, PyTree, ShardStaleState]:
+    """EF-compressed bounded-delay staged-pool mixing: every staged
+    ppermute ships the node's DELAYED view. Returns ``(mixed, new_ef,
+    state)``; zero delays are :func:`mix_ppermute_pool_ef`."""
+    compressor = _require_wire(compressor)
+    if compressor.routes_to_plain:
+        mixed, state = mix_ppermute_pool_stale(params, state, gammas, pool, delays, group,
+                                               corrupt)
+        return mixed, ef, state
+    _check_pool_gammas(gammas, pool)
+    _check_nodes(pool.n_nodes, group, "the pool")
+    step = compressor.gamma
+    i = axis_index(group)
+    x_leaves, rebuild, new_ef = _ef_stale_push(params, ef, state, compressor)
+    slot = _stale_slot(state, delays, i)
+    outs = []
+    for x, ring in zip(x_leaves, tree_leaves(state.rings)):
+        c, d32, wire = _ring_views(ring, state.head, slot, corrupt, i)
+        contribs = _pool_contribs(wire, d32, pool, group)
+        outs.append(_combine(x.to(torch.float32), _pool_axpy(contribs, gammas, d32), c,
+                             step).to(x.dtype))
+    return rebuild(outs), new_ef, state

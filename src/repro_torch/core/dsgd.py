@@ -10,8 +10,9 @@ leading node axis and the mixing runs through ``mixing.mix_stacked``
 (dense W, a static ``BirkhoffSchedule`` or ``ScheduleArrays``), with
 optional heavy-ball momentum applied locally, or through the EF-compressed
 transport (``compression.ef_mix_schedule_arrays``) when an EF memory is
-given. The per-shard form of the reference (``dsgd_step_sharded``, one
-node per rank) comes with the mesh trainer (ROADMAP queue 1, item 13).
+given. ``dsgd_step_sharded`` is the reference's per-shard form: one node
+per rank of a ``torch.distributed`` group, mixing by ``mix_ppermute``
+(a static schedule) or ``mix_allreduce`` (the complete graph).
 """
 
 from __future__ import annotations
@@ -20,9 +21,16 @@ from typing import Any, NamedTuple
 
 import torch
 
-from .mixing import BirkhoffSchedule, ScheduleArrays, mix_stacked, tree_map
+from .mixing import (
+    BirkhoffSchedule,
+    ScheduleArrays,
+    mix_allreduce,
+    mix_ppermute,
+    mix_stacked,
+    tree_map,
+)
 
-__all__ = ["DSGDState", "dsgd_init", "dsgd_step_stacked"]
+__all__ = ["DSGDState", "dsgd_init", "dsgd_step_stacked", "dsgd_step_sharded"]
 
 PyTree = Any
 
@@ -111,4 +119,24 @@ def dsgd_step_stacked(
         use_kernel=use_kernel,
         single_buffer=single_buffer,
     )
+    return mixed, DSGDState(step=state.step + 1, momentum=new_mom)
+
+
+def dsgd_step_sharded(
+    params: PyTree,
+    grads: PyTree,
+    state: DSGDState,
+    schedule: BirkhoffSchedule | None,
+    group=None,
+    lr: float | torch.Tensor = 1e-3,
+    momentum: float = 0.0,
+) -> tuple[PyTree, DSGDState]:
+    """One D-SGD iteration with one node per rank of ``group`` (None: the
+    world): this rank's parameters and gradients, no node axis.
+    ``schedule=None`` is complete-graph mixing (the C-PSGD all-reduce)."""
+    half, new_mom = _local_update(params, grads, state, lr, momentum)
+    if schedule is None:
+        mixed = mix_allreduce(half, group)
+    else:
+        mixed = mix_ppermute(half, schedule, group)
     return mixed, DSGDState(step=state.step + 1, momentum=new_mom)

@@ -22,6 +22,16 @@ bounded-delay states (``StragglerPolicy`` / ``straggler_stream`` resolve
 the delays), and ``corrupt_wire`` / ``mix_schedule_arrays_screened``
 model lying senders and the receiver-side screen.
 
+With one node per rank of a ``torch.distributed`` group (the reference's
+``shard_map`` transports), the same mixes run as collectives:
+``mix_dense_sharded`` / ``mix_arrays_sharded`` (an all-gather a leaf, W
+or the schedule as data), ``mix_ppermute_pool`` (a staged pool of
+ppermutes, gammas as data), ``mix_ppermute`` (a static schedule) and
+``mix_allreduce`` (the complete graph), the bounded-delay twins over a
+per-rank ring (``ShardStaleState``), and the pool's straggler repair
+(``degrade_pool_gammas``, ``straggler_pool_stream``); these run outside
+the kernels, as the reference's do.
+
 On a CUDA tensor every mix runs in the hand-written kernels of
 ``repro_torch.kernels.gossip_mix``: one ``gossip_mix`` launch per leaf on
 the dense path, one ``gossip_schedule`` launch on the raveled buffer on
@@ -83,6 +93,28 @@ __all__ = [
     "corrupt_wire",
     "ScreenStats",
     "mix_schedule_arrays_screened",
+    "degrade_pool_gammas",
+    "straggler_pool_stream",
+    "collective_bytes",
+    "reset_collective_bytes",
+    "axis_index",
+    "axis_size",
+    "group_backend",
+    "mix_dense_sharded",
+    "mix_arrays_sharded",
+    "mix_ppermute_pool",
+    "mix_ppermute",
+    "mix_allreduce",
+    "ShardStaleState",
+    "stale_ring_dtype",
+    "shard_stale_init",
+    "shard_stale_push",
+    "mix_arrays_sharded_stale",
+    "mix_ppermute_pool_stale",
+    "ALLGATHER_THROUGHPUT_ADVANTAGE",
+    "preferred_sharded_transport",
+    "measure_sharded_transport",
+    "autotune_sharded_transport",
 ]
 
 PyTree = Any
@@ -1653,3 +1685,643 @@ def mix_schedule_arrays_screened(
         sources.append(own)
     mixed = _stacked_mix(sources, pick, arrays.gammas)
     return mixed, ScreenStats(sq_own=sq_own, sq_recv=sq_recv, dot=dot, finite=finite)
+
+
+# ---------------------------------------------------------------------------
+# Pool-coordinate straggler repair (host numpy)
+# ---------------------------------------------------------------------------
+
+def degrade_pool_gammas(pool: "PermPool", gammas, offline_mask) -> np.ndarray:
+    """Repair pool-coordinate mixing when some nodes are offline or late.
+
+    The pool transport cannot rewrite its staged permutation slots, so
+    every non-identity slot that moves data to or from an offline node is
+    zeroed and its coefficient mass ADDED to an identity slot (never
+    renormalized): the result is still an exact convex combination of
+    permutations in which every offline node is a fixed point of every
+    surviving atom. Host-side numpy; the (capacity,) float32 result is a
+    pure gamma value change.
+    """
+    g = np.asarray(_host(gammas), np.float64).copy()
+    if g.shape != (pool.capacity,):
+        raise ValueError(f"gammas must be ({pool.capacity},), got {g.shape}")
+    off = np.asarray(offline_mask, bool).reshape(pool.n_nodes)
+    if not off.any():
+        return g.astype(np.float32)
+    ident = pool.identity
+    moved = 0.0
+    for l, p in enumerate(pool.perms):
+        if p == ident:
+            continue
+        if any(p[i] != i and (off[i] or off[p[i]]) for i in range(pool.n_nodes)):
+            moved += g[l]
+            g[l] = 0.0
+    # a pool whose staged atoms all survive repairs to itself; otherwise the
+    # moved mass lands on the identity slot, so a node whose every neighbour
+    # slot was zeroed keeps exactly its own row
+    if moved != 0.0:
+        try:
+            id_slot = pool.perms.index(ident)
+        except ValueError:
+            raise ValueError(
+                "degrade_pool_gammas needs an identity slot to absorb the "
+                "dropped mass; stage the pool with headroom "
+                "(PermPool.from_schedule pads with identities)"
+            ) from None
+        g[id_slot] += moved
+    return g.astype(np.float32)
+
+
+def straggler_pool_stream(
+    policy: StragglerPolicy, gammas, pool: "PermPool", delays
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pool transport's :func:`straggler_stream`: a (T, n) raw delay
+    trace as per-step pool coordinates, ``(gammas (T, capacity) float32,
+    eff (T, n) int32)`` on the CPU. Under ``"wait"`` every step keeps the
+    base gammas and clamps delays to the deadline; under ``"degrade"``
+    past-deadline nodes are repaired out by :func:`degrade_pool_gammas`
+    (their effective delay drops to 0)."""
+    d = np.asarray(delays, np.int64)
+    if d.ndim != 2:
+        raise ValueError(f"delays must be (T, n), got shape {d.shape}")
+    if d.shape[1] != pool.n_nodes:
+        raise ValueError(f"delays are for {d.shape[1]} nodes, pool for {pool.n_nodes}")
+    if d.size and d.min() < 0:
+        raise ValueError("delays must be non-negative")
+    base = np.asarray(_host(gammas), np.float32).reshape(pool.capacity)
+    T = d.shape[0]
+    g_out = np.empty((T, pool.capacity), np.float32)
+    e_out = np.empty(d.shape, np.int32)
+    for t in range(T):
+        if policy.mode == "wait":
+            g_out[t] = base
+            e_out[t] = np.minimum(d[t], policy.tau_max)
+        else:
+            late = d[t] > policy.tau_max
+            e_out[t] = np.where(late, 0, d[t])
+            g_out[t] = degrade_pool_gammas(pool, base, late) if late.any() else base
+    return torch.as_tensor(g_out), torch.as_tensor(e_out)
+
+
+# ---------------------------------------------------------------------------
+# One node per rank: the collective layer
+# ---------------------------------------------------------------------------
+#
+# The reference's mesh transports run inside ``shard_map`` over a node axis
+# and mix with ``jax.lax`` collectives. Here each rank of a
+# ``torch.distributed`` process group holds one node's parameters (a tensor
+# or a dict of tensors, no node axis): the rank in the group is the node
+# index, the group's size is n. ``group=None`` is the default (world)
+# group. The helpers below stand in for ``lax.axis_index``,
+# ``lax.all_gather``, ``lax.ppermute`` and ``lax.pmean``; the backend is
+# the group's own (NCCL on cards, gloo on the CPU) and nothing here picks
+# another on failure: gloo, which moves CUDA tensors only for
+# ``all_reduce`` and ``broadcast``, is refused a CUDA all-gather or
+# ppermute.
+#
+# ``collective_bytes`` counts the bytes this rank receives, per collective,
+# as the calls are issued: the all-gather ``(n - 1) x`` the payload, a
+# ppermute its one payload (a fixed point is a local copy and moves
+# nothing), an all-reduce the ring model ``2 (n - 1) / n x`` the payload
+# (the bytes a backend moves inside an all-reduce are not observable
+# here). A captured graph's replays add its capture's counts
+# (``graphs.GraphRunner``).
+
+collective_bytes = {"all_gather": 0, "ppermute": 0, "all_reduce": 0}
+
+
+def reset_collective_bytes() -> None:
+    for name in collective_bytes:
+        collective_bytes[name] = 0
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def axis_index(group=None) -> int:
+    """This rank's node index: its rank in ``group``."""
+    return _dist().get_rank(group)
+
+
+def axis_size(group=None) -> int:
+    """The number of nodes: ``group``'s size."""
+    return _dist().get_world_size(group)
+
+
+def group_backend(group=None) -> str:
+    """The backend ``group`` runs on (``"nccl"``, ``"gloo"``)."""
+    return str(_dist().get_backend(group))
+
+
+def _peer(group, r: int) -> int:
+    """The global rank of ``group``'s rank ``r`` (what a ``P2POp`` takes)."""
+    dist = _dist()
+    if group is None or group is dist.group.WORLD:
+        return r
+    return dist.get_global_rank(group, r)
+
+
+def _check_moves(x: torch.Tensor, group, what: str) -> None:
+    if x.is_cuda and group_backend(group) == "gloo":
+        raise RuntimeError(
+            f"{what} of a CUDA tensor over a gloo group: gloo moves CUDA tensors only for "
+            "all_reduce and broadcast; run the ranks' group on the nccl backend")
+
+
+def _all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.all_gather``: every rank's ``x`` stacked on a new leading
+    axis, ``(n, *x.shape)``, in ``x``'s dtype."""
+    _check_moves(x, group, "an all-gather")
+    dist = _dist()
+    n = axis_size(group)
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty((n * flat.numel(),), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, flat, group=group)
+    collective_bytes["all_gather"] += (n - 1) * flat.numel() * flat.element_size()
+    return out.view((n,) + tuple(x.shape))
+
+
+def _gather_first(x: torch.Tensor, group=None) -> torch.Tensor | None:
+    """Every rank's ``x`` stacked on a new leading axis, ``(n,
+    *x.shape)`` in ``x``'s dtype, on the group's first rank only (None on
+    the others, which hold no copy)."""
+    _check_moves(x, group, "a gather")
+    dist = _dist()
+    x = x.contiguous()
+    if axis_index(group) != 0:
+        dist.gather(x, None, dst=_peer(group, 0), group=group)
+        return None
+    out = torch.empty((axis_size(group),) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    dist.gather(x, list(out.unbind(0)), dst=_peer(group, 0), group=group)
+    return out
+
+
+def _ppermute(x: torch.Tensor, pairs, group=None) -> torch.Tensor:
+    """``lax.ppermute``: ``pairs`` are ``(source, destination)`` node
+    indices; this rank returns what its source sent (zeros without one).
+    One ``batch_isend_irecv``; a fixed point ``(i, i)`` is a local copy."""
+    dist = _dist()
+    i = axis_index(group)
+    src = [s for s, d in pairs if d == i]
+    dst = [d for s, d in pairs if s == i]
+    if src and src[0] == i:
+        return x.clone()
+    _check_moves(x, group, "a ppermute")
+    x = x.contiguous()
+    ops = []
+    if dst and dst[0] != i:
+        ops.append(dist.P2POp(dist.isend, x, _peer(group, dst[0]), group))
+    out = torch.empty_like(x) if src else torch.zeros_like(x)
+    if src:
+        ops.append(dist.P2POp(dist.irecv, out, _peer(group, src[0]), group))
+        collective_bytes["ppermute"] += x.numel() * x.element_size()
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+def _pmean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.pmean`` in float32: the sum over ranks, divided by n."""
+    n = axis_size(group)
+    y = x.to(torch.float32, copy=True)
+    _dist().all_reduce(y, group=group)
+    collective_bytes["all_reduce"] += 2 * (n - 1) * y.numel() * y.element_size() // n
+    return y / n
+
+
+def _psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.psum`` in float32 (a scalar's: no bytes counted)."""
+    y = x.to(torch.float32, copy=True)
+    _dist().all_reduce(y, group=group)
+    return y
+
+
+def _corrupt_own(x32: torch.Tensor, corrupt: WireCorruption, i: int) -> torch.Tensor:
+    """Node ``i`` corrupts its OWN outgoing payload (``corrupt_wire`` on
+    one row): honest nodes send ``x32`` untouched."""
+    m = corrupt.mult.to(device=x32.device, dtype=torch.float32)[i]
+    b = corrupt.xor.to(device=x32.device, dtype=torch.int32)[i]
+    bent = ((x32 * m).view(torch.int32) ^ b).view(torch.float32)
+    return torch.where((m != 1.0) | (b != 0), bent, x32)
+
+
+def _check_nodes(n: int, group, what: str) -> None:
+    if n != axis_size(group):
+        raise ValueError(f"{what} is for {n} nodes, the group has {axis_size(group)} ranks")
+
+
+# ---------------------------------------------------------------------------
+# One node per rank: the transports
+# ---------------------------------------------------------------------------
+#
+# Every sum runs in float32 and rounds once to the leaf's dtype. The
+# reference casts each payload to float32 before it moves; here a payload
+# moves in the dtype that holds it exactly -- the leaf's (bfloat16 leaves:
+# half the bytes), or the ring's -- and lands as the same float32 values,
+# so the results are the same; a corrupted payload moves as the float32
+# whose bits were bent. The gather transports gather one leaf at a time and drop
+# its ``(n, P_leaf)`` gather before the next leaf's: at most one is live,
+# eagerly and under a CUDA-graph capture (whose pool reuses the freed
+# block), so the peak is ``n x`` the largest leaf, not ``n x P``.
+# ``mix_arrays_sharded`` and ``mix_ppermute_pool`` accumulate slot for slot
+# in the same operations (zeros, then ``acc + gamma_l * contrib``), so the
+# two agree bitwise on one schedule. ``corrupt`` (a ``WireCorruption``)
+# poisons this node's outgoing payload; self-deliveries -- the gathered own
+# row, identity slots and the fixed points of staged atoms -- stay clean.
+
+
+def _sendable(x: torch.Tensor, x32: torch.Tensor, corrupt, i: int) -> torch.Tensor:
+    """What this rank sends: its payload ``x`` as held (the leaf, a ring
+    slot), or, when it lies, the float32 payload ``x32`` with its bits
+    bent."""
+    return x if corrupt is None else _corrupt_own(x32, corrupt, i)
+
+
+def _gather_mix(own: torch.Tensor, wire: torch.Tensor, group, combine, corrupt) -> torch.Tensor:
+    """Gather every rank's ``wire``; where this rank lied (``corrupt``),
+    restore its own row to its clean float32 payload ``own``; ``combine``
+    the ``(n, ...)`` gather (its rows read as float32). The gather is
+    dropped on return."""
+    g = _all_gather(wire, group)
+    if corrupt is not None:
+        g[axis_index(group)] = own
+    return combine(g)
+
+
+def _axpy_slots(g: torch.Tensor, gammas: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
+    """``sum_l gammas[l] g[srcs[l]]`` in slot order from zeros (float32)."""
+    acc = torch.zeros(g.shape[1:], dtype=torch.float32, device=g.device)
+    gam = gammas.to(device=g.device, dtype=torch.float32)
+    srcs = srcs.to(device=g.device, dtype=torch.long)
+    for l in range(gam.shape[0]):
+        acc = acc + gam[l] * g.index_select(0, srcs[l:l + 1])[0].to(torch.float32)
+    return acc
+
+
+def mix_dense_sharded(params: PyTree, W, group=None, *,
+                      corrupt: WireCorruption | None = None) -> PyTree:
+    """Dense mixing with one node per rank, W as data: ``theta_i <-
+    sum_j W[i, j] theta_j`` by an all-gather of each leaf and this rank's
+    row of W (float32). Any W swaps as a value change, at ``(n - 1) P``
+    bytes a rank."""
+    i = axis_index(group)
+    leaves = tree_leaves(params)
+    Wt = W if isinstance(W, torch.Tensor) else torch.as_tensor(np.asarray(W, np.float32))
+    _check_nodes(Wt.shape[0], group, "W")
+    row = Wt.to(device=leaves[0].device, dtype=torch.float32)[i]
+
+    def mix_leaf(x):
+        x32 = x.to(torch.float32)
+        out = _gather_mix(x32, _sendable(x, x32, corrupt, i), group, lambda g: (
+            row @ g.reshape(g.shape[0], -1).to(torch.float32)).reshape(x.shape), corrupt)
+        return out.to(x.dtype)
+
+    return tree_map(mix_leaf, params)
+
+
+def mix_arrays_sharded(params: PyTree, arrays: ScheduleArrays, group=None, *,
+                       corrupt: WireCorruption | None = None) -> PyTree:
+    """``ScheduleArrays`` mixing with one node per rank: each leaf's
+    all-gather, then ``sum_l gammas[l] gathered[perms[l, i]]`` with the
+    coefficients and the table as data, in :func:`mix_ppermute_pool`'s
+    slot order (bitwise equal to it on the same schedule)."""
+    i = axis_index(group)
+    _check_nodes(arrays.n_nodes, group, "the schedule")
+    srcs = arrays.perms[:, i]
+
+    def mix_leaf(x):
+        x32 = x.to(torch.float32)
+        return _gather_mix(x32, _sendable(x, x32, corrupt, i), group,
+                           lambda g: _axpy_slots(g, arrays.gammas, srcs), corrupt).to(x.dtype)
+
+    return tree_map(mix_leaf, params)
+
+
+def _pool_contribs(wire: torch.Tensor, own: torch.Tensor, pool: "PermPool", group):
+    """Each slot's contribution to this rank, in slot order: ``own`` for
+    identity slots and this rank's fixed points (self-deliveries: no
+    bytes), the source's ``wire`` by ppermute for the rest."""
+    n, ident, i = pool.n_nodes, pool.identity, axis_index(group)
+    for perm in pool.perms:
+        if perm == ident or perm[i] == i:
+            yield own
+        else:
+            yield _ppermute(wire, [(int(perm[q]), q) for q in range(n)], group).to(torch.float32)
+
+
+def _check_pool_gammas(gammas: torch.Tensor, pool: "PermPool") -> None:
+    if tuple(gammas.shape) != (pool.capacity,):
+        raise ValueError(f"gammas must be ({pool.capacity},) to match the pool, "
+                         f"got {tuple(gammas.shape)}")
+
+
+def _pool_axpy(contribs, gammas: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(like.shape, dtype=torch.float32, device=like.device)
+    gam = gammas.to(device=like.device, dtype=torch.float32)
+    for l, contrib in enumerate(contribs):
+        acc = acc + gam[l] * contrib
+    return acc
+
+
+def mix_ppermute_pool(params: PyTree, gammas: torch.Tensor, pool: "PermPool", group=None,
+                      corrupt: WireCorruption | None = None) -> PyTree:
+    """Staged-pool mixing with one node per rank: every non-identity slot
+    runs its ppermute (gamma 0 zeroes the contribution, not the transfer),
+    identity slots are a local scale; the (capacity,) gammas are data, so
+    an in-pool swap is a value change. ``pool.n_comm_slots x P`` bytes a
+    rank; bitwise :func:`mix_arrays_sharded` on ``pool.arrays_for``."""
+    _check_pool_gammas(gammas, pool)
+    _check_nodes(pool.n_nodes, group, "the pool")
+    i = axis_index(group)
+
+    def mix_leaf(x):
+        x32 = x.to(torch.float32)
+        contribs = _pool_contribs(_sendable(x, x32, corrupt, i), x32, pool, group)
+        return _pool_axpy(contribs, gammas, x32).to(x.dtype)
+
+    return tree_map(mix_leaf, params)
+
+
+def mix_ppermute(params: PyTree, schedule: BirkhoffSchedule, group=None) -> PyTree:
+    """Birkhoff ppermute mixing with one node per rank, a static schedule:
+    ``sum_l gamma_l ppermute(params, P_l)``, the identity atom a local
+    scale (no bytes). Node ``i`` receives from ``perm[i]``. The wire moves
+    the leaf's dtype; the sum runs in float32 and rounds once (XLA keeps
+    the reference's leaf-dtype sum in float32 too, within one rounding)."""
+    n = schedule.n_nodes
+    _check_nodes(n, group, "the schedule")
+    identity = tuple(range(n))
+
+    def mix_leaf(x):
+        acc = None
+        for gamma, perm in zip(schedule.coeffs, schedule.perms):
+            got = x if perm == identity else \
+                _ppermute(x, [(int(perm[q]), q) for q in range(n)], group)
+            contrib = got.to(torch.float32) * gamma
+            acc = contrib if acc is None else acc + contrib
+        return acc.to(x.dtype)
+
+    return tree_map(mix_leaf, params)
+
+
+def mix_allreduce(params: PyTree, group=None) -> PyTree:
+    """Complete-graph mixing (C-PSGD), ``theta_i <- mean_j theta_j``: an
+    all-reduce in float32, rounded once to the leaf's dtype."""
+    return tree_map(lambda x: _pmean(x, group).to(x.dtype), params)
+
+
+# ---------------------------------------------------------------------------
+# One node per rank: bounded delay (a sender-side ring a rank)
+# ---------------------------------------------------------------------------
+#
+# Each rank keeps its own last ``depth`` wire payloads (float32) and sends
+# the slot ``delays[i]`` pushes back: source-indexed delay, row for row
+# :func:`stale_view`'s. The ring and the delay vector are data; the ring is
+# pushed in place and its head is an int64 device tensor, as the stacked
+# ring's. With zero delays the slot read is the payload just pushed, so
+# both transports are their fresh twins bitwise.
+
+
+class ShardStaleState(NamedTuple):
+    """This rank's ring of its last ``depth`` wire payloads: ``rings``
+    mirrors the parameters with leaves ``(depth, *leaf.shape)``, float32
+    (or bfloat16, :func:`stale_ring_dtype`); ``head`` (a () int64 tensor
+    on the rings' device) the newest slot."""
+
+    rings: PyTree
+    head: torch.Tensor
+
+    @property
+    def depth(self) -> int:
+        return tree_leaves(self.rings)[0].shape[0]
+
+
+def stale_ring_dtype(params: PyTree, compressor=None) -> torch.dtype:
+    """The ring's dtype: bfloat16 where every leaf is bfloat16 and the
+    payloads pushed are bf16 values (no compression, the identity or the
+    bf16 wire) -- it then holds what the reference's float32 ring holds,
+    bit for bit, in half the bytes --, else float32."""
+    kind = getattr(compressor, "kind", compressor)
+    if kind in (None, "identity", "bf16") and all(
+            x.dtype == torch.bfloat16 for x in tree_leaves(params)):
+        return torch.bfloat16
+    return torch.float32
+
+
+def shard_stale_init(params: PyTree, depth: int,
+                     dtype: torch.dtype = torch.float32) -> ShardStaleState:
+    """Every slot of every ring filled with the current payload (a delay
+    longer than the pushes so far reads the initial state); ``dtype`` the
+    rings' (see :func:`stale_ring_dtype`)."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1 (tau_max + 1), got {depth}")
+    rings = tree_map(lambda x: x.to(dtype).unsqueeze(0).repeat(
+        (depth,) + (1,) * x.ndim), params)
+    device = tree_leaves(params)[0].device
+    return ShardStaleState(rings=rings, head=torch.zeros((), dtype=torch.long, device=device))
+
+
+def shard_stale_push(state: ShardStaleState, params: PyTree) -> ShardStaleState:
+    """Advance the head and write this step's payloads, in place; returns
+    ``state``."""
+    state.head.add_(1).remainder_(state.depth)
+    idx = state.head.reshape(1)
+    tree_map(lambda r, x: r.index_copy_(0, idx, x.to(r.dtype).unsqueeze(0)),
+             state.rings, params)
+    return state
+
+
+def _stale_slot(state: ShardStaleState, delays: torch.Tensor, i: int) -> torch.Tensor:
+    """This node's slot under source-indexed delay ``delays[i]``, (1,) int64."""
+    d = delays.to(device=state.head.device, dtype=torch.long)[i]
+    return torch.remainder(state.head - d, state.depth).reshape(1)
+
+
+def mix_arrays_sharded_stale(
+    params: PyTree, state: ShardStaleState, arrays: ScheduleArrays, delays: torch.Tensor,
+    group=None, *, corrupt: WireCorruption | None = None,
+) -> tuple[PyTree, ShardStaleState]:
+    """Bounded-delay :func:`mix_arrays_sharded`: pushes this step's
+    parameters into the ring, gathers each rank's payload from
+    ``delays[i]`` pushes ago and accumulates as the fresh transport does.
+    Returns ``(mixed, state)`` (the ring pushed in place)."""
+    i = axis_index(group)
+    _check_nodes(arrays.n_nodes, group, "the schedule")
+    state = shard_stale_push(state, params)
+    slot = _stale_slot(state, delays, i)
+    srcs = arrays.perms[:, i]
+
+    def mix_leaf(x, ring):
+        d = ring.index_select(0, slot)[0]
+        d32 = d.to(torch.float32)
+        return _gather_mix(d32, _sendable(d, d32, corrupt, i), group,
+                           lambda g: _axpy_slots(g, arrays.gammas, srcs), corrupt).to(x.dtype)
+
+    return tree_map(mix_leaf, params, state.rings), state
+
+
+def mix_ppermute_pool_stale(
+    params: PyTree, state: ShardStaleState, gammas: torch.Tensor, pool: "PermPool",
+    delays: torch.Tensor, group=None, corrupt: WireCorruption | None = None,
+) -> tuple[PyTree, ShardStaleState]:
+    """Bounded-delay :func:`mix_ppermute_pool`: each staged ppermute moves
+    the DELAYED payload, identity slots take the node's own delayed
+    payload; the fresh transport's accumulation, so zero delays reproduce
+    it bitwise. Returns ``(mixed, state)``."""
+    _check_pool_gammas(gammas, pool)
+    _check_nodes(pool.n_nodes, group, "the pool")
+    i = axis_index(group)
+    state = shard_stale_push(state, params)
+    slot = _stale_slot(state, delays, i)
+
+    def mix_leaf(x, ring):
+        d = ring.index_select(0, slot)[0]
+        d32 = d.to(torch.float32)
+        contribs = _pool_contribs(_sendable(d, d32, corrupt, i), d32, pool, group)
+        return _pool_axpy(contribs, gammas, d32).to(x.dtype)
+
+    return tree_map(mix_leaf, params, state.rings), state
+
+
+# ---------------------------------------------------------------------------
+# One node per rank: cost model and measured table
+# ---------------------------------------------------------------------------
+#
+# The reference's closed form (``mixing.py:1918-1945``): the pool receives
+# ``n_comm_slots x P`` bytes a rank, the all-gather ``(n - 1) x P``, and one
+# fused all-gather is worth ALLGATHER_THROUGHPUT_ADVANTAGE staged permutes
+# per byte. Measured buckets win. Their keys (prefix ``sh_``, in the
+# port's table beside the stacked buckets) carry the device name, the
+# backend, the number of ranks and whether the ranks share one card: a
+# measurement of ranks sharing a card over a socket never decides for
+# ranks on cards of their own.
+
+ALLGATHER_THROUGHPUT_ADVANTAGE = 2.0
+
+
+def preferred_sharded_transport(
+    n_nodes: int, n_comm_slots: int,
+    allgather_speedup: float = ALLGATHER_THROUGHPUT_ADVANTAGE,
+) -> str:
+    """``"pool"`` iff ``n_comm_slots <= (n_nodes - 1) / allgather_speedup``
+    (at least 1), else ``"allgather"``: the closed form on bytes."""
+    if allgather_speedup <= 0:
+        raise ValueError(f"allgather_speedup must be positive, got {allgather_speedup}")
+    return ("pool" if n_comm_slots <= max(1, int((n_nodes - 1) / allgather_speedup))
+            else "allgather")
+
+
+def _rank_layout(group, device: torch.device) -> str:
+    """``"shared"`` when every rank of ``group`` runs on one card (or, on
+    the CPU, one host), else ``"distinct"``: a collective, so every rank
+    calls it."""
+    import socket
+
+    if device.type == "cuda":
+        here = (socket.gethostname(), str(torch.cuda.get_device_properties(device).uuid))
+    else:
+        here = (socket.gethostname(), "cpu")
+    seen: list = [None] * axis_size(group)
+    _dist().all_gather_object(seen, here, group=group)
+    return "shared" if all(s == seen[0] for s in seen) else "distinct"
+
+
+def _sharded_bucket_key(n_nodes: int, n_comm_slots: int, p: int, device: torch.device,
+                        backend: str, layout: str) -> str:
+    return (f"sh_{_hw_tag(device)}_{backend}_ranks{n_nodes}_{layout}"
+            f"_n{_pow2_up(n_nodes)}_K{_pow2_up(n_comm_slots)}_P{_pow2_up(p)}")
+
+
+def _rank_seconds(fn, iters: int, repeats: int, device: torch.device, group) -> float:
+    """Best over ``repeats`` of an ``iters``-call average, host clock to a
+    synchronise after a barrier; the slowest rank's (an all-reduce MAX), so
+    every rank reads the same time."""
+    import time
+
+    dist = _dist()
+    fn()
+    best = float("inf")
+    for _ in range(repeats):
+        dist.barrier(group=group)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        best = min(best, (time.perf_counter() - t0) / iters)
+    t = torch.tensor([best], dtype=torch.float64,
+                     device=device if group_backend(group) == "nccl" else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return float(t.item())
+
+
+def measure_sharded_transport(
+    n_nodes: int, n_comm_slots: int, p: int, *, group=None, iters: int = 3,
+    repeats: int = 3, seed: int = 0, device: torch.device | str | None = None,
+) -> dict:
+    """Time the staged pool against the all-gather once, with one node per
+    rank of ``group`` (every rank calls it): synthetic float32 payloads of
+    ``p`` elements (capped at ``_MEASURE_MAX_ELEMENTS // n``), random
+    atoms from ``seed``, the slowest rank's best-of time in us."""
+    device = resolve_device(device)
+    _check_nodes(n_nodes, group, "the measurement")
+    p_measured = _p_measured(n_nodes, p)
+    rng = np.random.default_rng(seed)
+    slots = tuple(tuple(int(x) for x in rng.permutation(n_nodes)) for _ in range(n_comm_slots))
+    pool = PermPool(perms=slots)
+    gammas_np, _ = pool.project(BirkhoffSchedule(
+        coeffs=tuple(1.0 / len(slots) for _ in slots), perms=slots))
+    gammas = torch.as_tensor(gammas_np, device=device)
+    arrays = pool.arrays_for(gammas_np, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + axis_index(group))
+    theta = torch.randn((p_measured,), generator=gen, device=device)
+    pool_s = _rank_seconds(lambda: mix_ppermute_pool(theta, gammas, pool, group),
+                           iters, repeats, device, group)
+    ag_s = _rank_seconds(lambda: mix_arrays_sharded(theta, arrays, group),
+                         iters, repeats, device, group)
+    return {
+        "n_nodes": n_nodes, "n_comm_slots": n_comm_slots, "p": p, "p_measured": p_measured,
+        "pool_us": pool_s * 1e6, "allgather_us": ag_s * 1e6,
+        "winner": "pool" if pool_s <= ag_s else "allgather",
+        "backend": group_backend(group), "hw": _hw_tag(device),
+        "layout": _rank_layout(group, device),
+        "timing": f"best of {repeats} {iters}-call averages, host clock, slowest rank",
+    }
+
+
+def autotune_sharded_transport(
+    n_nodes: int, n_comm_slots: int, p: int, *, measure: bool = False, group=None,
+    path: str | None = None, allgather_speedup: float = ALLGATHER_THROUGHPUT_ADVANTAGE,
+    device: torch.device | str | None = None,
+) -> str:
+    """``"pool"`` or ``"allgather"`` for ``n_nodes`` ranks of ``group``
+    (every rank calls it): the measured bucket's winner on a hit; on a
+    miss, with ``measure=True``, both transports are timed once and the
+    record memoized (rank 0 writes the table), else the closed form
+    :func:`preferred_sharded_transport`."""
+    device = resolve_device(device)
+    path = path or transport_autotune_path()
+    key = _sharded_bucket_key(n_nodes, n_comm_slots, p, device, group_backend(group),
+                              _rank_layout(group, device))
+    table = _load_autotune(path)
+    entry = table.get(key)
+    if entry is not None and entry.get("winner") in ("pool", "allgather"):
+        return entry["winner"]
+    if not measure:
+        return preferred_sharded_transport(n_nodes, n_comm_slots, allgather_speedup)
+    entry = measure_sharded_transport(n_nodes, _pow2_up(n_comm_slots), _pow2_up(p),
+                                      group=group, device=device)
+    table = dict(table)
+    table[key] = entry
+    if axis_index(group) == 0:
+        _persist_autotune(path, table)
+    else:
+        global _autotune_cache, _autotune_cache_path
+        _autotune_cache, _autotune_cache_path = table, path
+    return entry["winner"]

@@ -19,7 +19,9 @@ tests hold the capture counts.
 Two things a graph freezes at capture are handled here. Kernel launch
 counts: a wrapper adds one to its count when the capture records its
 launch, but the kernel runs only at replays, so the runner takes the
-recorded launches back after the capture and adds them once per replay.
+recorded launches back after the capture and adds them once per replay;
+the bytes ``core.mixing``'s collectives count (``collective_bytes``) are
+kept the same way.
 Random draws: the generators a body draws from are registered with each
 graph (``CUDAGraph.register_generator_state``), so replays draw what the
 eager runs would have drawn and advance the generator alike.
@@ -51,6 +53,15 @@ from repro_torch.kernels.rglru_scan import ops as _scan_ops
 __all__ = ["Body", "GraphRunner", "device_work"]
 
 _LAUNCH_COUNTS = (_gossip_ops.launch_counts, _flash_ops.launch_counts, _scan_ops.launch_counts)
+
+
+def _counters() -> tuple[dict, ...]:
+    """Every count a capture records: the kernels' launches, the
+    collectives' bytes (``core.mixing`` imports this module's package
+    through ``core``, so it is read here, not at import)."""
+    from repro_torch.core.mixing import collective_bytes
+
+    return _LAUNCH_COUNTS + (collective_bytes,)
 # held by every capture and by device work run outside the captured bodies
 _capture_lock = threading.Lock()
 _this_thread = threading.local()
@@ -135,7 +146,7 @@ class GraphRunner:
             body.fn()
             return
         body.graph.replay()
-        for counts, added in zip(_LAUNCH_COUNTS, body.launches):
+        for counts, added in zip(_counters(), body.launches):
             for kernel, k in added.items():
                 counts[kernel] += k
 
@@ -154,7 +165,7 @@ class GraphRunner:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        before = [dict(counts) for counts in _LAUNCH_COUNTS]
+        before = [dict(counts) for counts in _counters()]
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
         try:
@@ -173,7 +184,7 @@ class GraphRunner:
         current.wait_stream(self._stream)
         # the capture recorded these launches; they run at each replay
         body.launches = []
-        for counts, was in zip(_LAUNCH_COUNTS, before):
+        for counts, was in zip(_counters(), before):
             added = {k: counts[k] - was.get(k, 0) for k in counts if counts[k] != was.get(k, 0)}
             for kernel, k in added.items():
                 counts[kernel] -= k

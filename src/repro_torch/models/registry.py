@@ -69,15 +69,18 @@ def model_forward(
     )
 
 
-def loss_fn(model, cfg: ModelConfig, batch: dict, impl: str = "kernel"):
-    """Cross-entropy loss for any family. Returns (loss, metrics)."""
+def loss_fn(model, cfg: ModelConfig, batch: dict, impl: str = "kernel", remat: bool = False):
+    """Cross-entropy loss for any family. Returns (loss, metrics).
+    ``remat`` recomputes a decoder's activations in the backward pass
+    (``transformer.lm_loss``; whisper keeps them)."""
     _same_config(model, cfg)
     if cfg.arch_type == "audio":
         logits, _, aux = whisper.whisper_forward(model, cfg, batch["frames"], batch["tokens"])
         loss = transformer.softmax_xent(logits, batch["labels"])
         return loss, {"nll": loss, "aux": aux}
     return transformer.lm_loss(model, cfg, batch["tokens"], batch["labels"],
-                               image_embeds=batch.get("image_embeds"), impl=impl)
+                               image_embeds=batch.get("image_embeds"), impl=impl,
+                               remat=remat)
 
 
 def make_inputs(

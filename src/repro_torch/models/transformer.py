@@ -176,6 +176,7 @@ class LM(nn.Module):
         window_override: int | None = None,
         impl: str = "kernel",
         return_hidden: bool = False,
+        remat: bool = False,
     ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
         """Decoder forward.
 
@@ -192,6 +193,9 @@ class LM(nn.Module):
           impl: "kernel" (the reference's "pallas": the flash-attention and
             RG-LRU scan kernels) or "plain" (the reference's "xla").
           return_hidden: skip the unembedding (used by the fused loss).
+          remat: for a full sequence under autograd, recompute each layer's
+            activations in the backward pass (the reference's ``remat``):
+            the same values, one layer's activations held at a time.
 
         Returns (logits | hidden, new_cache, aux); aux is the sum of the
         MoE layers' router losses (float32; 0 without MoE).
@@ -211,9 +215,14 @@ class LM(nn.Module):
             positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         new_cache = [] if cache is not None else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             cl = cache[i] if cache is not None else None
-            x, nc, a = _layer_forward(layer, cfg, x, positions, cl, window_override, impl)
+            if remat:
+                x, nc, a = _remat(_layer_forward, layer, cfg, x, positions, cl, window_override,
+                                  impl)
+            else:
+                x, nc, a = _layer_forward(layer, cfg, x, positions, cl, window_override, impl)
             if a is not None:
                 aux = aux + a
             if new_cache is not None:
@@ -301,6 +310,21 @@ def reset_cache_(cfg: ModelConfig, cache: list) -> list:
 # Losses
 # ---------------------------------------------------------------------------
 
+def _remat(fn, *args):
+    """``fn(*args)`` with the activations it saves for the backward pass
+    recomputed there instead (the reference's ``jax.checkpoint``): the same
+    values, one block's activations held at a time. Nothing it runs draws
+    random numbers, so no generator state is kept."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _chunk_nll(params: Embedding, cfg: ModelConfig, hidden: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    return _token_nll(unembed(params, hidden, cfg), labels).sum()
+
+
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-token ``logsumexp - label logit``, reduced over V in float32."""
     lf = logits.float()
@@ -319,17 +343,21 @@ _XENT_CHUNK = 512
 
 
 def fused_unembed_xent(
-    params: Embedding, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor
+    params: Embedding, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Unembed + cross-entropy over sequence chunks of 512: the full
-    (B, S, V) logits never materialise, one (B, 512, V) block at a time."""
+    (B, S, V) logits never materialise, one (B, 512, V) block at a time
+    (with ``remat``, under autograd, recomputed in the backward pass, as
+    the reference's remat does)."""
     B, S, D = hidden.shape
     if S % _XENT_CHUNK != 0:
         return softmax_xent(unembed(params, hidden, cfg), labels)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, _XENT_CHUNK):
-        logits = unembed(params, hidden[:, c0 : c0 + _XENT_CHUNK], cfg)
-        total = total + _token_nll(logits, labels[:, c0 : c0 + _XENT_CHUNK]).sum()
+        args = (params, cfg, hidden[:, c0 : c0 + _XENT_CHUNK], labels[:, c0 : c0 + _XENT_CHUNK])
+        total = total + (_remat(_chunk_nll, *args) if remat and torch.is_grad_enabled()
+                         else _chunk_nll(*args))
     return total / (B * S)
 
 
@@ -341,14 +369,17 @@ def lm_loss(
     *,
     image_embeds: torch.Tensor | None = None,
     impl: str = "kernel",
+    remat: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy, plus ``router_aux_coef * aux`` with MoE.
     Labels align with the text tokens: the image positions are dropped
-    before the loss. Returns (loss, {"nll", "aux"})."""
-    hidden, _, aux = model(tokens, image_embeds=image_embeds, impl=impl, return_hidden=True)
+    before the loss. ``remat``: recompute the layers' and the loss chunks'
+    activations in the backward pass. Returns (loss, {"nll", "aux"})."""
+    hidden, _, aux = model(tokens, image_embeds=image_embeds, impl=impl, return_hidden=True,
+                           remat=remat)
     if image_embeds is not None:
         hidden = hidden[:, image_embeds.shape[1] :, :]
-    nll = fused_unembed_xent(model.embed, cfg, hidden, labels)
+    nll = fused_unembed_xent(model.embed, cfg, hidden, labels, remat)
     total = nll
     if cfg.moe is not None:
         total = total + cfg.moe.router_aux_coef * aux

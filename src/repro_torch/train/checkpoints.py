@@ -10,9 +10,11 @@ Layout of a checkpoint directory::
 The manifest is the reference's (``repro/train/checkpoints.py``); the
 leaves go into an ``np.savez`` archive where the reference packs raw
 buffers with msgpack. A leaf may be a tensor on any device (it is copied
-to the host) or an array; leaves come back as numpy arrays in the
-structure of a template. Pytrees here are tensors, arrays, dicts (keys in
-sorted order, as ``jax.tree_util`` orders them), lists and tuples.
+to the host) or an array, or a function of no arguments that returns one
+when the writer reaches it; leaves are written and read one at a time,
+and come back as numpy arrays in the structure of a template. Pytrees
+here are tensors, arrays, dicts (keys in sorted order, as
+``jax.tree_util`` orders them), lists and tuples.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import zipfile
 from typing import Any
 
 import numpy as np
@@ -27,7 +30,8 @@ import torch
 
 PyTree = Any
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "CheckpointManager"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "tree_leaves",
+           "CheckpointManager"]
 
 _MANIFEST = "manifest.json"
 _ARRAYS = "arrays.npz"
@@ -41,6 +45,11 @@ def _flatten_with_keys(tree: PyTree, prefix: str = "") -> list[tuple[str, Any]]:
     if isinstance(tree, (list, tuple)):
         return [kv for i, v in enumerate(tree) for kv in _flatten_with_keys(v, f"{prefix}[{i}]")]
     return [(prefix, tree)]
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves of ``tree`` in the order ``save_checkpoint`` writes them."""
+    return [leaf for _, leaf in _flatten_with_keys(tree)]
 
 
 def _structure(tree: PyTree) -> str:
@@ -74,46 +83,59 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save_checkpoint(directory: str, step: int, tree: PyTree, metadata: dict | None = None) -> str:
-    """Write ``tree`` under ``directory/step_<step>``; returns the path."""
+    """Write ``tree`` under ``directory/step_<step>``; returns the path.
+    One leaf is on the host at a time: each is copied, written into the
+    archive (``np.savez``'s layout) and dropped before the next; a
+    function leaf is called when its turn comes."""
     path = os.path.join(directory, f"step_{step:08d}")
     os.makedirs(path, exist_ok=True)
     pairs = _flatten_with_keys(tree)
-    leaves = [_to_numpy(leaf) for _, leaf in pairs]
+    shapes, dtypes = [], []
+    with zipfile.ZipFile(os.path.join(path, _ARRAYS), "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as archive:
+        for i, (_, leaf) in enumerate(pairs):
+            arr = _to_numpy(leaf() if callable(leaf) else leaf)
+            with archive.open(f"arr_{i}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, arr, allow_pickle=False)
+            shapes.append(list(arr.shape))
+            dtypes.append(str(arr.dtype))
+            del arr
     manifest = {
         "step": step,
         "keys": [k for k, _ in pairs],
-        "shapes": [list(x.shape) for x in leaves],
-        "dtypes": [str(x.dtype) for x in leaves],
+        "shapes": shapes,
+        "dtypes": dtypes,
         "treedef": _structure(tree),
         "metadata": metadata or {},
     }
-    with open(os.path.join(path, _ARRAYS), "wb") as f:
-        np.savez(f, *leaves)
     with open(os.path.join(path, _MANIFEST), "w") as f:
         json.dump(manifest, f)
     return path
 
 
-def restore_checkpoint(directory: str, step: int, like: PyTree) -> tuple[PyTree, dict]:
+def restore_checkpoint(directory: str, step: int, like: PyTree,
+                       select=None) -> tuple[PyTree, dict]:
     """Restore into the structure of ``like`` (shapes validated); returns
-    ``(tree of numpy arrays, metadata)``."""
+    ``(tree of numpy arrays, metadata)``. Leaves are read one at a time;
+    ``select(array, template_leaf)``, where given, replaces each as it is
+    read, so a reader may keep only the part it needs."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
-    with np.load(os.path.join(path, _ARRAYS)) as archive:
-        raw = [archive[f"arr_{i}"] for i in range(len(archive.files))]
     leaves_like = [leaf for _, leaf in _flatten_with_keys(like)]
-    if len(raw) != len(leaves_like):
-        raise ValueError(
-            f"checkpoint has {len(raw)} leaves, template has {len(leaves_like)}"
-        )
     leaves = []
-    for arr, shape, dtype, tmpl in zip(raw, manifest["shapes"], manifest["dtypes"], leaves_like):
-        arr = arr.astype(np.dtype(dtype), copy=False).reshape(shape)
-        t_shape = tuple(tmpl.shape) if hasattr(tmpl, "shape") else tuple(np.shape(tmpl))
-        if t_shape != tuple(shape):
-            raise ValueError(f"shape mismatch: checkpoint {shape} vs template {t_shape}")
-        leaves.append(arr)
+    with np.load(os.path.join(path, _ARRAYS)) as archive:
+        if len(archive.files) != len(leaves_like):
+            raise ValueError(
+                f"checkpoint has {len(archive.files)} leaves, template has {len(leaves_like)}"
+            )
+        for i, (shape, dtype, tmpl) in enumerate(zip(manifest["shapes"], manifest["dtypes"],
+                                                     leaves_like)):
+            arr = archive[f"arr_{i}"].astype(np.dtype(dtype), copy=False).reshape(shape)
+            t_shape = tuple(tmpl.shape) if hasattr(tmpl, "shape") else tuple(np.shape(tmpl))
+            if t_shape != tuple(shape):
+                raise ValueError(f"shape mismatch: checkpoint {shape} vs template {t_shape}")
+            leaves.append(arr if select is None else select(arr, tmpl))
     return _unflatten(like, leaves), manifest["metadata"]
 
 

@@ -1,28 +1,47 @@
-"""LM D-SGD training on one device: the reference's mesh trainer
-(``repro/train/lm_trainer.py``) with the node axis stacked.
+"""LM D-SGD training: the reference's mesh trainer
+(``repro/train/lm_trainer.py``) with the node axis stacked on one device,
+or with one node per rank of a ``torch.distributed`` group.
 
 The reference runs one D-SGD node per index of its ``data`` mesh axis and
-mixes with collectives. Here the ``n`` replicas are stacked on one card,
-as the simulator stacks them (``train/trainer.py``): every parameter is a
-tensor of shape ``(n, ...)``, named as ``LM.named_parameters()``
-(``convert.lm_stacked_from_numpy`` carries the reference's
-``init_params`` over), and mixing is ``core.mixing.mix_stacked`` -- on
-the card the ``gossip_schedule`` kernel for a schedule or a
-``ScheduleArrays``, the ``gossip_mix`` kernel for a dense W and the
-complete graph.
+mixes with collectives. The port has two layouts:
+
+* **Stacked** (``n_nodes=``, no ``group``): the ``n`` replicas on one
+  card, as the simulator stacks them (``train/trainer.py``): every
+  parameter is a tensor of shape ``(n, ...)``, named as
+  ``LM.named_parameters()`` (``convert.lm_stacked_from_numpy`` carries the
+  reference's ``init_params`` over), and mixing is
+  ``core.mixing.mix_stacked`` -- on the card the ``gossip_schedule``
+  kernel for a schedule or a ``ScheduleArrays``, the ``gossip_mix``
+  kernel for a dense W and the complete graph.
+* **One node per rank** (``group=`` a process group; the reference's
+  ``shard_map`` over ``data``): every rank holds one whole replica (no
+  tensor parallelism), a dict of tensors without a node axis
+  (``convert.lm_node_from_numpy``), and its own batch ``(per_node,
+  ...)``; its rank in the group is the node index. The mix is a
+  collective of ``core.mixing``: a static schedule by ``mix_ppermute``,
+  the complete graph by ``mix_allreduce``, and with ``online_w`` the
+  ``sharded_transport`` ``"allgather"`` (a W or a ``ScheduleArrays`` as
+  data: ``mix_dense_sharded`` / ``mix_arrays_sharded``) or ``"pool"``
+  (``mix_ppermute_pool`` over ``pool=``, the pool's gammas as data;
+  ``"auto"`` looks the measured table up). The step's loss is the mean
+  over ranks. ``compression=`` (EF gossip, the memory in the opt state
+  under ``"ef"``), ``staleness=`` (bounded delay: a sender-side ring
+  under ``"stale"``, per-step operands and delays) and ``probes=``
+  (``consensus`` and ``grad_dev`` as collectives; ``tau_bar`` refused)
+  ride the same step. NCCL collectives are captured with the rollout's
+  bodies; gloo's host-side work cannot be, so ``rollout="scan"`` is
+  refused on a gloo group.
 
 Modes:
 
-* ``dsgd`` -- ``n_nodes`` replicas; each step takes every node's gradient
-  on its own batch (one autograd pass per node over views ``leaf[i]``,
-  in a Python loop, so each node's activations are freed before the
-  next), the local SGD (momentum) half-step on the stacked leaves, then
-  the mix: a static ``BirkhoffSchedule`` (``schedule=None``: the complete
-  graph), or with ``online_w=True`` the step's trailing ``mix_w`` operand
-  -- a dense ``(n, n)`` W or a ``ScheduleArrays`` (the reference's
-  ``"allgather"`` transport; on one card simply ``mix_stacked``).
+* ``dsgd`` -- each step takes every node's gradient on its own batch
+  (stacked: one autograd pass per node over views ``leaf[i]``, in a
+  Python loop, so each node's activations are freed before the next),
+  the local SGD (momentum) half-step, then the mix: a static
+  ``BirkhoffSchedule`` (``schedule=None``: the complete graph), or with
+  ``online_w=True`` the step's trailing ``mix_w`` operand.
 * ``fsdp`` -- one global model on a ``(batch, ...)`` batch, no node axis
-  (the reference's C-PSGD baseline, W = 11^T / n).
+  (the reference's C-PSGD baseline, W = 11^T / n), on one device.
 
 Training runs ``impl="plain"`` under autograd: no kernel of the reference
 has a backward pass, so ``impl="kernel"`` is refused rather than run
@@ -32,11 +51,12 @@ through the forward-only flash kernel.
 reference's ``lax.scan`` rollout: ``"scan"`` runs the steps as captured
 bodies of at most ``rollout.MAX_GRAPH_STEPS`` steps (``graphs.GraphRunner``:
 an eager warm-up on a side stream, a CUDA-graph capture at a body's
-second run, replays after), with the parameters, the momentum, the step
-counter and the gradient buffers as static carries and each step's batch
-a static input; ``"loop"`` runs the same bodies eagerly. Both run the same
-operations on the same tensors (bitwise equal on the card). A swapped
-mixing operand reaches the bodies by ``copy_`` into their static
+second run, replays after), with the parameters, the opt state (momentum,
+step counter, EF memory, stale ring) and the gradient buffers as static
+carries and each step's batch (and, under staleness, its operand and
+delays) a static input; ``"loop"`` runs the same bodies eagerly. Both run
+the same operations on the same tensors (bitwise equal on the card). A
+swapped mixing operand reaches the bodies by ``copy_`` into their static
 operand, so it recaptures nothing.
 
 ``gossip_every = k > 1`` mixes on the steps whose counter is a multiple
@@ -44,17 +64,21 @@ of k. The reference branches on its device counter (``lax.cond``); a
 CUDA graph freezes host branches, so here each body's on/off pattern is
 static: bodies are keyed by the counter's phase at their first step,
 read on the host once per multi-step call (outside any capture). Off
-steps launch no mixing kernel.
+steps launch no mixing kernel and run no collective.
 
 ``TrainSetup.run_segments`` is the reference's segmented online rollout:
-a hook that swaps W or a ``ScheduleArrays`` at boundaries, checkpoints
-(``train/checkpoints.py``, bfloat16 leaves by their bits) with a bitwise
-resume, a tracer and a retrace guard.
+a hook that swaps W, a ``ScheduleArrays`` or (one node per rank) a
+``PoolSwap`` at boundaries, checkpoints (``train/checkpoints.py``,
+bfloat16 leaves by their bits; one node per rank, rank 0 writes the
+stacked layout and every rank restores its own row) with a bitwise
+resume, a tracer and a retrace guard; one node per rank it also takes
+``delays=`` and ``quarantine=`` and returns the ``"health"`` series.
 
-Not ported here (``NotImplementedError``, ROADMAP queue 1 item 13c, the
-multi-rank transports): ``mode="dsgd_pod"``, ``sharded_transport="pool"``,
-``pool=``, a ``PoolSwap`` from the hook, and ``compression=``,
-``staleness=``, ``probes=``, ``delays=`` and ``quarantine=``.
+Not ported (``NotImplementedError``, ROADMAP queue 1 item 13e):
+``mode="dsgd_pod"``, ``fsdp`` over ranks, tensor parallelism, and the
+stacked layout's ``sharded_transport="pool"``, ``pool=``, ``PoolSwap``,
+``compression=``, ``staleness=``, ``probes=``, ``delays=`` and
+``quarantine=``.
 """
 
 from __future__ import annotations
@@ -67,22 +91,52 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.compression import (
+    Compressor,
+    make_compressor,
+    mix_arrays_sharded_ef,
+    mix_arrays_sharded_stale_ef,
+    mix_dense_sharded_ef,
+    mix_ppermute_pool_ef,
+    mix_ppermute_pool_stale_ef,
+)
 from repro_torch.core.mixing import (
     BirkhoffSchedule,
+    PermPool,
     PoolSwap,
     ScheduleArrays,
+    ShardStaleState,
+    StragglerPolicy,
+    _gather_first,
+    _pmean,
+    _psum,
+    autotune_sharded_transport,
+    axis_index,
+    axis_size,
+    group_backend,
+    mix_allreduce,
+    mix_arrays_sharded,
+    mix_arrays_sharded_stale,
     mix_dense,
+    mix_dense_sharded,
+    mix_ppermute,
+    mix_ppermute_pool,
+    mix_ppermute_pool_stale,
     mix_schedule_arrays,
     mix_stacked,
+    stale_ring_dtype,
+    straggler_pool_stream,
+    straggler_stream,
 )
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Body, GraphRunner
 from repro_torch.models import registry, transformer, whisper
 from repro_torch.models.common import IMPLS, ModelConfig
+from repro_torch.obs.probes import HealthProbes
 from repro_torch.obs.trace import Tracer
 
-from .checkpoints import latest_step, restore_checkpoint, save_checkpoint
-from .metrics import CommMeter, mix_bytes_per_step
+from .checkpoints import latest_step, restore_checkpoint, save_checkpoint, tree_leaves
+from .metrics import CommMeter, mix_bytes_per_step, staleness_transfer_fracs
 from .rollout import chunks
 
 __all__ = ["TrainSetup", "make_train_setup", "gossip_fn", "NOT_PORTED_LM"]
@@ -90,10 +144,17 @@ __all__ = ["TrainSetup", "make_train_setup", "gossip_fn", "NOT_PORTED_LM"]
 PyTree = Any
 Params = dict[str, torch.Tensor]
 
-NOT_PORTED_LM = "not ported yet (ROADMAP queue 1 item 13c: the multi-rank transports)"
+NOT_PORTED_LM = ("not ported yet (ROADMAP queue 1 item 13e: tensor parallelism, dsgd_pod, "
+                 "fsdp over ranks, and the stacked layout's pool, compression, staleness, "
+                 "probes, delays and quarantine)")
 
 # instrumented paths take an always-on tracer; callers opt in with a real one
 _NULL_TRACER = Tracer(enabled=False)
+
+# keys of a body's per-step inputs that are not the model's batch: under
+# staleness each step's mixing operand and delay vector
+_GAMMAS, _PERMS, _DELAYS = "__gammas", "__perms", "__delays"
+_OPT_KEYS = {"step", "m", "ef", "stale"}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -116,9 +177,10 @@ def _copy_into(dst, src) -> None:
 
 
 def _is_carry_dict(opt) -> bool:
-    """Whether ``opt`` is the ``{"step", "m"}`` dict of the reference's
-    convention (a bare momentum tree is keyed by parameter names)."""
-    return isinstance(opt, dict) and bool(opt) and set(opt) <= {"step", "m"}
+    """Whether ``opt`` is the ``{"step", "m", "ef", "stale"}`` dict of the
+    reference's convention (a bare momentum tree is keyed by parameter
+    names)."""
+    return isinstance(opt, dict) and bool(opt) and set(opt) <= _OPT_KEYS
 
 
 def _leading(batch: dict) -> int:
@@ -126,28 +188,40 @@ def _leading(batch: dict) -> int:
 
 
 class _Loss(nn.Module):
-    """The model's loss as a module, for ``torch.func.functional_call``."""
+    """The model's loss and gradients as a module, for
+    ``torch.func.functional_call``: the backward pass runs inside the call,
+    where the given tensors are the module's parameters (the forward's
+    recomputed blocks read them there)."""
 
-    def __init__(self, model: nn.Module, cfg: ModelConfig, impl: str):
+    def __init__(self, model: nn.Module, cfg: ModelConfig, impl: str, remat: bool):
         super().__init__()
         self.model = model
         self.cfg = cfg
         self.impl = impl
+        self.remat = remat
 
-    def forward(self, batch: dict) -> torch.Tensor:
-        return registry.loss_fn(self.model, self.cfg, batch, impl=self.impl)[0]
+    def forward(self, batch: dict, names: list[str]) -> tuple[torch.Tensor, tuple]:
+        loss = registry.loss_fn(self.model, self.cfg, batch, impl=self.impl,
+                                remat=self.remat)[0]
+        params = dict(self.named_parameters())
+        return loss.detach(), torch.autograd.grad(loss, [params[k] for k in names])
 
 
-def gossip_fn(schedule: BirkhoffSchedule | None, n_nodes: int, *,
-              use_kernel: bool = False) -> Callable[[Params], Params]:
-    """The static mixing of stacked parameters: the Birkhoff schedule's
-    gathers (``gossip_schedule`` on the card), or with ``schedule=None``
-    the complete graph, W = 11^T / n (``gossip_mix``). ``use_kernel``
-    gives the kernels' numerics on the CPU (float32 sums); without it the
-    CPU sums in the leaf dtype."""
+def gossip_fn(schedule: BirkhoffSchedule | None, n_nodes: int, *, use_kernel: bool = False,
+              group=None) -> Callable[[Params], Params]:
+    """The static mixing: the Birkhoff schedule, or with ``schedule=None``
+    the complete graph, W = 11^T / n. Stacked parameters mix through
+    ``mix_stacked`` (``gossip_schedule`` / ``gossip_mix`` on the card;
+    ``use_kernel`` gives the kernels' float32 sums on the CPU, without it
+    the CPU sums in the leaf dtype); with ``group``, one node per rank,
+    through ``mix_ppermute`` / ``mix_allreduce``."""
+    if schedule is not None and schedule.n_nodes != n_nodes:
+        raise ValueError(f"schedule has {schedule.n_nodes} nodes, the setup {n_nodes}")
+    if group is not None:
+        if schedule is not None:
+            return lambda params: mix_ppermute(params, schedule, group)
+        return lambda params: mix_allreduce(params, group)
     if schedule is not None:
-        if schedule.n_nodes != n_nodes:
-            raise ValueError(f"schedule has {schedule.n_nodes} nodes, the setup {n_nodes}")
         return lambda params: mix_stacked(params, schedule=schedule, transport="schedule",
                                           use_kernel=use_kernel)
     complete: dict[torch.device, torch.Tensor] = {}
@@ -172,11 +246,12 @@ def _sgd_update(params: Params, grads: Params, momentum_state: Params | None, lr
     return {k: params[k] - lr * grads[k] for k in params}, momentum_state
 
 
-def _static_operand(mix, device: torch.device):
+def _static_operand(mix, device: torch.device, pool_gammas: bool = False):
     """A mixing operand as the tensors the step reads: a ScheduleArrays
-    (float32 gammas, int32 perms) or a float32 (n, n) W."""
+    (float32 gammas, int32 perms), a float32 (n, n) W, or (``pool_gammas``:
+    the pool transport) the pool's (capacity,) float32 gammas."""
     if isinstance(mix, PoolSwap):
-        raise _not_ported("a PoolSwap (the staged-pool transport)")
+        raise _not_ported("a PoolSwap on stacked nodes")
     if isinstance(mix, ScheduleArrays):
         return ScheduleArrays(
             gammas=torch.as_tensor(mix.gammas, dtype=torch.float32, device=device),
@@ -185,9 +260,13 @@ def _static_operand(mix, device: torch.device):
         w = mix.detach().to(device=device, dtype=torch.float32)
     else:
         w = torch.as_tensor(np.asarray(mix, dtype=np.float32), device=device)
+    if pool_gammas:
+        if w.ndim != 1:
+            raise ValueError(f"the pool transport takes (capacity,) gammas, got {tuple(w.shape)}")
+        return w
     if w.ndim != 2 or w.shape[0] != w.shape[1]:
         if w.ndim == 1:
-            raise _not_ported("pool-coordinate gammas (the staged-pool transport)")
+            raise _not_ported("pool-coordinate gammas on stacked nodes")
         raise ValueError(f"mix_w must be an (n, n) W or a ScheduleArrays, got {tuple(w.shape)}")
     return w
 
@@ -197,7 +276,20 @@ def _operand_key(mix) -> tuple:
         return ("static",)
     if isinstance(mix, ScheduleArrays):
         return ("arrays", mix.l_max)
+    if mix.ndim == 1:
+        return ("pool", mix.shape[0])
     return ("dense",)
+
+
+def _spread_sq(tree: Params, group) -> torch.Tensor:
+    """``sum_leaves sum_i ||x_i - mean_j x_j||^2`` over the ranks, float32:
+    the reference's collective probe (a pmean and a psum a leaf)."""
+    tot = None
+    for x in tree.values():
+        xf = x.to(torch.float32)
+        dev = _psum(torch.sum(torch.square(xf - _pmean(xf, group))), group)
+        tot = dev if tot is None else tot + dev
+    return tot
 
 
 class _Step:
@@ -206,16 +298,28 @@ class _Step:
 
     def __init__(self, cfg: ModelConfig, *, mode: str, n_nodes: int, lr: float,
                  momentum: float, impl: str, grad_accum: int, gossip_every: int,
-                 online_w: bool, schedule: BirkhoffSchedule | None, device: torch.device):
+                 online_w: bool, schedule: BirkhoffSchedule | None, device: torch.device,
+                 group=None, transport: str | None = None, pool: PermPool | None = None,
+                 compressor: Compressor | None = None,
+                 staleness: StragglerPolicy | None = None, probes: HealthProbes | None = None,
+                 remat: bool = False):
         self.mode, self.n_nodes = mode, n_nodes
         self.lr, self.momentum = lr, momentum
         self.grad_accum, self.gossip_every = grad_accum, gossip_every
         self.device = device
+        self.group, self.ranks = group, group is not None
+        self.online_w, self.transport, self.pool = online_w, transport, pool
+        self.compressor, self.staleness, self.probes = compressor, staleness, probes
         meta = whisper.Whisper(cfg, "meta") if cfg.arch_type == "audio" else \
             transformer.LM(cfg, "meta")
-        self.loss_module = _Loss(meta, cfg, impl)
-        self.static_mix = gossip_fn(schedule, n_nodes) \
+        self.loss_module = _Loss(meta, cfg, impl, remat)
+        self.static_mix = gossip_fn(schedule, n_nodes, group=group) \
             if mode == "dsgd" and not online_w else None
+
+    @property
+    def outputs(self) -> tuple[str, ...]:
+        """The names of a step's outputs: the loss, then the probes."""
+        return ("loss",) + (self.probes.names() if self.probes is not None else ())
 
     # -- gradients -----------------------------------------------------------
 
@@ -227,19 +331,18 @@ class _Step:
         keys = list(named)
 
         def one(b: dict):
-            loss = torch.func.functional_call(self.loss_module, named, (b,))
-            return loss, torch.autograd.grad(loss, [named[k] for k in keys])
+            return torch.func.functional_call(self.loss_module, named, (b, keys))
 
         if self.grad_accum == 1:
             loss, grads = one(batch)
-            return loss.detach(), dict(zip(leaves, grads))
+            return loss, dict(zip(leaves, grads))
         micro = _leading(batch) // self.grad_accum
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         acc = [torch.zeros(named[k].shape, dtype=torch.float32, device=self.device)
                for k in keys]
         for a in range(self.grad_accum):
             loss, grads = one({k: v[a * micro:(a + 1) * micro] for k, v in batch.items()})
-            loss_sum = loss_sum + loss.detach()
+            loss_sum = loss_sum + loss
             for s, g in zip(acc, grads):
                 s.add_(g)
         grads = {name: (s / self.grad_accum).to(leaves[name].dtype)
@@ -248,8 +351,9 @@ class _Step:
 
     def grads_(self, params: Params, batch: dict, out: Params) -> torch.Tensor:
         """Every node's gradient into ``out`` (in place); the per-node losses
-        (n,) in float32 -- fsdp: the global model's loss, a 0-d tensor."""
-        if self.mode == "fsdp":
+        (n,) in float32 -- fsdp and one node per rank: the model's loss, a
+        0-d tensor."""
+        if self.mode == "fsdp" or self.ranks:
             loss, grads = self._loss_grads(params, batch)
             _copy_into(out, grads)
             return loss
@@ -266,27 +370,76 @@ class _Step:
     # -- the step --------------------------------------------------------------
 
     def mix(self, half: Params, operand) -> Params:
+        """Stacked nodes' mix."""
         if operand is None:
             return self.static_mix(half)
         if isinstance(operand, ScheduleArrays):
             return mix_schedule_arrays(half, operand)
         return mix_dense(half, operand)
 
+    def mix_rank(self, half: Params, opt, operand, delays) -> tuple[Params, Params | None]:
+        """One node per rank: ``(mixed, new_ef)`` by the setup's transport
+        (the reference's ``do_mix`` / ``do_mix_ef`` / stale dispatch); the
+        stale ring in ``opt`` is pushed in place."""
+        g, c, w = self.group, self.compressor, operand
+        ef = opt.get("ef") if _is_carry_dict(opt) else None
+        pool = self.transport == "pool"
+        if self.staleness is not None:
+            st = ShardStaleState(rings=opt["stale"]["buf"], head=opt["stale"]["head"])
+            if not pool and not isinstance(w, ScheduleArrays):
+                raise TypeError("staleness needs a per-sender payload to delay: pass mix_w as "
+                                "ScheduleArrays (allgather) or pool gammas, not a dense (n, n) W")
+            if c is not None:
+                mixed, ef, _ = (
+                    mix_ppermute_pool_stale_ef(half, ef, st, w, self.pool, delays, g, c) if pool
+                    else mix_arrays_sharded_stale_ef(half, ef, st, w, delays, g, c))
+            else:
+                mixed, _ = (mix_ppermute_pool_stale(half, st, w, self.pool, delays, g) if pool
+                            else mix_arrays_sharded_stale(half, st, w, delays, g))
+            return mixed, ef
+        if c is not None:
+            if pool:
+                return mix_ppermute_pool_ef(half, ef, w, self.pool, g, c)
+            if isinstance(w, ScheduleArrays):
+                return mix_arrays_sharded_ef(half, ef, w, g, c)
+            return mix_dense_sharded_ef(half, ef, w, g, c)
+        if not self.online_w:
+            return self.static_mix(half), ef
+        if pool:
+            return mix_ppermute_pool(half, w, self.pool, g), ef
+        if isinstance(w, ScheduleArrays):
+            return mix_arrays_sharded(half, w, g), ef
+        return mix_dense_sharded(half, w, g), ef
+
     def step_(self, params: Params, opt, batch: dict, operand, gossip: bool,
-              grads: Params) -> torch.Tensor:
+              grads: Params, delays: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         """One step on ``params`` / ``opt`` in place (``grads``: scratch
-        buffers); returns the step's loss (the mean over nodes), float32."""
+        buffers); returns ``{"loss": the mean over nodes, <probe>: ...}``
+        (float32 0-d tensors)."""
         losses = self.grads_(params, batch, grads)
         m = opt.get("m") if _is_carry_dict(opt) else opt
         half, new_m = _sgd_update(params, grads, m, self.lr, self.momentum)
-        if self.mode == "dsgd" and gossip:
+        new_ef = None
+        if self.ranks:
+            if gossip:
+                half, new_ef = self.mix_rank(half, opt, operand, delays)
+        elif self.mode == "dsgd" and gossip:
             half = self.mix(half, operand)
         _copy_into(params, half)
         if self.momentum > 0.0:
             _copy_into(m, new_m)
+        if new_ef is not None:
+            _copy_into(opt["ef"], new_ef)
         if _is_carry_dict(opt) and "step" in opt:
             opt["step"].add_(1)
-        return losses.mean()
+        if not self.ranks:
+            return {"loss": losses.mean()}
+        out = {"loss": _psum(losses, self.group) / self.n_nodes}
+        if self.probes is not None and self.probes.consensus:
+            out["consensus"] = _spread_sq(params, self.group)
+        if self.probes is not None and self.probes.grad_dev:
+            out["grad_dev"] = _spread_sq(grads, self.group) / self.n_nodes
+        return out
 
     def gossip_at(self, step: int) -> bool:
         return self.mode == "dsgd" and step % self.gossip_every == 0
@@ -306,13 +459,26 @@ class _Step:
 @dataclasses.dataclass
 class _RolloutBody(Body):
     batch: dict | None = None
-    losses: torch.Tensor | None = None
+    outputs: dict | None = None
+
+
+def _stale_inputs(w_stack, delays, device: torch.device) -> dict:
+    """A staleness step's per-step operands as body inputs: the stacked
+    gammas (and perms), the (k, n) delays."""
+    if isinstance(w_stack, ScheduleArrays):
+        out = {_GAMMAS: torch.as_tensor(w_stack.gammas, dtype=torch.float32, device=device),
+               _PERMS: torch.as_tensor(w_stack.perms, dtype=torch.int32, device=device)}
+    else:
+        out = {_GAMMAS: torch.as_tensor(w_stack, dtype=torch.float32, device=device)}
+    out[_DELAYS] = torch.as_tensor(delays, device=device).to(torch.int32)
+    return out
 
 
 class _Rollout:
-    """``multi_step(params, opt_state, batches[, mix_w]) -> (params,
-    opt_state, losses)`` over static carries, as captured (``"scan"``) or
-    eager (``"loop"``) bodies of at most ``MAX_GRAPH_STEPS`` steps.
+    """``multi_step(params, opt_state, batches[, mix_w[, delays]]) ->
+    (params, opt_state, losses)`` over static carries, as captured
+    (``"scan"``) or eager (``"loop"``) bodies of at most
+    ``MAX_GRAPH_STEPS`` steps.
 
     The given parameters, opt state and mixing operand are copied into
     the static carries at each call (a swap is a ``copy_``); the results
@@ -350,7 +516,8 @@ class _Rollout:
         """The static operand of ``mix``'s kind and shape, ``mix`` copied in."""
         if mix is None:
             return None
-        value = _static_operand(mix, self.setup._core.device)
+        value = _static_operand(mix, self.setup._core.device,
+                                pool_gammas=self.setup.sharded_transport == "pool")
         key = _operand_key(value)
         static = self._operands.get(key)
         if static is None:
@@ -378,16 +545,25 @@ class _Rollout:
         core = self.setup._core
         inputs = {name: torch.empty((k,) + tuple(v.shape[1:]), dtype=v.dtype,
                                     device=core.device) for name, v in batch.items()}
-        losses = torch.empty((k,), dtype=torch.float32, device=core.device)
+        outputs = {name: torch.empty((k,), dtype=torch.float32, device=core.device)
+                   for name in core.outputs}
         pattern = [core.gossip_at(phase + j) for j in range(k)]
+        model_keys = [name for name in inputs if not name.startswith("__")]
 
         def fn() -> None:
             for j in range(k):
-                losses[j] = core.step_(self.params, self.opt,
-                                       {name: v[j] for name, v in inputs.items()},
-                                       operand, pattern[j], self.grads)
+                op, delays = operand, None
+                if _DELAYS in inputs:
+                    op = (ScheduleArrays(inputs[_GAMMAS][j], inputs[_PERMS][j])
+                          if _PERMS in inputs else inputs[_GAMMAS][j])
+                    delays = inputs[_DELAYS][j]
+                out = core.step_(self.params, self.opt, {name: inputs[name][j]
+                                                         for name in model_keys},
+                                 op, pattern[j], self.grads, delays)
+                for name, v in out.items():
+                    outputs[name][j] = v
 
-        body = self._bodies[key] = _RolloutBody(fn, batch=inputs, losses=losses)
+        body = self._bodies[key] = _RolloutBody(fn, batch=inputs, outputs=outputs)
         return body
 
     def _run(self, body: _RolloutBody) -> None:
@@ -400,28 +576,45 @@ class _Rollout:
         body.fn()
 
     def __call__(self, params: Params, opt_state, batches: dict, *mix_w):
-        self.setup._check_online_args(mix_w)
-        core = self.setup._core
-        operand = self._operand(mix_w[0]) if mix_w else None
+        setup = self.setup
+        setup._check_online_args(mix_w)
+        core = setup._core
+        batches = {name: torch.as_tensor(v, device=core.device) for name, v in batches.items()}
+        operand = None
+        if setup.staleness is not None and mix_w:
+            batches.update(_stale_inputs(mix_w[0], mix_w[1], core.device))
+        elif mix_w:
+            operand = self._operand(mix_w[0])
         self._bind(params, opt_state)
         phase = core.phase(self.opt)
-        batches = {name: torch.as_tensor(v, device=core.device) for name, v in batches.items()}
         steps = _leading(batches)
-        out, t = [], 0
+        out, t = {name: [] for name in core.outputs}, 0
         for k in chunks(steps):
             body = self._body(k, batches, operand, (phase + t) % core.gossip_every)
             for name, v in body.batch.items():
                 v.copy_(batches[name][t:t + k])
             self._run(body)
-            out.append(body.losses.clone())
+            for name, v in body.outputs.items():
+                out[name].append(v.clone())
             t += k
-        losses = torch.cat(out) if out else torch.zeros((0,), device=core.device)
+        series = {name: torch.cat(v) if v else torch.zeros((0,), device=core.device)
+                  for name, v in out.items()}
+        losses = series if core.probes is not None else series["loss"]
         return _clone(self.params), _clone(self.opt), losses
 
+
+# ---------------------------------------------------------------------------
+# Checkpoints
+# ---------------------------------------------------------------------------
 
 def _checkpoint_leaf(t: torch.Tensor) -> torch.Tensor:
     """A checkpointable view: bfloat16 by its bits (numpy has no bfloat16)."""
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _mix_tree(mix):
+    return {"gammas": mix.gammas, "perms": mix.perms} if isinstance(mix, ScheduleArrays) \
+        else mix
 
 
 def _checkpoint_tree(params: Params, opt, mix) -> dict:
@@ -433,10 +626,7 @@ def _checkpoint_tree(params: Params, opt, mix) -> dict:
     tree = {"params": view(params)}
     if opt is not None:
         tree["opt"] = view(opt)
-    if isinstance(mix, ScheduleArrays):
-        tree["mix"] = {"gammas": mix.gammas, "perms": mix.perms}
-    else:
-        tree["mix"] = mix
+    tree["mix"] = _mix_tree(mix)
     return tree
 
 
@@ -450,21 +640,70 @@ def _restore_into(like, values, device: torch.device):
     return t.view(torch.bfloat16) if like.dtype == torch.bfloat16 else t.to(like.dtype)
 
 
+def _restore_mix(mix, values, device: torch.device):
+    if isinstance(mix, ScheduleArrays):
+        return ScheduleArrays(*(torch.from_numpy(np.array(values[k])).to(device)
+                                for k in ("gammas", "perms")))
+    return torch.from_numpy(np.array(values)).to(device)
+
+
+def _rank_tree(params: Params, opt, node, rep) -> dict:
+    """``{params, opt}`` with ``node`` applied to every per-node leaf (the
+    parameters, momentum, EF memory, stale ring) and ``rep`` to the
+    replicated ones (the step counter, the ring's head)."""
+    def per_node(tree):
+        return {k: per_node(v) for k, v in tree.items()} if isinstance(tree, dict) \
+            else node(tree)
+
+    tree = {"params": per_node(params)}
+    if opt is None:
+        return tree
+    if not _is_carry_dict(opt):
+        tree["opt"] = per_node(opt)
+        return tree
+    tree["opt"] = {}
+    for k, v in opt.items():
+        if k == "step":
+            tree["opt"][k] = rep(v)
+        elif k == "stale":
+            tree["opt"][k] = {"buf": per_node(v["buf"]), "head": rep(v["head"])}
+        else:
+            tree["opt"][k] = per_node(v)
+    return tree
+
+
+class _Shape:
+    """A restore template leaf: only its shape is read (``row``: a
+    per-node leaf, of which a rank keeps its own row)."""
+
+    def __init__(self, shape, row: bool = False):
+        self.shape = tuple(shape)
+        self.row = row
+
+
+def _gather_leaf(x: torch.Tensor, group) -> torch.Tensor | None:
+    """Every rank's ``x`` stacked on the group's first rank, as a
+    checkpointable view (None on the other ranks)."""
+    out = _gather_first(x, group)
+    return None if out is None else _checkpoint_leaf(out)
+
+
 @dataclasses.dataclass
 class TrainSetup:
     """The LM trainer of one ``(cfg, mode)``: the step, its rollouts and
     the segmented online rollout.
 
-    ``train_step(params, opt_state, batch[, mix_w]) -> (params, opt_state,
-    loss)`` is one eager step on copies (the inputs are left as they
-    were); ``params`` is a dict of tensors named as the model's
-    parameters, with a leading node axis in ``dsgd`` mode (``batch``
-    leaves ``(n, per_node, ...)``) and none in ``fsdp`` (``(batch, ...)``);
-    ``loss`` is the mean over nodes, float32. ``grad_fn(params, batch) ->
-    (losses, grads)`` gives every node's loss and gradient without a
-    step. ``init_params(seed)`` draws one model from ``seed``
-    (``registry.init_model``) and, in ``dsgd`` mode, copies it to every
-    node (Algorithm 1: one init).
+    ``train_step(params, opt_state, batch[, mix_w[, delays]]) -> (params,
+    opt_state, loss)`` is one eager step on copies (the inputs are left as
+    they were); ``params`` is a dict of tensors named as the model's
+    parameters, with a leading node axis on stacked nodes (``batch``
+    leaves ``(n, per_node, ...)``), none in ``fsdp`` (``(batch, ...)``)
+    and one node per rank (``(per_node, ...)``); ``loss`` is the mean over
+    nodes, float32 (with ``probes``, the dict ``{"loss", <probe>...}``).
+    ``grad_fn(params, batch) -> (losses, grads)`` gives every node's loss
+    and gradient without a step. ``init_params(seed)`` draws one model
+    from ``seed`` (``registry.init_model``) and, stacked, copies it to
+    every node (Algorithm 1: one init; every rank draws the same).
     """
 
     train_step: Callable
@@ -474,16 +713,27 @@ class TrainSetup:
     n_nodes: int
     online_w: bool = False
     sharded_transport: str | None = None
+    pool: PermPool | None = None
     comm_bytes_per_step: int | None = None
+    compression: Compressor | None = None
+    staleness: StragglerPolicy | None = None
+    probes: HealthProbes | None = None
+    group: Any = None
     _core: _Step | None = dataclasses.field(default=None, repr=False, compare=False)
     _init_opt_state: Callable | None = dataclasses.field(default=None, repr=False,
                                                          compare=False)
+    _rebuild: Callable | None = dataclasses.field(default=None, repr=False, compare=False)
 
     def init_opt_state(self, params: Params):
         """The opt state the step carries, in the reference's convention:
         None when nothing is carried, the bare momentum tree for momentum
         alone, else a dict with ``"step"`` (a 0-d int32 counter, for
-        ``gossip_every > 1``) and ``"m"`` (the momentum)."""
+        ``gossip_every > 1``), ``"m"`` (the momentum), ``"ef"`` (the EF
+        memory, float32) and ``"stale"`` (``{"buf": the ring, leaves
+        (depth, ...) float32 -- bfloat16 where it holds bf16 values
+        exactly, ``core.mixing.stale_ring_dtype`` --, "head": a 0-d
+        int64}``). The EF memory and the ring are broadcast views until a
+        step copies them into its own tensors."""
         if self._init_opt_state is None:
             raise ValueError("init_opt_state needs a setup built by make_train_setup")
         return self._init_opt_state(params)
@@ -491,20 +741,120 @@ class TrainSetup:
     def multi_step_fn(self, rollout: str = "scan", *, retrace_guard=None) -> _Rollout:
         """``multi_step(params, opt_state, batches[, mix_w]) -> (params,
         opt_state, losses)``: every ``batches`` leaf carries a leading
-        time axis ``(k, ...)``; ``losses`` is ``(k,)``. ``"scan"``
-        captures its bodies as CUDA graphs (on the CPU it runs them
-        eagerly, counting captures as the card would), ``"loop"`` runs
-        the same bodies eagerly. The function keeps its bodies and static
-        carries across calls; ``n_traces`` counts its captures."""
+        time axis ``(k, ...)``; ``losses`` is ``(k,)`` (with ``probes``, a
+        dict of ``(k,)`` series). With ``staleness`` the call is
+        ``multi_step(params, opt_state, batches, mix_stack, delays)``: the
+        per-step operands stacked on ``k`` (a ``ScheduleArrays`` of
+        ``(k, L)`` gammas and ``(k, L, n)`` perms, or ``(k, capacity)``
+        pool gammas) and ``(k, n)`` delays. ``"scan"`` captures its
+        bodies as CUDA graphs (on the CPU it runs them eagerly, counting
+        captures as the card would; refused on a gloo group, whose host
+        work a graph cannot hold), ``"loop"`` runs the same bodies
+        eagerly. The function keeps its bodies and static carries across
+        calls; ``n_traces`` counts its captures."""
         if rollout not in ("scan", "loop"):
             raise ValueError(f"unknown rollout {rollout!r}")
+        if rollout == "scan" and self.group is not None and group_backend(self.group) != "nccl":
+            raise ValueError(
+                f"rollout='scan' captures the step's collectives in CUDA graphs, and the "
+                f"{group_backend(self.group)!r} backend's cannot be captured; use "
+                f"rollout='loop' or an nccl group")
         return _Rollout(self, rollout == "scan", retrace_guard)
 
     def _check_online_args(self, mix_w: tuple) -> None:
+        if self.online_w and self.staleness is not None:
+            if len(mix_w) != 2:
+                raise TypeError("staleness setup: call multi_step(params, opt_state, batches, "
+                                "mix_stack, delays)")
+            return
         if self.online_w and len(mix_w) != 1:
             raise TypeError("online_w setup: call multi_step(params, opt_state, batches, mix_w)")
         if not self.online_w and mix_w:
             raise TypeError("this setup was built without online_w; no mix_w argument expected")
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def _save(self, directory: str, t: int, params: Params, opt, mix) -> None:
+        if self.group is None:
+            save_checkpoint(directory, t, _checkpoint_tree(params, opt, mix),
+                            metadata={"t": int(t)})
+            return
+        # one node per rank: rank 0 writes the stacked layout (node axis
+        # first), each per-node leaf gathered to it when the writer reaches
+        # it and dropped before the next, so one leaf's (n, P_leaf) is held
+        tree = _rank_tree(params, opt, lambda x: lambda: _gather_leaf(x, self.group),
+                          _checkpoint_leaf)
+        tree["mix"] = _mix_tree(mix)
+        if axis_index(self.group) == 0:
+            save_checkpoint(directory, t, tree, metadata={"t": int(t)})
+        else:
+            for leaf in tree_leaves(tree):
+                if callable(leaf):
+                    leaf()
+        import torch.distributed as dist
+
+        dist.barrier(group=self.group)
+
+    def _restore(self, directory: str, step: int, params: Params, opt, mix):
+        device = self._core.device
+        if self.group is None:
+            like = _checkpoint_tree(params, opt, mix)
+            tree, _ = restore_checkpoint(directory, step, like)
+            return (_restore_into(params, tree["params"], device),
+                    _restore_into(opt, tree["opt"], device) if opt is not None else None,
+                    _restore_mix(mix, tree["mix"], device))
+        # every rank reads the stacked layout leaf by leaf, keeping its own row
+        n, i = self.n_nodes, axis_index(self.group)
+        like = _rank_tree(params, opt, lambda x: _Shape((n,) + tuple(x.shape), row=True),
+                          lambda x: _Shape(x.shape))
+        like["mix"] = _mix_tree(mix)
+        tree, _ = restore_checkpoint(directory, step, like, select=lambda a, tmpl: a[i].copy()
+                                     if getattr(tmpl, "row", False) else a)
+        params = _restore_into(params, tree["params"], device)
+        if opt is not None:
+            opt = _restore_into(opt, tree["opt"], device)
+        return params, opt, _restore_mix(mix, tree["mix"], device)
+
+    # -- the segmented online rollout -----------------------------------------
+
+    def _as_mix_operand(self, update, pool: PermPool | None):
+        """A hook's return or the initial mix as the step's operand (the
+        reference's ``_as_mix_operand``): a ``PoolSwap``'s gammas; on the
+        pool transport (capacity,) gammas; on the all-gather transport
+        pool-coordinate gammas as their ``ScheduleArrays`` twin
+        (``pool.arrays_for``, bitwise the pool's mix)."""
+        device = self._core.device
+        if self.group is None:
+            return _static_operand(update, device)
+        if isinstance(update, PoolSwap):
+            update = update.gammas
+        if isinstance(update, ScheduleArrays):
+            return _static_operand(update, device)
+        arr = update.detach().cpu().numpy() if isinstance(update, torch.Tensor) else update
+        arr = np.asarray(arr, np.float32)
+        if self.sharded_transport == "pool":
+            if arr.shape != (self.pool.capacity,):
+                raise ValueError(f"pool transport expects ({self.pool.capacity},) gammas, "
+                                 f"got {arr.shape}")
+            return torch.as_tensor(arr, device=device)
+        if pool is not None and arr.ndim == 1:
+            if arr.shape != (pool.capacity,):
+                raise ValueError(f"pool-coordinate gammas must be ({pool.capacity},), "
+                                 f"got {arr.shape}")
+            return pool.arrays_for(arr, device=device)
+        return _static_operand(arr, device)
+
+    def _stale_stream(self, base, d_seg: np.ndarray, pool: PermPool | None):
+        """A segment's delay slice resolved against the policy into its
+        per-step operand stack and effective delays (host side)."""
+        if isinstance(base, ScheduleArrays):
+            g, p, eff = straggler_stream(self.staleness, base, d_seg)
+            return ScheduleArrays(gammas=g, perms=p), eff
+        if base.ndim == 1:
+            return straggler_pool_stream(self.staleness, base, pool, d_seg)
+        raise ValueError("staleness needs a ScheduleArrays or pool-gamma mixing operand: a dense "
+                         "(n, n) W has no per-sender payload to delay (decompose it with "
+                         "schedule_from_matrix)")
 
     def run_segments(
         self,
@@ -528,25 +878,38 @@ class TrainSetup:
         """Segmented online rollout with hot swaps at the boundaries, as the
         reference's: ``segment_len``-step slices of ``batches`` (leaves
         ``(steps, ...)``) through one multi-step; ``on_segment(t)`` after
-        every segment but the last may return None, a ``ScheduleArrays``
-        or an ``(n, n)`` W, copied into the bodies' static operand (no
-        capture added). With ``checkpoint_dir``, ``{params, opt, mix}``
-        is saved every ``checkpoint_every``-th boundary after the hook
-        (and at the end and at an early stop); ``resume`` restores the
-        newest and continues, bitwise the uninterrupted run;
-        ``stop_after_segments`` ends the run early (``stopped_at``).
-        ``tracer`` records ``segment.rollout`` / ``segment.checkpoint``
-        spans, ``retrace_guard`` the captures under
-        ``"run_segments.multi_step"``.
+        every segment but the last may return None, a ``ScheduleArrays``,
+        an ``(n, n)`` W or, one node per rank, a ``PoolSwap`` (an in-pool
+        swap is a value copy; a restage on the pool transport rebuilds the
+        step around the new pool, counted in ``recompiles``; on the
+        all-gather transport it runs as the pool's ``ScheduleArrays``
+        twin), copied into the bodies' static operand (no capture added).
+        With ``checkpoint_dir``, ``{params, opt, mix}`` is saved every
+        ``checkpoint_every``-th boundary after the hook (and at the end and
+        at an early stop); ``resume`` restores the newest and continues,
+        bitwise the uninterrupted run; ``stop_after_segments`` ends the
+        run early (``stopped_at``). One node per rank: ``delays`` (a
+        staleness setup's raw ``(steps, n)`` trace, default zeros) is
+        resolved per segment against the policy; ``quarantine`` (an
+        object with ``mask()`` and ``summary()``) charges the meter's
+        quarantined bytes; with ``probes`` the per-step series come back
+        under ``"health"``. ``tracer`` records ``segment.rollout`` /
+        ``segment.restage`` / ``segment.checkpoint`` spans,
+        ``retrace_guard`` the captures under ``"run_segments.multi_step"``.
 
         Returns ``{"params", "opt_state", "losses", "n_traces", "swaps",
         "recompiles", "segment_s", "comm", "setup", "mix", "resumed_from",
-        "stopped_at"}``; ``recompiles`` is always 0 (no pool restage).
+        "stopped_at"}`` (and ``"quarantine"``, ``"health"``); ``setup`` and
+        ``mix`` are the live ones after a restage; ``comm`` is the
+        reference's float32 accounting (``make_train_setup``), not the
+        bytes the port's wire moves.
         """
-        if delays is not None:
-            raise _not_ported("delays (bounded-delay gossip)")
-        if quarantine is not None:
-            raise _not_ported("quarantine accounting")
+        ranks = self.group is not None
+        if not ranks:
+            if delays is not None:
+                raise _not_ported("delays (bounded-delay gossip) on stacked nodes")
+            if quarantine is not None:
+                raise _not_ported("quarantine accounting on stacked nodes")
         if not self.online_w:
             raise ValueError("run_segments needs an online_w=True setup")
         if segment_len < 1:
@@ -554,31 +917,38 @@ class TrainSetup:
         if checkpoint_every < 1:
             raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
         tracer = _NULL_TRACER if tracer is None else tracer
-        device = self._core.device
         steps = _leading(batches)
-        msj = self.multi_step_fn(rollout, retrace_guard=retrace_guard)
-        mix = _static_operand(mix, device)
-        meter = CommMeter(per_step_bytes=self.comm_bytes_per_step or 0)
+        setup = self
+        if self.staleness is None:
+            if delays is not None:
+                raise ValueError("delays given but this setup has no staleness policy: build "
+                                 "with make_train_setup(staleness=StragglerPolicy(...))")
+        else:
+            delays = (np.zeros((steps, self.n_nodes), np.int64) if delays is None
+                      else np.asarray(delays, np.int64))
+            if delays.shape != (steps, self.n_nodes):
+                raise ValueError(f"delays must be ({steps}, {self.n_nodes}), got {delays.shape}")
+            if delays.size and delays.min() < 0:
+                raise ValueError("delays must be non-negative")
+        msj = setup.multi_step_fn(rollout, retrace_guard=retrace_guard)
+        traces_before = 0
+        pool = setup.pool
+        mix = setup._as_mix_operand(mix, pool)
+        meter = CommMeter(per_step_bytes=setup.comm_bytes_per_step or 0)
+        names = setup.probes.names() if setup.probes is not None else ()
+        health: dict[str, list] = {name: [] for name in names}
         losses, swaps, segment_s = [], [], []
-        t0, resumed_from, stopped_at = 0, None, None
+        t0, resumed_from, stopped_at, recompiles = 0, None, None, 0
         if checkpoint_dir is not None and resume:
             last = latest_step(checkpoint_dir)
             if last is not None:
-                like = _checkpoint_tree(params, opt_state, mix)
-                tree, _ = restore_checkpoint(checkpoint_dir, last, like)
-                params = _restore_into(params, tree["params"], device)
-                if opt_state is not None:
-                    opt_state = _restore_into(opt_state, tree["opt"], device)
-                mix = (ScheduleArrays(*(torch.from_numpy(np.array(tree["mix"][k])).to(device)
-                                        for k in ("gammas", "perms")))
-                       if isinstance(mix, ScheduleArrays)
-                       else torch.from_numpy(np.array(tree["mix"])).to(device))
+                params, opt_state, mix = setup._restore(checkpoint_dir, last, params,
+                                                        opt_state, mix)
                 t0 = resumed_from = int(last)
 
         def save(t: int) -> None:
             with tracer.span("segment.checkpoint", t=int(t)):
-                save_checkpoint(checkpoint_dir, t, _checkpoint_tree(params, opt_state, mix),
-                                metadata={"t": int(t)})
+                setup._save(checkpoint_dir, t, params, opt_state, mix)
 
         seg_idx = 0
         while t0 < steps:
@@ -586,18 +956,55 @@ class TrainSetup:
             seg = {name: v[t0:t0 + k] for name, v in batches.items()}
             tic = time.perf_counter()
             with tracer.span("segment.rollout", t0=t0, k=k):
-                params, opt_state, loss = msj(params, opt_state, seg, mix)
-                loss = loss.cpu().numpy()
+                if setup.staleness is not None:
+                    d_seg = delays[t0:t0 + k]
+                    w_stack, eff = setup._stale_stream(mix, d_seg, pool)
+                    params, opt_state, loss = msj(params, opt_state, seg, w_stack, eff)
+                else:
+                    params, opt_state, loss = msj(params, opt_state, seg, mix)
+                loss = {name: v.cpu().numpy() for name, v in loss.items()} if names \
+                    else loss.cpu().numpy()
             segment_s.append(time.perf_counter() - tic)
-            meter.tick(k)
-            losses.append(loss)
+            q_share = 0.0
+            if quarantine is not None:
+                h, n = int(np.asarray(quarantine.mask(), bool).sum()), setup.n_nodes
+                q_share = 1.0 - (n - h) * (n - h - 1) / (n * (n - 1)) if n > 1 and h > 0 \
+                    else 0.0
+            if setup.staleness is not None:
+                fates = [staleness_transfer_fracs(d_seg[j], setup.staleness.tau_max,
+                                                  setup.staleness.mode) for j in range(k)]
+                on_time = float(np.mean([f[0] for f in fates]))
+                deferred = float(np.mean([f[1] for f in fates]))
+                meter.tick(k, delivered_frac=on_time + deferred, deferred_frac=deferred,
+                           quarantined_frac=(on_time + deferred) * q_share)
+            else:
+                meter.tick(k, quarantined_frac=q_share)
+            if names:
+                losses.append(loss["loss"])
+                for name in names:
+                    health[name].append(loss[name])
+            else:
+                losses.append(loss)
             t0 += k
             seg_idx += 1
             if on_segment is not None and t0 < steps:  # no hook after the final segment
                 update = on_segment(t0 - 1)
                 if update is not None:
                     swaps.append(t0 - 1)
-                    mix = _static_operand(update, device)
+                    if isinstance(update, PoolSwap) and update.restaged:
+                        if not ranks:
+                            raise _not_ported("a PoolSwap on stacked nodes")
+                        pool = update.pool
+                        if setup.sharded_transport == "pool":
+                            # the new atoms are not staged: rebuild the step
+                            # around the new pool (the one counted restage)
+                            with tracer.span("segment.restage", t=t0 - 1):
+                                traces_before += msj.n_traces
+                                setup = setup._rebuild(pool)
+                                msj = setup.multi_step_fn(rollout, retrace_guard=retrace_guard)
+                            recompiles += 1
+                            meter.set_rate(setup.comm_bytes_per_step or 0, step=t0)
+                    mix = setup._as_mix_operand(update, pool)
             if checkpoint_dir is not None and (seg_idx % checkpoint_every == 0 or t0 >= steps):
                 save(t0)
             if stop_after_segments is not None and seg_idx >= stop_after_segments and t0 < steps:
@@ -605,20 +1012,54 @@ class TrainSetup:
                     save(t0)  # the crash drill must leave a resumable state
                 stopped_at = t0
                 break
-        return {
+        out = {
             "params": params,
             "opt_state": opt_state,
             "losses": np.concatenate(losses) if losses else np.zeros((0,)),
-            "n_traces": msj.n_traces,
+            "n_traces": traces_before + msj.n_traces,
             "swaps": swaps,
-            "recompiles": 0,
+            "recompiles": recompiles,
             "segment_s": segment_s,
             "comm": meter.summary(),
-            "setup": self,
+            "setup": setup,
             "mix": mix,
             "resumed_from": resumed_from,
             "stopped_at": stopped_at,
         }
+        if quarantine is not None:
+            out["quarantine"] = quarantine.summary()
+        if names:
+            out["health"] = {name: np.concatenate(v) if v else np.zeros((0,))
+                             for name, v in health.items()}
+        return out
+
+
+def _check_robustness(online_w: bool, gossip_every: int, compressor, staleness,
+                      probes) -> None:
+    """The reference's checks of ``compression`` / ``staleness`` /
+    ``probes`` (one node per rank)."""
+    if probes is not None:
+        if not isinstance(probes, HealthProbes):
+            raise TypeError(f"probes must be a HealthProbes, got {type(probes).__name__}")
+        if probes.tau_bar:
+            raise ValueError(
+                "the tau_bar probe needs the in-carry ScheduleArrays of the simulator drivers "
+                "(run_mean_estimation / run_classification); the rank transports never carry "
+                "W's coefficients")
+        if not online_w:
+            raise ValueError("health probes ride the online step: build with online_w=True")
+    if staleness is not None:
+        if not isinstance(staleness, StragglerPolicy):
+            raise TypeError(f"staleness must be a StragglerPolicy, got {type(staleness)}")
+        if not online_w:
+            raise ValueError("staleness rides the online transports: build with online_w=True")
+        if gossip_every > 1:
+            raise ValueError(
+                f"staleness is incompatible with gossip_every={gossip_every}: off-steps would "
+                "push no ring slot while delays keep counting pushes; run bounded-delay gossip "
+                "with gossip_every=1")
+    if compressor is not None and not online_w:
+        raise ValueError("compression rides the online transports: build with online_w=True")
 
 
 def make_train_setup(
@@ -634,82 +1075,134 @@ def make_train_setup(
     gossip_every: int = 1,
     online_w: bool = False,
     sharded_transport: str = "auto",
-    pool=None,
+    pool: PermPool | None = None,
     compression=None,
-    staleness=None,
-    probes=None,
+    staleness: StragglerPolicy | None = None,
+    probes: HealthProbes | None = None,
+    group=None,
     device: torch.device | str | None = None,
+    remat: bool = False,
 ) -> TrainSetup:
-    """The train step for ``(cfg, mode)`` with ``n_nodes`` stacked nodes on
-    ``device`` (None = CUDA): the reference's ``make_train_setup`` with
-    ``mesh`` replaced by ``n_nodes`` (ignored in ``fsdp`` mode, which has
-    one global model) and ``device``.
+    """The train step for ``(cfg, mode)`` on ``device`` (None = CUDA): the
+    reference's ``make_train_setup`` with ``mesh`` replaced by ``n_nodes``
+    stacked nodes (ignored in ``fsdp`` mode, which has one global model)
+    or by ``group``, a ``torch.distributed`` process group (e.g.
+    ``torch.distributed.group.WORLD``) whose every rank is one node.
 
     ``schedule=None`` in dsgd mode means complete-graph mixing;
     ``online_w=True`` makes the mixing operand a trailing argument of the
-    step (a dense (n, n) W or a ``ScheduleArrays``; ``sharded_transport``
-    ``"auto"`` / ``"allgather"`` both resolve to ``"allgather"``).
+    step: a dense (n, n) W or a ``ScheduleArrays`` on the ``"allgather"``
+    transport, the pool's (capacity,) gammas on ``"pool"`` (``pool=`` a
+    ``PermPool``, one node per rank); ``"auto"`` is ``"allgather"``
+    without a pool, else the measured table's pick
+    (``autotune_sharded_transport``, a lookup) or its closed form.
     ``grad_accum > 1`` splits each node's batch into microbatches and
     takes the mean of their gradients (float32 accumulation);
     ``gossip_every = k > 1`` mixes only on steps whose counter (carried in
-    the opt state, see ``init_opt_state``) is a multiple of k. The mix
-    runs in the gossip kernels on the card, in the reference's numerics
-    (sums in the leaf dtype) on the CPU.
+    the opt state, see ``init_opt_state``) is a multiple of k. Stacked, the
+    mix runs in the gossip kernels on the card and in the reference's
+    numerics (sums in the leaf dtype) on the CPU. One node per rank:
+    ``compression`` (a ``Compressor`` or a spec string) makes the online
+    transports EF-compressed, ``staleness`` (a ``StragglerPolicy``)
+    bounded-delay, ``probes`` (a ``HealthProbes``) adds the per-step
+    ``consensus`` / ``grad_dev`` outputs, each as the reference checks
+    them. ``remat=True`` recomputes each layer's and each loss chunk's
+    activations in the backward pass (the reference's ``remat``, on there):
+    the same gradients bitwise, one block's activations held at a time, at
+    the cost of a second forward; for ranks that share a card.
+
+    ``comm_bytes_per_step`` (and ``run_segments``' ``"comm"`` meter) is
+    the reference's accounting: ``mix_bytes_per_step`` of the transport
+    with float32 payloads (the compressor's wire with ``compression``),
+    as the tests hold it. It is not the port's wire: over ranks a
+    bfloat16 leaf moves as bfloat16, so for a bfloat16 model a rank
+    receives half of it; ``mixing.collective_bytes`` counts what a rank
+    really receives.
     """
+    ranks = group is not None
     if mode == "dsgd_pod":
         raise _not_ported("mode='dsgd_pod'")
     if mode not in ("dsgd", "fsdp"):
         raise ValueError(f"unknown mode {mode}")
+    if ranks and mode == "fsdp":
+        raise _not_ported("mode='fsdp' over ranks")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel":
         raise ValueError(
             "impl='kernel' cannot train: the flash-attention and RG-LRU scan kernels are "
             "forward only (the reference's Pallas kernels have no backward); use impl='plain'")
-    for name, value in (("compression", compression), ("staleness", staleness),
-                        ("probes", probes), ("pool", pool)):
-        if value is not None:
-            raise _not_ported(f"{name}=")
-    if sharded_transport == "pool":
-        raise _not_ported("sharded_transport='pool'")
-    if sharded_transport not in ("auto", "allgather"):
+    compressor = make_compressor(compression) if ranks else compression
+    if not ranks:
+        for name, value in (("compression", compression), ("staleness", staleness),
+                            ("probes", probes), ("pool", pool)):
+            if value is not None:
+                raise _not_ported(f"{name}= on stacked nodes")
+        if sharded_transport == "pool":
+            raise _not_ported("sharded_transport='pool' on stacked nodes")
+    else:
+        _check_robustness(online_w, gossip_every, compressor, staleness, probes)
+    if sharded_transport not in ("auto", "allgather", "pool"):
         raise ValueError(f"unknown sharded_transport {sharded_transport!r}")
     if online_w and mode == "fsdp":
         raise ValueError("online_w needs a node axis (dsgd); fsdp has no W")
     if online_w and schedule is not None:
         raise ValueError("online_w and a static schedule are mutually exclusive -- pass the "
                          "initial W as the mix_w argument of the step instead")
+    if pool is not None and not online_w:
+        raise ValueError("a PermPool requires online_w=True and mode='dsgd'")
+    if sharded_transport == "pool" and pool is None:
+        raise ValueError("sharded_transport='pool' requires a PermPool")
     if grad_accum < 1 or gossip_every < 1:
         raise ValueError(f"grad_accum and gossip_every must be >= 1, got {grad_accum}, "
                          f"{gossip_every}")
     device = resolve_device(device)
-    n = n_nodes if mode == "dsgd" else 1
+    if ranks:
+        n = axis_size(group)
+        if n_nodes not in (1, n):
+            raise ValueError(f"n_nodes={n_nodes} but the group has {n} ranks")
+    else:
+        n = n_nodes if mode == "dsgd" else 1
     if schedule is not None and schedule.n_nodes != n:
         raise ValueError(f"schedule has {schedule.n_nodes} nodes, the setup provides {n}")
-    if schedule is not None:
+    if pool is not None and pool.n_nodes != n:
+        raise ValueError(f"pool is staged for {pool.n_nodes} nodes, the group provides {n}")
+    if schedule is not None and not ranks:
         schedule.operands(device)  # made and checked once, before any capture
-    core = _Step(cfg, mode=mode, n_nodes=n, lr=lr, momentum=momentum, impl=impl,
-                 grad_accum=grad_accum, gossip_every=gossip_every, online_w=online_w,
-                 schedule=schedule, device=device)
 
-    def init_params(seed: int = 0) -> Params:
-        model = registry.init_model(cfg, seed=seed, device=device)
-        single = {name: p.detach() for name, p in model.named_parameters()}
-        if mode == "fsdp":
-            return single
-        return {name: p[None].expand((n,) + tuple(p.shape)).clone() for name, p in single.items()}
-
-    p_total = sum(int(np.prod(p.shape)) for p in core.loss_module.model.parameters())
+    meta = whisper.Whisper(cfg, "meta") if cfg.arch_type == "audio" else \
+        transformer.LM(cfg, "meta")
+    p_total = sum(int(np.prod(p.shape)) for p in meta.parameters())
     resolved = comm = None
     if mode == "dsgd":
         if online_w:
-            resolved = "allgather"
-            comm = mix_bytes_per_step("allgather", n_nodes=n, p_total=p_total)
+            resolved = sharded_transport
+            if sharded_transport == "auto":
+                resolved = "allgather" if pool is None or not ranks else \
+                    autotune_sharded_transport(n, pool.n_comm_slots, p_total, group=group,
+                                               device=device)
+            pooled = resolved == "pool"
+            comm = mix_bytes_per_step("pool" if pooled else "allgather", n_nodes=n,
+                                      p_total=p_total,
+                                      n_comm_atoms=pool.n_comm_slots if pooled else None,
+                                      compression=compressor)
         elif schedule is not None:
             comm = mix_bytes_per_step("ppermute", n_nodes=n, p_total=p_total,
                                       n_comm_atoms=schedule.n_communication_atoms)
         else:
             comm = mix_bytes_per_step("allreduce", n_nodes=n, p_total=p_total)
+    core = _Step(cfg, mode=mode, n_nodes=n, lr=lr, momentum=momentum, impl=impl,
+                 grad_accum=grad_accum, gossip_every=gossip_every, online_w=online_w,
+                 schedule=schedule, device=device, group=group, transport=resolved,
+                 pool=pool, compressor=compressor, staleness=staleness, probes=probes,
+                 remat=remat)
+
+    def init_params(seed: int = 0) -> Params:
+        model = registry.init_model(cfg, seed=seed, device=device)
+        single = {name: p.detach() for name, p in model.named_parameters()}
+        if mode == "fsdp" or ranks:
+            return single
+        return {name: p[None].expand((n,) + tuple(p.shape)).clone() for name, p in single.items()}
 
     def grad_fn(params: Params, batch: dict):
         grads = {k: torch.empty_like(v) for k, v in params.items()}
@@ -719,11 +1212,15 @@ def make_train_setup(
     def train_step(params: Params, opt_state, batch: dict, *mix_w):
         setup._check_online_args(mix_w)
         params, opt_state = _clone(params), _clone(opt_state)
-        operand = _static_operand(mix_w[0], device) if mix_w else None
+        operand, delays = None, None
+        if mix_w:
+            operand = _static_operand(mix_w[0], device, pool_gammas=resolved == "pool")
+        if staleness is not None:
+            delays = torch.as_tensor(mix_w[1], device=device).to(torch.int32)
         gossip = core.gossip_at(core.phase(opt_state))
         grads = {k: torch.empty_like(v) for k, v in params.items()}
-        loss = core.step_(params, opt_state, batch, operand, gossip, grads)
-        return params, opt_state, loss
+        out = core.step_(params, opt_state, batch, operand, gossip, grads, delays)
+        return params, opt_state, out if probes is not None else out["loss"]
 
     def init_opt_state(params: Params):
         out: dict = {}
@@ -731,15 +1228,41 @@ def make_train_setup(
             out["step"] = torch.zeros((), dtype=torch.int32, device=device)
         if momentum > 0.0:
             out["m"] = {k: torch.zeros_like(v) for k, v in params.items()}
+        # the EF memory and the ring start as broadcast views (zeros; every
+        # slot the current parameters): the step copies them into its own
+        # tensors, so the caller's copy costs no memory
+        if compressor is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=device)
+            out["ef"] = {k: zero.expand(v.shape) for k, v in params.items()}
+        if staleness is not None:
+            depth, dtype = staleness.ring_depth, stale_ring_dtype(params, compressor)
+            out["stale"] = {
+                "buf": {k: v.to(dtype).unsqueeze(0).expand((depth,) + tuple(v.shape))
+                        for k, v in params.items()},
+                "head": torch.zeros((), dtype=torch.long, device=device)}
         if not out:
             return None
         if set(out) == {"m"}:
             return out["m"]
         return out
 
+    def rebuild(new_pool: PermPool) -> TrainSetup:
+        return make_train_setup(
+            cfg, n_nodes=n_nodes, mode=mode, schedule=schedule, lr=lr, momentum=momentum,
+            impl=impl, grad_accum=grad_accum, gossip_every=gossip_every, online_w=online_w,
+            sharded_transport="pool", pool=new_pool, compression=compressor,
+            staleness=staleness, probes=probes, group=group, device=device, remat=remat)
+
     setup = TrainSetup(
         train_step=train_step, init_params=init_params, grad_fn=grad_fn, mode=mode,
-        n_nodes=n, online_w=online_w, sharded_transport=resolved,
-        comm_bytes_per_step=comm, _core=core, _init_opt_state=init_opt_state,
+        n_nodes=n, online_w=online_w, sharded_transport=resolved, pool=pool,
+        comm_bytes_per_step=comm, compression=compressor, staleness=staleness, probes=probes,
+        group=group, _core=core, _init_opt_state=init_opt_state, _rebuild=rebuild,
     )
+    if ranks:
+        import torch.distributed as dist
+
+        # every rank's first collective of the group together (NCCL's
+        # batched point-to-point needs the group's communicator set up)
+        dist.barrier(group=group)
     return setup

@@ -82,7 +82,10 @@ def mix_bytes_per_step(
     counter: every listed transport moves a deterministic byte volume
     per step, so the model IS the measurement up to wire framing.
     ``p_total`` is one node's parameter count; transfers run in f32
-    (``itemsize=4``) in all the hot-swappable transports.
+    (``itemsize=4``) in all the hot-swappable transports of the reference.
+    The port's rank transports move a bfloat16 leaf as bfloat16 (half this
+    model for a bfloat16 model); ``repro_torch.core.mixing.collective_bytes``
+    counts those bytes.
 
     ===========  =========================  ==============================
     transport    bytes/node/step            which mix function

@@ -50,7 +50,10 @@ Arguments are checked as the reference checks them, with one
 difference: the port's ``rollout="loop"`` runs the same bodies eagerly,
 so it takes ``staleness`` and ``probes`` too (the reference needs its
 scan for them). A ``PoolSwap`` from the hook raises
-``NotImplementedError`` (the mesh trainer, ROADMAP queue 1 item 13).
+``NotImplementedError``, as it cannot run in the reference's drivers
+either: they put the hook's return into their scan carry, which takes a
+``ScheduleArrays`` only (``repro/train/trainer.py:495-500``). The staged
+pool runs with one node per rank (``train/lm_trainer.py``).
 """
 
 from __future__ import annotations
@@ -232,9 +235,10 @@ def _check_update(update) -> ScheduleArrays:
     """The hook's non-None return, which must be a ``ScheduleArrays``."""
     if isinstance(update, PoolSwap):
         raise NotImplementedError(
-            "on_segment returned a PoolSwap: the staged-pool transport "
-            "(mix_ppermute_pool) comes with the mesh trainer (ROADMAP queue 1 "
-            "item 13); use an OnlineTopologyController without pool="
+            "on_segment returned a PoolSwap: the simulator drivers take ScheduleArrays "
+            "only, as the reference's do (its scan carry holds a ScheduleArrays); the "
+            "staged-pool transport runs with one node per rank (train.lm_trainer with "
+            "group=); use an OnlineTopologyController without pool="
         )
     if not isinstance(update, ScheduleArrays):
         raise TypeError(

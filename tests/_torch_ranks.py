@@ -1,0 +1,403 @@
+"""Run a job on n gloo ranks of the CPU, for the port's rank tests.
+
+``spawn_ranks(n, job, tmp_path, *args)`` starts n spawn-context processes
+that each cap torch at one thread, join a gloo group through a file under
+``tmp_path`` (no TCP port, so parallel test workers never collide), run
+``job(rank, n, *args)`` from this module and save what it returns; the
+parent joins them with a time limit, kills what is left, and returns the
+results in rank order or raises with the failed ranks' tracebacks.
+
+This module imports torch and the port only, never jax: the rank
+processes import it (``tests/test_torch_standalone.py`` checks that they
+load no jax).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import sys
+import time
+import traceback
+
+import numpy as np
+
+JOIN_TIMEOUT_S = 240
+
+
+def _rank_main(rank: int, n: int, init: str, job_name: str, args: tuple, out: str) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=n,
+                                timeout=datetime.timedelta(seconds=60))
+        result = globals()[job_name](rank, n, *args)
+        result["_jax_loaded"] = "jax" in sys.modules
+        torch.save(result, f"{out}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{out}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(n: int, job, tmp_path, *args, timeout: float = JOIN_TIMEOUT_S) -> list[dict]:
+    import multiprocessing as mp
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    tag = f"{job.__name__}_{n}_{time.monotonic_ns()}"
+    init = f"file://{tmp_path}/{tag}.rendezvous"
+    outs = [os.path.join(str(tmp_path), f"{tag}.rank{r}") for r in range(n)]
+    procs = [ctx.Process(target=_rank_main, args=(r, n, init, job.__name__, args, outs[r]))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+    errors = [open(f"{o}.err").read() for o in outs if os.path.exists(f"{o}.err")]
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"{job.__name__} on {n} ranks: hung {hung}, exit codes "
+                           f"{[p.exitcode for p in procs]}\n" + "\n".join(errors)[-6000:])
+    return [torch.load(f"{o}.pt", weights_only=False) for o in outs]
+
+
+# ---------------------------------------------------------------------------
+# Jobs
+# ---------------------------------------------------------------------------
+
+def _tree(arrays: dict, prefix: str, rank: int | None = None, bf16_h: bool = True):
+    """The ``prefix/<leaf>`` entries of ``arrays`` as a dict of tensors
+    (this rank's row when ``rank`` is given); ``h`` is bfloat16 in a
+    parameter state (``bf16_h``), float32 in an EF memory."""
+    import torch
+
+    out = {}
+    for key, value in arrays.items():
+        if key.startswith(prefix + "/"):
+            leaf = key[len(prefix) + 1:]
+            t = torch.as_tensor(value if rank is None else value[rank])
+            out[leaf] = t.to(torch.bfloat16) if leaf == "h" and bf16_h else t
+    return out
+
+
+def _np(tree) -> dict:
+    import torch
+
+    return {k: v.to(torch.float32).numpy() if v.dtype == torch.bfloat16 else v.numpy()
+            for k, v in tree.items()}
+
+
+def transports_job(rank: int, n: int, inputs_path: str, table_path: str) -> dict:
+    """Every rank transport on this rank's row of the inputs the
+    reference ran on; returns ``{name: {leaf: this rank's output}}``,
+    the bytes counted, and the measured autotune record."""
+    import torch
+
+    from repro_torch.core import compression as C
+    from repro_torch.core import mixing as M
+    from repro_torch.core.dsgd import DSGDState, dsgd_step_sharded
+
+    with np.load(inputs_path) as f:
+        arr = {k: f[k] for k in f.files if k.startswith(f"{n}/")}
+    arr = {k[len(f"{n}/"):]: v for k, v in arr.items()}
+    p0, p1 = (_tree(arr, name, rank) for name in ("p0", "p1"))
+    e0 = _tree(arr, "e0", rank, bf16_h=False)
+    pool = M.PermPool(perms=tuple(tuple(int(x) for x in row) for row in arr["pool_perms"]))
+    gammas = torch.as_tensor(arr["gammas"])
+    arrays = pool.arrays_for(arr["gammas"], device="cpu")
+    W = torch.as_tensor(arr["W"])
+    sched = M.BirkhoffSchedule(coeffs=tuple(float(c) for c in arr["gammas"]),
+                               perms=pool.perms)
+    delays = torch.as_tensor(arr["delays"])
+    zeros = torch.zeros_like(delays)
+    corrupt = M.WireCorruption(mult=torch.as_tensor(arr["mult"]),
+                               xor=torch.as_tensor(arr["xor"]))
+    out: dict = {}
+
+    def stale():
+        return M.shard_stale_init(p0, 2)
+
+    M.reset_collective_bytes()
+    out["dense"] = M.mix_dense_sharded(p1, W)
+    ag_bytes = M.collective_bytes["all_gather"]
+    out["arrays"] = M.mix_arrays_sharded(p1, arrays)
+    M.reset_collective_bytes()
+    out["pool"] = M.mix_ppermute_pool(p1, gammas, pool)
+    pool_bytes = M.collective_bytes["ppermute"]
+    out["ppermute"] = M.mix_ppermute(p1, sched)
+    out["allreduce"] = M.mix_allreduce(p1)
+    out["dense_corrupt"] = M.mix_dense_sharded(p1, W, corrupt=corrupt)
+    out["arrays_corrupt"] = M.mix_arrays_sharded(p1, arrays, corrupt=corrupt)
+    out["pool_corrupt"] = M.mix_ppermute_pool(p1, gammas, pool, corrupt=corrupt)
+    out["arrays_stale"], _ = M.mix_arrays_sharded_stale(p1, stale(), arrays, delays)
+    out["pool_stale"], _ = M.mix_ppermute_pool_stale(p1, stale(), gammas, pool, delays)
+    out["arrays_stale_corrupt"], _ = M.mix_arrays_sharded_stale(p1, stale(), arrays, delays,
+                                                                corrupt=corrupt)
+    out["pool_stale_corrupt"], _ = M.mix_ppermute_pool_stale(p1, stale(), gammas, pool, delays,
+                                                              corrupt=corrupt)
+    out["arrays_stale0"], st = M.mix_arrays_sharded_stale(p1, stale(), arrays, zeros)
+    out["stale_ring_head"] = {"head": st.head.reshape(1)}
+    out["pool_stale0"], _ = M.mix_ppermute_pool_stale(p1, stale(), gammas, pool, zeros)
+    for wire in ("bf16", "topk:0.5", "identity"):
+        w = wire.split(":")[0]
+        out[f"ef_{w}_arrays"], out[f"ef_{w}_arrays_e"] = C.mix_arrays_sharded_ef(
+            p1, e0, arrays, None, wire)
+        out[f"ef_{w}_dense"], out[f"ef_{w}_dense_e"] = C.mix_dense_sharded_ef(
+            p1, e0, W, None, wire)
+        out[f"ef_{w}_pool"], out[f"ef_{w}_pool_e"] = C.mix_ppermute_pool_ef(
+            p1, e0, gammas, pool, None, wire)
+        out[f"ef_{w}_arrays_stale"], out[f"ef_{w}_arrays_stale_e"], _ = \
+            C.mix_arrays_sharded_stale_ef(p1, e0, stale(), arrays, delays, None, wire)
+        out[f"ef_{w}_pool_stale"], out[f"ef_{w}_pool_stale_e"], _ = \
+            C.mix_ppermute_pool_stale_ef(p1, e0, stale(), gammas, pool, delays, None, wire)
+        out[f"ef_{w}_arrays_stale0"], _, _ = C.mix_arrays_sharded_stale_ef(
+            p1, e0, stale(), arrays, zeros, None, wire)
+        out[f"ef_{w}_pool_stale0"], _, _ = C.mix_ppermute_pool_stale_ef(
+            p1, e0, stale(), gammas, pool, zeros, None, wire)
+    out["ef_bf16_arrays_corrupt"], _ = C.mix_arrays_sharded_ef(p1, e0, arrays, None, "bf16",
+                                                               corrupt=corrupt)
+    out["ef_bf16_pool_corrupt"], _ = C.mix_ppermute_pool_ef(p1, e0, gammas, pool, None, "bf16",
+                                                            corrupt=corrupt)
+    # a bfloat16 ring holds what a float32 ring does for bf16 leaves
+    h0, h1, eh = {"h": p0["h"]}, {"h": p1["h"]}, {"h": e0["h"]}
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        out[f"ring_{tag}_arrays"], _ = M.mix_arrays_sharded_stale(
+            h1, M.shard_stale_init(h0, 2, dt), arrays, delays)
+        out[f"ring_{tag}_pool"], _ = M.mix_ppermute_pool_stale(
+            h1, M.shard_stale_init(h0, 2, dt), gammas, pool, delays)
+        out[f"ring_{tag}_ef_arrays"], _, _ = C.mix_arrays_sharded_stale_ef(
+            h1, eh, M.shard_stale_init(h0, 2, dt), arrays, delays, None, "bf16")
+        out[f"ring_{tag}_ef_pool"], _, _ = C.mix_ppermute_pool_stale_ef(
+            h1, eh, M.shard_stale_init(h0, 2, dt), gammas, pool, delays, None, "bf16")
+    state = DSGDState(step=0, momentum=None)
+    out["dsgd_schedule"], s1 = dsgd_step_sharded(p1, p0, state, sched, None, lr=0.1)
+    out["dsgd_complete"], _ = dsgd_step_sharded(p1, p0, state, None, None, lr=0.1)
+    result = {name: _np(tree) for name, tree in out.items()}
+    result["_bytes"] = {"all_gather": ag_bytes, "ppermute": pool_bytes, "dsgd_step": s1.step}
+    os.environ["REPRO_TORCH_TRANSPORT_AUTOTUNE"] = table_path
+    result["_autotune"] = M.autotune_sharded_transport(n, pool.n_comm_slots, 64, measure=True,
+                                                       device="cpu")
+    result["_lookup"] = M.autotune_sharded_transport(n, pool.n_comm_slots, 60, device="cpu")
+    return result
+
+
+def _lm_arm_setup(arm: dict, lr: float, pools: list, schedule, cfg, extra=None):
+    """The port's ``make_train_setup`` for one arm of ``test_torch_lm_ranks``."""
+    import torch.distributed as dist
+
+    from repro_torch.core.mixing import StragglerPolicy
+    from repro_torch.obs import HealthProbes
+    from repro_torch.train.lm_trainer import make_train_setup
+
+    kw = dict(arm)
+    kw.pop("run", None)
+    kw.pop("quarantine", None)
+    online = kw.pop("online_w", None)
+    if kw.pop("schedule", False):
+        kw["schedule"] = schedule
+    if online == "pool":
+        kw["pool"] = pools[0]
+    if "staleness" in kw:
+        kw["staleness"] = StragglerPolicy(*kw["staleness"])
+    if kw.pop("probes", False):
+        kw["probes"] = HealthProbes(consensus=True, grad_dev=True)
+    kw.update(extra or {})
+    return make_train_setup(cfg, group=dist.group.WORLD, online_w=online is not None, lr=lr,
+                            device="cpu", **kw), online
+
+
+class _Quarantine:
+    """A quarantine controller's accounting face: node 1 isolated."""
+
+    def mask(self):
+        return np.array([False, True, False, False])
+
+    def summary(self):
+        return {"isolated": [1]}
+
+
+def lm_ranks_job(rank: int, n: int, ref_path: str, arms: dict, lr: float, ckpt: str) -> dict:
+    """Every arm of ``test_torch_lm_ranks`` on this rank: 3 ``train_step``
+    calls (or the ``run_segments`` drill) from this rank's row of the
+    reference's initial parameters; plus the port's own claims."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.mixing import BirkhoffSchedule, PermPool, PoolSwap, ScheduleArrays
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    with np.load(ref_path) as f:
+        ref = {k: f[k] for k in f.files}
+    init = {k[len("init/"):]: torch.as_tensor(v[rank]) for k, v in ref.items()
+            if k.startswith("init/")}
+    schedule = BirkhoffSchedule(coeffs=tuple(float(c) for c in ref["coeffs"]),
+                                perms=tuple(tuple(int(i) for i in p) for p in ref["perms"]))
+    arrays = ScheduleArrays(gammas=torch.as_tensor(ref["coeffs"], dtype=torch.float32),
+                            perms=torch.as_tensor(ref["perms"], dtype=torch.int32))
+    pools = [PermPool(perms=tuple(tuple(int(x) for x in p) for p in ref[f"pool{j}"]))
+             for j in (0, 1)]
+    toks, labels = ref["tokens"][:, rank].astype(np.int64), ref["labels"][:, rank].astype(np.int64)
+    batches = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+    out: dict = {}
+
+    def operand(online):
+        if online == "dense":
+            return torch.as_tensor(ref["W"])
+        if online == "arrays":
+            return arrays
+        if online == "pool":
+            return torch.as_tensor(ref["gammas0"])
+        return None
+
+    def three_steps(setup, online, params):
+        opt = setup.init_opt_state(params)
+        losses, series = [], []
+        for t in range(3):
+            extra = () if online is None else (operand(online),)
+            if setup.staleness is not None:
+                extra = extra + (torch.as_tensor(ref["delays"][t]),)
+            params, opt, loss = setup.train_step(params, opt, {k: v[t] for k, v in
+                                                               batches.items()}, *extra)
+            series.append({k: float(v) for k, v in loss.items()} if isinstance(loss, dict)
+                          else {"loss": float(loss)})
+        return params, opt, series
+
+    def hook_for(setup):
+        def hook(t):
+            if t == 1:
+                return PoolSwap(gammas=ref["gammas1"])
+            if t == 3:
+                return PoolSwap(gammas=ref["gammas2"], pool=pools[1])
+            return None
+        return hook
+
+    for name, arm in arms.items():
+        setup, online = _lm_arm_setup(arm, lr, pools, schedule, cfg)
+        params = {k: v.clone() for k, v in init.items()}
+        if arm.get("run") == "segments":
+            res = setup.run_segments(params, setup.init_opt_state(params), batches,
+                                     operand(online), segment_len=2, rollout="loop",
+                                     on_segment=hook_for(setup),
+                                     delays=ref["raw_delays"] if setup.staleness else None,
+                                     quarantine=_Quarantine() if arm.get("quarantine") else None)
+            out[name] = {"losses": res["losses"], "final": _np(res["params"]),
+                         "health": res.get("health", {}), "quarantine": res.get("quarantine"),
+                         "recompiles": res["recompiles"], "swaps": res["swaps"],
+                         "comm": res["comm"], "transport": res["setup"].sharded_transport,
+                         "comm_bytes": res["setup"].comm_bytes_per_step}
+            continue
+        p, opt, series = three_steps(setup, online, params)
+        out[name] = {"series": series, "final": _np(p), "comm_bytes": setup.comm_bytes_per_step,
+                     "transport": setup.sharded_transport}
+        if isinstance(opt, dict) and "ef" in opt:
+            out[name]["ef"] = _np(opt["ef"])
+        if isinstance(opt, dict) and "stale" in opt:
+            out[name]["ring"] = _np(opt["stale"]["buf"])
+            out[name]["head"] = int(opt["stale"]["head"])
+        if isinstance(opt, dict) and "step" in opt:
+            out[name]["step"] = int(opt["step"])
+
+    # -- the port's own claims ----------------------------------------------
+    own: dict = {}
+    setup, online = _lm_arm_setup(arms["pool_ef_stale"], lr, pools, schedule, cfg)
+    params = {k: v.clone() for k, v in init.items()}
+    opt0 = setup.init_opt_state(params)
+    try:
+        setup.multi_step_fn("scan")
+    except ValueError as exc:
+        own["scan_refused"] = str(exc)
+    multi = setup.multi_step_fn("loop")
+    stack = torch.as_tensor(np.stack([ref["gammas0"]] * 3))
+    p_m, o_m, l_m = multi(params, opt0, {k: v[:3] for k, v in batches.items()}, stack,
+                          torch.as_tensor(ref["delays"]))
+    p_s, o_s, _ = setup.train_step(params, opt0, {k: v[0] for k, v in batches.items()},
+                                   torch.as_tensor(ref["gammas0"]),
+                                   torch.as_tensor(ref["delays"][0]))
+    for t in (1, 2):
+        p_s, o_s, _ = setup.train_step(p_s, o_s, {k: v[t] for k, v in batches.items()},
+                                       torch.as_tensor(ref["gammas0"]),
+                                       torch.as_tensor(ref["delays"][t]))
+    own["loop_bitwise_steps"] = all(torch.equal(p_m[k], p_s[k]) for k in p_m) and all(
+        torch.equal(o_m["ef"][k], o_s["ef"][k]) and torch.equal(
+            o_m["stale"]["buf"][k], o_s["stale"]["buf"][k]) for k in p_m) and bool(
+        torch.equal(o_m["stale"]["head"], o_s["stale"]["head"]))
+    own["multi_losses"] = l_m.numpy()
+    # a resumed run over the EF + stale carry, bitwise the uninterrupted one
+    kw = dict(segment_len=2, rollout="loop", on_segment=hook_for(setup),
+              delays=ref["raw_delays"])
+    whole = setup.run_segments(params, opt0, batches, torch.as_tensor(ref["gammas0"]), **kw)
+    # the checkpoint gathers one per-node leaf at a time, to rank 0 only,
+    # and writes it before it gathers the next
+    from repro_torch.train import lm_trainer
+
+    gather, write, events = lm_trainer._gather_leaf, np.lib.format.write_array, []
+
+    def counted_gather(x, group):
+        out = gather(x, group)
+        events.append(("gather", None if out is None else out.data_ptr()))
+        return out
+
+    def counted_write(f, arr, *a, **k):
+        events.append(("write", arr.__array_interface__["data"][0]))
+        return write(f, arr, *a, **k)
+
+    lm_trainer._gather_leaf, np.lib.format.write_array = counted_gather, counted_write
+    try:
+        first = setup.run_segments(params, opt0, batches, torch.as_tensor(ref["gammas0"]),
+                                   checkpoint_dir=ckpt, stop_after_segments=2, **kw)
+    finally:
+        lm_trainer._gather_leaf, np.lib.format.write_array = gather, write
+    gathers = [k for k, (what, _) in enumerate(events) if what == "gather"]
+    own["ckpt_gathers"] = {
+        "calls": len(gathers), "received": sum(events[k][1] is not None for k in gathers),
+        # the event after each received gather is the write of its buffer
+        "written_before_next": all(events[k + 1] == ("write", events[k][1]) for k in gathers
+                                   if events[k][1] is not None)}
+    # the restage before the stop rebuilt the step: resume from the live setup
+    rest = first["setup"].run_segments(params, opt0, batches, torch.as_tensor(ref["gammas0"]),
+                                       checkpoint_dir=ckpt, resume=True, **kw)
+    own["resume"] = {
+        "stopped_at": first["stopped_at"], "resumed_from": rest["resumed_from"],
+        "losses": bool(np.array_equal(np.concatenate([first["losses"], rest["losses"]]),
+                                      whole["losses"])),
+        "params": all(torch.equal(rest["params"][k], whole["params"][k]) for k in params),
+        "ef": all(torch.equal(rest["opt_state"]["ef"][k], whole["opt_state"]["ef"][k])
+                  for k in params),
+        "ring": all(torch.equal(rest["opt_state"]["stale"]["buf"][k],
+                                whole["opt_state"]["stale"]["buf"][k]) for k in params),
+        "head": bool(torch.equal(rest["opt_state"]["stale"]["head"],
+                                 whole["opt_state"]["stale"]["head"])),
+        "recompiles": (first["recompiles"], rest["recompiles"], whole["recompiles"]),
+    }
+    # the checkpoint is the stacked layout: rank 0 wrote every node's row
+    from repro_torch.train.checkpoints import latest_step
+
+    import json
+    import os as _os
+
+    last = latest_step(ckpt)
+    with open(_os.path.join(ckpt, f"step_{last:08d}", "manifest.json")) as f:
+        manifest = json.load(f)
+    own["ckpt_shape"] = manifest["shapes"][manifest["keys"].index(
+        "['params']['embed.table']")]
+    # probes are bitwise the probes-off run
+    on, _ = _lm_arm_setup(arms["probes"], lr, pools, schedule, cfg)
+    off, _ = _lm_arm_setup(arms["probes"], lr, pools, schedule, cfg, {"probes": None})
+    p_on, _, s_on = three_steps(on, "arrays", {k: v.clone() for k, v in init.items()})
+    p_off, _, s_off = three_steps(off, "arrays", {k: v.clone() for k, v in init.items()})
+    own["probes_bitwise"] = [a["loss"] for a in s_on] == [a["loss"] for a in s_off] and all(
+        torch.equal(p_on[k], p_off[k]) for k in p_on)
+    out["_own"] = own
+    return out

@@ -327,7 +327,7 @@ def test_bfloat16_checkpoint_resume_is_bitwise(tmp_path):
     dict(staleness=object(), online_w=True), dict(probes=object(), online_w=True),
 ], ids=["dsgd_pod", "sharded_pool", "pool", "compression", "staleness", "probes"])
 def test_arguments_left_for_later_items_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 13c"):
+    with pytest.raises(NotImplementedError, match="item 13e"):
         make_train_setup(get_smoke_config(NAME), n_nodes=N, device="cpu", **kw)
 
 
@@ -343,7 +343,7 @@ def test_run_segments_arguments_left_for_later_items_raise(reference, what):
         kw["on_segment"] = lambda t: PoolSwap(gammas=np.zeros(3, np.float32))
     else:
         mix = np.zeros(3, np.float32)
-    with pytest.raises(NotImplementedError, match="item 13c"):
+    with pytest.raises(NotImplementedError, match="item 13e"):
         _run(setup, params, None, batches, mix, **kw)
 
 
@@ -402,3 +402,28 @@ def test_grad_fn_gives_every_nodes_loss(reference):
     _, _, loss = setup.train_step(params, None, batch)
     assert torch.allclose(losses.mean(), loss)
     assert lm_trainer.gossip_fn(None, N)(grads)["embed.table"].shape == params["embed.table"].shape
+
+
+def test_training_forward_recomputes_blocks_bitwise(monkeypatch):
+    """With ``remat=True`` the training forward recomputes each layer and
+    each loss chunk in the backward pass (the reference's remat): the
+    losses and gradients are bitwise those of the default forward, which
+    keeps its activations and recomputes nothing."""
+    from repro_torch.models import transformer
+
+    cfg = get_smoke_config(NAME)
+    setup = make_train_setup(cfg, n_nodes=2, lr=1e-2, device="cpu", remat=True)
+    params = setup.init_params(0)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 2, 1024)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}  # 2 loss chunks
+    calls = []
+    remat = transformer._remat
+    monkeypatch.setattr(transformer, "_remat", lambda fn, *a: calls.append(fn) or remat(fn, *a))
+    losses, grads = setup.grad_fn(params, batch)
+    assert len(calls) == 2 * (cfg.num_layers + 2)  # each node: every layer, both chunks
+    calls.clear()
+    kept_losses, kept = make_train_setup(cfg, n_nodes=2, lr=1e-2, device="cpu").grad_fn(
+        params, batch)
+    assert not calls
+    assert torch.equal(losses, kept_losses)
+    assert all(torch.equal(grads[k], kept[k]) for k in grads)

@@ -55,7 +55,10 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b|from\s+(jax|jaxlib|
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + [
+        "chip_smoke.py",
+        # what the rank processes of the tests and of the probe import
+        "tests/_torch_ranks.py", "scripts/rank_backend_probe.py"],
 )
 def test_sources_import_no_jax_and_no_reference(path):
     text = (ROOT / path).read_text()

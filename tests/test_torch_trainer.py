@@ -207,12 +207,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_later_slices_raise():
     task = mean_estimation_clusters(n_nodes=4, K=2, m=1.0)
-    # a PoolSwap from the hook needs the mesh trainer's pool transport
+    # a PoolSwap from the hook: the drivers take ScheduleArrays only, as the reference's
     sa = schedule_to_arrays(schedule_from_result(learn_topology(task.Pi, budget=2, lam=0.5)),
                             l_max=4, device="cpu")
     pool_swap = PoolSwap(gammas=np.full(4, 0.25, np.float32))
     for rollout in ("loop", "scan"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="ScheduleArrays only"):
             T_tr.run_mean_estimation(task, None, schedule=sa, steps=4, segment_len=2,
                                      on_segment=lambda t: pool_swap, rollout=rollout,
                                      device="cpu")
