@@ -184,7 +184,7 @@ nvcc per source, all at once) and then, on the card:
    within n gathered rows of the largest leaf, the outputs and four
    leaf-sized temporaries (+10%). Then the arms, a few steps each
    (``RANKS["steps"]``): (a) ``online_w`` on a ``ScheduleArrays``
-   (all-gather), its per-node losses of steps 1-3 within 1e-2 of phase
+   (all-gather), its per-node losses of steps 1-2 within 1e-2 of phase
    12's stacked run from the same initial parameters (checked by a
    float64 checksum) and batches, its step's peak within its gradient
    pass's plus n gathered rows of the largest leaf (+10%), then its
@@ -202,7 +202,26 @@ nvcc per source, all at once) and then, on the card:
    accounting: a bfloat16 leaf moves as bfloat16), each rank's peak memory, the
    backend, the time to spawn and initialise the ranks; the yardstick's
    kernel launches (in the ranks) count as the phase's;
-14. prints one JSON line per kernel set, then the card's name and power
+14. trains qwen3-0.6b whole in bf16 on a mesh of four NCCL ranks sharing
+   the card (``make_train_setup(cfg, mesh=...)``; one spawn and one
+   process group, a ``DeviceMesh`` an arm; phase 13's NCCL environment,
+   memory cap and ``remat=True``; phase 12's seed, lr and batches, nodes
+   0 and 1): (a) dsgd on ``(data 2, model 2)`` -- each node's replica
+   split over ``model``, tensor-parallel -- with a static STL-FW schedule
+   of 2 nodes, 3 steps captured (``rollout="scan"``) bitwise the same
+   steps' loop, each node's loss before each step within 1e-2 of a
+   stacked 2-node run of the same batches through ``gossip_schedule``,
+   and no all-gather in the step; (b) fsdp on ``(2, 2)``, 2 steps, the
+   losses within 1e-2 of a one-card fsdp run on the same 4 sequences, a
+   rank's parameters at rest at most 1.1 x a quarter of the model; (c)
+   dsgd_pod on ``(pod 2, data 2, model 1)``, the complete graph, 2 steps,
+   within 1e-2 of the stacked complete graph (``gossip_mix``) on each
+   pod's sequences. The yardsticks run in this process before the spawn;
+   their launches count as the phase's. Printed: ms/step a rank (the
+   captured leg's replay), bytes a rank receives a step by collective
+   beside the model's bytes, collectives a step by kind, peak memory
+   and parameters at rest a rank, spawn, init and mesh seconds;
+15. prints one JSON line per kernel set, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 
 Every ``#`` result line ends with the card's name and power limit.
@@ -241,6 +260,7 @@ from repro_torch.core.assignment import _quantize, auction_assignment  # noqa: E
 from repro_torch.core.assignment_jit import AuctionWorkspace, auction_assignment_jit  # noqa: E402
 from repro_torch.core.mixing import (  # noqa: E402
     KERNEL_ROW_ALIGN,
+    BirkhoffSchedule,
     ScheduleArrays,
     StragglerPolicy,
     _bucket_key,
@@ -2970,8 +2990,9 @@ def rank_yardstick(setup, params0: dict, batches: dict, arrays, steps: int) -> d
 # ---------------------------------------------------------------------------
 
 RANKS = {"nodes": 4, "seed": 0, "timeout_s": 600,
-         # steps an arm takes (each moves the whole model over the socket)
-         "steps": {"a": 3, "b": 3, "c": 2, "d_schedule": 2, "d_pmean": 1}}
+         # steps an arm takes (each moves the whole model over the socket;
+         # arm (a) 2: phase 14 needs the time)
+         "steps": {"a": 2, "b": 3, "c": 2, "d_schedule": 2, "d_pmean": 1}}
 # NCCL refuses two ranks on one device ("duplicate GPU"); a host id of its
 # own per rank makes it take the ranks for separate hosts and move bytes
 # over its socket transport (loopback), so the collectives below are real
@@ -3339,38 +3360,25 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     return out
 
 
-def _rank_worker(rank: int, n: int, init: str, yard: dict, device: torch.device,
-                 queue) -> None:
-    """A phase-13 rank process: its NCCL environment, then ``rank_phase``;
-    what it returns (or its traceback) goes back on ``queue``."""
-    import traceback
-
-    os.environ.update(rank_env(rank))
-    try:
-        queue.put((rank, rank_phase(rank, n, init, yard, device), None))
-    except BaseException:
-        queue.put((rank, None, traceback.format_exc()))
-        raise
-
-
-def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
-    """Phase 13 (module docstring): D-SGD over four NCCL ranks on the card."""
+def spawn_ranks(worker, n: int, yard: dict, device: torch.device, timeout_s: float,
+                label: str) -> tuple[list, float]:
+    """``worker`` in n spawned rank processes (one rendezvous file); their
+    results in rank order and the wall seconds; every process is joined
+    or killed before it returns."""
     import multiprocessing as mp
     import queue as queue_mod
 
-    t_phase = time.perf_counter()
-    label = "13 qwen3-0.6b ranks"
-    n = RANKS["nodes"]
+    tic = time.perf_counter()
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     results, errors = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{tmp}/rendezvous"
-        procs = [ctx.Process(target=_rank_worker, args=(r, n, init, yard, device, q))
+        procs = [ctx.Process(target=worker, args=(r, n, init, yard, device, q))
                  for r in range(n)]
         for proc in procs:
             proc.start()
-        deadline = time.monotonic() + RANKS["timeout_s"]
+        deadline = time.monotonic() + timeout_s
         try:
             while len(results) + len(errors) < n and time.monotonic() < deadline:
                 try:
@@ -3390,8 +3398,29 @@ def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
         f"rank {r}: {e[-3000:]}" for r, e in sorted(errors.items())))
     check(len(results) == n, f"{label}: {n - len(results)} ranks hung or died "
           f"(exit codes {[proc.exitcode for proc in procs]})")
-    wall = time.perf_counter() - t_phase
-    rows = [results[r] for r in range(n)]
+    return [results[r] for r in range(n)], time.perf_counter() - tic
+
+
+def _rank_worker(rank: int, n: int, init: str, yard: dict, device: torch.device,
+                 queue) -> None:
+    """A phase-13 rank process: its NCCL environment, then ``rank_phase``;
+    what it returns (or its traceback) goes back on ``queue``."""
+    import traceback
+
+    os.environ.update(rank_env(rank))
+    try:
+        queue.put((rank, rank_phase(rank, n, init, yard, device), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
+    """Phase 13 (module docstring): D-SGD over four NCCL ranks on the card."""
+    t_phase = time.perf_counter()
+    label = "13 qwen3-0.6b ranks"
+    n = RANKS["nodes"]
+    rows, wall = spawn_ranks(_rank_worker, n, yard, device, RANKS["timeout_s"], label)
     n_params, max_leaf = rows[0]["params"], rows[0]["max_leaf"]
     # transports against the stacked kernels, and the port's bitwise claims
     for r, row in enumerate(rows):
@@ -3413,7 +3442,7 @@ def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
     note(f"# {label} transports (rank 0; distinct leaf widths, float32) " + json.dumps(
         rows[0]["transports"]))
     a = [row["arms"]["a_allgather_arrays"] for row in rows]
-    # (a) against phase 12's stacked run: per-node and mean losses, steps 1-3
+    # (a) against phase 12's stacked run: per-node and mean losses, its steps
     for r, arm in enumerate(a):
         for t, loss in enumerate(arm["own_losses"]):
             check(abs(loss - yard["per_node"][t][r]) <= 1e-2,
@@ -3467,6 +3496,272 @@ def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
         "phase12_mean_losses": yard["mean"],
         "a_own_losses": [row["arms"]["a_allgather_arrays"]["own_losses"] for row in rows],
         "phase12_per_node_losses": yard["per_node"], "launches": launches,
+        "note": "ranks share one card; NCCL moves bytes over its socket transport (loopback): "
+                "not a multi-card rate"}
+    note(f"# {label} " + json.dumps(summary))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: tensor parallelism and the mesh modes, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH = {"seed": 0, "timeout_s": 600,
+        # steps an arm takes: (a) captured and loop, (b) fsdp, (c) dsgd_pod
+        "steps": {"a": 3, "b": 2, "c": 2}}
+MESH_TOL = 1e-2  # on losses, against the one-card yardsticks (bfloat16)
+
+
+def mesh_batches(device: torch.device) -> dict:
+    """Phase 12's batches (4 nodes, its seed), nodes 0 and 1: ``(steps, 2,
+    batch, seq)``, the reference's layout of 2 nodes (pods) of 2 sequences."""
+    cfg = get_config(TRAIN["name"])
+    n = RANKS["nodes"]
+    corpus = DomainSkewCorpus(cfg.vocab_size, n_domains=n, seed=0)
+    batches = card_batches(corpus, np.eye(n), max(MESH["steps"].values()), TRAIN["batch"],
+                           TRAIN["seq"], device)
+    return {k: v[:, :2].contiguous() for k, v in batches.items()}
+
+
+def mesh_yardsticks(device: torch.device) -> dict:
+    """Phase 14's yardsticks, on the card in this process before the
+    spawn, from the ranks' initial parameters (seed 0) and batches: (a)
+    the stacked 2-node run of the static schedule (``gossip_schedule``),
+    every node's loss (``grad_fn``) before each step and the step's mean;
+    (b) a one-card fsdp run on the 4 sequences (phase 12 (d)'s setup);
+    (c) the stacked 2-node complete graph (``gossip_mix``) on each pod's 2
+    sequences. All recompute activations in the backward (``remat``, the
+    same gradients)."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN["name"])
+    steps = MESH["steps"]
+    two = mesh_batches(device)
+    sched = schedule_from_result(learn_topology(np.eye(2), budget=1))  # 2 one-domain nodes
+    common = dict(lr=TRAIN["lr"], device=device, remat=True)
+    reset_launch_counts()
+    out: dict = {"token_sum": int(two["tokens"].sum()),
+                 "sched": {"coeffs": list(sched.coeffs), "perms": [list(p) for p in sched.perms]}}
+    setup = make_train_setup(cfg, n_nodes=2, schedule=sched, **common)
+    p = setup.init_params(MESH["seed"])
+    out["init_checksum"] = float(sum(v[0].double().sum() for v in p.values()))
+    per_node, mean = [], []
+    for t in range(steps["a"]):
+        batch = {k: v[t] for k, v in two.items()}
+        per_node.append(setup.grad_fn(p, batch)[0].tolist())
+        p, _, loss = setup.train_step(p, None, batch)
+        mean.append(float(loss))
+    out["a"] = {"per_node": per_node, "mean": mean}
+    del p, setup
+    free_card()
+    setup = make_train_setup(cfg, n_nodes=2, **common)
+    p, mean = setup.init_params(MESH["seed"]), []
+    for t in range(steps["c"]):
+        p, _, loss = setup.train_step(p, None, {k: v[t] for k, v in two.items()})
+        mean.append(float(loss))
+    out["c"] = {"mean": mean}
+    del p, setup
+    free_card()
+    setup = make_train_setup(cfg, mode="fsdp", **common)
+    p, mean = setup.init_params(MESH["seed"]), []
+    for t in range(steps["b"]):
+        p, _, loss = setup.train_step(p, None, {k: v[t].reshape((-1,) + v.shape[3:])
+                                                for k, v in two.items()})
+        mean.append(float(loss))
+    out["b"] = {"mean": mean}
+    out["model_bytes"] = sum(v.numel() * v.element_size() for v in p.values())
+    del p, setup, two
+    free_card()
+    counts = launch_counts()
+    out["launches"] = {k: counts[k] for k in GOSSIP}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -> dict:
+    """Phase 14 on one rank (a spawned process; see ``phase_lm_mesh``):
+    one process group, a ``DeviceMesh`` an arm."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mixing as M
+    from repro_torch.train.sharding import make_mesh
+
+    t0 = time.perf_counter()
+    kw = {}
+    if device.type == "cuda":
+        device = torch.device("cuda:0")
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_per_process_memory_fraction(RANK_MEMORY_FRACTION, device)
+        kw["device_id"] = device
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init,
+                            rank=rank, world_size=n, timeout=datetime.timedelta(seconds=300),
+                            **kw)
+    dist.barrier()
+    out: dict = {"init_s": time.perf_counter() - t0, "backend": M.group_backend(None)}
+    reset_launch_counts()
+    cfg = get_config(TRAIN["name"])
+    steps = MESH["steps"]
+    two = mesh_batches(device)
+    out["token_sum"] = int(two["tokens"].sum())
+    sched = BirkhoffSchedule(coeffs=tuple(yard["sched"]["coeffs"]),
+                             perms=tuple(tuple(p) for p in yard["sched"]["perms"]))
+    common = dict(lr=TRAIN["lr"], device=device, remat=True)
+    arms: dict = {}
+
+    def measured(label: str, k: int, fn):
+        M.reset_collective_bytes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        arms[label] = {"steps": k, "ms_per_step": 1e3 * (time.perf_counter() - tic) / k,
+                       "bytes_per_step": {kk: v / k for kk, v in M.collective_bytes.items() if v},
+                       "collectives_per_step": {kk: v / k for kk, v in
+                                                M.collective_calls.items() if v},
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        return res
+
+    def steps_of(setup, rollout: str, params, k: int, own: list | None = None,
+                 times: list | None = None):
+        multi = setup.multi_step_fn(rollout)
+        losses = []
+        for t in range(k):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            batch = setup.local_batch({kk: v[t] for kk, v in two.items()} if setup.mode != "fsdp"
+                                      else {kk: v[t].reshape((-1,) + v.shape[3:])
+                                            for kk, v in two.items()})
+            if own is not None:
+                own.append(float(setup.grad_fn(params, batch)[0]))
+            params, _, lo = multi(params, None, {kk: v[None] for kk, v in batch.items()})
+            losses.append(lo)
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append(1e3 * (time.perf_counter() - tic))
+        return params, torch.cat(losses), multi.n_traces
+
+    # (a) dsgd on (data 2, model 2): the schedule, captured against the loop
+    tic = time.perf_counter()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    setup = make_train_setup(cfg, mesh=mesh, schedule=sched, **common)
+    out["mesh_s"] = time.perf_counter() - tic
+    params0 = setup.init_params(MESH["seed"])
+    out["a_resident_bytes"] = sum(v.numel() * v.element_size() for v in params0.values())
+    out["a_coords"] = setup._layout.coords
+    own, t_loop, t_scan = [], [], []
+    pl, ll, _ = measured("a_dsgd_tp_loop", steps["a"],
+                         lambda: steps_of(setup, "loop", params0, steps["a"], own, t_loop))
+    # gloo cannot capture: a CPU rehearsal runs both as the loop
+    pc, lc, traces = measured("a_dsgd_tp_scan", steps["a"], lambda: steps_of(
+        setup, "scan" if device.type == "cuda" else "loop", params0, steps["a"], None, t_scan))
+    arms["a_dsgd_tp_loop"].update({"losses": ll.tolist(), "own_losses": own, "step_ms": t_loop,
+                                   "note": "each step after a grad_fn pass (the node's loss)"})
+    # the scan's steps: the eager warm-up, the capture and a replay, a replay
+    arms["a_dsgd_tp_scan"].update({"losses": lc.tolist(), "captures": traces, "step_ms": t_scan,
+                                   "replay_ms": t_scan[-1]})
+    out["a_captured_is_loop"] = bool(torch.equal(lc, ll)) and all(
+        torch.equal(pc[k], pl[k]) for k in pc)
+    out["a_comm_model"] = setup.comm_bytes_per_step
+    del pc, pl, setup, params0
+    free_card()
+    # (b) fsdp on (data 2, model 2): one model, a quarter a rank at rest
+    mesh = make_mesh((2, 2), ("data", "model"))
+    setup = make_train_setup(cfg, mesh=mesh, mode="fsdp", **common)
+    params0 = setup.init_params(MESH["seed"])
+    out["b_resident_bytes"] = sum(v.numel() * v.element_size() for v in params0.values())
+    _, lb, _ = measured("b_fsdp", steps["b"], lambda: steps_of(setup, "loop", params0,
+                                                                steps["b"]))
+    arms["b_fsdp"]["losses"] = lb.tolist()
+    del setup, params0
+    free_card()
+    # (c) dsgd_pod on (pod 2, data 2, model 1): the complete graph over pods
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    setup = make_train_setup(cfg, mesh=mesh, mode="dsgd_pod", **common)
+    params0 = setup.init_params(MESH["seed"])
+    out["c_resident_bytes"] = sum(v.numel() * v.element_size() for v in params0.values())
+    _, lc2, _ = measured("c_dsgd_pod", steps["c"], lambda: steps_of(setup, "loop", params0,
+                                                                    steps["c"]))
+    arms["c_dsgd_pod"]["losses"] = lc2.tolist()
+    del setup, params0
+    free_card()
+    out.update({"arms": arms, "launches": launch_counts(),
+                "seconds": time.perf_counter() - t0})
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _mesh_worker(rank: int, n: int, init: str, yard: dict, device: torch.device,
+                 queue) -> None:
+    """A phase-14 rank process: its NCCL environment, then ``mesh_phase``."""
+    import traceback
+
+    os.environ.update(rank_env(rank))
+    try:
+        queue.put((rank, mesh_phase(rank, n, init, yard, device), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def phase_lm_mesh(device: torch.device) -> dict:
+    """Phase 14 (module docstring): dsgd with tensor parallelism, fsdp and
+    dsgd_pod on four NCCL ranks of the card."""
+    t_phase = time.perf_counter()
+    label = "14 qwen3-0.6b mesh"
+    yard = mesh_yardsticks(device)
+    note(f"# {label} yardsticks " + json.dumps(yard))
+    rows, wall = spawn_ranks(_mesh_worker, RANKS["nodes"], yard, device, MESH["timeout_s"],
+                             label)
+    tol = MESH_TOL
+    for r, row in enumerate(rows):
+        want = "nccl" if device.type == "cuda" else "gloo"
+        check(row["backend"] == want, f"{label} rank {r}: backend {row['backend']}")
+        check(row["token_sum"] == yard["token_sum"], f"{label} rank {r}: not phase 12's batches")
+        arms = row["arms"]
+        node = row["a_coords"]["data"]
+        # (a): the node's own loss before each step, and the steps' mean
+        for t, loss in enumerate(arms["a_dsgd_tp_loop"]["own_losses"]):
+            check(abs(loss - yard["a"]["per_node"][t][node]) <= tol,
+                  f"{label} (a) rank {r} step {t + 1}: node loss {loss} against the stacked "
+                  f"{yard['a']['per_node'][t][node]}")
+        for arm, key in (("a_dsgd_tp_loop", "a"), ("b_fsdp", "b"), ("c_dsgd_pod", "c")):
+            got, ref = arms[arm]["losses"], yard[key]["mean"]
+            check(len(got) == len(ref) and all(abs(x - y) <= tol for x, y in zip(got, ref)),
+                  f"{label} {arm} rank {r}: losses {got} against the yardstick's {ref}")
+        check(row["a_captured_is_loop"], f"{label} (a) rank {r}: captured != loop")
+        check(arms["a_dsgd_tp_scan"]["captures"] >= 1 or device.type != "cuda",
+              f"{label} (a) rank {r}: the rollout captured nothing")
+        check(arms["a_dsgd_tp_loop"]["collectives_per_step"].get("tp_all_gather", 0) == 0,
+              f"{label} (a) rank {r}: the tensor-parallel pass gathered")
+        bound = 1.1 * yard["model_bytes"] / 4
+        check(row["b_resident_bytes"] <= bound, f"{label} (b) rank {r}: {row['b_resident_bytes']}"
+              f" B of parameters at rest, over {bound:.0f} B")
+    launches = {k: yard["launches"][k] + sum(row["launches"][k] for row in rows)
+                for k in GOSSIP}
+    check(all(v > 0 for v in launches.values()), f"{label}: yardstick launches {launches}")
+    arms0 = rows[0]["arms"]
+    summary = {
+        "seconds": time.perf_counter() - t_phase, "yardstick_s": yard["seconds"],
+        "ranks_wall_s": wall, "init_s": [row["init_s"] for row in rows],
+        "mesh_s": [row["mesh_s"] for row in rows],
+        "rank_seconds": [row["seconds"] for row in rows], "backend": rows[0]["backend"],
+        "ms_per_step": {k: v["ms_per_step"] for k, v in arms0.items()},
+        "a_step_ms": {k: arms0[k]["step_ms"] for k in ("a_dsgd_tp_loop", "a_dsgd_tp_scan")},
+        "bytes_per_step": {k: v["bytes_per_step"] for k, v in arms0.items()},
+        "collectives_per_step": {k: v["collectives_per_step"] for k, v in arms0.items()},
+        "a_bytes_model": rows[0]["a_comm_model"], "model_bytes": yard["model_bytes"],
+        "resident_bytes": {k: [row[f"{k}_resident_bytes"] for row in rows] for k in "abc"},
+        "peak_gb": [{k: v["peak_gb"] for k, v in row["arms"].items()} for row in rows],
+        "losses": {k: v["losses"] for k, v in arms0.items()},
+        "a_own_losses": [row["arms"]["a_dsgd_tp_loop"]["own_losses"] for row in rows],
+        "yardsticks": {"a_per_node": yard["a"]["per_node"], "a_mean": yard["a"]["mean"],
+                       "b": yard["b"]["mean"], "c": yard["c"]["mean"]},
+        "launches": launches,
         "note": "ranks share one card; NCCL moves bytes over its socket transport (loopback): "
                 "not a multi-card rate"}
     note(f"# {label} " + json.dumps(summary))
@@ -3541,6 +3836,10 @@ def main(argv: list[str] | None = None) -> int:
     ranks = phase_lm_ranks(yard, torch.device("cuda"))
     for k, v in ranks.items():
         launches[k] += v
+    free_card()
+    mesh = phase_lm_mesh(torch.device("cuda"))
+    for k, v in mesh.items():
+        launches[k] += v
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -3570,6 +3869,8 @@ def main(argv: list[str] | None = None) -> int:
             kernels[-1]["launches_phase12"] = train[name]
         if name in ranks:
             kernels[-1]["launches_phase13"] = ranks[name]
+        if name in mesh:
+            kernels[-1]["launches_phase14"] = mesh[name]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

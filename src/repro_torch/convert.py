@@ -26,6 +26,14 @@ layout its row of the reference's node-stacked pytree: the parameters,
 the EF memory (the same tree in float32) or, with ``lead=1``, the stale
 ring (``(n, depth, ...)`` leaves, the ring's depth after the node axis).
 
+``lm_shard_from_numpy`` gives a rank of the LM trainer's mesh layout
+(``make_train_setup(cfg, mesh=...)``) its block of the reference's tree:
+its node's row of a node-stacked tree (``dsgd``, ``dsgd_pod``: the
+parameters, the EF memory, with ``lead=1`` the stale ring) or the
+unstacked tree (``fsdp``), cut by the setup's specs
+(``train.sharding``) at its mesh coordinates. The checkpoint's gather is
+its inverse (``TrainSetup.run_segments``).
+
 ``lm_stacked_from_numpy`` / ``lm_stacked_to_numpy`` carry the LM
 trainer's parameters: the reference's ``make_train_setup(...).init_params``
 pytree has a leading node axis on every leaf, before the ``stages``
@@ -53,6 +61,7 @@ __all__ = [
     "lm_stacked_from_numpy",
     "lm_stacked_to_numpy",
     "lm_node_from_numpy",
+    "lm_shard_from_numpy",
 ]
 
 
@@ -239,6 +248,27 @@ def lm_node_from_numpy(tree: dict, cfg, i: int, *, lead: int = 0,
     device = resolve_device(device)
     flat = _lm_flat(tree, cfg, node_axis=True, lead=lead)
     return {name: _tensor(np.asarray(leaf)[i]).to(device) for name, leaf in flat.items()}
+
+
+def lm_shard_from_numpy(tree: dict, cfg, mesh, specs: dict, *, node: int | None = None,
+                        lead: int = 0,
+                        device: torch.device | str | None = None) -> dict[str, torch.Tensor]:
+    """This rank's block of the reference's LM pytree (numpy leaves): with
+    ``node``, that row of a node-stacked tree (the node axis first, then
+    ``lead`` axes: 1 for the stale ring's depth); without, the unstacked
+    tree. Each leaf is cut by ``specs[name]`` (``TrainSetup.param_specs``)
+    at this rank's coordinates on the ``DeviceMesh`` ``mesh``, a
+    contiguous tensor on ``device`` (None = CUDA), dtypes kept."""
+    from repro_torch.train import sharding
+
+    device = resolve_device(device)
+    flat = _lm_flat(tree, cfg, node_axis=node is not None, lead=lead)
+    out = {}
+    for name, leaf in flat.items():
+        arr = np.asarray(leaf)
+        t = _tensor(arr[node] if node is not None else arr)
+        out[name] = sharding.shard(t, specs[name], mesh, offset=lead).to(device)
+    return out
 
 
 def lm_stacked_to_numpy(params: dict[str, torch.Tensor], cfg, *, node_axis: bool = True) -> dict:

@@ -1784,15 +1784,23 @@ def straggler_pool_stream(
 # ppermute its one payload (a fixed point is a local copy and moves
 # nothing), an all-reduce the ring model ``2 (n - 1) / n x`` the payload
 # (the bytes a backend moves inside an all-reduce are not observable
-# here). A captured graph's replays add its capture's counts
-# (``graphs.GraphRunner``).
+# here). ``collective_calls`` counts the calls. The mesh trainer's own
+# collectives count under their own names: tensor parallelism's
+# (``train/tensor_parallel.py``: ``tp_all_reduce``, ``tp_all_gather``), the
+# gathers of weights at rest (``fsdp_all_gather``) and the gradients'
+# mean over a mesh dimension (``grad_all_reduce``). A captured graph's
+# replays add its capture's counts (``graphs.GraphRunner``).
 
-collective_bytes = {"all_gather": 0, "ppermute": 0, "all_reduce": 0}
+collective_bytes = {"all_gather": 0, "ppermute": 0, "all_reduce": 0, "tp_all_reduce": 0,
+                    "tp_all_gather": 0, "fsdp_all_gather": 0, "grad_all_reduce": 0}
+collective_calls = dict.fromkeys(collective_bytes, 0)
 
 
 def reset_collective_bytes() -> None:
+    """Zero ``collective_bytes`` and ``collective_calls``."""
     for name in collective_bytes:
         collective_bytes[name] = 0
+        collective_calls[name] = 0
 
 
 def _dist():
@@ -1841,6 +1849,7 @@ def _all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty((n * flat.numel(),), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, flat, group=group)
     collective_bytes["all_gather"] += (n - 1) * flat.numel() * flat.element_size()
+    collective_calls["all_gather"] += 1
     return out.view((n,) + tuple(x.shape))
 
 
@@ -1878,6 +1887,7 @@ def _ppermute(x: torch.Tensor, pairs, group=None) -> torch.Tensor:
     if src:
         ops.append(dist.P2POp(dist.irecv, out, _peer(group, src[0]), group))
         collective_bytes["ppermute"] += x.numel() * x.element_size()
+        collective_calls["ppermute"] += 1
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -1890,6 +1900,7 @@ def _pmean(x: torch.Tensor, group=None) -> torch.Tensor:
     y = x.to(torch.float32, copy=True)
     _dist().all_reduce(y, group=group)
     collective_bytes["all_reduce"] += 2 * (n - 1) * y.numel() * y.element_size() // n
+    collective_calls["all_reduce"] += 1
     return y / n
 
 
@@ -1897,6 +1908,7 @@ def _psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """``lax.psum`` in float32 (a scalar's: no bytes counted)."""
     y = x.to(torch.float32, copy=True)
     _dist().all_reduce(y, group=group)
+    collective_calls["all_reduce"] += 1
     return y
 
 

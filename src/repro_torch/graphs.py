@@ -20,8 +20,8 @@ Two things a graph freezes at capture are handled here. Kernel launch
 counts: a wrapper adds one to its count when the capture records its
 launch, but the kernel runs only at replays, so the runner takes the
 recorded launches back after the capture and adds them once per replay;
-the bytes ``core.mixing``'s collectives count (``collective_bytes``) are
-kept the same way.
+the bytes and calls ``core.mixing``'s collectives count
+(``collective_bytes``, ``collective_calls``) are kept the same way.
 Random draws: the generators a body draws from are registered with each
 graph (``CUDAGraph.register_generator_state``), so replays draw what the
 eager runs would have drawn and advance the generator alike.
@@ -59,9 +59,9 @@ def _counters() -> tuple[dict, ...]:
     """Every count a capture records: the kernels' launches, the
     collectives' bytes (``core.mixing`` imports this module's package
     through ``core``, so it is read here, not at import)."""
-    from repro_torch.core.mixing import collective_bytes
+    from repro_torch.core.mixing import collective_bytes, collective_calls
 
-    return _LAUNCH_COUNTS + (collective_bytes,)
+    return _LAUNCH_COUNTS + (collective_bytes, collective_calls)
 # held by every capture and by device work run outside the captured bodies
 _capture_lock = threading.Lock()
 _this_thread = threading.local()

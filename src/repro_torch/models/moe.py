@@ -162,9 +162,15 @@ def moe_forward(params: MoE, cfg: ModelConfig, x: torch.Tensor
     gate = F.silu(torch.bmm(expert_in, r.w_gate))
     up = torch.bmm(expert_in, r.w_up)
     # the expert outputs, (E, B C, D), then one zero row for dropped choices
-    flat_out = buf  # the dispatch buffer's rows are read: reused in place
-    flat_out[E * B * C].zero_()
-    torch.bmm(gate * up, r.w_down, out=flat_out[: E * B * C].view(E, B * C, D))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, r.w_gate, r.w_up, r.w_down)):
+        # under autograd the products stay out of place (an ``out=`` product
+        # has no backward, and the dispatch buffer is saved for it)
+        expert_out = torch.bmm(gate * up, r.w_down).reshape(E * B * C, D)
+        flat_out = torch.cat([expert_out, expert_out.new_zeros((1, D))])
+    else:
+        flat_out = buf  # the dispatch buffer's rows are read: reused in place
+        flat_out[E * B * C].zero_()
+        torch.bmm(gate * up, r.w_down, out=flat_out[: E * B * C].view(E, B * C, D))
     gathered = flat_out.index_select(0, dest)  # dropped choices read zeros
     weights = gate_vals.reshape(B * S * K, 1).to(gathered.dtype)
     out = (gathered * weights).reshape(B, S, K, D).sum(dim=2)

@@ -1,9 +1,10 @@
 """LM D-SGD training: the reference's mesh trainer
 (``repro/train/lm_trainer.py``) with the node axis stacked on one device,
-or with one node per rank of a ``torch.distributed`` group.
+with one node per rank of a ``torch.distributed`` group, or on the
+reference's ``(data, model)`` / ``(pod, data, model)`` mesh of ranks.
 
 The reference runs one D-SGD node per index of its ``data`` mesh axis and
-mixes with collectives. The port has two layouts:
+mixes with collectives. The port has three layouts:
 
 * **Stacked** (``n_nodes=``, no ``group``): the ``n`` replicas on one
   card, as the simulator stacks them (``train/trainer.py``): every
@@ -31,6 +32,21 @@ mixes with collectives. The port has two layouts:
   ride the same step. NCCL collectives are captured with the rollout's
   bodies; gloo's host-side work cannot be, so ``rollout="scan"`` is
   refused on a gloo group.
+* **A mesh** (``mesh=`` a ``DeviceMesh`` named as the reference's axes;
+  ``train/mesh_layout.py``): ``dsgd`` on ``(data, model)`` -- a node a
+  ``data`` coordinate, its replica split over ``model`` by the
+  reference's rules (``train/sharding.py``) and run tensor-parallel
+  (``train/tensor_parallel.py``), the mix one rank-layout transport over
+  the ``data`` group on local blocks (block k of a node mixes with block
+  k of the others: the reference's math elementwise); ``fsdp`` -- one
+  model split over every rank at rest, gathered for the step, the batch
+  split over every rank, the gradient's mean cut back; ``dsgd_pod`` on
+  ``(pod, data, model)`` -- a node a pod, weights at rest split over
+  ``data`` and ``model``, a pod's batch over ``data``, the pods mixed by
+  the dense W (``mix_dense_sharded`` over the ``pod`` group). Checkpoints
+  write the stacked layout whole (each leaf gathered over ``model``,
+  then ``data``, then stacked over nodes to the first rank); every rank
+  restores its block.
 
 Modes:
 
@@ -41,7 +57,9 @@ Modes:
   ``BirkhoffSchedule`` (``schedule=None``: the complete graph), or with
   ``online_w=True`` the step's trailing ``mix_w`` operand.
 * ``fsdp`` -- one global model on a ``(batch, ...)`` batch, no node axis
-  (the reference's C-PSGD baseline, W = 11^T / n), on one device.
+  (the reference's C-PSGD baseline, W = 11^T / n), on one device or a
+  mesh.
+* ``dsgd_pod`` -- pods are the nodes (a mesh only), mixing every step.
 
 Training runs ``impl="plain"`` under autograd: no kernel of the reference
 has a backward pass, so ``impl="kernel"`` is refused rather than run
@@ -74,11 +92,11 @@ stacked layout and every rank restores its own row) with a bitwise
 resume, a tracer and a retrace guard; one node per rank it also takes
 ``delays=`` and ``quarantine=`` and returns the ``"health"`` series.
 
-Not ported (``NotImplementedError``, ROADMAP queue 1 item 13e):
-``mode="dsgd_pod"``, ``fsdp`` over ranks, tensor parallelism, and the
+Not ported (``NotImplementedError``, ROADMAP queue 1 item 13f): the
 stacked layout's ``sharded_transport="pool"``, ``pool=``, ``PoolSwap``,
 ``compression=``, ``staleness=``, ``probes=``, ``delays=`` and
-``quarantine=``.
+``quarantine=``; tensor parallelism of MLA, xLSTM, RG-LRU and whisper
+(``tensor_parallel.make_plan``).
 """
 
 from __future__ import annotations
@@ -135,7 +153,9 @@ from repro_torch.models.common import IMPLS, ModelConfig
 from repro_torch.obs.probes import HealthProbes
 from repro_torch.obs.trace import Tracer
 
+from . import tensor_parallel
 from .checkpoints import latest_step, restore_checkpoint, save_checkpoint, tree_leaves
+from .mesh_layout import MeshLayout
 from .metrics import CommMeter, mix_bytes_per_step, staleness_transfer_fracs
 from .rollout import chunks
 
@@ -144,9 +164,8 @@ __all__ = ["TrainSetup", "make_train_setup", "gossip_fn", "NOT_PORTED_LM"]
 PyTree = Any
 Params = dict[str, torch.Tensor]
 
-NOT_PORTED_LM = ("not ported yet (ROADMAP queue 1 item 13e: tensor parallelism, dsgd_pod, "
-                 "fsdp over ranks, and the stacked layout's pool, compression, staleness, "
-                 "probes, delays and quarantine)")
+NOT_PORTED_LM = ("not ported yet (ROADMAP queue 1 item 13f: the stacked layout's pool, "
+                 "PoolSwap, compression, staleness, probes, delays and quarantine)")
 
 # instrumented paths take an always-on tracer; callers opt in with a real one
 _NULL_TRACER = Tracer(enabled=False)
@@ -281,14 +300,23 @@ def _operand_key(mix) -> tuple:
     return ("dense",)
 
 
-def _spread_sq(tree: Params, group) -> torch.Tensor:
+def _spread_sq(tree: Params, group, layout: MeshLayout | None = None) -> torch.Tensor:
     """``sum_leaves sum_i ||x_i - mean_j x_j||^2`` over the ranks, float32:
-    the reference's collective probe (a pmean and a psum a leaf)."""
-    tot = None
-    for x in tree.values():
+    the reference's collective probe (a pmean and a psum a leaf). On a
+    mesh a leaf split over ``model`` holds a block a rank: its blocks'
+    sums are added over ``model``; a replicated leaf (a norm scale) is
+    counted once."""
+    tot = split = None
+    for name, x in tree.items():
         xf = x.to(torch.float32)
         dev = _psum(torch.sum(torch.square(xf - _pmean(xf, group))), group)
-        tot = dev if tot is None else tot + dev
+        if layout is not None and layout.model_split(name):
+            split = dev if split is None else split + dev
+        else:
+            tot = dev if tot is None else tot + dev
+    if split is not None:
+        split = _psum(split, layout.group("model"))
+        tot = split if tot is None else tot + split
     return tot
 
 
@@ -302,12 +330,13 @@ class _Step:
                  group=None, transport: str | None = None, pool: PermPool | None = None,
                  compressor: Compressor | None = None,
                  staleness: StragglerPolicy | None = None, probes: HealthProbes | None = None,
-                 remat: bool = False):
+                 remat: bool = False, layout: MeshLayout | None = None):
         self.mode, self.n_nodes = mode, n_nodes
+        self.cfg, self.remat, self.layout = cfg, remat, layout
         self.lr, self.momentum = lr, momentum
         self.grad_accum, self.gossip_every = grad_accum, gossip_every
         self.device = device
-        self.group, self.ranks = group, group is not None
+        self.group, self.ranks = group, group is not None or layout is not None
         self.online_w, self.transport, self.pool = online_w, transport, pool
         self.compressor, self.staleness, self.probes = compressor, staleness, probes
         meta = whisper.Whisper(cfg, "meta") if cfg.arch_type == "audio" else \
@@ -315,6 +344,19 @@ class _Step:
         self.loss_module = _Loss(meta, cfg, impl, remat)
         self.static_mix = gossip_fn(schedule, n_nodes, group=group) \
             if mode == "dsgd" and not online_w else None
+        # dsgd_pod's static mix: the schedule's W, or the complete graph
+        self.pod_w = None if mode != "dsgd_pod" or online_w else torch.as_tensor(
+            schedule.to_matrix() if schedule is not None else
+            np.full((n_nodes, n_nodes), 1.0 / n_nodes), dtype=torch.float32, device=device)
+        # a node's replica split over model: the tensor-parallel forward
+        self.tp = tensor_parallel.TPGroup.of(layout.tp_group if layout is not None else None)
+        # a node's batch split over ranks: an MoE aux loss takes whole-batch
+        # statistics, so the forward is tensor_parallel's there too
+        self.batch_groups = () if layout is None or cfg.moe is None else tuple(
+            tensor_parallel.TPGroup.of(layout.group(a)) for a in layout.batch_axes
+            if layout.sizes[a] > 1)
+        self.plan = tensor_parallel.make_plan(cfg, layout.compute_specs, self.tp.size) \
+            if self.tp.size > 1 or self.batch_groups else None
 
     @property
     def outputs(self) -> tuple[str, ...]:
@@ -331,6 +373,12 @@ class _Step:
         keys = list(named)
 
         def one(b: dict):
+            if self.plan is not None:
+                loss = tensor_parallel.lm_loss({k: named["model." + k] for k in leaves},
+                                               self.cfg, b, self.plan, self.tp,
+                                               remat=self.remat,
+                                               batch_groups=self.batch_groups)
+                return loss.detach(), torch.autograd.grad(loss, [named[k] for k in keys])
             return torch.func.functional_call(self.loss_module, named, (b, keys))
 
         if self.grad_accum == 1:
@@ -352,7 +400,16 @@ class _Step:
     def grads_(self, params: Params, batch: dict, out: Params) -> torch.Tensor:
         """Every node's gradient into ``out`` (in place); the per-node losses
         (n,) in float32 -- fsdp and one node per rank: the model's loss, a
-        0-d tensor."""
+        0-d tensor. On a mesh the leaves at rest are gathered for the pass
+        and the gradients' mean over the batch's ranks cut back to them;
+        the loss is this rank's."""
+        if self.layout is not None:
+            full = {k: self.layout.gather(v, k) for k, v in params.items()}
+            loss, grads = self._loss_grads(full, batch)
+            del full
+            for k, g in grads.items():
+                out[k].copy_(self.layout.reduce_grad(g, k))
+            return loss
         if self.mode == "fsdp" or self.ranks:
             loss, grads = self._loss_grads(params, batch)
             _copy_into(out, grads)
@@ -383,6 +440,13 @@ class _Step:
         stale ring in ``opt`` is pushed in place."""
         g, c, w = self.group, self.compressor, operand
         ef = opt.get("ef") if _is_carry_dict(opt) else None
+        if self.mode == "dsgd_pod":
+            w = w if self.online_w else self.pod_w
+            if isinstance(w, ScheduleArrays) or w.ndim != 2:
+                raise TypeError("dsgd_pod online mixing is the dense einsum over the pod axis: "
+                                "pass mix_w as a dense (n, n) W (pool gammas / ScheduleArrays "
+                                "are dsgd-mode operands)")
+            return mix_dense_sharded(half, w, g), ef
         pool = self.transport == "pool"
         if self.staleness is not None:
             st = ShardStaleState(rings=opt["stale"]["buf"], head=opt["stale"]["head"])
@@ -434,15 +498,19 @@ class _Step:
             opt["step"].add_(1)
         if not self.ranks:
             return {"loss": losses.mean()}
-        out = {"loss": _psum(losses, self.group) / self.n_nodes}
+        out = {"loss": self.layout.mean_loss(losses) if self.layout is not None
+               else _psum(losses, self.group) / self.n_nodes}
         if self.probes is not None and self.probes.consensus:
-            out["consensus"] = _spread_sq(params, self.group)
+            out["consensus"] = _spread_sq(params, self.group, self.layout)
         if self.probes is not None and self.probes.grad_dev:
-            out["grad_dev"] = _spread_sq(grads, self.group) / self.n_nodes
+            out["grad_dev"] = _spread_sq(grads, self.group, self.layout) / self.n_nodes
         return out
 
     def gossip_at(self, step: int) -> bool:
-        return self.mode == "dsgd" and step % self.gossip_every == 0
+        """Whether step ``step`` mixes: dsgd on the multiples of
+        ``gossip_every``; dsgd_pod every step (the reference's pods mix
+        at every step)."""
+        return self.mode == "dsgd_pod" or (self.mode == "dsgd" and step % self.gossip_every == 0)
 
     def phase(self, opt) -> int:
         """The step counter modulo ``gossip_every``, read on the host."""
@@ -648,12 +716,13 @@ def _restore_mix(mix, values, device: torch.device):
 
 
 def _rank_tree(params: Params, opt, node, rep) -> dict:
-    """``{params, opt}`` with ``node`` applied to every per-node leaf (the
-    parameters, momentum, EF memory, stale ring) and ``rep`` to the
-    replicated ones (the step counter, the ring's head)."""
-    def per_node(tree):
-        return {k: per_node(v) for k, v in tree.items()} if isinstance(tree, dict) \
-            else node(tree)
+    """``{params, opt}`` with ``node(leaf, name, offset)`` applied to every
+    per-node leaf (the parameters, momentum, EF memory, stale ring; named
+    as its parameter, ``offset`` the ring's depth axis before the
+    parameter's) and ``rep`` to the replicated ones (the step counter, the
+    ring's head)."""
+    def per_node(tree, offset=0):
+        return {k: node(v, k, offset) for k, v in tree.items()}
 
     tree = {"params": per_node(params)}
     if opt is None:
@@ -666,7 +735,7 @@ def _rank_tree(params: Params, opt, node, rep) -> dict:
         if k == "step":
             tree["opt"][k] = rep(v)
         elif k == "stale":
-            tree["opt"][k] = {"buf": per_node(v["buf"]), "head": rep(v["head"])}
+            tree["opt"][k] = {"buf": per_node(v["buf"], 1), "head": rep(v["head"])}
         else:
             tree["opt"][k] = per_node(v)
     return tree
@@ -674,17 +743,27 @@ def _rank_tree(params: Params, opt, node, rep) -> dict:
 
 class _Shape:
     """A restore template leaf: only its shape is read (``row``: a
-    per-node leaf, of which a rank keeps its own row)."""
+    per-node leaf, of which a rank keeps its own row -- on a mesh its
+    block of the row: ``name`` and ``offset`` say which)."""
 
-    def __init__(self, shape, row: bool = False):
+    def __init__(self, shape, row: bool = False, name: str | None = None, offset: int = 0):
         self.shape = tuple(shape)
         self.row = row
+        self.name, self.offset = name, offset
 
 
 def _gather_leaf(x: torch.Tensor, group) -> torch.Tensor | None:
     """Every rank's ``x`` stacked on the group's first rank, as a
     checkpointable view (None on the other ranks)."""
     out = _gather_first(x, group)
+    return None if out is None else _checkpoint_leaf(out)
+
+
+def _gather_mesh_leaf(layout: MeshLayout, x: torch.Tensor, name: str, offset: int):
+    """A mesh leaf whole and stacked over nodes on the mesh's first rank,
+    as a checkpointable view (None on the other ranks): gathered over
+    every other mesh dimension first (``model``, then ``data``)."""
+    out = layout.full_leaf(x, name, offset)
     return None if out is None else _checkpoint_leaf(out)
 
 
@@ -698,8 +777,10 @@ class TrainSetup:
     they were); ``params`` is a dict of tensors named as the model's
     parameters, with a leading node axis on stacked nodes (``batch``
     leaves ``(n, per_node, ...)``), none in ``fsdp`` (``(batch, ...)``)
-    and one node per rank (``(per_node, ...)``); ``loss`` is the mean over
-    nodes, float32 (with ``probes``, the dict ``{"loss", <probe>...}``).
+    and one node per rank (``(per_node, ...)``); on a mesh a rank's
+    blocks of the leaves (``param_specs``) and its slice of the batch
+    (``local_batch``); ``loss`` is the mean over nodes, float32 (with
+    ``probes``, the dict ``{"loss", <probe>...}``).
     ``grad_fn(params, batch) -> (losses, grads)`` gives every node's loss
     and gradient without a step. ``init_params(seed)`` draws one model
     from ``seed`` (``registry.init_model``) and, stacked, copies it to
@@ -719,7 +800,9 @@ class TrainSetup:
     staleness: StragglerPolicy | None = None
     probes: HealthProbes | None = None
     group: Any = None
+    mesh: Any = None
     _core: _Step | None = dataclasses.field(default=None, repr=False, compare=False)
+    _layout: MeshLayout | None = dataclasses.field(default=None, repr=False, compare=False)
     _init_opt_state: Callable | None = dataclasses.field(default=None, repr=False,
                                                          compare=False)
     _rebuild: Callable | None = dataclasses.field(default=None, repr=False, compare=False)
@@ -754,12 +837,30 @@ class TrainSetup:
         calls; ``n_traces`` counts its captures."""
         if rollout not in ("scan", "loop"):
             raise ValueError(f"unknown rollout {rollout!r}")
-        if rollout == "scan" and self.group is not None and group_backend(self.group) != "nccl":
+        ranks = self.group is not None or self.mesh is not None
+        if rollout == "scan" and ranks and group_backend(self.group) != "nccl":
             raise ValueError(
                 f"rollout='scan' captures the step's collectives in CUDA graphs, and the "
                 f"{group_backend(self.group)!r} backend's cannot be captured; use "
                 f"rollout='loop' or an nccl group")
         return _Rollout(self, rollout == "scan", retrace_guard)
+
+    @property
+    def param_specs(self) -> dict | None:
+        """On a mesh, every parameter's spec at rest
+        (``sharding.make_param_specs``: ``node_axis=None``; ``fsdp_axis``
+        ``"data"`` in fsdp and dsgd_pod); None otherwise."""
+        return None if self._layout is None else self._layout.specs
+
+    def local_batch(self, batch: dict, lead: int = 0) -> dict:
+        """On a mesh, this rank's slice of a batch in the reference's layout
+        (after ``lead`` leading axes, e.g. a time axis; see
+        ``MeshLayout.local_batch``): dsgd its node's row, dsgd_pod its
+        pod's row split over ``data``, fsdp its slice of ``(batch, ...)``
+        split over every mesh dimension."""
+        if self._layout is None:
+            raise ValueError("local_batch needs a setup built with mesh=")
+        return self._layout.local_batch(batch, lead)
 
     def _check_online_args(self, mix_w: tuple) -> None:
         if self.online_w and self.staleness is not None:
@@ -775,17 +876,26 @@ class TrainSetup:
     # -- checkpoints ---------------------------------------------------------
 
     def _save(self, directory: str, t: int, params: Params, opt, mix) -> None:
-        if self.group is None:
+        if self.group is None and self._layout is None:
             save_checkpoint(directory, t, _checkpoint_tree(params, opt, mix),
                             metadata={"t": int(t)})
             return
         # one node per rank: rank 0 writes the stacked layout (node axis
         # first), each per-node leaf gathered to it when the writer reaches
-        # it and dropped before the next, so one leaf's (n, P_leaf) is held
-        tree = _rank_tree(params, opt, lambda x: lambda: _gather_leaf(x, self.group),
-                          _checkpoint_leaf)
+        # it and dropped before the next, so one leaf's (n, P_leaf) is held;
+        # on a mesh each leaf is first gathered whole over its other
+        # dimensions (every rank of them takes part)
+        layout = self._layout
+        if layout is None:
+            tree = _rank_tree(params, opt, lambda x, *_: lambda: _gather_leaf(x, self.group),
+                              _checkpoint_leaf)
+            writer = axis_index(self.group) == 0
+        else:
+            tree = _rank_tree(params, opt, lambda x, name, off: lambda: _gather_mesh_leaf(
+                layout, x, name, off), _checkpoint_leaf)
+            writer = layout.writes_node_row() and layout.node == 0
         tree["mix"] = _mix_tree(mix)
-        if axis_index(self.group) == 0:
+        if writer:
             save_checkpoint(directory, t, tree, metadata={"t": int(t)})
         else:
             for leaf in tree_leaves(tree):
@@ -793,23 +903,39 @@ class TrainSetup:
                     leaf()
         import torch.distributed as dist
 
-        dist.barrier(group=self.group)
+        dist.barrier(group=self.group if layout is None else None)
 
     def _restore(self, directory: str, step: int, params: Params, opt, mix):
-        device = self._core.device
-        if self.group is None:
+        device, layout = self._core.device, self._layout
+        if self.group is None and layout is None:
             like = _checkpoint_tree(params, opt, mix)
             tree, _ = restore_checkpoint(directory, step, like)
             return (_restore_into(params, tree["params"], device),
                     _restore_into(opt, tree["opt"], device) if opt is not None else None,
                     _restore_mix(mix, tree["mix"], device))
-        # every rank reads the stacked layout leaf by leaf, keeping its own row
-        n, i = self.n_nodes, axis_index(self.group)
-        like = _rank_tree(params, opt, lambda x: _Shape((n,) + tuple(x.shape), row=True),
-                          lambda x: _Shape(x.shape))
+        # every rank reads the stacked layout leaf by leaf, keeping its own
+        # row (on a mesh: its block of the row)
+        n = self.n_nodes
+        if layout is None:
+            i = axis_index(self.group)
+            like = _rank_tree(params, opt, lambda x, *_: _Shape((n,) + tuple(x.shape), row=True),
+                              lambda x: _Shape(x.shape))
+
+            def select(a, tmpl):
+                return a[i].copy() if getattr(tmpl, "row", False) else a
+        else:
+            i = layout.node
+            like = _rank_tree(params, opt, lambda x, name, off: _Shape(
+                (n,) + layout.full_shape(name, x.shape[:off]), row=True, name=name, offset=off),
+                lambda x: _Shape(x.shape))
+
+            def select(a, tmpl):
+                if not getattr(tmpl, "row", False):
+                    return a
+                row = torch.from_numpy(np.ascontiguousarray(a[i]))
+                return layout.shard(row, tmpl.name, tmpl.offset).numpy()
         like["mix"] = _mix_tree(mix)
-        tree, _ = restore_checkpoint(directory, step, like, select=lambda a, tmpl: a[i].copy()
-                                     if getattr(tmpl, "row", False) else a)
+        tree, _ = restore_checkpoint(directory, step, like, select=select)
         params = _restore_into(params, tree["params"], device)
         if opt is not None:
             opt = _restore_into(opt, tree["opt"], device)
@@ -1034,10 +1160,10 @@ class TrainSetup:
         return out
 
 
-def _check_robustness(online_w: bool, gossip_every: int, compressor, staleness,
+def _check_robustness(mode: str, online_w: bool, gossip_every: int, compressor, staleness,
                       probes) -> None:
     """The reference's checks of ``compression`` / ``staleness`` /
-    ``probes`` (one node per rank)."""
+    ``probes`` over ranks, its mode refusals in its words."""
     if probes is not None:
         if not isinstance(probes, HealthProbes):
             raise TypeError(f"probes must be a HealthProbes, got {type(probes).__name__}")
@@ -1046,11 +1172,21 @@ def _check_robustness(online_w: bool, gossip_every: int, compressor, staleness,
                 "the tau_bar probe needs the in-carry ScheduleArrays of the simulator drivers "
                 "(run_mean_estimation / run_classification); the rank transports never carry "
                 "W's coefficients")
+        if mode != "dsgd":
+            raise ValueError(
+                f"health probes are incompatible with mode={mode!r}: they are collectives over "
+                "the manual dsgd node axis (fsdp has one global model -- consensus is "
+                "identically 0; dsgd_pod mixes by GSPMD einsum)")
         if not online_w:
             raise ValueError("health probes ride the online step: build with online_w=True")
     if staleness is not None:
         if not isinstance(staleness, StragglerPolicy):
             raise TypeError(f"staleness must be a StragglerPolicy, got {type(staleness)}")
+        if mode != "dsgd":
+            raise ValueError(
+                f"staleness is incompatible with mode={mode!r}: the bounded-delay ring is "
+                "per-NODE sender state, which only the dsgd shard_map transports carry (fsdp "
+                "all-reduces in-network; dsgd_pod mixes by GSPMD einsum)")
         if not online_w:
             raise ValueError("staleness rides the online transports: build with online_w=True")
         if gossip_every > 1:
@@ -1058,8 +1194,18 @@ def _check_robustness(online_w: bool, gossip_every: int, compressor, staleness,
                 f"staleness is incompatible with gossip_every={gossip_every}: off-steps would "
                 "push no ring slot while delays keep counting pushes; run bounded-delay gossip "
                 "with gossip_every=1")
-    if compressor is not None and not online_w:
-        raise ValueError("compression rides the online transports: build with online_w=True")
+    if compressor is not None:
+        if mode == "fsdp":
+            raise ValueError(
+                f"compression={compressor.label!r} is incompatible with mode='fsdp': the "
+                "C-PSGD baseline mixes by in-network all-reduce, so there is no per-edge "
+                "gossip payload for a wire format to compress")
+        if mode == "dsgd_pod":
+            raise ValueError(
+                f"compression={compressor.label!r} is incompatible with mode='dsgd_pod': "
+                "cross-pod mixing is a GSPMD einsum with no EF memory carry; use mode='dsgd'")
+        if not online_w:
+            raise ValueError("compression rides the online transports: build with online_w=True")
 
 
 def make_train_setup(
@@ -1080,6 +1226,7 @@ def make_train_setup(
     staleness: StragglerPolicy | None = None,
     probes: HealthProbes | None = None,
     group=None,
+    mesh=None,
     device: torch.device | str | None = None,
     remat: bool = False,
 ) -> TrainSetup:
@@ -1111,6 +1258,20 @@ def make_train_setup(
     the same gradients bitwise, one block's activations held at a time, at
     the cost of a second forward; for ranks that share a card.
 
+    ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh`` named as the
+    reference's axes, e.g. ``train.sharding.make_mesh((2, 2), ("data",
+    "model"))``) is the reference's mesh (``train/mesh_layout.py``):
+    ``dsgd`` on ``(data, model)`` (a node a ``data`` coordinate, its
+    replica split over ``model``: tensor parallelism), ``fsdp`` on
+    ``(data, model)`` (one global model split over every rank at rest,
+    the batch split over every rank), ``dsgd_pod`` on ``(pod, data,
+    model)`` (a node a pod; weights at rest split over ``data`` and
+    ``model``, a pod's batch over ``data``; the pods mix by the dense W in
+    float32: the schedule's, the complete graph's or ``online_w``'s).
+    ``group=`` is the ``("data",)`` mesh with one rank a node. A rank's
+    leaves are its blocks (``convert.lm_shard_from_numpy``), its batch its
+    slice (``TrainSetup.local_batch``).
+
     ``comm_bytes_per_step`` (and ``run_segments``' ``"comm"`` meter) is
     the reference's accounting: ``mix_bytes_per_step`` of the transport
     with float32 payloads (the compressor's wire with ``compression``),
@@ -1119,13 +1280,17 @@ def make_train_setup(
     receives half of it; ``mixing.collective_bytes`` counts what a rank
     really receives.
     """
-    ranks = group is not None
-    if mode == "dsgd_pod":
-        raise _not_ported("mode='dsgd_pod'")
-    if mode not in ("dsgd", "fsdp"):
+    if mesh is not None and group is not None:
+        raise ValueError("pass mesh= or group=, not both (group= is a ('data',) mesh)")
+    ranks = group is not None or mesh is not None
+    if mode not in ("dsgd", "dsgd_pod", "fsdp"):
         raise ValueError(f"unknown mode {mode}")
-    if ranks and mode == "fsdp":
-        raise _not_ported("mode='fsdp' over ranks")
+    if mode == "dsgd_pod" and mesh is None:
+        raise ValueError("dsgd_pod requires a 'pod' mesh axis: pass mesh= a (pod, data, model) "
+                         "DeviceMesh")
+    if mode == "fsdp" and group is not None:
+        raise ValueError("fsdp over ranks takes mesh= a (data, model) DeviceMesh (group= is the "
+                         "one-node-a-rank layout of dsgd)")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "kernel":
@@ -1141,15 +1306,15 @@ def make_train_setup(
         if sharded_transport == "pool":
             raise _not_ported("sharded_transport='pool' on stacked nodes")
     else:
-        _check_robustness(online_w, gossip_every, compressor, staleness, probes)
+        _check_robustness(mode, online_w, gossip_every, compressor, staleness, probes)
     if sharded_transport not in ("auto", "allgather", "pool"):
         raise ValueError(f"unknown sharded_transport {sharded_transport!r}")
     if online_w and mode == "fsdp":
-        raise ValueError("online_w needs a node axis (dsgd); fsdp has no W")
+        raise ValueError("online_w needs a node axis (dsgd/dsgd_pod); fsdp has no W")
     if online_w and schedule is not None:
         raise ValueError("online_w and a static schedule are mutually exclusive -- pass the "
                          "initial W as the mix_w argument of the step instead")
-    if pool is not None and not online_w:
+    if pool is not None and not (online_w and mode == "dsgd"):
         raise ValueError("a PermPool requires online_w=True and mode='dsgd'")
     if sharded_transport == "pool" and pool is None:
         raise ValueError("sharded_transport='pool' requires a PermPool")
@@ -1157,7 +1322,17 @@ def make_train_setup(
         raise ValueError(f"grad_accum and gossip_every must be >= 1, got {grad_accum}, "
                          f"{gossip_every}")
     device = resolve_device(device)
-    if ranks:
+    meta = whisper.Whisper(cfg, "meta") if cfg.arch_type == "audio" else \
+        transformer.LM(cfg, "meta")
+    layout = None
+    if mesh is not None:
+        layout = MeshLayout(cfg, mesh, mode, {k: tuple(p.shape)
+                                              for k, p in meta.named_parameters()})
+        group = layout.node_group  # the nodes' group: data (dsgd), pod (dsgd_pod), none (fsdp)
+        n = layout.n_nodes
+        if n_nodes not in (1, n):
+            raise ValueError(f"n_nodes={n_nodes} but the mesh has {n} nodes")
+    elif ranks:
         n = axis_size(group)
         if n_nodes not in (1, n):
             raise ValueError(f"n_nodes={n_nodes} but the group has {n} ranks")
@@ -1170,8 +1345,6 @@ def make_train_setup(
     if schedule is not None and not ranks:
         schedule.operands(device)  # made and checked once, before any capture
 
-    meta = whisper.Whisper(cfg, "meta") if cfg.arch_type == "audio" else \
-        transformer.LM(cfg, "meta")
     p_total = sum(int(np.prod(p.shape)) for p in meta.parameters())
     resolved = comm = None
     if mode == "dsgd":
@@ -1195,11 +1368,13 @@ def make_train_setup(
                  grad_accum=grad_accum, gossip_every=gossip_every, online_w=online_w,
                  schedule=schedule, device=device, group=group, transport=resolved,
                  pool=pool, compressor=compressor, staleness=staleness, probes=probes,
-                 remat=remat)
+                 remat=remat, layout=layout)
 
     def init_params(seed: int = 0) -> Params:
         model = registry.init_model(cfg, seed=seed, device=device)
         single = {name: p.detach() for name, p in model.named_parameters()}
+        if layout is not None:
+            return {name: layout.shard(p, name) for name, p in single.items()}
         if mode == "fsdp" or ranks:
             return single
         return {name: p[None].expand((n,) + tuple(p.shape)).clone() for name, p in single.items()}
@@ -1251,18 +1426,21 @@ def make_train_setup(
             cfg, n_nodes=n_nodes, mode=mode, schedule=schedule, lr=lr, momentum=momentum,
             impl=impl, grad_accum=grad_accum, gossip_every=gossip_every, online_w=online_w,
             sharded_transport="pool", pool=new_pool, compression=compressor,
-            staleness=staleness, probes=probes, group=group, device=device, remat=remat)
+            staleness=staleness, probes=probes, group=None if mesh is not None else group,
+            mesh=mesh, device=device, remat=remat)
 
     setup = TrainSetup(
         train_step=train_step, init_params=init_params, grad_fn=grad_fn, mode=mode,
         n_nodes=n, online_w=online_w, sharded_transport=resolved, pool=pool,
         comm_bytes_per_step=comm, compression=compressor, staleness=staleness, probes=probes,
-        group=group, _core=core, _init_opt_state=init_opt_state, _rebuild=rebuild,
+        group=group, mesh=mesh, _core=core, _layout=layout, _init_opt_state=init_opt_state,
+        _rebuild=rebuild,
     )
     if ranks:
         import torch.distributed as dist
 
-        # every rank's first collective of the group together (NCCL's
+        # every rank's first collective of each group together (NCCL's
         # batched point-to-point needs the group's communicator set up)
-        dist.barrier(group=group)
+        for g in (layout.all_groups() if layout is not None else [group]):
+            dist.barrier(group=g)
     return setup

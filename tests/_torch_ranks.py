@@ -401,3 +401,298 @@ def lm_ranks_job(rank: int, n: int, ref_path: str, arms: dict, lr: float, ckpt: 
         torch.equal(p_on[k], p_off[k]) for k in p_on)
     out["_own"] = own
     return out
+
+
+# ---------------------------------------------------------------------------
+# The mesh trainer (tests/test_torch_lm_mesh*.py, tests/_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+def _mesh_setup(arm: dict, mesh, lr: float, ref: dict, extra=None):
+    """The port's ``make_train_setup`` on ``mesh`` for one arm of
+    ``tests/_torch_mesh.py``; returns (setup, cfg, the arm's online kind)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.mixing import BirkhoffSchedule, PermPool, StragglerPolicy
+    from repro_torch.obs import HealthProbes
+    from repro_torch.train.lm_trainer import make_train_setup
+
+    kw = dict(arm)
+    cfg = get_smoke_config(kw.pop("cfg", "qwen3-0.6b"))
+    for key in ("mesh", "run", "quarantine"):
+        kw.pop(key, None)
+    online = kw.pop("online_w", None)
+    if kw.pop("schedule", False):
+        kw["schedule"] = BirkhoffSchedule(coeffs=tuple(float(c) for c in ref["coeffs"]),
+                                          perms=tuple(tuple(int(i) for i in p)
+                                                      for p in ref["perms"]))
+    if online == "pool":
+        kw["pool"] = PermPool(perms=tuple(tuple(int(x) for x in p) for p in ref["pool0"]))
+    if "staleness" in kw:
+        kw["staleness"] = StragglerPolicy(*kw["staleness"])
+    if kw.pop("probes", False):
+        kw["probes"] = HealthProbes(consensus=True, grad_dev=True)
+    kw.update(extra or {})
+    online_w = kw.pop("online_w", online is not None)
+    return make_train_setup(cfg, mesh=mesh, online_w=online_w, lr=lr, device="cpu",
+                            **kw), cfg, online
+
+
+def _mesh_init(setup, cfg, ref: dict) -> dict:
+    """This rank's block of the reference's init: the unstacked tree
+    broadcast to the node-stacked one (every node starts from it), cut by
+    ``convert.lm_shard_from_numpy`` at this rank's node and coordinates."""
+    import torch
+
+    from repro_torch import convert
+
+    prefix = f"init/{_CFG_KEYS[cfg.name]}/"
+    flat = {k[len(prefix):]: torch.as_tensor(v) for k, v in ref.items() if k.startswith(prefix)}
+    tree = convert.lm_stacked_to_numpy(flat, cfg, node_axis=False)
+    layout = setup._layout
+    if layout.node_axis is None:
+        return convert.lm_shard_from_numpy(tree, cfg, setup.mesh, setup.param_specs,
+                                           device="cpu")
+    n = setup.n_nodes
+
+    def stack(node):
+        if isinstance(node, dict):
+            return {k: stack(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [stack(v) for v in node]
+        return None if node is None else np.stack([node] * n)
+
+    return convert.lm_shard_from_numpy(stack(tree), cfg, setup.mesh, setup.param_specs,
+                                       node=layout.node, device="cpu")
+
+
+_CFG_KEYS = {"qwen3-smoke": "qwen3-0.6b", "qwen3-moe-smoke": "qwen3-moe-30b-a3b"}
+
+
+def _mesh_batch(ref: dict, mode: str, t) -> dict:
+    import torch
+
+    toks, labels = ref["tokens"][t].astype(np.int64), ref["labels"][t].astype(np.int64)
+    if mode == "fsdp":
+        toks, labels = (x.reshape((-1,) + x.shape[-1:]) if isinstance(t, int) else
+                        x.reshape(x.shape[:1] + (-1,) + x.shape[-1:]) for x in (toks, labels))
+    return {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+
+
+def lm_mesh_job(rank: int, n: int, ref_path: str, arms: dict, lr: float, ckpt: str,
+                own: tuple) -> dict:
+    """Every arm of ``tests/_torch_mesh.py`` on this rank (3 ``train_step``
+    calls, or the ``run_segments`` drill), from its block of the
+    reference's init; plus the port's own claims named in ``own``."""
+    import torch
+
+    from repro_torch.core import mixing as M
+    from repro_torch.core.mixing import PermPool, PoolSwap, ScheduleArrays
+    from repro_torch.train import sharding
+    from repro_torch.train.mesh_layout import MeshLayout
+
+    with np.load(ref_path) as f:
+        ref = {k: f[k] for k in f.files}
+    meshes: dict = {}
+    arrays = ScheduleArrays(gammas=torch.as_tensor(ref["coeffs"], dtype=torch.float32),
+                            perms=torch.as_tensor(ref["perms"], dtype=torch.int32))
+    pool1 = PermPool(perms=tuple(tuple(int(x) for x in p) for p in ref["pool1"]))
+
+    def mesh_of(shape):
+        shape = tuple(shape)
+        if shape not in meshes:
+            names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+            meshes[shape] = sharding.make_mesh(shape, names)
+        return meshes[shape]
+
+    def operand(online):
+        return {"dense": torch.as_tensor(ref["W"]), "arrays": arrays,
+                "pool": torch.as_tensor(ref["gammas0"])}.get(online)
+
+    def hook_for(online):
+        def hook(t):
+            if online == "pool":
+                return {1: PoolSwap(gammas=ref["gammas1"]),
+                        3: PoolSwap(gammas=ref["gammas2"], pool=pool1)}.get(t)
+            return torch.as_tensor(ref["W2"]) if t == 1 else None
+        return hook
+
+    def three_steps(setup, mode, online, params):
+        opt = setup.init_opt_state(params)
+        series = []
+        for t in range(3):
+            extra = () if online is None else (operand(online),)
+            if setup.staleness is not None:
+                extra = extra + (torch.as_tensor(ref["delays"][t]),)
+            params, opt, loss = setup.train_step(
+                params, opt, setup.local_batch(_mesh_batch(ref, mode, t)), *extra)
+            series.append({k: float(v) for k, v in loss.items()} if isinstance(loss, dict)
+                          else {"loss": float(loss)})
+        return params, opt, series
+
+    class Quarantine:  # node 1 isolated: the meter's quarantined bytes
+        def mask(self):
+            return np.array([False, True])
+
+        def summary(self):
+            return {"isolated": [1]}
+
+    def segments(setup, mode, online, params, mix=None, quarantine=False, **kw):
+        batches = setup.local_batch(_mesh_batch(ref, mode, slice(None)), lead=1)
+        mix = operand(online) if mix is None else mix
+        return setup.run_segments(params, setup.init_opt_state(params), batches, mix,
+                                  segment_len=2, rollout="loop", on_segment=hook_for(online),
+                                  delays=ref["raw_delays"] if setup.staleness else None,
+                                  quarantine=Quarantine() if quarantine else None, **kw)
+
+    out: dict = {"_rank": rank}
+    for name, arm in arms.items():
+        mesh = mesh_of(arm["mesh"])
+        setup, cfg, online = _mesh_setup(arm, mesh, lr, ref)
+        mode = arm.get("mode", "dsgd")
+        layout = setup._layout
+        params = _mesh_init(setup, cfg, ref)
+        row = {"node": layout.node, "coords": layout.coords, "sizes": layout.sizes,
+               "specs": setup.param_specs, "comm_bytes": setup.comm_bytes_per_step,
+               "transport": setup.sharded_transport}
+        if arm.get("run") == "segments":
+            res = segments(setup, mode, online, params, quarantine=arm.get("quarantine", False))
+            row.update({"losses": res["losses"], "final": _np(res["params"]),
+                        "health": res.get("health", {}), "recompiles": res["recompiles"],
+                        "swaps": res["swaps"], "comm": res["comm"],
+                        "quarantine": res.get("quarantine")})
+        else:
+            p, opt, series = three_steps(setup, mode, online, params)
+            row.update({"series": series, "final": _np(p)})
+            if isinstance(opt, dict) and "ef" in opt:
+                row["ef"] = _np(opt["ef"])
+            if isinstance(opt, dict) and "stale" in opt:
+                row["ring"] = _np(opt["stale"]["buf"])
+                row["head"] = int(opt["stale"]["head"])
+        out[name] = row
+
+    mine: dict = {}
+    if "no_param_gather" in own:
+        # the tensor-parallel pass: every all-gather / gather call's input
+        # against the parameters' storage
+        import torch.distributed as dist
+
+        for name in own["no_param_gather"]:
+            arm = arms[name]
+            setup, cfg, _ = _mesh_setup(arm, mesh_of(arm["mesh"]), lr, ref)
+            params = _mesh_init(setup, cfg, ref)
+            ptrs = {v.untyped_storage().data_ptr() for v in params.values()}
+            shapes = {tuple(v.shape) for v in params.values()}
+            calls = []
+            real = {k: getattr(dist, k) for k in ("all_gather_into_tensor", "all_gather",
+                                                  "gather")}
+
+            def spy(kind):
+                def call(*a, **k):
+                    src = a[1] if kind != "gather" else a[0]
+                    calls.append((kind, src.untyped_storage().data_ptr() in ptrs,
+                                  tuple(src.shape)))
+                    return real[kind](*a, **k)
+                return call
+
+            M.reset_collective_bytes()
+            for k in real:
+                setattr(dist, k, spy(k))
+            try:
+                loss, _ = setup.grad_fn(params, setup.local_batch(_mesh_batch(ref, "dsgd", 0)))
+            finally:
+                for k, v in real.items():
+                    setattr(dist, k, v)
+            mine.setdefault("no_param_gather", {})[name] = {
+                "gathers": calls, "param_shapes": shapes, "calls": dict(M.collective_calls),
+                "loss": float(loss)}
+    if "dtensor_blocks" in own:
+        # a rank's block of every leaf is DTensor's local shard under the
+        # spec's placements, on the mesh of each mode
+        from torch.distributed.tensor import distribute_tensor
+
+        same = {}
+        for name in own["dtensor_blocks"]:
+            arm = arms[name]
+            mesh = mesh_of(arm["mesh"])
+            setup, cfg, _ = _mesh_setup(arm, mesh, lr, ref)
+            full = {k[len(f"init/{_CFG_KEYS[cfg.name]}/"):]: torch.as_tensor(v)
+                    for k, v in ref.items() if k.startswith(f"init/{_CFG_KEYS[cfg.name]}/")}
+            shardings = sharding.make_param_shardings(setup.param_specs, mesh)
+            same[name] = all(torch.equal(
+                distribute_tensor(v, mesh, shardings[k]).to_local(), setup._layout.shard(v, k))
+                for k, v in full.items())
+        mine["dtensor_blocks"] = same
+    if "planted_probe_fault" in own:
+        # a replicated leaf summed over model as if split: the probes count
+        # it TP times
+        arm = arms["probes"]
+        real = MeshLayout.model_split
+        MeshLayout.model_split = lambda self, name: True
+        try:
+            setup, cfg, online = _mesh_setup(arm, mesh_of(arm["mesh"]), lr, ref)
+            _, _, series = three_steps(setup, "dsgd", online, _mesh_init(setup, cfg, ref))
+        finally:
+            MeshLayout.model_split = real
+        mine["planted_probe_fault"] = series
+    if "refusals" in own:
+        refused = {}
+        arm = arms[own["refusals"]]
+        setup, cfg, _ = _mesh_setup(arm, mesh_of(arm["mesh"]), lr, ref, {"online_w": True})
+        params = _mesh_init(setup, cfg, ref)
+        try:
+            setup.train_step(params, None, setup.local_batch(_mesh_batch(ref, "dsgd_pod", 0)),
+                             arrays)
+        except TypeError as exc:
+            refused["pod_arrays"] = str(exc)
+        try:
+            setup.multi_step_fn("scan")
+        except ValueError as exc:
+            refused["scan"] = str(exc)
+        mine["refusals"] = refused
+    if "resume" in own:
+        arm = arms[own["resume"]]
+        setup, cfg, online = _mesh_setup(arm, mesh_of(arm["mesh"]), lr, ref)
+        params = _mesh_init(setup, cfg, ref)
+        whole = segments(setup, "dsgd", online, params)
+        first = segments(setup, "dsgd", online, params, checkpoint_dir=ckpt,
+                         stop_after_segments=2)
+        # the restage before the stop rebuilt the step: resume from the live
+        # setup, with an operand of its pool (the checkpoint's replaces it)
+        rest = segments(first["setup"], "dsgd", online, params,
+                        mix=torch.as_tensor(ref["gammas2"]), checkpoint_dir=ckpt, resume=True)
+        import json
+        import os as _os
+
+        from repro_torch.train.checkpoints import latest_step
+
+        last = latest_step(ckpt)
+        with open(_os.path.join(ckpt, f"step_{last:08d}", "manifest.json")) as f:
+            manifest = json.load(f)
+        mine["resume"] = {
+            "stopped_at": first["stopped_at"], "resumed_from": rest["resumed_from"],
+            "losses": bool(np.array_equal(np.concatenate([first["losses"], rest["losses"]]),
+                                          whole["losses"])),
+            "params": all(torch.equal(rest["params"][k], whole["params"][k]) for k in params),
+            "ckpt_shape": manifest["shapes"][manifest["keys"].index(
+                "['params']['embed.table']")],
+            "local_shape": list(params["embed.table"].shape)}
+    out["_own"] = mine
+    return out
+
+
+def mesh_import_job(rank: int, n: int) -> dict:
+    """One tensor-parallel dsgd step of qwen3's smoke config on a (1, n)
+    mesh: what a rank process of the mesh trainer imports."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train.lm_trainer import make_train_setup
+    from repro_torch.train.sharding import make_mesh
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    setup = make_train_setup(cfg, mesh=make_mesh((1, n), ("data", "model")), device="cpu")
+    params = setup.init_params(0)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
+             "labels": torch.ones((1, 8), dtype=torch.long)}
+    _, _, loss = setup.train_step(params, None, batch)
+    return {"loss": float(loss), "modules": sorted(m for m in sys.modules
+                                                   if m.startswith("repro_torch.train"))}

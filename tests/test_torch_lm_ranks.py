@@ -416,7 +416,7 @@ def test_rank_setup_argument_checks():
     from repro_torch.obs import HealthProbes
     from repro_torch.core.mixing import StragglerPolicy
 
-    with pytest.raises(NotImplementedError, match="item 13e"):
+    with pytest.raises(ValueError, match="fsdp over ranks takes mesh="):
         make_train_setup(cfg, mode="fsdp", group=object(), device="cpu")
     with pytest.raises(ValueError, match="tau_bar"):
         make_train_setup(cfg, online_w=True, group=object(), device="cpu",

@@ -327,7 +327,11 @@ def test_bfloat16_checkpoint_resume_is_bitwise(tmp_path):
     dict(staleness=object(), online_w=True), dict(probes=object(), online_w=True),
 ], ids=["dsgd_pod", "sharded_pool", "pool", "compression", "staleness", "probes"])
 def test_arguments_left_for_later_items_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 13e"):
+    # dsgd_pod runs on a (pod, data, model) mesh (tests/test_torch_lm_mesh_modes.py):
+    # stacked nodes have no pod axis; the stacked robustness options are item 13f
+    err, match = (ValueError, "'pod' mesh axis") if kw.get("mode") == "dsgd_pod" else \
+        (NotImplementedError, "item 13f")
+    with pytest.raises(err, match=match):
         make_train_setup(get_smoke_config(NAME), n_nodes=N, device="cpu", **kw)
 
 
@@ -343,7 +347,7 @@ def test_run_segments_arguments_left_for_later_items_raise(reference, what):
         kw["on_segment"] = lambda t: PoolSwap(gammas=np.zeros(3, np.float32))
     else:
         mix = np.zeros(3, np.float32)
-    with pytest.raises(NotImplementedError, match="item 13e"):
+    with pytest.raises(NotImplementedError, match="item 13f"):
         _run(setup, params, None, batches, mix, **kw)
 
 

@@ -193,3 +193,31 @@ def test_shared_expert_width_and_init_stds():
                    (moe.routed.w_up, d**-0.5), (moe.routed.w_down, f**-0.5)):
         assert abs(float(w.std()) / (std * trunc) - 1.0) < 0.1
         assert float(w.abs().max()) <= 2 * std + 1e-6
+
+
+def test_moe_gradients_match_reference():
+    """Under autograd the block runs its products out of place: the loss of
+    its output and its gradients (input, router, experts) are the
+    reference's (float32, forced drops)."""
+    jcfg, pcfg, jparams, module = _pair("qwen3-moe-30b-a3b", capacity_factor=1.0)
+    x = _x(2, 16, pcfg.d_model, "float32")
+    proj = np.random.default_rng(3).normal(size=(pcfg.d_model,)).astype(np.float32)
+
+    def j_loss(p, xx):
+        out, aux = J_moe.moe_forward(p, jcfg, xx)
+        return jnp.sum(out * proj) + aux
+
+    j_gp, j_gx = jax.grad(j_loss, argnums=(0, 1))(jparams, jnp.asarray(x))
+    xt = _t(x).requires_grad_()
+    module.requires_grad_(True)
+    out, aux = P_moe.moe_forward(module, pcfg, xt)
+    (torch.sum(out * torch.tensor(proj)) + aux).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(j_gx), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(module.router.grad.numpy(), np.asarray(j_gp["router"]),
+                               rtol=1e-4, atol=1e-5)
+    for name in ("w_gate", "w_up", "w_down"):
+        np.testing.assert_allclose(getattr(module.routed, name).grad.numpy(),
+                                   np.asarray(j_gp["routed"][name]), rtol=1e-4, atol=1e-5)
+    with torch.no_grad():
+        again, _ = P_moe.moe_forward(module, pcfg, _t(x))
+    assert torch.equal(again, out.detach())

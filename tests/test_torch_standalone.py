@@ -86,6 +86,39 @@ def test_fault_copies_differ_only_in_their_imports(module):
     assert "from repro_torch." in (PORT / module).read_text()
 
 
+_IMPORTS_ONE = r"""
+import importlib, sys
+sys.path.insert(0, {src!r})
+importlib.import_module({module!r})
+print("LEAKED", sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                       or m == "repro" or m.startswith("repro.")))
+"""
+
+
+@pytest.mark.parametrize("module", ["repro_torch.train.sharding",
+                                    "repro_torch.train.tensor_parallel",
+                                    "repro_torch.train.mesh_layout"])
+def test_mesh_modules_alone_load_no_jax(module):
+    code = _IMPORTS_ONE.format(src=str(ROOT / "src"), module=module)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=str(ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "LEAKED []"
+
+
+def test_mesh_rank_processes_load_no_jax(tmp_path):
+    """Two gloo ranks build a (1, 2) mesh and take a tensor-parallel step:
+    neither loads jax."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_ranks
+
+    rows = _torch_ranks.spawn_ranks(2, _torch_ranks.mesh_import_job, tmp_path)
+    assert all(not r["_jax_loaded"] for r in rows)
+    assert rows[0]["loss"] == rows[1]["loss"] and np.isfinite(rows[0]["loss"])
+    assert "repro_torch.train.tensor_parallel" in rows[0]["modules"]
+
+
 def test_convert_round_trips():
     tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3), "b": np.ones(3, np.float32)}
     back = convert.params_to_numpy(convert.params_from_numpy(tree, "cpu"))
