@@ -28,8 +28,8 @@ nvcc per source, all at once) and then, on the card:
    softcap, so those rows time it without one, beside the row); the
    device auction LMO on the cold and warm STL-FW gradients of phase 6b's
    label-shard Pi (n = 100), of a Dirichlet(0.1) label partition at n =
-   128, 512, 1024 and 2048, and on tied integers: its assignment, prices
-   and counters identical to the plain version's (run on the host, in
+   128, 512 and 1024 (2048 cut for time), and on tied integers: its
+   assignment, prices and counters identical to the plain version's (run on the host, in
    worker processes), its objective scipy's within 1e-9; the kernel's ms
    beside the whole call's, the plain version's, the numpy auction's and
    scipy's (host times the median of 3, taken with no worker running);
@@ -151,7 +151,9 @@ nvcc per source, all at once) and then, on the card:
    a 4-domain, one-domain-per-node Pi at budget 2; batches drawn on the
    card from the ``DomainSkewCorpus`` domains (the host ``TokenBatcher``
    is timed once: ~0.3 G Gumbel draws a node-batch at this vocabulary).
-   Arms, 12 steps in segments of 4 (a cut: phase 13 needs the time;
+   Arms, 6 steps in segments of 2 (a cut, from 12 in segments of 4,
+   then 8: phases 13 and 14 need the time; the last segment still a
+   replay;
    the forward keeps its activations, no recomputation): (a) dsgd, static schedule,
    ``rollout="scan"``; (b) the same with ``"loop"``, bitwise (a); (c)
    ``online_w`` on its ``ScheduleArrays`` through ``run_segments`` with
@@ -165,7 +167,20 @@ nvcc per source, all at once) and then, on the card:
    ``gossip_mix``) of its half-step; that half-step plus N(0, 0.02) noise
    per node through each kernel within one bfloat16 rounding (2^-7
    relative, plus 1e-6) of the plain version, where the unmixed input
-   misses by more than 10 times that;
+   misses by more than 10 times that. Then the robustness options on the
+   stacked nodes (``phase_lm_robust``, 4-6 steps an arm, a cut): (g) the
+   staged pool (the schedule's atoms and an identity slot) through
+   ``run_segments`` in segments of one step, an in-pool ``PoolSwap``
+   after step 1 and a restage after step 2 (one rebuild), 5 steps
+   captured and looped, bitwise equal; (h) the pool with the bf16 wire
+   and bounded delay (wait, tau_max 1: the float32 EF memory and a bf16
+   ring of 2 carried), 4 steps from raw delays in {0, 1, 2}, loop; (i)
+   probes (``consensus``, ``grad_dev``) on the ``ScheduleArrays``, 6
+   steps captured in segments of 2, bitwise its probes-off twin; (j) the
+   degrade policy with raw delays and node 1 quarantined (the meter's
+   quarantined bytes) on the all-gather transport, 6 steps captured.
+   Each arm launches ``gossip_schedule`` and prints ms/step (the last
+   segment), peak memory, losses and launches;
 13. trains qwen3-0.6b at full width and depth in bf16 with one node per
    rank (``make_train_setup(cfg, group=...)``): four rank processes
    (spawned) share the card, each with its own ``NCCL_HOSTID`` (NCCL
@@ -194,10 +209,12 @@ nvcc per source, all at once) and then, on the card:
    pool with an in-pool ``PoolSwap`` and then a restage from the hook (one
    rebuild); (c) the pool with the bf16 wire and bounded delay (tau_max 1,
    delays from ``straggler_pool_stream``); (d) a static schedule
-   (``mix_ppermute``) captured (``rollout="scan"``) bitwise its loop, and
-   the complete graph (``pmean``). Arm (a)'s ranks draw phase 12's
-   batches (their token sums checked). Every arm's loss on its
-   first batch falls. Printed: ms/step, the bytes a rank received a step
+   (``mix_ppermute``) captured (``rollout="scan"``) bitwise its loop, 2
+   steps each, and the complete graph (``pmean``), 1 step. Arm (a)'s
+   ranks draw phase 12's batches (their token sums checked). Arms (b)
+   and (c) are phase 12's (g) and (h) over ranks (the same pool, hook,
+   delays, seed and batches): their losses within 1e-2 of (g)'s and
+   (h)'s at every step. Every arm's loss on its first batch falls. Printed: ms/step, the bytes a rank received a step
    beside ``mix_bytes_per_step``'s model (the reference's float32
    accounting: a bfloat16 leaf moves as bfloat16), each rank's peak memory, the
    backend, the time to spawn and initialise the ranks; the yardstick's
@@ -216,8 +233,27 @@ nvcc per source, all at once) and then, on the card:
    rank's parameters at rest at most 1.1 x a quarter of the model; (c)
    dsgd_pod on ``(pod 2, data 2, model 1)``, the complete graph, 2 steps,
    within 1e-2 of the stacked complete graph (``gossip_mix``) on each
-   pod's sequences. The yardsticks run in this process before the spawn;
-   their launches count as the phase's. Printed: ms/step a rank (the
+   pod's sequences; (d)-(g) the other families tensor-parallel
+   (``TP_FAMILIES``; published widths, depths cut): recurrentgemma-2b at
+   3 layers (one of each kind) on (data 1, model 4) -- its 10 query heads
+   split inside a head, the MQA keys gathered, the RG-LRU split --,
+   xlstm-350m at 4 layers (one period) on (2, 2), whisper-small whole on
+   (2, 2) -- its table split by features --, deepseek-v2-236b at 1 layer
+   (~10 GB of bf16 a node: data 1, so only the tensor-parallel
+   collectives cross the socket) on (1, 4); 2 steps each in the loop
+   (keeping their activations: no recomputation), on
+   uniform tokens from the seed (whisper's 448 decoder tokens and stub
+   frames N(0, 0.1)), held to a one-card stacked run of the same nodes:
+   the losses within 3e-3 (``TP_LOSS_TOL``); and a float32 pass at the
+   initial parameters on the first batch's first sequence (its first 512
+   tokens, ``float32_pass``), its loss within 1e-4 and its
+   gradient, each rank's block of every leaf against the same block of
+   the yardstick's, its norm and 4 Gaussian projections within 2e-2 of
+   the block's norm (``grad_sketch``, ``TP_GRAD_RTOL``); a rank's
+   parameters at rest within 1.1 x the node's over ``model``.
+   ``scripts/tp_fault_drill.py`` plants a fault in these arms and shows
+   that the checks catch it. The yardsticks run in this process before
+   the spawn; their launches count as the phase's. Printed: ms/step a rank (the
    captured leg's replay), bytes a rank receives a step by collective
    beside the model's bytes, collectives a step by kind, peak memory
    and parameters at rest a rank, spawn, init and mesh seconds;
@@ -244,6 +280,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -261,6 +298,8 @@ from repro_torch.core.assignment_jit import AuctionWorkspace, auction_assignment
 from repro_torch.core.mixing import (  # noqa: E402
     KERNEL_ROW_ALIGN,
     BirkhoffSchedule,
+    PermPool,
+    PoolSwap,
     ScheduleArrays,
     StragglerPolicy,
     _bucket_key,
@@ -305,6 +344,7 @@ from repro_torch.online import (  # noqa: E402
     TopologyRefresher,
 )
 from repro_torch.serve import engine  # noqa: E402
+from repro_torch.train import sharding  # noqa: E402
 from repro_torch.train.lm_trainer import _sgd_update, gossip_fn, make_train_setup  # noqa: E402
 from repro_torch.train.trainer import run_classification, run_mean_estimation  # noqa: E402
 
@@ -686,7 +726,7 @@ def phase_kernels(Pi_mnist: np.ndarray) -> list[dict]:
 # n = 100 is phase 6b's controller on its own label-shard Pi (not a
 # multiple of 64: partial warps and lane loops); the others are
 # Dirichlet(0.1) label partitions
-AUCTION_SIZES = (100, 128, 512, 1024, 2048)
+AUCTION_SIZES = (100, 128, 512, 1024)  # n 2048 cut: ~35 s of host solves
 AUCTION_LAUNCHES = 5  # a solve is one launch of up to ~0.5 s: fewer than 30 timed
 AUCTION_REPEATS = 3  # host yardsticks: the median of 3, timed with no worker running
 AUCTION_HEADLINE = 512  # the warm solve at n = 512 (phase 6c's and phase 2's n)
@@ -2724,8 +2764,8 @@ def phase_long_context(device: torch.device) -> dict:
 # Phase 12: LM D-SGD training on one card
 # ---------------------------------------------------------------------------
 
-TRAIN = {"name": "qwen3-0.6b", "nodes": 4, "batch": 2, "seq": 1024, "lr": 1e-3, "steps": 12,
-         "segment": 4, "budget": 2}
+TRAIN = {"name": "qwen3-0.6b", "nodes": 4, "batch": 2, "seq": 1024, "lr": 1e-3, "steps": 6,
+         "segment": 2, "budget": 2}
 GOSSIP = ("gossip_schedule", "gossip_mix")
 
 
@@ -2955,13 +2995,185 @@ def phase_lm_training(device: torch.device) -> dict:
     record("f_dsgd_complete_graph", f)
     check(f["counts"]["gossip_mix"] == steps * len(params0),
           f"{label} (f): launches {f['counts']}")
-    del f, params0
+    del f
+    robust, robust_yard = phase_lm_robust(cfg, sched, arrays, params0, batches, device)
+    for k in GOSSIP:
+        launches[k] += robust[k]
+    yard.update(robust_yard)
+    del params0
     free_card()
     note(f"# {label} " + json.dumps({
         "seconds": time.perf_counter() - t_phase, "step_bound_ms": bound_ms,
         "ms_per_step": {k: r["ms_per_step"] for k, r in rows.items()},
         "tokens_per_s": {k: r["tokens_per_s"] for k, r in rows.items()},
         "mix_check": errs, "launches": launches}))
+    return launches, yard
+
+
+# phase 12's robustness arms (g)-(j): steps an arm takes (the pool drill
+# (g) in segments of one, its restage after step 2; the others in segments
+# of 2: an eager warm-up, a capture, a replay under "scan")
+ROBUST = {"g": 5, "h": 4, "i": 6, "j": 6, "segment": 2}
+
+
+def pool_drill(n: int, sched) -> tuple:
+    """The staged pool of phase 12 (g) and phase 13 (b): the schedule's
+    atoms and an identity slot of headroom, its projection, and the hook's
+    swaps -- in pool after the first step (half the weight moves to the
+    node itself: another W), a restage after the second (two cyclic shifts
+    and the identity)."""
+    pool = PermPool.from_schedule(sched, capacity=sched.n_atoms + 1)
+    g0, _ = pool.project(sched)
+    ident = pool.perms.index(tuple(range(n)), len(pool.perms) - 1)  # the headroom slot
+    swapped = 0.5 * np.asarray(g0, np.float32)
+    swapped[ident] += 0.5
+    shifted = [tuple(int((q + j) % n) for q in range(n)) for j in range(1, 3)]
+    new_pool = PermPool(perms=tuple(shifted) + (tuple(range(n)),))
+    hook = {0: PoolSwap(gammas=swapped),
+            1: PoolSwap(gammas=np.full(3, 1.0 / 3, np.float32), pool=new_pool)}
+    return pool, g0, hook
+
+
+def stale_delays(n: int) -> np.ndarray:
+    """The raw delays of phase 12 (h) and phase 13 (c), (ROBUST["h"], n)
+    in {0, 1, 2}: phase 13 takes the first rows."""
+    return np.random.default_rng(13).integers(0, 3, size=(ROBUST["h"], n))
+
+
+class _Isolated:
+    """A quarantine controller's accounting face: node 1 isolated."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def mask(self):
+        return np.arange(self.n) == 1
+
+    def summary(self):
+        return {"isolated": [1]}
+
+
+def phase_lm_robust(cfg, sched, arrays, params0: dict, batches: dict,
+                    device: torch.device) -> tuple[dict, dict]:
+    """Phase 12 (g)-(j) (module docstring): the robustness options on the
+    stacked nodes. Returns the gossip launches and the losses phase 13's
+    ranks are held to."""
+    label = "12 qwen3-0.6b"
+    n, seg = TRAIN["nodes"], ROBUST["segment"]
+    common = dict(n_nodes=n, lr=TRAIN["lr"], device=device, online_w=True)
+    launches, yard = {k: 0 for k in GOSSIP}, {}
+
+    def first(k: int) -> dict:
+        return {name: v[:k] for name, v in batches.items()}
+
+    def run(arm: str, fn, k: int):
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        tic = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        row = {"steps": k, "seconds": time.perf_counter() - tic,
+               "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {name: counts[name] for name in GOSSIP}}
+        for name in GOSSIP:
+            launches[name] += counts[name]
+        check(counts["gossip_schedule"] > 0, f"{label} {arm}: no gossip_schedule launch")
+        return res, row
+
+    def segmented(res: dict, row: dict, seg_len: int) -> dict:
+        """The run's row: ms/step of its last segment (a replay under
+        "scan"), its losses, captures, swaps and meter."""
+        losses = np.asarray(res["losses"])
+        check(np.isfinite(losses).all(), f"{label}: non-finite losses {losses}")
+        row.update({"ms_per_step": 1e3 * res["segment_s"][-1] / seg_len,
+                    "segment_ms": [1e3 * t for t in res["segment_s"]],
+                    "losses": losses.tolist(), "captures": res["n_traces"],
+                    "recompiles": res["recompiles"], "swaps": res["swaps"],
+                    "comm": res["comm"]})
+        return row
+
+    # (g) the staged pool: an in-pool swap, then a restage, captured and loop
+    pool, g0, hook = pool_drill(n, sched)
+    setup = make_train_setup(cfg, sharded_transport="pool", pool=pool, **common)
+    k = ROBUST["g"]
+    out = {}
+    for rollout in ("scan", "loop"):
+        res, row = run(f"g {rollout}", lambda: setup.run_segments(
+            params0, None, first(k), g0, segment_len=1, rollout=rollout, on_segment=hook.get), k)
+        note(f"# {label} arm g_pool_swap_restage_{rollout} " + json.dumps(
+            segmented(res, row, 1) | {"transport": res["setup"].sharded_transport}))
+        out[rollout] = res
+    check(np.array_equal(out["scan"]["losses"], out["loop"]["losses"]) and all(
+        torch.equal(out["scan"]["params"][name], out["loop"]["params"][name])
+        for name in params0), f"{label} (g): the captured run is not bitwise the loop")
+    check(out["loop"]["swaps"] == [0, 1] and out["loop"]["recompiles"] == 1,
+          f"{label} (g): swaps {out['loop']['swaps']}, recompiles {out['loop']['recompiles']}")
+    yard["g_losses"] = out["loop"]["losses"].tolist()
+    del out, res, setup
+    # (h) the pool with the bf16 wire and bounded delay (wait, tau_max 1):
+    # the EF memory (float32) and a bfloat16 ring of 2 carried
+    policy = StragglerPolicy("wait", 1)
+    setup = make_train_setup(cfg, sharded_transport="pool", pool=pool, compression="bf16",
+                             staleness=policy, **common)
+    k, raw = ROBUST["h"], stale_delays(n)
+    res, row = run("h", lambda: setup.run_segments(
+        params0, setup.init_opt_state(params0), first(k), g0, segment_len=seg, rollout="loop",
+        delays=raw), k)
+    ring = res["opt_state"]["stale"]["buf"]
+    row = segmented(res, row, seg) | {
+        "delays": raw.tolist(), "ring_dtype": str(next(iter(ring.values())).dtype),
+        "carry_gb": sum(v.numel() * v.element_size() for tree in (ring, res["opt_state"]["ef"])
+                        for v in tree.values()) / 1e9}
+    note(f"# {label} arm h_pool_bf16_ef_stale " + json.dumps(row))
+    yard["h_losses"] = row["losses"]
+    del res, ring, setup
+    # (i) probes on the ScheduleArrays, captured, against the probes-off twin
+    k = ROBUST["i"]
+
+    def probed(setup):
+        multi = setup.multi_step_fn("scan")
+        p, series, seg_s = params0, [], []
+        for t0 in range(0, k, seg):
+            tic = time.perf_counter()
+            p, _, lo = multi(p, None, {name: v[t0:t0 + seg] for name, v in first(k).items()},
+                             arrays)
+            torch.cuda.synchronize()
+            seg_s.append(time.perf_counter() - tic)
+            series.append(lo if isinstance(lo, dict) else {"loss": lo})
+        return p, {name: torch.cat([x[name] for x in series]) for name in series[0]}, seg_s, \
+            multi.n_traces
+
+    probes = HealthProbes(consensus=True, grad_dev=True)
+    (p_on, s_on, t_on, c_on), row = run("i", lambda: probed(
+        make_train_setup(cfg, probes=probes, **common)), k)
+    (p_off, s_off, t_off, c_off), row_off = run("i off", lambda: probed(
+        make_train_setup(cfg, **common)), k)
+    check(torch.equal(s_on["loss"], s_off["loss"]) and all(
+        torch.equal(p_on[name], p_off[name]) for name in params0),
+        f"{label} (i): the probes-on run is not bitwise the probes-off run")
+    check(bool(torch.isfinite(s_on["consensus"]).all() and (s_on["consensus"] >= 0).all()),
+          f"{label} (i): consensus {s_on['consensus'].tolist()}")
+    row.update({"ms_per_step": 1e3 * t_on[-1] / seg, "ms_per_step_probes_off": 1e3 * t_off[-1] / seg,
+                "captures": [c_on, c_off], "losses": s_on["loss"].tolist(),
+                "consensus": s_on["consensus"].tolist(), "grad_dev": s_on["grad_dev"].tolist(),
+                "max_memory_gb_probes_off": row_off["max_memory_gb"]})
+    note(f"# {label} arm i_probes " + json.dumps(row))
+    del p_on, p_off, s_on, s_off
+    # (j) degrade + raw delays + a quarantine on the all-gather transport
+    setup = make_train_setup(cfg, staleness=StragglerPolicy("degrade", 1), **common)
+    k = ROBUST["j"]
+    raw = np.random.default_rng(15).integers(0, 3, size=(k, n))
+    res, row = run("j", lambda: setup.run_segments(
+        params0, setup.init_opt_state(params0), first(k), arrays, segment_len=seg,
+        rollout="scan", delays=raw, quarantine=_Isolated(n)), k)
+    row = segmented(res, row, seg) | {"delays": raw.tolist(), "quarantine": res["quarantine"]}
+    check(row["comm"]["quarantined_bytes"] > 0, f"{label} (j): nothing quarantined {row['comm']}")
+    note(f"# {label} arm j_degrade_delays_quarantine " + json.dumps(row))
+    del res, setup
+    free_card()
     return launches, yard
 
 
@@ -3163,16 +3375,15 @@ def rank_checkpoint(rank: int, n: int, setup, params: dict, arrays, t: int) -> d
     return out
 
 
-def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -> dict:
-    """Phase 13 on one rank (a spawned process; see ``phase_lm_ranks``):
-    NCCL on the card (gloo where a rehearsal passes the CPU)."""
+def join_ranks(rank: int, n: int, init: str, device: torch.device) -> torch.device:
+    """Join this rank process to the group of ``n`` at ``init``: NCCL on
+    the card (its share of the card's memory, float32 products in full
+    float32), gloo where a rehearsal passes the CPU; returns the rank's
+    device. Every rank has passed a barrier when it returns."""
     import datetime
 
     import torch.distributed as dist
 
-    from repro_torch.core import mixing as M
-
-    t0 = time.perf_counter()
     kw = {}
     if device.type == "cuda":
         device = torch.device("cuda:0")
@@ -3184,8 +3395,20 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init,
                             rank=rank, world_size=n, timeout=datetime.timedelta(seconds=300),
                             **kw)
+    dist.barrier()
+    return device
+
+
+def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -> dict:
+    """Phase 13 on one rank (a spawned process; see ``phase_lm_ranks``):
+    NCCL on the card (gloo where a rehearsal passes the CPU)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import mixing as M
+
+    t0 = time.perf_counter()
+    device = join_ranks(rank, n, init, device)
     group = dist.group.WORLD
-    dist.barrier(group=group)
     out: dict = {"init_s": time.perf_counter() - t0, "backend": M.group_backend(group)}
     reset_launch_counts()
     cfg = get_config(TRAIN["name"])
@@ -3204,8 +3427,7 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     out["token_sum"] = int(mine["tokens"].sum())
     del batches
     arrays = schedule_to_arrays(sched, device=device)
-    pool = M.PermPool.from_schedule(sched, capacity=sched.n_atoms + 1)
-    g0, _ = pool.project(sched)
+    pool, g0, hook = pool_drill(n, sched)
     # four ranks share the card: each recomputes its layers' activations in
     # the backward pass (remat); the socket, not the compute, sets a step
     common = dict(group=group, lr=lr, device=device, remat=True)
@@ -3278,13 +3500,6 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     free_card()
     # (b) the staged pool: an in-pool swap, then a restage, from the hook
     setup = make_train_setup(cfg, online_w=True, sharded_transport="pool", pool=pool, **common)
-    ident = pool.perms.index(tuple(range(n)), len(pool.perms) - 1)  # the headroom slot
-    swapped = 0.5 * np.asarray(g0, np.float32)
-    swapped[ident] += 0.5  # half the weight moves to the node itself: another W
-    shifted = [tuple(int((q + j) % n) for q in range(n)) for j in range(1, 3)]
-    new_pool = M.PermPool(perms=tuple(shifted) + (tuple(range(n)),))
-    hook = {0: M.PoolSwap(gammas=swapped),
-            1: M.PoolSwap(gammas=np.full(3, 1.0 / 3, np.float32), pool=new_pool)}
     res = timed_steps("b_pool_swap_restage", lambda: setup.run_segments(
         params0, None, {k: v[:steps["b"]] for k, v in mine.items()}, g0, segment_len=1,
         rollout="loop", on_segment=hook.get), steps["b"])
@@ -3302,7 +3517,7 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     policy = M.StragglerPolicy("wait", 1)
     setup = make_train_setup(cfg, online_w=True, sharded_transport="pool", pool=pool,
                              compression="bf16", staleness=policy, **common)
-    raw = np.random.default_rng(13).integers(0, 3, size=(steps["c"], n))
+    raw = stale_delays(n)[:steps["c"]]
     g_stack, eff = M.straggler_pool_stream(policy, g0, pool, raw)
     p, opt, losses = timed_steps("c_pool_bf16_stale", lambda: setup.multi_step_fn("loop")(
         params0, setup.init_opt_state(params0), {k: v[:steps["c"]] for k, v in mine.items()},
@@ -3470,6 +3685,13 @@ def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
     for row in rows:
         b = row["arms"]["b_pool_swap_restage"]
         check(b["swaps"] == [0, 1] and b["recompiles"] == 1, f"{label} (b): {b}")
+        # (b) and (c) against phase 12's stacked (g) and (h): the same
+        # options, initial parameters and batches, at every step
+        for arm, key in (("b_pool_swap_restage", "g_losses"), ("c_pool_bf16_stale", "h_losses")):
+            got = row["arms"][arm]["losses"]
+            want = yard[key][:len(got)]
+            check(len(want) == len(got) and all(abs(x - y) <= MESH_TOL for x, y in zip(got, want)),
+                  f"{label} {arm}: losses {got} against the stacked arm's {want}")
         for arm_name, arm in row["arms"].items():
             if "first_batch_loss_after" in arm:
                 check(arm["first_batch_loss_after"] < arm["first_batch_loss_before"],
@@ -3495,7 +3717,9 @@ def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
         "losses": {k: v.get("losses", v.get("mean_losses")) for k, v in rows[0]["arms"].items()},
         "phase12_mean_losses": yard["mean"],
         "a_own_losses": [row["arms"]["a_allgather_arrays"]["own_losses"] for row in rows],
-        "phase12_per_node_losses": yard["per_node"], "launches": launches,
+        "phase12_per_node_losses": yard["per_node"],
+        "phase12_g_losses": yard["g_losses"], "phase12_h_losses": yard["h_losses"],
+        "launches": launches,
         "note": "ranks share one card; NCCL moves bytes over its socket transport (loopback): "
                 "not a multi-card rate"}
     note(f"# {label} " + json.dumps(summary))
@@ -3510,6 +3734,125 @@ MESH = {"seed": 0, "timeout_s": 600,
         # steps an arm takes: (a) captured and loop, (b) fsdp, (c) dsgd_pod
         "steps": {"a": 3, "b": 2, "c": 2}}
 MESH_TOL = 1e-2  # on losses, against the one-card yardsticks (bfloat16)
+# phase 14 (d)-(g): the other families tensor-parallel, (depth -- None:
+# whole --, (data, model)); deepseek's one layer is ~10 GB of bf16 a node,
+# so data 1: only the tensor-parallel collectives cross the socket
+TP_FAMILIES = {"recurrentgemma-2b": (3, (1, 4)), "xlstm-350m": (4, (2, 2)),
+               "whisper-small": (None, (2, 2)), "deepseek-v2-236b": (1, (1, 4))}
+TP_STEPS = 2
+# the TP arms keep their activations (their depths leave room; the sLSTM's
+# step loop would run three times with recomputation)
+TP_COMMON = dict(lr=TRAIN["lr"], remat=False)
+# what a TP arm is held to against its one-card yardstick: its bf16
+# losses within TP_LOSS_TOL (3x the largest gap measured, 1.0e-3: at
+# random init a loss sits near log V whatever the split); and a float32
+# pass at the initial parameters (their bf16 values) on the first batch's
+# first sequence (``float32_pass``): its loss within TP_LOSS32_TOL, and the gradient, each rank's block of
+# each leaf against the same block of the yardstick's, its norm and
+# TP_PROBES Gaussian projections (a projection sees a difference of the
+# blocks as its norm) within TP_GRAD_RTOL of the block's norm. In bf16
+# the blocks' gaps run to 7% (xlstm) and 19% (deepseek's experts: a
+# near-tie at the top-k boundary routes a token differently), where the
+# planted faults of scripts/tp_fault_drill.py move them by 40-100%; in
+# float32 only the summation order differs (a rare routing flip moves an
+# expert block by about one token's share)
+TP_LOSS_TOL = 3e-3
+TP_LOSS32_TOL = 1e-4
+TP_GRAD_RTOL = 2e-2
+TP_PROBES = 4
+TP_SKETCH_TOKENS = 512  # the float32 pass: the first sequence's first tokens
+
+
+def tp_config(name: str):
+    depth = TP_FAMILIES[name][0]
+    cfg = get_config(name)
+    return cfg if depth is None else dataclasses.replace(cfg, num_layers=depth)
+
+
+def grad_sketch(pairs) -> dict:
+    """Per ``(leaf name, gradient block)``: ``[norm, TP_PROBES
+    projections]`` in float64, each projection the block's product with
+    N(0, 1) draws from a seed of the leaf's name (the same draws in every
+    process for a block of the same shape): E(projection^2) is the
+    squared norm, so a difference of two blocks shows as its norm."""
+    out = {}
+    for name, g in pairs:
+        g64 = g.detach().reshape(-1).double()
+        gen = torch.Generator(device=g64.device).manual_seed(zlib.crc32(name.encode()))
+        out[name] = [float(torch.linalg.vector_norm(g64))] + [
+            float(torch.dot(g64, torch.randn(g64.shape, generator=gen, device=g64.device,
+                                             dtype=torch.float64)))
+            for _ in range(TP_PROBES)]
+        del g64
+    return out
+
+
+def float32_pass(setup, params: dict, batch: dict, stacked: bool):
+    """``setup``'s (a float32 twin's) loss and gradient at ``params``'s
+    values on ``batch``'s first step, its first sequence and that
+    sequence's first ``TP_SKETCH_TOKENS`` tokens (frames whole), in
+    float32: ``(loss, grads)``. ``params`` is emptied for the pass (a rank
+    holds its float32 copy, the gradient and the autograd pass's beside
+    it) and refilled with its own dtype's values after it (exact: each
+    float32 value is one of them)."""
+    small = {}
+    for k, v in batch.items():
+        v = v[0][:, :1] if stacked else v[0][:1]
+        if k in ("tokens", "labels"):
+            v = v[..., :TP_SKETCH_TOKENS]
+        small[k] = v.float() if v.is_floating_point() else v
+    dtypes = {k: v.dtype for k, v in params.items()}
+    p32 = {k: params.pop(k).float() for k in list(params)}
+    loss, grads = setup.grad_fn(p32, small)
+    params.update({k: p32.pop(k).to(dtypes[k]) for k in list(p32)})
+    return loss, grads
+
+
+def tp_errors(arm: dict, ref: dict, coords: dict) -> dict:
+    """A TP arm's largest gaps to its yardstick ``ref`` at the rank's
+    ``coords``: the losses' absolute gap (``loss32``: the float32 pass's),
+    and over the leaves of the float32 gradient the relative
+    gap of the gradient block's norm and of its projections (scaled by
+    the norm times sqrt(TP_PROBES)); ``worst``: the leaf of the larger."""
+    want = ref["sketch"][f"{coords['data']},{coords['model']}"]
+    got = arm["grad"]
+    out = {"loss": max(abs(x - y) for x, y in zip(arm["losses"], ref["mean"])),
+           "loss32": abs(arm["loss32"] - ref["loss32"][coords["data"]]),
+           "grad_norm": 0.0, "grad_proj": 0.0, "worst": None,
+           "leaves_match": sorted(got) == sorted(want)}
+    for name, (n0, *p0) in want.items():
+        if name not in got:
+            continue
+        n1, *p1 = got[name]
+        scale = n0 * math.sqrt(TP_PROBES)
+        diff = math.sqrt(sum((a - b) ** 2 for a, b in zip(p1, p0)))
+        norm_err = abs(n1 - n0) / n0 if n0 else (math.inf if n1 else 0.0)
+        proj_err = diff / scale if scale else (math.inf if diff else 0.0)
+        if max(norm_err, proj_err) > max(out["grad_norm"], out["grad_proj"]):
+            out["worst"] = name
+        out["grad_norm"] = max(out["grad_norm"], norm_err)
+        out["grad_proj"] = max(out["grad_proj"], proj_err)
+    return out
+
+
+def tp_batches(cfg, nodes: int, device: torch.device) -> dict:
+    """A family's ``(TP_STEPS, nodes, batch, seq)`` batches in the
+    reference's layout: tokens uniform over its vocabulary from the seed
+    (next-token labels; whisper's 448 decoder tokens), whisper's stub
+    frames N(0, 0.1) from it, the same in every process."""
+    seq = TRAIN["seq"]
+    if cfg.arch_type == "audio":
+        seq = min(seq, registry.WHISPER_MAX_TARGET)
+    rng = np.random.default_rng(MESH["seed"])
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_STEPS, nodes, TRAIN["batch"],
+                                                            seq + 1)), device=device)
+    out = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
+    if cfg.arch_type == "audio":
+        gen = torch.Generator(device=device).manual_seed(MESH["seed"])
+        shape = (TP_STEPS, nodes, TRAIN["batch"], cfg.encoder.num_frames, cfg.d_model)
+        out["frames"] = (torch.randn(shape, generator=gen, device=device) * 0.1).to(
+            dtype_of(cfg))
+    return out
 
 
 def mesh_batches(device: torch.device) -> dict:
@@ -3521,6 +3864,39 @@ def mesh_batches(device: torch.device) -> dict:
     batches = card_batches(corpus, np.eye(n), max(MESH["steps"].values()), TRAIN["batch"],
                            TRAIN["seq"], device)
     return {k: v[:, :2].contiguous() for k, v in batches.items()}
+
+
+def tp_yardstick(name: str, device: torch.device) -> dict:
+    """Phase 14 (d)-(g)'s yardstick of one family: on one card, no tensor
+    parallelism, its nodes stacked (one node on a mesh of data 1): a
+    float32 pass at the initial parameters on the first batch (each
+    node's loss, the gradient sketch (``grad_sketch``) of every rank's
+    block), then ``TP_STEPS`` steps' mean losses."""
+    tic = time.perf_counter()
+    cfg = tp_config(name)
+    shape = TP_FAMILIES[name][1]
+    sizes = {"data": shape[0], "model": shape[1]}
+    setup = make_train_setup(cfg, n_nodes=shape[0], **TP_COMMON, device=device)
+    p, mean = setup.init_params(MESH["seed"]), []
+    batches = tp_batches(cfg, shape[0], device)
+    specs = sharding.make_param_specs({k: tuple(v.shape[1:]) for k, v in p.items()}, sizes,
+                                      cfg=cfg)
+    f32 = make_train_setup(dataclasses.replace(cfg, dtype="float32"), n_nodes=shape[0],
+                           **TP_COMMON, device=device)
+    loss32, g = float32_pass(f32, p, batches, stacked=True)
+    sketch = {f"{d},{m}": grad_sketch(
+        (k, sharding.shard(g[k][d], specs[k], sizes, {"data": d, "model": m})) for k in g)
+        for d in range(shape[0]) for m in range(shape[1])}
+    del g, f32
+    for t in range(TP_STEPS):
+        p, _, loss = setup.train_step(p, None, {k: v[t] for k, v in batches.items()})
+        mean.append(float(loss))
+    out = {"mean": mean, "sketch": sketch, "loss32": loss32.tolist(),
+           "seconds": time.perf_counter() - tic,
+           "node_bytes": sum(v[0].numel() * v.element_size() for v in p.values())}
+    del p, setup, batches
+    gc.collect()
+    return out
 
 
 def mesh_yardsticks(device: torch.device) -> dict:
@@ -3571,6 +3947,8 @@ def mesh_yardsticks(device: torch.device) -> dict:
     out["model_bytes"] = sum(v.numel() * v.element_size() for v in p.values())
     del p, setup, two
     free_card()
+    out["tp"] = {name: tp_yardstick(name, device) for name in TP_FAMILIES}
+    free_card()
     counts = launch_counts()
     out["launches"] = {k: counts[k] for k in GOSSIP}
     out["seconds"] = time.perf_counter() - t0
@@ -3580,26 +3958,13 @@ def mesh_yardsticks(device: torch.device) -> dict:
 def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -> dict:
     """Phase 14 on one rank (a spawned process; see ``phase_lm_mesh``):
     one process group, a ``DeviceMesh`` an arm."""
-    import datetime
-
     import torch.distributed as dist
 
     from repro_torch.core import mixing as M
     from repro_torch.train.sharding import make_mesh
 
     t0 = time.perf_counter()
-    kw = {}
-    if device.type == "cuda":
-        device = torch.device("cuda:0")
-        torch.cuda.set_device(device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.cuda.set_per_process_memory_fraction(RANK_MEMORY_FRACTION, device)
-        kw["device_id"] = device
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init,
-                            rank=rank, world_size=n, timeout=datetime.timedelta(seconds=300),
-                            **kw)
-    dist.barrier()
+    device = join_ranks(rank, n, init, device)
     out: dict = {"init_s": time.perf_counter() - t0, "backend": M.group_backend(None)}
     reset_launch_counts()
     cfg = get_config(TRAIN["name"])
@@ -3688,11 +4053,49 @@ def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     arms["c_dsgd_pod"]["losses"] = lc2.tolist()
     del setup, params0
     free_card()
+    # (d)-(g): the other families, tensor-parallel on their meshes, loop
+    for name in TP_FAMILIES:
+        tp_arm(name, device, measured, arms)
+        free_card()
     out.update({"arms": arms, "launches": launch_counts(),
                 "seconds": time.perf_counter() - t0})
     dist.barrier()
     dist.destroy_process_group()
     return out
+
+
+def tp_arm(name: str, device: torch.device, measured, arms: dict) -> None:
+    """Phase 14 (d)-(g) on this rank (the process group joined): the
+    family ``name`` tensor-parallel on its mesh, a float32 pass at the
+    initial parameters on the first batch (its loss, its gradient sketch),
+    then ``TP_STEPS`` steps in the loop, timed by ``measured`` into
+    ``arms["tp_" + name]``."""
+    cfg = tp_config(name)
+    shape = TP_FAMILIES[name][1]
+    mesh = sharding.make_mesh(shape, ("data", "model"))
+    setup = make_train_setup(cfg, mesh=mesh, **TP_COMMON, device=device)
+    params0 = setup.init_params(MESH["seed"])
+    resident = sum(v.numel() * v.element_size() for v in params0.values())
+    local = setup.local_batch(tp_batches(cfg, shape[0], device), lead=1)
+    f32 = make_train_setup(dataclasses.replace(cfg, dtype="float32"), mesh=mesh, **TP_COMMON,
+                           device=device)
+    loss32, g = float32_pass(f32, params0, local, stacked=False)
+    sketch = grad_sketch(g.items())
+    del g, f32
+    label = f"tp_{name}"
+    # the loop's carries bound once and the caller's copy dropped: a rank
+    # holds one copy of its blocks (deepseek's are 2.55 GB)
+    multi = setup.multi_step_fn("loop")
+    multi._bind(params0, None)
+    del params0
+    losses = measured(label, TP_STEPS, lambda: multi.run(local).tolist())
+    plan = setup._core.plan
+    arms[label].update({
+        "losses": losses, "mesh": list(shape), "layers": cfg.num_layers,
+        "coords": dict(setup._layout.coords), "grad": sketch, "loss32": float(loss32),
+        "resident_bytes": resident, "vocab": plan.vocab, "heads_inside": any(
+            not lp["attn"].get("aligned", True) for lp in plan.layers if "attn" in lp)})
+    del multi, local, setup
 
 
 def _mesh_worker(rank: int, n: int, init: str, yard: dict, device: torch.device,
@@ -3708,16 +4111,39 @@ def _mesh_worker(rank: int, n: int, init: str, yard: dict, device: torch.device,
         raise
 
 
+def without_sketches(yard: dict) -> dict:
+    """Phase 14's yardsticks less the TP arms' gradient sketches."""
+    return yard | {"tp": {k: {kk: vv for kk, vv in v.items() if kk != "sketch"}
+                          for k, v in yard["tp"].items()}}
+
+
+def check_tp(where: str, arm: dict, ref: dict, err: dict) -> None:
+    """A TP arm against its yardstick (``tp_errors``'s gaps): the losses
+    within TP_LOSS_TOL (the float32 pass's within TP_LOSS32_TOL), every
+    leaf's gradient block within TP_GRAD_RTOL."""
+    check(len(arm["losses"]) == len(ref["mean"]) and err["loss"] <= TP_LOSS_TOL,
+          f"{where}: losses {arm['losses']} against the one-card {ref['mean']}")
+    check(err["loss32"] <= TP_LOSS32_TOL,
+          f"{where}: the float32 loss {arm['loss32']} against the one-card {ref['loss32']}")
+    check(err["leaves_match"], f"{where}: the gradient's leaves differ from the yardstick's")
+    check(err["grad_norm"] <= TP_GRAD_RTOL and err["grad_proj"] <= TP_GRAD_RTOL,
+          f"{where}: gradient blocks off the one-card yardstick's by {err['grad_norm']:.3e} "
+          f"(norm), {err['grad_proj']:.3e} (projections), worst {err['worst']}")
+
+
 def phase_lm_mesh(device: torch.device) -> dict:
     """Phase 14 (module docstring): dsgd with tensor parallelism, fsdp and
     dsgd_pod on four NCCL ranks of the card."""
     t_phase = time.perf_counter()
     label = "14 qwen3-0.6b mesh"
     yard = mesh_yardsticks(device)
-    note(f"# {label} yardsticks " + json.dumps(yard))
-    rows, wall = spawn_ranks(_mesh_worker, RANKS["nodes"], yard, device, MESH["timeout_s"],
-                             label)
-    tol = MESH_TOL
+    note(f"# {label} yardsticks " + json.dumps(without_sketches(yard)))
+    # the ranks take the yardsticks without the sketches, which the checks
+    # below read here: a payload past the pipe's 64 KiB makes each spawn
+    # wait for the last child to import this module
+    rows, wall = spawn_ranks(_mesh_worker, RANKS["nodes"], without_sketches(yard), device,
+                             MESH["timeout_s"], label)
+    tol, tp_err = MESH_TOL, {}
     for r, row in enumerate(rows):
         want = "nccl" if device.type == "cuda" else "gloo"
         check(row["backend"] == want, f"{label} rank {r}: backend {row['backend']}")
@@ -3741,6 +4167,20 @@ def phase_lm_mesh(device: torch.device) -> dict:
         bound = 1.1 * yard["model_bytes"] / 4
         check(row["b_resident_bytes"] <= bound, f"{label} (b) rank {r}: {row['b_resident_bytes']}"
               f" B of parameters at rest, over {bound:.0f} B")
+        for name, (_, shape) in TP_FAMILIES.items():
+            arm = arms[f"tp_{name}"]
+            err = tp_errors(arm, yard["tp"][name], arm["coords"])
+            tp_err.setdefault(name, []).append(err)
+            check_tp(f"{label} tp {name} {shape} rank {r}", arm, yard["tp"][name], err)
+            # at rest a rank holds its blocks: at most 1.1 x the node over model
+            bound = 1.1 * yard["tp"][name]["node_bytes"] / shape[1]
+            check(arm["resident_bytes"] <= bound,
+                  f"{label} tp {name} rank {r}: {arm['resident_bytes']} B at rest")
+    r0 = rows[0]["arms"]
+    check(r0["tp_recurrentgemma-2b"]["heads_inside"] and
+          r0["tp_whisper-small"]["vocab"] == "features",
+          f"{label}: the odd placements did not run (recurrentgemma's heads inside a head, "
+          f"whisper's table by features)")
     launches = {k: yard["launches"][k] + sum(row["launches"][k] for row in rows)
                 for k in GOSSIP}
     check(all(v > 0 for v in launches.values()), f"{label}: yardstick launches {launches}")
@@ -3760,7 +4200,14 @@ def phase_lm_mesh(device: torch.device) -> dict:
         "losses": {k: v["losses"] for k, v in arms0.items()},
         "a_own_losses": [row["arms"]["a_dsgd_tp_loop"]["own_losses"] for row in rows],
         "yardsticks": {"a_per_node": yard["a"]["per_node"], "a_mean": yard["a"]["mean"],
-                       "b": yard["b"]["mean"], "c": yard["c"]["mean"]},
+                       "b": yard["b"]["mean"], "c": yard["c"]["mean"],
+                       "tp": {k: v["mean"] for k, v in yard["tp"].items()}},
+        "tp_yardstick_s": {k: v["seconds"] for k, v in yard["tp"].items()},
+        "tp_node_bytes": {k: v["node_bytes"] for k, v in yard["tp"].items()},
+        "tp_resident_bytes": {k: [row["arms"][f"tp_{k}"]["resident_bytes"] for row in rows]
+                              for k in TP_FAMILIES},
+        "tp_errors": tp_err, "tp_limits": {"loss": TP_LOSS_TOL, "loss32": TP_LOSS32_TOL,
+                                           "grad_rtol": TP_GRAD_RTOL},
         "launches": launches,
         "note": "ranks share one card; NCCL moves bytes over its socket transport (loopback): "
                 "not a multi-card rate"}
@@ -3785,6 +4232,10 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
+
+    def stamp(phase: str) -> None:
+        """Seconds since the start at the end of a phase (where the time goes)."""
+        print(f"# t {phase} {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"# 0 {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
           f"kernels built in {build_s:.1f} s")
 
@@ -3808,38 +4259,50 @@ def main(argv: list[str] | None = None) -> int:
         check(head["kernel_ms"] < head["library_ms"],
               f"{name} {head['case']} {head['dtype']}: {head['kernel_ms']:.4f} ms is not below "
               f"the library call's {head['library_ms']:.4f} ms")
+    stamp("1")
     launches = phase_main_path(mnist)
     phase_cross_device()
     table = phase_transport_table(mnist[3], args.save_table)
     for arm, r in step_breakdown(mnist).items():
         note(f"# 2e {arm} " + json.dumps(r))
+    stamp("2")
     online = phase_online(mnist, table["phase_2b_bucket"]["winner"])
+    stamp("6")
     for k, v in online.items():
         launches[k] += v
     robust = phase_robustness(mnist)
     for k, v in robust.items():
         launches[k] += v
+    stamp("7")
     lm = phase_lm(torch.device("cuda"))
     launches.update(lm["launches"])
+    stamp("3-5")
     dense = phase_dense_families(torch.device("cuda"))
     launches["flash_attention"] += dense["flash_attention"]
+    stamp("8")
     moe = phase_moe_families(torch.device("cuda"))
     launches["flash_attention"] += moe["flash_attention"]
+    stamp("9")
     last = phase_last_families(torch.device("cuda"))
     launches["flash_attention"] += last["flash_attention"]
+    stamp("10")
     long = phase_long_context(torch.device("cuda"))
     launches["flash_attention"] += long["flash_attention"]
+    stamp("11")
     train, yard = phase_lm_training(torch.device("cuda"))
     for k, v in train.items():
         launches[k] += v
     free_card()
+    stamp("12")
     ranks = phase_lm_ranks(yard, torch.device("cuda"))
     for k, v in ranks.items():
         launches[k] += v
     free_card()
+    stamp("13")
     mesh = phase_lm_mesh(torch.device("cuda"))
     for k, v in mesh.items():
         launches[k] += v
+    stamp("14")
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -37,11 +37,26 @@ compressed views through the collectives of ``core.mixing``. The bf16
 wire moves bfloat16 (its views are bf16 values, so the float32 they land
 as is the reference's, bit for bit), as does a bfloat16 ring; top-k and
 a float32 ring move float32.
+
+**Stacked nodes in the rank numerics** (the LM trainer's one-card
+layout): :func:`mix_stacked_ef` and :func:`mix_arrays_stacked_stale_ef`
+compute what the rank twins compute, node by node (float32 payloads,
+one rounding of each combine; the same ``_ef_compress`` and ``_combine``),
+with the mix in the gossip kernels a block of columns at a time; the EF
+memory and the node-first ring are updated in place, as the rollout's
+carries are. The simulator's stacked EF mixes above stay apart because
+they follow another reference function: the reference's simulator sums
+in the leaves' dtype, mixes every leaf's view in one raveled
+``gossip_schedule`` launch (the launch counts its trainers pin), poisons
+the senders' views (``corrupt``), and its stale flat path top-k's a
+node's whole padded row, where the LM trainer follows the reference's
+mesh trainer, whose rank transports take a leaf at a time in float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -50,9 +65,14 @@ from .mixing import (
     PermPool,
     ShardStaleState,
     ScheduleArrays,
+    STACKED_BLOCK,
     StaleBuffer,
     WireCorruption,
     _mix_flat,
+    kernel_mix,
+    mix_arrays_stacked_stale,
+    stacked_ring_view,
+    stacked_stale_slots,
     mix_dense,
     mix_schedule_arrays,
     mix_schedule_arrays_stale,
@@ -77,7 +97,6 @@ from .mixing import (
     mix_dense_sharded,
     mix_ppermute_pool,
     mix_ppermute_pool_stale,
-
 )
 
 PyTree = Any
@@ -98,6 +117,8 @@ __all__ = [
     "mix_ppermute_pool_ef",
     "mix_arrays_sharded_stale_ef",
     "mix_ppermute_pool_stale_ef",
+    "mix_stacked_ef",
+    "mix_arrays_stacked_stale_ef",
 ]
 
 # a bare callable compressor: no byte model, applied to the operand verbatim
@@ -443,12 +464,12 @@ def _combine(x32: torch.Tensor, acc: torch.Tensor, c: torch.Tensor, step: float)
     return x32 + acc - c if step == 1.0 else x32 + step * (acc - c)
 
 
-def _ef_compress(x: torch.Tensor, e: torch.Tensor, compressor: Compressor):
-    """``(x32, c, new_e)`` of one leaf: the float32 payload, its view, the
-    memory left."""
+def _ef_compress(x: torch.Tensor, e: torch.Tensor, compress):
+    """``(x32, c, new_e)`` of one leaf (or of a block of stacked node rows):
+    the float32 payload, its view ``compress(x32 + e)``, the memory left."""
     x32 = x.to(torch.float32)
     to_send = x32 + e.to(torch.float32)
-    c = compressor(to_send)
+    c = compress(to_send)
     return x32, c, to_send - c
 
 
@@ -615,3 +636,103 @@ def mix_ppermute_pool_stale_ef(
         outs.append(_combine(x.to(torch.float32), _pool_axpy(contribs, gammas, d32), c,
                              step).to(x.dtype))
     return rebuild(outs), new_ef, state
+
+
+# ---------------------------------------------------------------------------
+# Stacked nodes in the rank transports' numerics (the LM trainer)
+# ---------------------------------------------------------------------------
+#
+# What the rank twins above compute, on (n, ...) leaves: each node's view
+# ``c_i = C(theta_i + e_i)`` in float32 (top-k over a node's whole leaf,
+# as a rank's compressor sees it), ``e_i <- theta_i + e_i - c_i`` written
+# into the EF memory in place, the mix of the views in the gossip kernels
+# (float32 sums), and the combine ``theta_i + gamma (sum_j W_ij c_j -
+# c_i)`` in the rank transports' order, rounded once to the leaf's dtype.
+# An elementwise wire runs a block of ``STACKED_BLOCK`` columns at a
+# time, so its float32 temporaries stay a few blocks.
+
+
+def _rows(t: torch.Tensor, what: str) -> torch.Tensor:
+    """(n, -1) rows of a carry written in place (a view: contiguous only)."""
+    if not t.is_contiguous():
+        raise ValueError(f"the {what} is updated in place: pass contiguous tensors "
+                         "(the trainer's step copies init_opt_state's views)")
+    return t.view(t.shape[0], -1)
+
+
+def _blocks(width: int, compressor: Compressor):
+    """Column blocks ``(a, b)`` of a node row: one for top-k (a node's
+    whole leaf), else ``STACKED_BLOCK`` wide."""
+    step = width if compressor.kind == "topk" else STACKED_BLOCK
+    return [(a, min(width, a + step)) for a in range(0, width, step)]
+
+
+def mix_stacked_ef(params: PyTree, ef: PyTree, operand, compressor: Compressor
+                   ) -> tuple[PyTree, PyTree]:
+    """EF-compressed mixing on stacked nodes by a ``ScheduleArrays``
+    (``gossip_schedule``) or an (n, n) W (``gossip_mix``): the stacked
+    twin of :func:`mix_arrays_sharded_ef` / :func:`mix_dense_sharded_ef`.
+    ``ef`` (float32, contiguous) is updated in place. Returns ``(mixed,
+    ef)``; the identity wire is the fresh mix in the kernel, ``ef``
+    untouched."""
+    compressor = _require_wire(compressor)
+    x_leaves, rebuild = _flatten(params)
+    if compressor.routes_to_plain:
+        return rebuild([kernel_mix(x.reshape(x.shape[0], -1).contiguous(), operand)
+                        .reshape(x.shape) for x in x_leaves]), ef
+    e_leaves = tree_leaves(ef)
+    if len(e_leaves) != len(x_leaves):
+        raise ValueError("ef memory must mirror the parameter pytree")
+    wire = functools.partial(_apply_stacked, compressor)  # each node row's view
+    outs = []
+    for x, e in zip(x_leaves, e_leaves):
+        rows, erows = x.reshape(x.shape[0], -1), _rows(e, "EF memory")
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        orows = out.view(x.shape[0], -1)
+        for a, b in _blocks(rows.shape[1], compressor):
+            x32, c, erows[:, a:b] = _ef_compress(rows[:, a:b], erows[:, a:b], wire)
+            acc = kernel_mix(c.contiguous(), operand)
+            orows[:, a:b] = _combine(x32, acc, c, compressor.gamma)
+        outs.append(out)
+    return rebuild(outs), ef
+
+
+def mix_arrays_stacked_stale_ef(params: PyTree, ef: PyTree, rings: PyTree, head: torch.Tensor,
+                                arrays: ScheduleArrays, delays: torch.Tensor,
+                                compressor: Compressor) -> tuple[PyTree, PyTree]:
+    """EF-compressed bounded-delay ``ScheduleArrays`` mixing on stacked
+    nodes, the stacked twin of :func:`mix_arrays_sharded_stale_ef`: the
+    node-first ring (leaves (n, depth, *leaf); ``head`` advanced once)
+    holds the views, node j's from ``delays[j]`` pushes ago is mixed in
+    ``gossip_schedule``, the combine subtracts the node's fresh view.
+    ``ef`` and the ring are updated in place. Returns ``(mixed, ef)``;
+    the identity wire is :func:`mix_arrays_stacked_stale`."""
+    compressor = _require_wire(compressor)
+    if compressor.routes_to_plain:
+        return mix_arrays_stacked_stale(params, rings, head, arrays, delays), ef
+    x_leaves, rebuild = _flatten(params)
+    e_leaves, r_leaves = tree_leaves(ef), tree_leaves(rings)
+    if not len(x_leaves) == len(e_leaves) == len(r_leaves):
+        raise ValueError("the EF memory and the ring must mirror the parameter pytree")
+    depth = r_leaves[0].shape[1]
+    slot = stacked_stale_slots(head, delays, depth)
+    wire = functools.partial(_apply_stacked, compressor)  # each node row's view
+
+    idx = head.reshape(1)
+    outs = []
+    for x, e, ring in zip(x_leaves, e_leaves, r_leaves):
+        n = x.shape[0]
+        rows, erows = x.reshape(n, -1), _rows(e, "EF memory")
+        if not ring.is_contiguous():
+            raise ValueError("the ring is updated in place: pass contiguous tensors")
+        rrows = ring.view(n, depth, -1)
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        orows = out.view(n, -1)
+        for a, b in _blocks(rows.shape[1], compressor):
+            x32, c, erows[:, a:b] = _ef_compress(rows[:, a:b], erows[:, a:b], wire)
+            block = rrows[:, :, a:b]
+            block.index_copy_(1, idx, c.to(ring.dtype).unsqueeze(1))
+            acc = kernel_mix(stacked_ring_view(block, slot).float().contiguous(), arrays)
+            orows[:, a:b] = _combine(x32, acc, c, compressor.gamma)
+        outs.append(out)
+    return rebuild(outs), ef

@@ -30,7 +30,10 @@ ppermutes, gammas as data), ``mix_ppermute`` (a static schedule) and
 ``mix_allreduce`` (the complete graph), the bounded-delay twins over a
 per-rank ring (``ShardStaleState``), and the pool's straggler repair
 (``degrade_pool_gammas``, ``straggler_pool_stream``); these run outside
-the kernels, as the reference's do.
+the kernels, as the reference's do. The LM trainer's stacked nodes run
+the rank transports' numerics in the kernels (``kernel_mix``,
+``mix_arrays_stacked_stale`` on a node-first ring, ``spread_sq_stacked``
+for the probes).
 
 On a CUDA tensor every mix runs in the hand-written kernels of
 ``repro_torch.kernels.gossip_mix``: one ``gossip_mix`` launch per leaf on
@@ -111,6 +114,12 @@ __all__ = [
     "shard_stale_push",
     "mix_arrays_sharded_stale",
     "mix_ppermute_pool_stale",
+    "STACKED_BLOCK",
+    "kernel_mix",
+    "stacked_stale_slots",
+    "stacked_ring_view",
+    "mix_arrays_stacked_stale",
+    "spread_sq_stacked",
     "ALLGATHER_THROUGHPUT_ADVANTAGE",
     "preferred_sharded_transport",
     "measure_sharded_transport",
@@ -2197,6 +2206,83 @@ def mix_ppermute_pool_stale(
         return _pool_axpy(contribs, gammas, d32).to(x.dtype)
 
     return tree_map(mix_leaf, params, state.rings), state
+
+
+# ---------------------------------------------------------------------------
+# Stacked nodes in the rank transports' numerics (the LM trainer)
+# ---------------------------------------------------------------------------
+#
+# The LM trainer stacks its nodes on one card and holds them to the
+# reference's mesh trainer, whose node axis runs the sharded transports:
+# every mix sums in float32 and rounds once to the leaf's dtype. Here each
+# leaf's (n, P_leaf) rows go through the hand-written kernel (on the CPU
+# its plain version, the same float32 sums), a block of STACKED_BLOCK
+# columns at a time where a wire makes float32 temporaries, so a step
+# holds a few blocks of them whatever the model's width. The bounded-delay
+# ring is node-first, leaves (n, depth, *leaf) -- the reference's stacked
+# layout and the checkpoint's --, pushed in place with a device head.
+
+STACKED_BLOCK = 1 << 22  # columns of a node row a stacked EF mix takes at once
+
+
+def kernel_mix(flat: torch.Tensor, operand) -> torch.Tensor:
+    """(n, P) contiguous rows mixed by ``operand`` in its kernel: a
+    ``ScheduleArrays`` in ``gossip_schedule``, an (n, n) W in
+    ``gossip_mix``; float32 sums, ``flat``'s dtype out (the kernel on a
+    CUDA tensor, its plain version on the CPU)."""
+    if isinstance(operand, ScheduleArrays):
+        return gossip_ops.gossip_schedule(flat, operand.gammas, operand.perms)
+    return gossip_ops.gossip_mix(flat, operand)
+
+
+def stacked_stale_slots(head: torch.Tensor, delays: torch.Tensor, depth: int) -> torch.Tensor:
+    """Advance the ring's ``head`` in place and return each node's read
+    slot ``(head - delays[j]) % depth`` (n,) int64: source-indexed delay,
+    as :func:`stale_view` and the rank rings read."""
+    head.add_(1).remainder_(depth)
+    return torch.remainder(head - delays.to(device=head.device, dtype=torch.long), depth)
+
+
+def stacked_ring_view(ring: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Node j's payload from ring slot ``slot[j]``: (n, *leaf), a copy."""
+    return ring[torch.arange(ring.shape[0], device=ring.device), slot]
+
+
+def mix_arrays_stacked_stale(params: PyTree, rings: PyTree, head: torch.Tensor,
+                             arrays: ScheduleArrays, delays: torch.Tensor) -> PyTree:
+    """Bounded-delay ``ScheduleArrays`` mixing on stacked nodes, the
+    stacked twin of :func:`mix_arrays_sharded_stale`: pushes this step's
+    payloads into the node-first ``rings`` (leaves (n, depth, *leaf), the
+    ring's dtype; ``head`` advanced once), then mixes node j's payload
+    from ``delays[j]`` pushes ago in ``gossip_schedule`` (float32 sums,
+    rounded once). Zero delays are the fresh mix. Returns the mixed
+    tree."""
+    x_leaves, rebuild = _flatten(params)
+    r_leaves = tree_leaves(rings)
+    if len(r_leaves) != len(x_leaves):
+        raise ValueError("the ring must mirror the parameter pytree")
+    slot = stacked_stale_slots(head, delays, r_leaves[0].shape[1])
+    idx = head.reshape(1)
+    outs = []
+    for x, ring in zip(x_leaves, r_leaves):
+        ring.index_copy_(1, idx, x.to(ring.dtype).unsqueeze(1))
+        view = stacked_ring_view(ring, slot).reshape(x.shape[0], -1)
+        outs.append(kernel_mix(view, arrays).reshape(x.shape).to(x.dtype))
+    return rebuild(outs)
+
+
+def spread_sq_stacked(tree: PyTree) -> torch.Tensor:
+    """``sum_leaves sum_i ||x_i - mean_j x_j||^2`` over the node axis of
+    stacked leaves, float32 (the rank probes' pmean / psum, summed a block
+    of columns at a time)."""
+    tot = None
+    for x in tree_leaves(tree):
+        rows = x.reshape(x.shape[0], -1)
+        for a in range(0, rows.shape[1], STACKED_BLOCK):
+            xf = rows[:, a:a + STACKED_BLOCK].float()
+            s = torch.sum(torch.square(xf - xf.mean(dim=0, keepdim=True)))
+            tot = s if tot is None else tot + s
+    return tot
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,8 @@ does), no RoPE, plain ``_sdpa`` with no mask.
 
 from __future__ import annotations
 
+import types
+
 import torch
 from torch import nn
 
@@ -49,6 +51,7 @@ from .kvcache import (
     update_mla,
     update_window_cache,
 )
+from . import parallel as P
 from .layers import RMSNorm, apply_rope, rms_norm, rotary_embedding
 
 _NEG_INF = -2.0e9
@@ -112,23 +115,70 @@ def init_attention(
     return attn
 
 
-def _project_qkv(params: Attention, cfg: ModelConfig, x: torch.Tensor):
+def _project_qkv(params: Attention, cfg: ModelConfig, x: torch.Tensor,
+                 tp: P.TPGroup | None = None, kv_x: torch.Tensor | None = None):
+    """q (B, S, heads, Dh) and k / v (B, Sk, kv heads, Dh); ``kv_x``: keys
+    and values from it (cross-attention:
+    no bias, no qk-norm). With ``tp`` (the query columns split over its
+    ranks, ``wo``'s rows with them): keys and values split by whole heads
+    stay local, else they are gathered (or computed whole where the rules
+    leave them whole); query heads split inside a head are gathered and
+    every head the rank's columns touch (``parallel.touched``) is kept."""
     B, S, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    cross = kv_x is not None
+    x = P.copy_to(x, tp)
+    xk = x if not cross else P.copy_to(kv_x, tp)
+    kv_split = P.split(tp, params.wk.shape[1], hkv * dh)
+
+    def kv_weight(w):  # whole keys / values read by split queries: gradient summed
+        return w if kv_split else P.copy_to(w, tp)
+
     q = x @ params.wq
-    k = x @ params.wk
-    v = x @ params.wv
-    if cfg.attn_bias:
-        q = q + params.bq
-        k = k + params.bk
-        v = v + params.bv
-    q = q.reshape(B, S, h, dh)
-    k = k.reshape(B, S, hkv, dh)
-    v = v.reshape(B, S, hkv, dh)
-    if cfg.qk_norm:
-        q = rms_norm(params.q_norm, q, cfg.norm_eps)
-        k = rms_norm(params.k_norm, k, cfg.norm_eps)
+    k = xk @ kv_weight(params.wk)
+    v = xk @ kv_weight(params.wv)
+    if cfg.attn_bias and not cross:
+        q = q + P.slice_last(params.bq, tp)
+        k = k + (P.slice_last(params.bk, tp) if kv_split else kv_weight(params.bk))
+        v = v + (P.slice_last(params.bv, tp) if kv_split else kv_weight(params.bv))
+    aligned = tp is None or h % tp.size == 0
+    if kv_split and not (aligned and hkv % tp.size == 0):
+        k, v = P.gather_last_partial(k, tp), P.gather_last_partial(v, tp)
+    lo, hi, _ = P.touched(h, dh, tp)
+    if not aligned:
+        q = P.gather_last_partial(q, tp)[..., lo * dh:hi * dh]
+    q = q.reshape(B, S, hi - lo, dh)
+    k = k.reshape(B, xk.shape[1], -1, dh)
+    v = v.reshape(B, xk.shape[1], -1, dh)
+    if cfg.qk_norm and not cross:
+        q = rms_norm(types.SimpleNamespace(scale=P.copy_to(params.q_norm.scale, tp)), q,
+                     cfg.norm_eps)
+        k = rms_norm(types.SimpleNamespace(scale=P.copy_to(params.k_norm.scale, tp)), k,
+                     cfg.norm_eps)
     return q, k, v
+
+
+def _own_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, tp: P.TPGroup | None):
+    """The kv heads of this rank's query heads where every key / value
+    head is here (gathered or whole) but only some query heads."""
+    lo, hi, _ = P.touched(cfg.num_heads, cfg.resolved_head_dim, tp)
+    if hi - lo == cfg.num_heads or k.shape[2] < cfg.num_kv_heads:
+        return k, v
+    idx = torch.arange(lo, hi, device=k.device) // (cfg.num_heads // cfg.num_kv_heads)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _out_proj(params: Attention, cfg: ModelConfig, out: torch.Tensor,
+              tp: P.TPGroup | None) -> torch.Tensor:
+    """The output projection of the rank's heads: its columns kept where
+    the heads split inside a head, partial sums reduced."""
+    B, S = out.shape[:2]
+    out = out.reshape(B, S, -1)
+    if tp is not None and cfg.num_heads % tp.size:
+        dh = cfg.resolved_head_dim
+        off = P.touched(cfg.num_heads, dh, tp)[2]
+        out = out[..., off:off + cfg.num_heads * dh // tp.size]
+    return P.reduce_from(out @ params.wo, tp)
 
 
 def _sdpa(
@@ -228,6 +278,7 @@ def attention(
     cache: dict | None = None,
     causal: bool = True,
     impl: str = "kernel",
+    tp: P.TPGroup | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """Self-attention. Returns (output, updated_cache).
 
@@ -235,17 +286,23 @@ def attention(
     otherwise (the cache's buffers are written in place, see
     ``models/kvcache.py``). ``local=True`` applies the layer's sliding
     window (``window`` overrides ``cfg.sliding_window`` -- the long_500k
-    sub-quadratic mode).
+    sub-quadratic mode). ``tp``: this rank's block of a split replica
+    (full sequence, ``impl="plain"``; ``_project_qkv``), whole where the
+    rules leave ``wq`` whole.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
+    tp = P.split(tp, params.wq.shape[1], cfg.num_heads * dh)
+    if tp is not None and (cache is not None or impl != "plain"):
+        raise ValueError("a split attention runs the full sequence with impl='plain'")
     eff_window = window if window is not None else (cfg.sliding_window if local else None)
-    q, k, v = _project_qkv(params, cfg, x)
+    q, k, v = _project_qkv(params, cfg, x, tp)
     cos, sin = rotary_embedding(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    k, v = _own_heads(k, v, cfg, tp)
 
     if cache is None or S > 1:
         # The full sequence, or a prefill (a multi-token append, from a
@@ -291,9 +348,7 @@ def attention(
                 mask = mask & (abs_pos > qpos - eff_window)
             out = _sdpa(q, new_cache["k"], new_cache["v"], mask[:, None], cfg)
 
-    B, Sq = out.shape[:2]
-    out = out.reshape(B, Sq, -1) @ params.wo
-    return out, new_cache
+    return _out_proj(params, cfg, out, tp), new_cache
 
 
 def init_attention_cache(
@@ -360,8 +415,8 @@ def _decompress(params: MLAAttention, cfg: ModelConfig, c_kv: torch.Tensor):
     """Per-head keys (B, Sk, H, dn) and values (B, Sk, H, dv) of the latents."""
     m = cfg.mla
     B, Sk, _ = c_kv.shape
-    k_nope = (c_kv @ params.w_uk).reshape(B, Sk, cfg.num_heads, m.qk_nope_head_dim)
-    v = (c_kv @ params.w_uv).reshape(B, Sk, cfg.num_heads, m.v_head_dim)
+    k_nope = (c_kv @ params.w_uk).reshape(B, Sk, -1, m.qk_nope_head_dim)
+    v = (c_kv @ params.w_uv).reshape(B, Sk, -1, m.v_head_dim)
     return k_nope, v
 
 
@@ -441,21 +496,37 @@ def mla_attention(
     positions: torch.Tensor,
     cache: dict | None = None,
     window: int | None = None,
+    tp: P.TPGroup | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """MLA self-attention; the cache stores the normalised latents
     ``c_kv`` and the rotated ``k_rope`` only (written in place by
     ``kvcache.update_mla``): appended, or around the ring if the cache
-    is one (the long-context mode's). Returns (output, updated cache)."""
+    is one (the long-context mode's). Returns (output, updated cache).
+    ``tp`` (a split replica, the full sequence): this rank's heads of
+    ``wq`` / ``w_uk`` / ``w_uv`` and rows of ``wo``, the latent and the
+    shared rope key whole on every rank (gathered where the rules split
+    them, the latent before ``kv_norm``), the output's partial sums
+    reduced."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
-    q = (x @ params.wq).reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    tp = P.split(tp, params.wq.shape[1], cfg.num_heads * dq)
+    if tp is not None and cache is not None:
+        raise ValueError("a split MLA runs the full sequence")
+    x = P.copy_to(x, tp)
+    dkv = P.split(tp, params.w_dkv.shape[1], m.kv_lora_rank) is not None
+    krope = P.split(tp, params.w_krope.shape[1], m.qk_rope_head_dim) is not None
+    q = (x @ params.wq).reshape(B, S, -1, dq)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     cos, sin = rotary_embedding(positions, m.qk_rope_head_dim, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
-    c_kv = rms_norm(params.kv_norm, x @ params.w_dkv, cfg.norm_eps)
+    c_kv = P.latent_norm(x @ (params.w_dkv if dkv else P.copy_to(params.w_dkv, tp)),
+                         params.kv_norm, cfg.norm_eps, tp, dkv)
+    kr = x @ (params.w_krope if krope else P.copy_to(params.w_krope, tp))
+    if krope:
+        kr = P.gather_last_partial(kr, tp)
     # the rope key is shared by the heads: rotated with a singleton head axis
-    k_rope = apply_rope((x @ params.w_krope)[:, :, None, :], cos, sin)[:, :, 0, :]
+    k_rope = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0, :]
 
     long_seq = S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0
     if cache is None or S > 1:
@@ -482,7 +553,7 @@ def mla_attention(
             mask = mask & (abs_pos > qpos - window)
         out = _mla_attend(params, cfg, q_nope, q_rope, new_cache["c_kv"], new_cache["k_rope"],
                           mask[:, None])
-    return out @ params.wo, new_cache
+    return P.reduce_from(out @ params.wo, tp), new_cache
 
 
 def init_mla_attention_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -513,14 +584,12 @@ def cross_attention(
     cfg: ModelConfig,
     x: torch.Tensor,
     encoder_out: torch.Tensor,
+    tp: P.TPGroup | None = None,
 ) -> torch.Tensor:
     """Query from decoder x, keys/values from encoder output (no RoPE --
-    whisper uses sinusoidal absolute positions)."""
-    B, S, _ = x.shape
-    Se = encoder_out.shape[1]
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ params.wq).reshape(B, S, h, dh)
-    k = (encoder_out @ params.wk).reshape(B, Se, hkv, dh)
-    v = (encoder_out @ params.wv).reshape(B, Se, hkv, dh)
-    out = _sdpa(q, k, v, None, cfg)
-    return out.reshape(B, S, -1) @ params.wo
+    whisper uses sinusoidal absolute positions; no bias). ``tp``: as in
+    ``attention``."""
+    tp = P.split(tp, params.wq.shape[1], cfg.num_heads * cfg.resolved_head_dim)
+    q, k, v = _project_qkv(params, cfg, x, tp, kv_x=encoder_out)
+    k, v = _own_heads(k, v, cfg, tp)
+    return _out_proj(params, cfg, _sdpa(q, k, v, None, cfg), tp)

@@ -39,9 +39,10 @@ __all__ = [
 ]
 
 # what an entry point still to port raises with: every model family
-# scores, serves (long-context too) and trains, on one card, one node per
-# rank or a (pod, data, model) mesh; the sharded serve setup and launch/
-# do not
+# scores, serves (long-context too) and trains -- stacked on one card with
+# every robustness option, one node per rank, or tensor-parallel on a
+# (data, model) or (pod, data, model) mesh --; the sharded serve setup
+# and launch/ wait
 NOT_PORTED = "not ported yet (ROADMAP queue 1 items 13d and 15)"
 # full-sequence implementations: the reference's "xla" and "pallas"
 IMPLS = ("plain", "kernel")

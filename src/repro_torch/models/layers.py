@@ -194,16 +194,24 @@ def init_mlp(
     return mlp
 
 
-def mlp_forward(params: MLP, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+def mlp_forward(params: MLP, x: torch.Tensor, mlp_type: str, tp=None) -> torch.Tensor:
+    """The MLP; ``tp`` (a ``parallel.TPGroup`` where the rules split it):
+    ``w_gate`` / ``w_up`` by columns, ``w_down`` by rows, the partial sums
+    reduced."""
+    from . import parallel as P
+
+    x = P.copy_to(x, tp)
     if mlp_type == "swiglu":
         gate = F.silu(x @ params.w_gate)
-        return (gate * (x @ params.w_up)) @ params.w_down
-    if mlp_type == "geglu":
+        out = (gate * (x @ params.w_up)) @ params.w_down
+    elif mlp_type == "geglu":
         gate = F.gelu(x @ params.w_gate, approximate="tanh")
-        return (gate * (x @ params.w_up)) @ params.w_down
-    if mlp_type == "gelu":
-        return F.gelu(x @ params.w_up, approximate="tanh") @ params.w_down
-    raise ValueError(f"unknown mlp_type {mlp_type}")
+        out = (gate * (x @ params.w_up)) @ params.w_down
+    elif mlp_type == "gelu":
+        out = F.gelu(x @ params.w_up, approximate="tanh") @ params.w_down
+    else:
+        raise ValueError(f"unknown mlp_type {mlp_type}")
+    return P.reduce_from(out, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
+from . import parallel as P
 from .common import IMPLS, ModelConfig, dtype_of, truncated_normal_
 from .layers import RMSNorm, causal_conv1d, rms_norm
 
@@ -100,26 +101,38 @@ def rglru_block(
     x: torch.Tensor,
     state: dict | None = None,
     impl: str = "kernel",
+    tp: P.TPGroup | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """x: (B,S,D) -> (x + block(x), new state). Scan (state None, or a
     prefill with S > 1) or one decode step (state and S == 1).
 
     A given ``state`` is written in place (``copy_``: the new ``h`` and
     conv tail land in its own tensors, so a captured decode step reads and
-    writes the same storage at every replay) and returned."""
+    writes the same storage at every replay) and returned.
+
+    ``tp`` (a split replica, the full sequence): the gate and input
+    branches by columns, the conv on the rank's features (its block of a
+    whole ``conv_w``), the recurrence and input gates from the gathered
+    branch (``parallel.branch``: they read all of it; the branch is
+    gathered, not the gate product split), the scan on the rank's
+    features, ``w_out`` by rows and its partial sums reduced."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, S, D = x.shape
-    xn = rms_norm(params.norm, x, cfg.norm_eps)
+    tp = P.split(tp, params.w_gate.shape[1], cfg.resolved_rnn_width)
+    xn = P.copy_to(rms_norm(params.norm, x, cfg.norm_eps), tp)
     gate = F.gelu(xn @ params.w_gate, approximate="tanh")  # (B,S,dr)
     rnn_in = xn @ params.w_rnn_in
-    rnn_in, new_conv = causal_conv1d(rnn_in, params.conv_w,
-                                     None if state is None else state["conv"])
+    conv_w = params.conv_w
+    if conv_w.shape[-1] != rnn_in.shape[-1]:
+        conv_w = P.slice_last(conv_w, tp)
+    rnn_in, new_conv = causal_conv1d(rnn_in, conv_w, None if state is None else state["conv"])
     if state is not None:
         state["conv"].copy_(new_conv)
 
-    r = torch.sigmoid((rnn_in @ params.w_a).float())
-    i = torch.sigmoid((rnn_in @ params.w_x).float())
+    full = P.branch(rnn_in, tp)
+    r = torch.sigmoid((full @ params.w_a).float())
+    i = torch.sigmoid((full @ params.w_x).float())
     softplus = torch.logaddexp(params.lam, torch.zeros_like(params.lam))  # jax's softplus
     log_a = -_C * softplus * r  # (B,S,dr), <= 0
     a = torch.exp(log_a)
@@ -138,4 +151,4 @@ def rglru_block(
         state["h"].copy_(h[:, 0])
 
     out = (h.to(x.dtype) * gate) @ params.w_out
-    return x + out, state
+    return x + P.reduce_from(out, tp), state

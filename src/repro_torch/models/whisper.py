@@ -29,12 +29,13 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
+from . import parallel as P
 from .attention import Attention, attention, cross_attention, init_attention_cache
 from .common import ModelConfig, dtype_of, truncated_normal_
 from .layers import MLP, LayerNorm, layer_norm, mlp_forward, sinusoidal_positions
 
 __all__ = ["Whisper", "init_whisper", "whisper_forward", "encode", "init_whisper_cache",
-           "MAX_POSITIONS"]
+           "encoder_layer", "decoder_layer", "MAX_POSITIONS"]
 
 MAX_POSITIONS = 4096  # rows of the decoder's position table
 
@@ -109,17 +110,43 @@ def init_whisper(
     return model.requires_grad_(False).eval()
 
 
+def _mlp(params, cfg: ModelConfig, x: torch.Tensor, tp) -> torch.Tensor:
+    return mlp_forward(params, x, "gelu", P.split(tp, params.w_down.shape[0], cfg.d_ff))
+
+
+def encoder_layer(lp: EncoderLayer, cfg: ModelConfig, x: torch.Tensor, zeros: torch.Tensor,
+                  tp: P.TPGroup | None = None) -> torch.Tensor:
+    """One encoder layer: bidirectional self-attention (RoPE at angle 0:
+    ``zeros`` positions) and the GELU MLP, layer norms with bias. ``tp``:
+    a split replica's blocks where the rules split them, norms whole."""
+    h = layer_norm(lp.ln1, x, cfg.norm_eps)
+    out, _ = attention(lp.attn, cfg, h, positions=zeros, causal=False, impl="plain", tp=tp)
+    x = x + out
+    return x + _mlp(lp.mlp, cfg, layer_norm(lp.ln2, x, cfg.norm_eps), tp)
+
+
+def decoder_layer(lp: DecoderLayer, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                  encoder_out: torch.Tensor, cache: dict | None = None,
+                  tp: P.TPGroup | None = None) -> tuple[torch.Tensor, dict | None]:
+    """One decoder layer: causal self-attention (``cache`` written in
+    place), cross-attention to ``encoder_out``, the GELU MLP. Returns (x,
+    the new self-attention cache). ``tp``: as in ``encoder_layer``."""
+    h = layer_norm(lp.ln1, x, cfg.norm_eps)
+    attn_out, new_cache = attention(lp.self_attn, cfg, h, positions=positions, cache=cache,
+                                    impl="plain", tp=tp)
+    x = x + attn_out
+    h = layer_norm(lp.ln_cross, x, cfg.norm_eps)
+    x = x + cross_attention(lp.cross_attn, cfg, h, encoder_out, tp)
+    return x + _mlp(lp.mlp, cfg, layer_norm(lp.ln2, x, cfg.norm_eps), tp), new_cache
+
+
 def encode(model: Whisper, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, num_frames, d_model) stub embeddings -> encoder states."""
     B, S, D = frames.shape
     x = frames + sinusoidal_positions(S, D, frames.dtype, frames.device)[None]
     zeros = torch.zeros((B, S), dtype=torch.int64, device=frames.device)  # RoPE at angle 0
     for lp in model.enc_layers:
-        h = layer_norm(lp.ln1, x, cfg.norm_eps)
-        out, _ = attention(lp.attn, cfg, h, positions=zeros, causal=False, impl="plain")
-        x = x + out
-        h = layer_norm(lp.ln2, x, cfg.norm_eps)
-        x = x + mlp_forward(lp.mlp, h, "gelu")
+        x = encoder_layer(lp, cfg, x, zeros)
     return layer_norm(model.enc_final_ln, x, cfg.norm_eps)
 
 
@@ -158,15 +185,8 @@ def whisper_forward(
 
     new_self = []
     for i, lp in enumerate(model.dec_layers):
-        h = layer_norm(lp.ln1, x, cfg.norm_eps)
-        attn_out, nc = attention(lp.self_attn, cfg, h, positions=positions, cache=self_caches[i],
-                                 impl="plain")
+        x, nc = decoder_layer(lp, cfg, x, positions, encoder_out, self_caches[i])
         new_self.append(nc)
-        x = x + attn_out
-        h = layer_norm(lp.ln_cross, x, cfg.norm_eps)
-        x = x + cross_attention(lp.cross_attn, cfg, h, encoder_out)
-        h = layer_norm(lp.ln2, x, cfg.norm_eps)
-        x = x + mlp_forward(lp.mlp, h, "gelu")
 
     x = layer_norm(model.dec_final_ln, x, cfg.norm_eps)
     new_cache = {"encoder_out": encoder_out, "self": new_self} if cache is not None else None

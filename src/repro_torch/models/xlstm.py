@@ -15,8 +15,10 @@
   static slice of the gate inputs and carrying static ``c`` / ``n`` /
   ``h`` / ``m`` tensors; on the CPU the same bodies run eagerly, counted as
   on the card. :func:`slstm_loop` ``("eager")`` runs a plain step-by-step
-  loop instead, bitwise the captured one. A failed capture raises;
-  nothing falls back to the eager loop.
+  loop instead, bitwise the captured one; so does training (under
+  autograd, where the block's weights or gate inputs need gradients: a
+  graph has no backward pass). A failed capture raises; nothing falls
+  back to the eager loop.
 
 Numerics are the reference's: the gates, ``log_sigmoid``, the decay
 matrix and every einsum in float32 (full float32 products on the card:
@@ -46,6 +48,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Body, GraphRunner
 
+from . import parallel as P
 from .common import ModelConfig, dtype_of, truncated_normal_
 from .layers import RMSNorm, causal_conv1d, rms_norm
 
@@ -251,29 +254,43 @@ def init_mlstm_state(
 
 
 def mlstm_block(
-    params: MLSTMBlock, cfg: ModelConfig, x: torch.Tensor, state: dict | None = None
+    params: MLSTMBlock, cfg: ModelConfig, x: torch.Tensor, state: dict | None = None,
+    tp: P.TPGroup | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """x: (B,S,D) -> (x + block(x), state). Parallel (or chunkwise) form
     when state is None; the recurrent step at S == 1; a prefill (S > 1,
-    from a fresh state) otherwise. A given state is written in place."""
+    from a fresh state) otherwise. A given state is written in place.
+
+    ``tp`` (a split replica, the full sequence): up / gate branches by
+    columns, the conv on the rank's features, q / k / v by columns from
+    the gathered conv and up branches, the gates (``w_if`` whole) for the
+    rank's heads, the output norm over the split features, ``w_down`` by
+    rows. Heads split inside a head are gathered; the rank runs every head
+    its columns touch and keeps its columns."""
     B, S, D = x.shape
     h = cfg.num_heads
-    xn = rms_norm(params.norm, x, cfg.norm_eps)
-    up = xn @ params.w_up  # (B,S,d_in)
+    tp = P.split(tp, params.w_up.shape[1], int(D * _MLSTM_PROJ))
+    xn = P.copy_to(rms_norm(params.norm, x, cfg.norm_eps), tp)
+    up = xn @ params.w_up  # (B,S,d_in): the rank's columns under tp
     gate = xn @ params.w_gate
     d_in = up.shape[-1]
-    dh = d_in // h
+    dh = params.wq.shape[0] // h
 
-    conv_out, new_conv = causal_conv1d(up, params.conv_w,
-                                       None if state is None else state["conv"])
+    conv_w = params.conv_w
+    if conv_w.shape[-1] != d_in:
+        conv_w = P.slice_last(conv_w, tp)
+    conv_out, new_conv = causal_conv1d(up, conv_w, None if state is None else state["conv"])
     conv_out = F.silu(conv_out)
 
-    q = (conv_out @ params.wq).reshape(B, S, h, dh).transpose(1, 2)
-    k = (conv_out @ params.wk).reshape(B, S, h, dh).transpose(1, 2)
-    v = (up @ params.wv).reshape(B, S, h, dh).transpose(1, 2)
-    gates = conv_out @ params.w_if + params.b_if  # (B,S,2h)
-    i_tilde = gates[..., :h].transpose(1, 2)  # (B,h,S)
-    f_tilde = gates[..., h:].transpose(1, 2)
+    conv_full, up_full = P.branch(conv_out, tp), P.branch(up, tp)
+    q, k, v = conv_full @ params.wq, conv_full @ params.wk, up_full @ params.wv
+    gates = conv_full @ P.copy_to(params.w_if, tp) + P.copy_to(params.b_if, tp)  # (B,S,2h)
+    lo, hi, off = P.touched(h, dh, tp)
+    if tp is not None and h % tp.size:
+        q, k, v = (P.gather_last_partial(t, tp)[..., lo * dh:hi * dh] for t in (q, k, v))
+    q, k, v = (t.reshape(B, S, hi - lo, dh).transpose(1, 2) for t in (q, k, v))
+    i_tilde = gates[..., lo:hi].transpose(1, 2)  # (B,h,S)
+    f_tilde = gates[..., h + lo:h + hi].transpose(1, 2)
 
     if state is None:
         if S > _CHUNK_THRESHOLD and S % _CHUNK == 0:
@@ -295,10 +312,12 @@ def mlstm_block(
             state[name].copy_(value)
         state["conv"].copy_(new_conv)
 
-    h_seq = h_out.transpose(1, 2).reshape(B, S, d_in)
-    h_seq = rms_norm(params.out_norm, h_seq, cfg.norm_eps)
+    h_seq = h_out.transpose(1, 2).reshape(B, S, (hi - lo) * dh)
+    if tp is not None:
+        h_seq = h_seq[..., off:off + d_in]
+    h_seq = P.split_rms_norm(h_seq, params.out_norm, cfg.norm_eps, tp)
     out = (h_seq * F.silu(gate)) @ params.w_down
-    return x + out, state
+    return x + P.reduce_from(out, tp), state
 
 
 # ---------------------------------------------------------------------------
@@ -343,14 +362,16 @@ def init_slstm_block(
 
 
 def init_slstm_state(
-    cfg: ModelConfig, batch: int, device: torch.device | str | None = None
+    cfg: ModelConfig, batch: int, device: torch.device | str | None = None,
+    heads: int | None = None,
 ) -> dict:
     """A fresh sLSTM state on ``device`` (None = CUDA): c, n, h zero, m
-    -1e30. Three zero tensors, where the reference shares one array: the
-    states are written in place, and aliases would overwrite one another."""
+    -1e30, for ``heads`` of the model's heads (default: all). Three zero
+    tensors, where the reference shares one array: the states are written
+    in place, and aliases would overwrite one another."""
     device = resolve_device(device)
     h = cfg.num_heads
-    shape = (batch, h, cfg.d_model // h)
+    shape = (batch, h if heads is None else heads, cfg.d_model // h)
     state = {k: torch.zeros(shape, dtype=torch.float32, device=device) for k in ("c", "n", "h")}
     state["m"] = torch.full(shape, _M_INIT, dtype=torch.float32, device=device)
     return state
@@ -468,21 +489,27 @@ def loop_captures() -> int:
     return sum(buf.graphs.n_traces for buf in _LOOPS.values())
 
 
+def _slstm_eager(rr: torch.Tensor, xs: torch.Tensor, init: dict) -> tuple[torch.Tensor, dict]:
+    """The sLSTM time loop step by step over xs (S, B, 4d) float32, under
+    autograd where its inputs need gradients: (h at every step (S, B, h,
+    dh), the final state)."""
+    st, hs = init, []
+    for t in range(xs.shape[0]):
+        st = _slstm_cell(rr, st, xs[t])
+        hs.append(st["h"])
+    return torch.stack(hs), st
+
+
 def _slstm_scan(params: SLSTMBlock, gate_in: torch.Tensor, init: dict) -> tuple[torch.Tensor, dict]:
     """The sLSTM time loop over gate_in (B, S, 4d) from ``init``: (h at every
     step (S, B, h, dh) float32, the final state)."""
     B, S, _ = gate_in.shape
     rr = _recurrent_weights(params.r)
     xs = gate_in.float().transpose(0, 1)  # (S, B, 4d), cast once rather than at each step
-    if _loop_mode[0] == "eager":
-        st, hs = init, []
-        for t in range(S):
-            st = _slstm_cell(rr, st, xs[t])
-            hs.append(st["h"])
-        return torch.stack(hs), st
-    if gate_in.requires_grad:
-        raise ValueError("the captured sLSTM loop has no backward pass; run it under "
-                         "slstm_loop('eager')")
+    if _loop_mode[0] == "eager" or torch.is_grad_enabled() and (
+            gate_in.requires_grad or params.r.requires_grad):
+        # step by step (training: the captured loop has no backward pass)
+        return _slstm_eager(rr, xs, init)
     h, dh = rr.shape[0], rr.shape[1]
     key = (str(gate_in.device), B, h, dh)
     if key not in _LOOPS:
@@ -502,19 +529,39 @@ def _slstm_scan(params: SLSTMBlock, gate_in: torch.Tensor, init: dict) -> tuple[
 
 
 def slstm_block(
-    params: SLSTMBlock, cfg: ModelConfig, x: torch.Tensor, state: dict | None = None
+    params: SLSTMBlock, cfg: ModelConfig, x: torch.Tensor, state: dict | None = None,
+    tp: P.TPGroup | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """x: (B,S,D) -> (block(x), state). The time loop (state None, or a
     prefill with S > 1, from the given state); one step at S == 1 with a
-    state. A given state is written in place."""
+    state. A given state is written in place.
+
+    ``tp`` (a split replica, the full sequence), where the rules split
+    them: the gate inputs gathered whole (``w_in``'s contiguous columns
+    hand a rank whole gates, not heads); the time loop on the rank's
+    heads of ``r`` (their hidden states gathered after it); the FFN by
+    columns / rows. The rest computes whole."""
     B, S, D = x.shape
+    H = cfg.num_heads
+    dh = D // H
     xn = rms_norm(params.norm, x, cfg.norm_eps)
-    gate_in = xn @ params.w_in + params.b_in  # (B,S,4D)
+    heads = P.split(tp, params.r.shape[1], H)
+    cols = P.split(tp, params.w_in.shape[1], 4 * D)
+    if cols is not None:
+        g = P.copy_to(xn, cols) @ params.w_in
+        gate_in = P.gather_last_partial(g, cols) if heads else P.gather_last(g, cols)
+    else:
+        gate_in = P.copy_to(xn, heads) @ P.copy_to(params.w_in, heads)
+    gate_in = gate_in + P.copy_to(params.b_in, heads)  # (B,S,4D)
+    Hl = params.r.shape[1]
+    if heads is not None:
+        h0 = heads.rank * Hl
+        gate_in = gate_in.reshape(B, S, 4, H, dh)[:, :, :, h0:h0 + Hl].reshape(B, S, 4 * Hl * dh)
 
     if state is None or S > 1:
-        init = state if state is not None else init_slstm_state(cfg, B, x.device)
+        init = state if state is not None else init_slstm_state(cfg, B, x.device, Hl)
         hs, final = _slstm_scan(params, gate_in, init)  # (S,B,h,dh)
-        h_seq = hs.transpose(0, 1).reshape(B, S, D).to(x.dtype)
+        h_seq = P.gather_last(hs.transpose(0, 1).reshape(B, S, Hl * dh).to(x.dtype), heads)
     else:
         final = _slstm_step(params, cfg, state, gate_in[:, 0])
         h_seq = final["h"].reshape(B, 1, D).to(x.dtype)
@@ -525,6 +572,7 @@ def slstm_block(
     h_seq = rms_norm(params.out_norm, h_seq, cfg.norm_eps)
     y = x + h_seq
     # post FFN (factor 4/3, GeLU)
-    ffn_in = rms_norm(params.ffn_norm, y, cfg.norm_eps)
+    ff = P.split(tp, params.w_ff_up.shape[1], int(D * _SLSTM_FF))
+    ffn_in = P.copy_to(rms_norm(params.ffn_norm, y, cfg.norm_eps), ff)
     ffn = F.gelu(ffn_in @ params.w_ff_up, approximate="tanh") @ params.w_ff_down
-    return y + ffn, state
+    return y + P.reduce_from(ffn, ff), state

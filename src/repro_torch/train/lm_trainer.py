@@ -85,18 +85,26 @@ read on the host once per multi-step call (outside any capture). Off
 steps launch no mixing kernel and run no collective.
 
 ``TrainSetup.run_segments`` is the reference's segmented online rollout:
-a hook that swaps W, a ``ScheduleArrays`` or (one node per rank) a
-``PoolSwap`` at boundaries, checkpoints (``train/checkpoints.py``,
-bfloat16 leaves by their bits; one node per rank, rank 0 writes the
-stacked layout and every rank restores its own row) with a bitwise
-resume, a tracer and a retrace guard; one node per rank it also takes
-``delays=`` and ``quarantine=`` and returns the ``"health"`` series.
+a hook that swaps W, a ``ScheduleArrays`` or a ``PoolSwap`` at
+boundaries, checkpoints (``train/checkpoints.py``, bfloat16 leaves by
+their bits; one node per rank, rank 0 writes the stacked layout and
+every rank restores its own row) with a bitwise resume, a tracer and a
+retrace guard, ``delays=`` and ``quarantine=``; with probes it returns
+the ``"health"`` series.
 
-Not ported (``NotImplementedError``, ROADMAP queue 1 item 13f): the
-stacked layout's ``sharded_transport="pool"``, ``pool=``, ``PoolSwap``,
-``compression=``, ``staleness=``, ``probes=``, ``delays=`` and
-``quarantine=``; tensor parallelism of MLA, xLSTM, RG-LRU and whisper
-(``tensor_parallel.make_plan``).
+Every layout takes the same robustness options. Stacked, the pool's
+(capacity,) gammas mix as the ``ScheduleArrays`` of its permutations
+(one ``gossip_schedule`` launch; ``"auto"`` picks by the closed form on
+the reference's bytes: both run the same kernel), and ``compression=``
+/ ``staleness=`` mix in the gossip kernels with the rank transports'
+numerics (``core.compression.mix_stacked_ef`` /
+``mix_arrays_stacked_stale_ef``, ``core.mixing.mix_arrays_stacked_stale``:
+float32 payloads, one rounding of each combine), the EF memory and the
+node-first ring (leaves ``(n, depth, ...)``, the reference's stacked
+layout) updated in place; ``probes=`` sums the spread over the node axis
+(``spread_sq_stacked``). Tensor parallelism covers every family
+(``tensor_parallel.make_plan``). The sharded serve setup and ``launch/``
+are not ported (ROADMAP queue 1 items 13d and 15).
 """
 
 from __future__ import annotations
@@ -114,9 +122,11 @@ from repro_torch.core.compression import (
     make_compressor,
     mix_arrays_sharded_ef,
     mix_arrays_sharded_stale_ef,
+    mix_arrays_stacked_stale_ef,
     mix_dense_sharded_ef,
     mix_ppermute_pool_ef,
     mix_ppermute_pool_stale_ef,
+    mix_stacked_ef,
 )
 from repro_torch.core.mixing import (
     BirkhoffSchedule,
@@ -135,6 +145,7 @@ from repro_torch.core.mixing import (
     mix_allreduce,
     mix_arrays_sharded,
     mix_arrays_sharded_stale,
+    mix_arrays_stacked_stale,
     mix_dense,
     mix_dense_sharded,
     mix_ppermute,
@@ -142,6 +153,8 @@ from repro_torch.core.mixing import (
     mix_ppermute_pool_stale,
     mix_schedule_arrays,
     mix_stacked,
+    preferred_sharded_transport,
+    spread_sq_stacked,
     stale_ring_dtype,
     straggler_pool_stream,
     straggler_stream,
@@ -149,7 +162,8 @@ from repro_torch.core.mixing import (
 from repro_torch.device import resolve_device
 from repro_torch.graphs import Body, GraphRunner
 from repro_torch.models import registry, transformer, whisper
-from repro_torch.models.common import IMPLS, ModelConfig
+from repro_torch.models.common import IMPLS, ModelConfig, dtype_of
+from repro_torch.models.layers import sinusoidal_positions
 from repro_torch.obs.probes import HealthProbes
 from repro_torch.obs.trace import Tracer
 
@@ -159,13 +173,10 @@ from .mesh_layout import MeshLayout
 from .metrics import CommMeter, mix_bytes_per_step, staleness_transfer_fracs
 from .rollout import chunks
 
-__all__ = ["TrainSetup", "make_train_setup", "gossip_fn", "NOT_PORTED_LM"]
+__all__ = ["TrainSetup", "make_train_setup", "gossip_fn"]
 
 PyTree = Any
 Params = dict[str, torch.Tensor]
-
-NOT_PORTED_LM = ("not ported yet (ROADMAP queue 1 item 13f: the stacked layout's pool, "
-                 "PoolSwap, compression, staleness, probes, delays and quarantine)")
 
 # instrumented paths take an always-on tracer; callers opt in with a real one
 _NULL_TRACER = Tracer(enabled=False)
@@ -174,10 +185,8 @@ _NULL_TRACER = Tracer(enabled=False)
 # staleness each step's mixing operand and delay vector
 _GAMMAS, _PERMS, _DELAYS = "__gammas", "__perms", "__delays"
 _OPT_KEYS = {"step", "m", "ef", "stale"}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {NOT_PORTED_LM}")
+_STALE_DENSE = ("staleness needs a per-sender payload to delay: pass mix_w as ScheduleArrays "
+                "(allgather) or pool gammas, not a dense (n, n) W")
 
 
 def _clone(tree):
@@ -236,6 +245,8 @@ def gossip_fn(schedule: BirkhoffSchedule | None, n_nodes: int, *, use_kernel: bo
     through ``mix_ppermute`` / ``mix_allreduce``."""
     if schedule is not None and schedule.n_nodes != n_nodes:
         raise ValueError(f"schedule has {schedule.n_nodes} nodes, the setup {n_nodes}")
+    if schedule is None and n_nodes == 1:
+        return lambda params: params  # one node: its mean is itself, bitwise
     if group is not None:
         if schedule is not None:
             return lambda params: mix_ppermute(params, schedule, group)
@@ -270,7 +281,7 @@ def _static_operand(mix, device: torch.device, pool_gammas: bool = False):
     (float32 gammas, int32 perms), a float32 (n, n) W, or (``pool_gammas``:
     the pool transport) the pool's (capacity,) float32 gammas."""
     if isinstance(mix, PoolSwap):
-        raise _not_ported("a PoolSwap on stacked nodes")
+        raise TypeError("a PoolSwap is a run_segments hook's return; pass its gammas as mix_w")
     if isinstance(mix, ScheduleArrays):
         return ScheduleArrays(
             gammas=torch.as_tensor(mix.gammas, dtype=torch.float32, device=device),
@@ -285,7 +296,9 @@ def _static_operand(mix, device: torch.device, pool_gammas: bool = False):
         return w
     if w.ndim != 2 or w.shape[0] != w.shape[1]:
         if w.ndim == 1:
-            raise _not_ported("pool-coordinate gammas on stacked nodes")
+            raise ValueError("pool-coordinate gammas take the pool transport "
+                             "(sharded_transport='pool'); run_segments runs them on the "
+                             "all-gather transport as the pool's ScheduleArrays twin")
         raise ValueError(f"mix_w must be an (n, n) W or a ScheduleArrays, got {tuple(w.shape)}")
     return w
 
@@ -342,6 +355,11 @@ class _Step:
         meta = whisper.Whisper(cfg, "meta") if cfg.arch_type == "audio" else \
             transformer.LM(cfg, "meta")
         self.loss_module = _Loss(meta, cfg, impl, remat)
+        # the model's buffers on the device (whisper's decoder position
+        # table): functional_call is given them beside the parameters
+        self.buffers = {} if cfg.arch_type != "audio" else {
+            "model.positions": sinusoidal_positions(whisper.MAX_POSITIONS, cfg.d_model,
+                                                    dtype_of(cfg), device)}
         self.static_mix = gossip_fn(schedule, n_nodes, group=group) \
             if mode == "dsgd" and not online_w else None
         # dsgd_pod's static mix: the schedule's W, or the complete graph
@@ -357,6 +375,10 @@ class _Step:
             if layout.sizes[a] > 1)
         self.plan = tensor_parallel.make_plan(cfg, layout.compute_specs, self.tp.size) \
             if self.tp.size > 1 or self.batch_groups else None
+        # stacked on the pool transport: the (capacity,) gammas mix over the
+        # pool's staged permutations, a ScheduleArrays (made before any capture)
+        self.pool_perms = None if pool is None or self.ranks else torch.as_tensor(
+            np.asarray(pool.perms, np.int32).reshape(pool.capacity, pool.n_nodes), device=device)
 
     @property
     def outputs(self) -> tuple[str, ...]:
@@ -379,7 +401,8 @@ class _Step:
                                                remat=self.remat,
                                                batch_groups=self.batch_groups)
                 return loss.detach(), torch.autograd.grad(loss, [named[k] for k in keys])
-            return torch.func.functional_call(self.loss_module, named, (b, keys))
+            return torch.func.functional_call(self.loss_module, {**named, **self.buffers},
+                                              (b, keys))
 
         if self.grad_accum == 1:
             loss, grads = one(batch)
@@ -426,13 +449,32 @@ class _Step:
 
     # -- the step --------------------------------------------------------------
 
-    def mix(self, half: Params, operand) -> Params:
-        """Stacked nodes' mix."""
+    def mix(self, half: Params, opt, operand, delays) -> tuple[Params, Params | None]:
+        """Stacked nodes: ``(mixed, new_ef)``, the reference's ``do_mix`` /
+        ``do_mix_ef`` / stale dispatch with its node axis stacked. The pool
+        transport's gammas mix as the ``ScheduleArrays`` of the pool's
+        permutations; every mix runs in the gossip kernels on the card
+        (the EF and stale twins in the rank transports' float32 numerics:
+        ``core.compression.mix_stacked_ef``, ``mix_arrays_stacked_stale``);
+        the EF memory and the ring in ``opt`` are updated in place."""
+        ef = opt.get("ef") if _is_carry_dict(opt) else None
         if operand is None:
-            return self.static_mix(half)
-        if isinstance(operand, ScheduleArrays):
-            return mix_schedule_arrays(half, operand)
-        return mix_dense(half, operand)
+            return self.static_mix(half), ef
+        w, c = operand, self.compressor
+        if self.pool_perms is not None and isinstance(w, torch.Tensor) and w.ndim == 1:
+            w = ScheduleArrays(gammas=w, perms=self.pool_perms)
+        if self.staleness is not None:
+            if not isinstance(w, ScheduleArrays):
+                raise TypeError(_STALE_DENSE)
+            rings, head = opt["stale"]["buf"], opt["stale"]["head"]
+            if c is not None:
+                return mix_arrays_stacked_stale_ef(half, ef, rings, head, w, delays, c)
+            return mix_arrays_stacked_stale(half, rings, head, w, delays), ef
+        if c is not None:
+            return mix_stacked_ef(half, ef, w, c)
+        if isinstance(w, ScheduleArrays):
+            return mix_schedule_arrays(half, w), ef
+        return mix_dense(half, w), ef
 
     def mix_rank(self, half: Params, opt, operand, delays) -> tuple[Params, Params | None]:
         """One node per rank: ``(mixed, new_ef)`` by the setup's transport
@@ -451,8 +493,7 @@ class _Step:
         if self.staleness is not None:
             st = ShardStaleState(rings=opt["stale"]["buf"], head=opt["stale"]["head"])
             if not pool and not isinstance(w, ScheduleArrays):
-                raise TypeError("staleness needs a per-sender payload to delay: pass mix_w as "
-                                "ScheduleArrays (allgather) or pool gammas, not a dense (n, n) W")
+                raise TypeError(_STALE_DENSE)
             if c is not None:
                 mixed, ef, _ = (
                     mix_ppermute_pool_stale_ef(half, ef, st, w, self.pool, delays, g, c) if pool
@@ -480,6 +521,15 @@ class _Step:
         """One step on ``params`` / ``opt`` in place (``grads``: scratch
         buffers); returns ``{"loss": the mean over nodes, <probe>: ...}``
         (float32 0-d tensors)."""
+        carry = opt if _is_carry_dict(opt) else {}
+        if self.compressor is not None and "ef" not in carry:
+            raise ValueError("compressed mixing carries its error-feedback memory in the opt "
+                             "state: pass opt_state including an 'ef' entry (build it with "
+                             "TrainSetup.init_opt_state)")
+        if self.staleness is not None and "stale" not in carry:
+            raise ValueError("bounded-delay mixing carries its sender-side ring in the opt "
+                             "state: pass opt_state including a 'stale' entry (build it with "
+                             "TrainSetup.init_opt_state)")
         losses = self.grads_(params, batch, grads)
         m = opt.get("m") if _is_carry_dict(opt) else opt
         half, new_m = _sgd_update(params, grads, m, self.lr, self.momentum)
@@ -488,8 +538,9 @@ class _Step:
             if gossip:
                 half, new_ef = self.mix_rank(half, opt, operand, delays)
         elif self.mode == "dsgd" and gossip:
-            half = self.mix(half, operand)
+            half, new_ef = self.mix(half, opt, operand, delays)
         _copy_into(params, half)
+        del half
         if self.momentum > 0.0:
             _copy_into(m, new_m)
         if new_ef is not None:
@@ -497,7 +548,12 @@ class _Step:
         if _is_carry_dict(opt) and "step" in opt:
             opt["step"].add_(1)
         if not self.ranks:
-            return {"loss": losses.mean()}
+            out = {"loss": losses.mean()}
+            if self.probes is not None and self.probes.consensus:
+                out["consensus"] = spread_sq_stacked(params)
+            if self.probes is not None and self.probes.grad_dev:
+                out["grad_dev"] = spread_sq_stacked(grads) / self.n_nodes
+            return out
         out = {"loss": self.layout.mean_loss(losses) if self.layout is not None
                else _psum(losses, self.group) / self.n_nodes}
         if self.probes is not None and self.probes.consensus:
@@ -643,7 +699,23 @@ class _Rollout:
             self._graphs.count()
         body.fn()
 
+    def release(self) -> None:
+        """Drop the bodies and their graphs (each graph's memory pool goes
+        with it; the bodies' closures would keep them to the next garbage
+        collection): a restaged run's old multi-step."""
+        for body in self._bodies.values():
+            body.graph = None
+        self._bodies.clear()
+
     def __call__(self, params: Params, opt_state, batches: dict, *mix_w):
+        self.setup._check_online_args(mix_w)
+        self._bind(params, opt_state)
+        losses = self.run(batches, *mix_w)
+        return _clone(self.params), _clone(self.opt), losses
+
+    def run(self, batches: dict, *mix_w):
+        """The steps of ``batches`` on the bound carries (``_bind``), in
+        place: their loss series (with probes, the dict of series)."""
         setup = self.setup
         setup._check_online_args(mix_w)
         core = setup._core
@@ -653,7 +725,6 @@ class _Rollout:
             batches.update(_stale_inputs(mix_w[0], mix_w[1], core.device))
         elif mix_w:
             operand = self._operand(mix_w[0])
-        self._bind(params, opt_state)
         phase = core.phase(self.opt)
         steps = _leading(batches)
         out, t = {name: [] for name in core.outputs}, 0
@@ -667,8 +738,7 @@ class _Rollout:
             t += k
         series = {name: torch.cat(v) if v else torch.zeros((0,), device=core.device)
                   for name, v in out.items()}
-        losses = series if core.probes is not None else series["loss"]
-        return _clone(self.params), _clone(self.opt), losses
+        return series if core.probes is not None else series["loss"]
 
 
 # ---------------------------------------------------------------------------
@@ -813,10 +883,10 @@ class TrainSetup:
         alone, else a dict with ``"step"`` (a 0-d int32 counter, for
         ``gossip_every > 1``), ``"m"`` (the momentum), ``"ef"`` (the EF
         memory, float32) and ``"stale"`` (``{"buf": the ring, leaves
-        (depth, ...) float32 -- bfloat16 where it holds bf16 values
-        exactly, ``core.mixing.stale_ring_dtype`` --, "head": a 0-d
-        int64}``). The EF memory and the ring are broadcast views until a
-        step copies them into its own tensors."""
+        (depth, ...) a rank, (n, depth, ...) stacked, float32 -- bfloat16
+        where it holds bf16 values exactly, ``core.mixing.stale_ring_dtype``
+        --, "head": a 0-d int64}``). The EF memory and the ring are
+        broadcast views until a step copies them into its own tensors."""
         if self._init_opt_state is None:
             raise ValueError("init_opt_state needs a setup built by make_train_setup")
         return self._init_opt_state(params)
@@ -950,8 +1020,6 @@ class TrainSetup:
         pool-coordinate gammas as their ``ScheduleArrays`` twin
         (``pool.arrays_for``, bitwise the pool's mix)."""
         device = self._core.device
-        if self.group is None:
-            return _static_operand(update, device)
         if isinstance(update, PoolSwap):
             update = update.gammas
         if isinstance(update, ScheduleArrays):
@@ -1005,21 +1073,22 @@ class TrainSetup:
         reference's: ``segment_len``-step slices of ``batches`` (leaves
         ``(steps, ...)``) through one multi-step; ``on_segment(t)`` after
         every segment but the last may return None, a ``ScheduleArrays``,
-        an ``(n, n)`` W or, one node per rank, a ``PoolSwap`` (an in-pool
-        swap is a value copy; a restage on the pool transport rebuilds the
-        step around the new pool, counted in ``recompiles``; on the
-        all-gather transport it runs as the pool's ``ScheduleArrays``
-        twin), copied into the bodies' static operand (no capture added).
+        an ``(n, n)`` W or a ``PoolSwap`` (an in-pool swap is a value
+        copy; a restage on the pool transport rebuilds the step around the
+        new pool, counted in ``recompiles``; on the all-gather transport it
+        runs as the pool's ``ScheduleArrays`` twin), copied into the
+        bodies' static operand (no capture added).
         With ``checkpoint_dir``, ``{params, opt, mix}`` is saved every
         ``checkpoint_every``-th boundary after the hook (and at the end and
         at an early stop); ``resume`` restores the newest and continues,
         bitwise the uninterrupted run; ``stop_after_segments`` ends the
-        run early (``stopped_at``). One node per rank: ``delays`` (a
-        staleness setup's raw ``(steps, n)`` trace, default zeros) is
-        resolved per segment against the policy; ``quarantine`` (an
-        object with ``mask()`` and ``summary()``) charges the meter's
-        quarantined bytes; with ``probes`` the per-step series come back
-        under ``"health"``. ``tracer`` records ``segment.rollout`` /
+        run early (``stopped_at``). ``delays`` (a staleness setup's raw
+        ``(steps, n)`` trace, default zeros) is resolved per segment
+        against the policy; ``quarantine`` (an object with ``mask()`` and
+        ``summary()``) charges the meter's quarantined bytes; with
+        ``probes`` the per-step series come back under ``"health"``. The
+        carries stay the multi-step's own between segments; the results
+        are copied out at the end. ``tracer`` records ``segment.rollout`` /
         ``segment.restage`` / ``segment.checkpoint`` spans,
         ``retrace_guard`` the captures under ``"run_segments.multi_step"``.
 
@@ -1030,12 +1099,6 @@ class TrainSetup:
         reference's float32 accounting (``make_train_setup``), not the
         bytes the port's wire moves.
         """
-        ranks = self.group is not None
-        if not ranks:
-            if delays is not None:
-                raise _not_ported("delays (bounded-delay gossip) on stacked nodes")
-            if quarantine is not None:
-                raise _not_ported("quarantine accounting on stacked nodes")
         if not self.online_w:
             raise ValueError("run_segments needs an online_w=True setup")
         if segment_len < 1:
@@ -1072,9 +1135,13 @@ class TrainSetup:
                                                         opt_state, mix)
                 t0 = resumed_from = int(last)
 
+        # the carries stay the multi-step's own between segments (no copy a
+        # segment); the results are copied out at the end
+        msj._bind(params, opt_state)
+
         def save(t: int) -> None:
             with tracer.span("segment.checkpoint", t=int(t)):
-                setup._save(checkpoint_dir, t, params, opt_state, mix)
+                setup._save(checkpoint_dir, t, msj.params, msj.opt, mix)
 
         seg_idx = 0
         while t0 < steps:
@@ -1085,9 +1152,9 @@ class TrainSetup:
                 if setup.staleness is not None:
                     d_seg = delays[t0:t0 + k]
                     w_stack, eff = setup._stale_stream(mix, d_seg, pool)
-                    params, opt_state, loss = msj(params, opt_state, seg, w_stack, eff)
+                    loss = msj.run(seg, w_stack, eff)
                 else:
-                    params, opt_state, loss = msj(params, opt_state, seg, mix)
+                    loss = msj.run(seg, mix)
                 loss = {name: v.cpu().numpy() for name, v in loss.items()} if names \
                     else loss.cpu().numpy()
             segment_s.append(time.perf_counter() - tic)
@@ -1118,8 +1185,6 @@ class TrainSetup:
                 if update is not None:
                     swaps.append(t0 - 1)
                     if isinstance(update, PoolSwap) and update.restaged:
-                        if not ranks:
-                            raise _not_ported("a PoolSwap on stacked nodes")
                         pool = update.pool
                         if setup.sharded_transport == "pool":
                             # the new atoms are not staged: rebuild the step
@@ -1127,7 +1192,11 @@ class TrainSetup:
                             with tracer.span("segment.restage", t=t0 - 1):
                                 traces_before += msj.n_traces
                                 setup = setup._rebuild(pool)
-                                msj = setup.multi_step_fn(rollout, retrace_guard=retrace_guard)
+                                old, msj = msj, setup.multi_step_fn(
+                                    rollout, retrace_guard=retrace_guard)
+                                msj._bind(old.params, old.opt)
+                                old.release()
+                                del old
                             recompiles += 1
                             meter.set_rate(setup.comm_bytes_per_step or 0, step=t0)
                     mix = setup._as_mix_operand(update, pool)
@@ -1139,8 +1208,8 @@ class TrainSetup:
                 stopped_at = t0
                 break
         out = {
-            "params": params,
-            "opt_state": opt_state,
+            "params": _clone(msj.params),
+            "opt_state": _clone(msj.opt),
             "losses": np.concatenate(losses) if losses else np.zeros((0,)),
             "n_traces": traces_before + msj.n_traces,
             "swaps": swaps,
@@ -1240,20 +1309,21 @@ def make_train_setup(
     ``online_w=True`` makes the mixing operand a trailing argument of the
     step: a dense (n, n) W or a ``ScheduleArrays`` on the ``"allgather"``
     transport, the pool's (capacity,) gammas on ``"pool"`` (``pool=`` a
-    ``PermPool``, one node per rank); ``"auto"`` is ``"allgather"``
-    without a pool, else the measured table's pick
-    (``autotune_sharded_transport``, a lookup) or its closed form.
+    ``PermPool``); ``"auto"`` is ``"allgather"`` without a pool, else over
+    ranks the measured table's pick (``autotune_sharded_transport``, a
+    lookup) or its closed form, stacked the closed form.
     ``grad_accum > 1`` splits each node's batch into microbatches and
     takes the mean of their gradients (float32 accumulation);
     ``gossip_every = k > 1`` mixes only on steps whose counter (carried in
     the opt state, see ``init_opt_state``) is a multiple of k. Stacked, the
     mix runs in the gossip kernels on the card and in the reference's
-    numerics (sums in the leaf dtype) on the CPU. One node per rank:
+    numerics (sums in the leaf dtype) on the CPU. In every layout
     ``compression`` (a ``Compressor`` or a spec string) makes the online
     transports EF-compressed, ``staleness`` (a ``StragglerPolicy``)
     bounded-delay, ``probes`` (a ``HealthProbes``) adds the per-step
     ``consensus`` / ``grad_dev`` outputs, each as the reference checks
-    them. ``remat=True`` recomputes each layer's and each loss chunk's
+    them; stacked, these and the pool's gammas mix in the rank
+    transports' float32 numerics (the module docstring). ``remat=True`` recomputes each layer's and each loss chunk's
     activations in the backward pass (the reference's ``remat``, on there):
     the same gradients bitwise, one block's activations held at a time, at
     the cost of a second forward; for ranks that share a card.
@@ -1297,16 +1367,8 @@ def make_train_setup(
         raise ValueError(
             "impl='kernel' cannot train: the flash-attention and RG-LRU scan kernels are "
             "forward only (the reference's Pallas kernels have no backward); use impl='plain'")
-    compressor = make_compressor(compression) if ranks else compression
-    if not ranks:
-        for name, value in (("compression", compression), ("staleness", staleness),
-                            ("probes", probes), ("pool", pool)):
-            if value is not None:
-                raise _not_ported(f"{name}= on stacked nodes")
-        if sharded_transport == "pool":
-            raise _not_ported("sharded_transport='pool' on stacked nodes")
-    else:
-        _check_robustness(mode, online_w, gossip_every, compressor, staleness, probes)
+    compressor = make_compressor(compression)
+    _check_robustness(mode, online_w, gossip_every, compressor, staleness, probes)
     if sharded_transport not in ("auto", "allgather", "pool"):
         raise ValueError(f"unknown sharded_transport {sharded_transport!r}")
     if online_w and mode == "fsdp":
@@ -1351,9 +1413,13 @@ def make_train_setup(
         if online_w:
             resolved = sharded_transport
             if sharded_transport == "auto":
-                resolved = "allgather" if pool is None or not ranks else \
+                # stacked, both transports are one gossip_schedule launch on
+                # the card (the pool's atoms or their ScheduleArrays twin):
+                # the closed form on the reference's bytes decides
+                resolved = "allgather" if pool is None else \
                     autotune_sharded_transport(n, pool.n_comm_slots, p_total, group=group,
-                                               device=device)
+                                               device=device) if ranks else \
+                    preferred_sharded_transport(n, pool.n_comm_slots)
             pooled = resolved == "pool"
             comm = mix_bytes_per_step("pool" if pooled else "allgather", n_nodes=n,
                                       p_total=p_total,
@@ -1410,9 +1476,13 @@ def make_train_setup(
             zero = torch.zeros((), dtype=torch.float32, device=device)
             out["ef"] = {k: zero.expand(v.shape) for k, v in params.items()}
         if staleness is not None:
+            # leaves (depth, ...) a rank; stacked, node-first (n, depth, ...):
+            # the reference's stacked layout (and every checkpoint's)
             depth, dtype = staleness.ring_depth, stale_ring_dtype(params, compressor)
+            lead = 0 if ranks or mode != "dsgd" else 1
             out["stale"] = {
-                "buf": {k: v.to(dtype).unsqueeze(0).expand((depth,) + tuple(v.shape))
+                "buf": {k: v.to(dtype).unsqueeze(lead).expand(
+                    tuple(v.shape[:lead]) + (depth,) + tuple(v.shape[lead:]))
                         for k, v in params.items()},
                 "head": torch.zeros((), dtype=torch.long, device=device)}
         if not out:

@@ -254,7 +254,9 @@ def shard(full: torch.Tensor, spec: Spec, mesh, coords: Mapping[str, int] | None
         index, count = _block(entry, sizes, coords)
         width = full.shape[d + offset] // count
         out = out.narrow(d + offset, index * width, width)
-    return out.contiguous()
+    # a copy even where the block is contiguous already (a split of the
+    # first dimension): a view would keep all of ``full`` alive
+    return out.clone(memory_format=torch.contiguous_format)
 
 
 def sharded_dims(spec: Spec, axes: tuple[str, ...]) -> list[tuple[int, tuple]]:

@@ -5,7 +5,15 @@ The reference leaves its ``model`` mesh axis automatic: GSPMD places each
 weight by ``train/sharding.py``'s rules and inserts the collectives. Here
 a rank holds its block of each weight (``sharding.shard`` of the spec
 ``make_param_specs`` gives) and runs the Megatron form of the same
-placements, whose collectives are autograd functions on plain tensors:
+placements, whose collectives (``models/parallel.py``) are autograd
+functions on plain tensors. The blocks are the model's own
+(``models/attention.py``, ``rglru.py``, ``xlstm.py``, ``whisper.py``,
+``layers.mlp_forward``): each takes the rank's ``tp`` group, sees from its
+weights' shapes what the rules split, and runs these collectives where
+they do (the identity on a whole model). This module plans the split,
+checks it against the specs, and keeps what only a split replica has:
+the vocabulary-parallel lookup and cross entropy, and the MoE's expert
+split.
 
 * ``copy_to`` -- identity forward, all-reduce of the gradient: where a
   replicated activation (or a replicated weight such as a qk-norm scale)
@@ -15,32 +23,46 @@ placements, whose collectives are autograd functions on plain tensors:
   of the softmax denominators;
 * ``gather_last`` -- all-gather of the last dimension forward, this
   rank's block of the gradient backward: an activation split over its
-  features that replicated computation reads (the MoE router's logits);
+  features that replicated computation reads (the MoE router's logits,
+  a lookup of a table split by features, the sLSTM's gate inputs);
 * ``gather_last_partial`` -- the same gather with the gradient's blocks
-  summed over ranks (a reduce-scatter) backward: keys and values whose
-  heads do not divide among the ranks, read by this rank's query heads;
+  summed over ranks (a reduce-scatter) backward: an activation split
+  over its features that this rank's split computation reads whole (keys
+  and values whose heads do not divide among the ranks, query heads
+  split inside a head, MLA's latent, a recurrent block's branch read by
+  its gates);
 * ``slice_last`` -- this rank's block of a replicated vector forward,
-  the gradient's blocks gathered backward (the q/k/v biases).
+  the gradient's blocks gathered backward (the q/k/v biases, the whole
+  ``conv_w`` of a split recurrent branch, an output norm's scale).
 
 Placements, as the rules give them: ``embed.table`` (V, d) by vocabulary
-rows (a masked lookup, partial sums reduced), the unembedding (tied:
-the table's rows; untied: ``unembed``'s columns) by vocabulary columns
-with a vocabulary-parallel cross entropy (max, sum of exponentials and
-the label's logit reduced over ranks, float32); attention's ``wq`` /
-``wk`` / ``wv`` by output features (whole heads a rank), ``wo`` by input
-features; the MLP's ``w_gate`` / ``w_up`` by columns, ``w_down`` by
-rows; the MoE router by experts (its logits gathered, routing replicated)
-and the routed experts by experts (each rank computes its experts'
-slots; the combine's partial sums reduced with the block's); norms
-replicated. A weight the rules leave whole computes whole. No weight is
-ever gathered. Every rank of a node runs the same batch; the loss is the
-same on every rank.
-
-Layer kinds other than GQA attention with an MLP or MoE block (MLA, the
-xLSTM and RG-LRU blocks, whisper) and placements the rules give only
-where a dimension does not divide (query heads split inside a head, an
-odd vocabulary split by features) raise ``NotImplementedError``: ROADMAP
-item 13f.
+rows (a masked lookup, partial sums reduced) -- or, where the vocabulary
+does not divide and the rules' >32 MiB fallback splits it by features
+(whisper's 51865), by features (the lookup gathered, the tied
+unembedding's partial logits reduced) --, the unembedding (tied: the
+table's rows; untied: ``unembed``'s columns) by vocabulary columns with
+a vocabulary-parallel cross entropy (max, sum of exponentials and the
+label's logit reduced over ranks, float32); attention's ``wq`` / ``wk`` /
+``wv`` by output features (whole heads a rank; where the heads do not
+divide -- recurrentgemma's 10 on 4 --, the queries gathered and every
+head a rank's columns touch computed, its columns kept), ``wo`` by input
+features; MLA's ``wq`` / ``w_uk`` / ``w_uv`` by heads, its latent
+gathered before ``kv_norm`` (an RMS norm over all r latents) and the
+shared rope key whole; the MLP's ``w_gate`` / ``w_up`` by columns,
+``w_down`` by rows; the MoE router by experts (its logits gathered,
+routing replicated) and the routed experts by experts (each rank
+computes its experts' slots; the combine's partial sums reduced with the
+block's); the RG-LRU block's branches by columns (the gates read the
+gathered branch; the scan elementwise on the rank's features); the
+mLSTM's up / gate / q / k / v by columns (its output norm over the split
+features: the sum of squares reduced); the sLSTM's gate inputs gathered
+whole (the rule's contiguous columns of ``w_in`` hand a rank whole gates,
+not heads) and its time loop, step by step under autograd, on the
+rank's heads of ``r``; whisper's encoder and decoder self- and
+cross-attention and its MLPs the same way, layer norms with bias whole;
+norms replicated. A weight the rules leave whole computes whole. No
+weight is ever gathered. Every rank of a node runs the same batch; the
+loss is the same on every rank.
 
 ``collective_bytes`` (``core.mixing``) counts what a rank receives under
 ``"tp_all_reduce"`` and ``"tp_all_gather"``, ``collective_calls`` the
@@ -55,151 +77,23 @@ import types
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import mixing as _M
 from repro_torch.models import transformer
-from repro_torch.models.attention import _causal_mask, _sdpa, _sdpa_chunked, _CHUNK_Q, \
-    _CHUNK_THRESHOLD
+from repro_torch.models.attention import attention, mla_attention
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import _rounded, apply_rope, mlp_forward, rms_norm, \
-    rotary_embedding
+from repro_torch.models.layers import (_rounded, layer_norm, mlp_forward, rms_norm,
+                                       sinusoidal_positions)
 from repro_torch.models.moe import capacity, router_aux_loss, slots
+from repro_torch.models.parallel import (TPGroup, _all_reduce, _SumOver, copy_to,
+                                         gather_last, gather_last_partial, reduce_from,
+                                         slice_last)
+from repro_torch.models.rglru import rglru_block
+from repro_torch.models.whisper import decoder_layer, encoder_layer
+from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 __all__ = ["TPGroup", "TPPlan", "make_plan", "lm_loss", "copy_to", "reduce_from",
-           "gather_last", "gather_last_partial", "slice_last", "NOT_PORTED_TP"]
-
-NOT_PORTED_TP = "not ported yet (ROADMAP queue 1 item 13f)"
+           "gather_last", "gather_last_partial", "slice_last"]
 
 _ATTN_KINDS = ("attn", "local_attn")
-
-
-@dataclasses.dataclass(frozen=True)
-class TPGroup:
-    """The ranks one node's replica is split over: ``group`` (None: one
-    rank, every collective the identity), its ``size`` and this rank's
-    index."""
-
-    group: object = None
-    size: int = 1
-    rank: int = 0
-
-    @classmethod
-    def of(cls, group) -> "TPGroup":
-        if group is None:
-            return cls()
-        n = _M.axis_size(group)
-        return cls(group if n > 1 else None, n, _M.axis_index(group) if n > 1 else 0)
-
-
-def _count(kind: str, nbytes: int) -> None:
-    _M.collective_bytes[kind] += nbytes
-    _M.collective_calls[kind] += 1
-
-
-def _all_reduce(x: torch.Tensor, tp: TPGroup, op=None, kind: str = "tp_all_reduce"
-                ) -> torch.Tensor:
-    import torch.distributed as dist
-
-    y = x.contiguous().clone()
-    if op is None:
-        dist.all_reduce(y, group=tp.group)
-    else:
-        dist.all_reduce(y, op=op, group=tp.group)
-    _count(kind, 2 * (tp.size - 1) * y.numel() * y.element_size() // tp.size)
-    return y
-
-
-def _all_gather_last(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    import torch.distributed as dist
-
-    flat = x.contiguous().reshape(-1)
-    out = torch.empty((tp.size * flat.numel(),), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, flat, group=tp.group)
-    _count("tp_all_gather", (tp.size - 1) * flat.numel() * flat.element_size())
-    return torch.cat(out.view((tp.size,) + tuple(x.shape)).unbind(0), dim=-1)
-
-
-def _own_last(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    w = x.shape[-1] // tp.size
-    return x[..., tp.rank * w:(tp.rank + 1) * w].contiguous()
-
-
-class _CopyTo(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.tp), None
-
-
-class _ReduceFrom(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, tp):
-        return _all_reduce(x, tp)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _SumOver(torch.autograd.Function):
-    """The sum over ranks with its exact adjoint (the gradients' sum over
-    ranks): for a sum whose inputs are different batch slices."""
-
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return _all_reduce(x, tp, kind="grad_all_reduce")
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.tp, kind="grad_all_reduce"), None
-
-
-class _GatherLast(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, tp, partial):
-        ctx.tp, ctx.partial = tp, partial
-        return _all_gather_last(x, tp)
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.partial:
-            g = _all_reduce(g, ctx.tp)
-        return _own_last(g, ctx.tp), None, None
-
-
-class _SliceLast(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return _own_last(x, tp)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_gather_last(g, ctx.tp), None
-
-
-def copy_to(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    return x if tp.group is None else _CopyTo.apply(x, tp)
-
-
-def reduce_from(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    return x if tp.group is None else _ReduceFrom.apply(x, tp)
-
-
-def gather_last(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    return x if tp.group is None else _GatherLast.apply(x, tp, False)
-
-
-def gather_last_partial(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    return x if tp.group is None else _GatherLast.apply(x, tp, True)
-
-
-def slice_last(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    return x if tp.group is None else _SliceLast.apply(x, tp)
 
 
 def _batch_mean(x: torch.Tensor, batch: tuple[TPGroup, ...], grad: bool = True) -> torch.Tensor:
@@ -225,101 +119,180 @@ def _max_over(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
     """Which blocks are split over ``model`` (from the specs): the
-    vocabulary, each layer's attention (``"q"``: query heads split;
-    keys / values ``"local"`` (whole heads a rank), ``"gather"`` (split
-    inside heads: gathered) or ``"whole"``), its MLP, its MoE router and
-    experts, its shared experts."""
+    vocabulary (``"rows"``, ``"features"`` or None), each layer's blocks
+    (``"attn"``: query heads split, ``"aligned"`` whole heads a rank or
+    split inside a head, keys / values ``"local"``, ``"gather"`` or
+    ``"whole"``; MLA's latent and rope key; a recurrent ``"block"``'s
+    split; the MLP's, the MoE router's and experts', the shared
+    experts'), and whisper's encoder layers."""
 
     size: int
-    vocab: bool
+    vocab: str | None
     layers: tuple
+    enc_layers: tuple = ()
 
 
 def _split(spec, dim: int) -> bool:
-    return spec is not None and spec[dim] == "model"
+    return spec is not None and len(spec) > dim and spec[dim] == "model"
 
 
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"tensor parallelism of {what}: {NOT_PORTED_TP}")
+def _unsupported(what: str) -> ValueError:
+    return ValueError(f"tensor parallelism of {what}: the partition rules give no such "
+                      "placement")
+
+
+def _is_norm(name: str) -> bool:
+    return any("norm" in part or part.startswith("ln") or part.endswith("_ln")
+               for part in name.split("."))
+
+
+def _attn_plan(spec: dict, pre: str, cfg: ModelConfig, size: int, where: str) -> dict:
+    wq, wk, wv, wo = (spec[pre + n] for n in ("wq", "wk", "wv", "wo"))
+    q = _split(wq, 1)
+    if q != _split(wo, 0) or any(_split(s, 0) for s in (wq, wk, wv)) or _split(wo, 1):
+        raise _unsupported(f"{where}'s attention projections split as "
+                           f"{ {n: spec[pre + n] for n in ('wq', 'wk', 'wv', 'wo')} }")
+    kv_split = _split(wk, 1)
+    if kv_split != _split(wv, 1):
+        raise _unsupported(f"{where}'s keys and values split differently")
+    if not q:
+        if kv_split:
+            raise _unsupported(f"{where}: keys split with whole query heads")
+        return {"q": False, "kv": "whole", "aligned": True}
+    aligned = cfg.num_heads % size == 0
+    if not kv_split:
+        kv = "whole"
+    else:
+        kv = "local" if aligned and cfg.num_kv_heads % size == 0 else "gather"
+    return {"q": True, "kv": kv, "aligned": aligned}
+
+
+def _mla_plan(spec: dict, cfg: ModelConfig, size: int, where: str) -> dict:
+    q = _split(spec["attn.wq"], 1)
+    heads = [_split(spec[f"attn.{n}"], 1) for n in ("w_uk", "w_uv")] + [
+        _split(spec["attn.wo"], 0)]
+    if any(h != q for h in heads) or any(_split(spec[f"attn.{n}"], 0) for n in
+                                         ("wq", "w_dkv", "w_krope", "w_uk", "w_uv")):
+        raise _unsupported(f"{where}'s MLA projections split as "
+                           f"{ {n: s for n, s in spec.items() if n.startswith('attn.w')} }")
+    dkv, krope = _split(spec["attn.w_dkv"], 1), _split(spec["attn.w_krope"], 1)
+    if not q and (dkv or krope):
+        raise _unsupported(f"{where}: an MLA latent split beside whole heads")
+    if q and cfg.num_heads % size:
+        raise _unsupported(f"{where}: {cfg.num_heads} MLA heads over {size} ranks")
+    return {"q": q, "dkv": dkv, "krope": krope}
+
+
+def _mlp_plan(spec: dict, cfg: ModelConfig, where: str) -> dict:
+    mlp = moe = shared = False
+    if cfg.moe is None:
+        cols = [_split(spec[f"mlp.{n}"], 1) for n in ("w_gate", "w_up") if f"mlp.{n}" in spec]
+        mlp = _split(spec["mlp.w_down"], 0)
+        if any(c != mlp for c in cols) or _split(spec["mlp.w_down"], 1):
+            raise _unsupported(f"{where}'s MLP split as "
+                               f"{ {n: spec[n] for n in spec if n.startswith('mlp')} }")
+    else:
+        moe = _split(spec["mlp.router"], 1)
+        routed = [_split(spec[f"mlp.routed.{n}"], 0) for n in ("w_gate", "w_up", "w_down")]
+        if any(r != moe for r in routed):
+            raise _unsupported(f"{where}'s router and experts split differently")
+        if "mlp.shared.w_down" in spec:
+            shared = _split(spec["mlp.shared.w_down"], 0)
+            if any(_split(spec[f"mlp.shared.{n}"], 1) != shared for n in
+                   ("w_gate", "w_up") if f"mlp.shared.{n}" in spec):
+                raise _unsupported(f"{where}'s shared experts split unevenly")
+        if shared and not moe:
+            raise _unsupported(f"{where}: shared experts split beside whole experts")
+    return {"mlp": mlp, "moe": moe, "shared": shared}
+
+
+def _block_plan(spec: dict, cols: tuple, rows: tuple, vecs: tuple, where: str) -> dict:
+    """A recurrent block: ``cols`` split by output features, ``rows`` by
+    input features, ``vecs`` along their one dimension, all together or
+    none; ``conv_w`` split by features where the rules split it."""
+    split = _split(spec[f"block.{cols[0]}"], 1)
+    ok = all(_split(spec[f"block.{n}"], 1) == split and not _split(spec[f"block.{n}"], 0)
+             for n in cols) and all(_split(spec[f"block.{n}"], 0) == split and not
+                                    _split(spec[f"block.{n}"], 1) for n in rows) and all(
+        _split(spec[f"block.{n}"], 0) == split for n in vecs)
+    conv = _split(spec["block.conv_w"], 1)
+    if not ok or _split(spec["block.conv_w"], 0) or (conv and not split):
+        raise _unsupported(f"{where}'s block split as "
+                           f"{ {n: s for n, s in spec.items() if n.startswith('block.')} }")
+    return {"split": split, "conv": conv}
+
+
+def _slstm_plan(spec: dict, cfg: ModelConfig, size: int, where: str) -> dict:
+    w_in, heads = _split(spec["block.w_in"], 1), _split(spec["block.r"], 1)
+    ff = _split(spec["block.w_ff_up"], 1)
+    if (_split(spec["block.w_in"], 0) or any(_split(spec["block.r"], d) for d in (0, 2, 3))
+            or _split(spec["block.w_ff_down"], 0) != ff or _split(spec["block.w_ff_down"], 1)
+            or _split(spec["block.w_ff_up"], 0) or _split(spec["block.b_in"], 0)):
+        raise _unsupported(f"{where}'s sLSTM split as "
+                           f"{ {n: s for n, s in spec.items() if n.startswith('block.')} }")
+    return {"w_in": w_in, "heads": heads, "ff": ff}
+
+
+def _layer_plan(spec: dict, cfg: ModelConfig, size: int, kind: str, where: str):
+    out: dict = {}
+    if kind in _ATTN_KINDS:
+        out["attn"] = _mla_plan(spec, cfg, size, where) if cfg.mla is not None else \
+            _attn_plan(spec, "attn.", cfg, size, where)
+    elif kind == "enc":
+        out["attn"] = _attn_plan(spec, "attn.", cfg, size, where)
+    elif kind == "dec":
+        out["attn"] = _attn_plan(spec, "self_attn.", cfg, size, where)
+        out["cross"] = _attn_plan(spec, "cross_attn.", cfg, size, where)
+    elif kind == "rglru":
+        out["block"] = _block_plan(spec, ("w_gate", "w_rnn_in", "w_a", "w_x"), ("w_out",),
+                                   ("lam",), where)
+    elif kind == "mlstm":
+        out["block"] = _block_plan(spec, ("w_up", "w_gate", "wq", "wk", "wv"), ("w_down",),
+                                   (), where)
+        if any(_split(spec[f"block.{n}"], d) for n, d in (("w_if", 0), ("w_if", 1),
+                                                          ("b_if", 0))):
+            raise _unsupported(f"{where}: the mLSTM gate projection split")
+    elif kind == "slstm":
+        out["block"] = _slstm_plan(spec, cfg, size, where)
+    else:
+        raise _unsupported(f"{kind!r} layers")
+    if "mlp.w_down" in spec or "mlp.router" in spec:
+        out.update(_mlp_plan(spec, cfg, where))
+    return types.MappingProxyType(out)
 
 
 def make_plan(cfg: ModelConfig, specs: dict, size: int) -> TPPlan:
     """The plan of ``cfg`` under ``specs`` (``sharding.make_param_specs``
     without node axis, fsdp axis gathered away) over ``size`` ranks;
-    raises ``NotImplementedError`` for what this module does not split."""
-    if cfg.arch_type == "audio":
-        raise _unsupported(f"the encoder-decoder {cfg.name}")
-    if cfg.mla is not None:
-        raise _unsupported("MLA attention")
-
-    def only_model(name):
-        spec = specs[name]
+    raises ``ValueError`` for a placement the rules never give (a split
+    norm, projections split unevenly)."""
+    for name, spec in specs.items():
         extra = [e for e in spec if e is not None and e != "model"]
         if extra:
             raise ValueError(f"{name}: spec {spec} splits over {extra} in the compute layout")
-        return spec
-
-    table = only_model("embed.table")
-    vocab = _split(table, 0)
-    if any(e is not None for e in table) and not vocab:
-        raise _unsupported(f"an embedding table split by features ({cfg.name})")
-    if not cfg.tie_embeddings:
-        un = only_model("embed.unembed")
-        if _split(un, 1) != vocab or _split(un, 0):
+        if _is_norm(name) and any(e is not None for e in spec):
+            raise _unsupported(f"a split norm ({name})")
+    audio = cfg.arch_type == "audio"
+    table = specs["token_embed" if audio else "embed.table"]
+    vocab = "rows" if _split(table, 0) else "features" if _split(table, 1) else None
+    if not audio and not cfg.tie_embeddings:
+        un = specs["embed.unembed"]
+        want = {"rows": (False, True), "features": (True, False), None: (False, False)}[vocab]
+        if (_split(un, 0), _split(un, 1)) != want:
             raise _unsupported(f"an unembedding split as {un} beside a table split as {table}")
-    layers = []
-    for i in range(cfg.num_layers):
-        kind = cfg.kind(i)
-        if kind not in _ATTN_KINDS:
-            raise _unsupported(f"{kind!r} layers")
-        pre = f"layers.{i}."
-        spec = {name[len(pre):]: only_model(name) for name in specs if name.startswith(pre)}
-        for name, s in spec.items():
-            if "norm" in name and any(e is not None for e in s):
-                raise _unsupported(f"a split norm scale ({pre}{name})")
-        q = _split(spec["attn.wq"], 1)
-        if q != _split(spec["attn.wo"], 0) or any(_split(spec[n], 0) for n in
-                                                    ("attn.wq", "attn.wk", "attn.wv")):
-            raise _unsupported(f"layer {i}'s attention projections split as "
-                               f"{ {n: spec[n] for n in spec if n.startswith('attn.w')} }")
-        if q and cfg.num_heads % size:
-            raise _unsupported(f"{cfg.num_heads} query heads over {size} ranks")
-        kv_split = _split(spec["attn.wk"], 1)
-        if kv_split != _split(spec["attn.wv"], 1):
-            raise _unsupported(f"layer {i}'s keys and values split differently")
-        if not q:
-            kv = "whole" if not kv_split else None
-            if kv is None:
-                raise _unsupported(f"layer {i}: keys split with whole query heads")
-        elif not kv_split:
-            kv = "whole"
-        else:
-            kv = "local" if cfg.num_kv_heads % size == 0 else "gather"
-        mlp = moe = shared = False
-        if cfg.d_ff > 0:
-            if cfg.moe is None:
-                cols = [_split(spec[f"mlp.{n}"], 1) for n in ("w_gate", "w_up") if
-                        f"mlp.{n}" in spec]
-                mlp = _split(spec["mlp.w_down"], 0)
-                if any(c != mlp for c in cols) or _split(spec["mlp.w_down"], 1):
-                    raise _unsupported(f"layer {i}'s MLP split as "
-                                       f"{ {n: spec[n] for n in spec if n.startswith('mlp')} }")
-            else:
-                moe = _split(spec["mlp.router"], 1)
-                routed = [_split(spec[f"mlp.routed.{n}"], 0) for n in
-                          ("w_gate", "w_up", "w_down")]
-                if any(r != moe for r in routed):
-                    raise _unsupported(f"layer {i}'s router and experts split differently")
-                if "mlp.shared.w_down" in spec:
-                    shared = _split(spec["mlp.shared.w_down"], 0)
-                    if any(_split(spec[f"mlp.shared.{n}"], 1) != shared for n in
-                           ("w_gate", "w_up") if f"mlp.shared.{n}" in spec):
-                        raise _unsupported(f"layer {i}'s shared experts split unevenly")
-                if shared and not moe:
-                    raise _unsupported(f"layer {i}: shared experts split beside whole experts")
-        layers.append(types.MappingProxyType(
-            {"q": q, "kv": kv, "mlp": mlp, "moe": moe, "shared": shared}))
-    return TPPlan(size=size, vocab=vocab, layers=tuple(layers))
+
+    def layer(pre: str, kind: str):
+        spec = {name[len(pre):]: s for name, s in specs.items() if name.startswith(pre)}
+        return _layer_plan(spec, cfg, size, kind, pre.rstrip("."))
+
+    if audio:
+        return TPPlan(size=size, vocab=vocab,
+                      layers=tuple(layer(f"dec_layers.{i}.", "dec")
+                                   for i in range(cfg.num_layers)),
+                      enc_layers=tuple(layer(f"enc_layers.{i}.", "enc")
+                                       for i in range(cfg.encoder.num_layers)))
+    return TPPlan(size=size, vocab=vocab,
+                  layers=tuple(layer(f"layers.{i}.", cfg.kind(i)) for i in range(cfg.num_layers)))
 
 
 # ---------------------------------------------------------------------------
@@ -339,52 +312,6 @@ def _ns(params: dict, prefix: str):
                 node = getattr(node, key)
             setattr(node, last, v)
     return out
-
-
-def _attention(p, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor, local: bool,
-               plan, tp: TPGroup) -> torch.Tensor:
-    """GQA self-attention on this rank's query heads; the output's partial
-    sums reduced over ranks (whole: computed whole)."""
-    B, S, _ = h.shape
-    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    split = plan["q"]
-    Hl = H // tp.size if split else H
-    x = copy_to(h, tp) if split else h
-
-    def weight(w):  # a whole weight read by split computation: gradient summed
-        return copy_to(w, tp) if split else w
-
-    q = x @ p.wq
-    if cfg.attn_bias:
-        q = q + (slice_last(p.bq, tp) if split else p.bq)
-    kv = plan["kv"]
-    k, v = x @ (p.wk if kv != "whole" else weight(p.wk)), \
-        x @ (p.wv if kv != "whole" else weight(p.wv))
-    if cfg.attn_bias:
-        k = k + (slice_last(p.bk, tp) if kv != "whole" else weight(p.bk))
-        v = v + (slice_last(p.bv, tp) if kv != "whole" else weight(p.bv))
-    if kv == "gather":
-        k, v = gather_last_partial(k, tp), gather_last_partial(v, tp)
-    q = q.reshape(B, S, Hl, dh)
-    k = k.reshape(B, S, -1, dh)
-    v = v.reshape(B, S, -1, dh)
-    if cfg.qk_norm:
-        q = rms_norm(types.SimpleNamespace(scale=weight(p.q_norm.scale)), q, cfg.norm_eps)
-        k = rms_norm(types.SimpleNamespace(scale=weight(p.k_norm.scale)), k, cfg.norm_eps)
-    cos, sin = rotary_embedding(positions, dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    if split and kv != "local":
-        # every key / value head is here: this rank's query heads read theirs
-        heads = (tp.rank * Hl + torch.arange(Hl, device=h.device)) // (H // Hkv)
-        k, v = k.index_select(2, heads), v.index_select(2, heads)
-    window = cfg.sliding_window if local else None
-    if S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0:
-        out = _sdpa_chunked(q, k, v, cfg, window)
-    else:
-        out = _sdpa(q, k, v, _causal_mask(S, S, window, h.device), cfg)
-    out = out.reshape(B, S, Hl * dh) @ p.wo
-    return reduce_from(out, tp) if split else out
 
 
 def _moe(p, cfg: ModelConfig, h: torch.Tensor, plan, tp: TPGroup, batch: tuple = ()):
@@ -446,35 +373,51 @@ def _moe(p, cfg: ModelConfig, h: torch.Tensor, plan, tp: TPGroup, batch: tuple =
 def _layer(params: dict, i: int, cfg: ModelConfig, plan: TPPlan, tp: TPGroup, x, positions,
            batch: tuple = ()):
     lp = plan.layers[i]
+    kind = cfg.kind(i)
     p = _ns(params, f"layers.{i}.")
-    h = rms_norm(p.ln1, x, cfg.norm_eps)
-    out = _attention(p.attn, cfg, h, positions, cfg.kind(i) == "local_attn", lp, tp)
-    if cfg.post_block_norms:
-        out = rms_norm(p.post_ln1, out, cfg.norm_eps)
-    x = x + out
     aux = None
+    if kind in _ATTN_KINDS:
+        h = rms_norm(p.ln1, x, cfg.norm_eps)
+        if cfg.mla is not None:
+            window = cfg.sliding_window if kind == "local_attn" else None
+            out = mla_attention(p.attn, cfg, h, positions=positions, window=window, tp=tp)[0]
+        else:
+            out = attention(p.attn, cfg, h, positions=positions, local=kind == "local_attn",
+                            impl="plain", tp=tp)[0]
+        if cfg.post_block_norms:
+            out = rms_norm(p.post_ln1, out, cfg.norm_eps)
+        x = x + out
+    elif kind == "rglru":
+        x = rglru_block(p.block, cfg, x, impl="plain", tp=tp)[0]
+    elif kind == "mlstm":
+        return mlstm_block(p.block, cfg, x, tp=tp)[0], None
+    else:  # slstm
+        return slstm_block(p.block, cfg, x, tp=tp)[0], None
     if cfg.d_ff > 0:
         h = rms_norm(p.ln2, x, cfg.norm_eps)
         if cfg.moe is not None:
             out, aux = _moe(p.mlp, cfg, h, lp, tp, batch)
-        elif lp["mlp"]:
-            out = reduce_from(mlp_forward(p.mlp, copy_to(h, tp), cfg.mlp_type), tp)
         else:
-            out = mlp_forward(p.mlp, h, cfg.mlp_type)
+            out = mlp_forward(p.mlp, h, cfg.mlp_type, tp if lp["mlp"] else None)
         if cfg.post_block_norms:
             out = rms_norm(p.post_ln2, out, cfg.norm_eps)
         x = x + out
     return x, aux
 
 
-def _embed(params: dict, cfg: ModelConfig, plan: TPPlan, tp: TPGroup, tokens: torch.Tensor):
-    table = params["embed.table"]
-    if plan.vocab:
+def _embed(table: torch.Tensor, cfg: ModelConfig, plan: TPPlan, tp: TPGroup,
+           tokens: torch.Tensor):
+    """The lookup: by vocabulary rows (a masked lookup, partial sums
+    reduced), by features (this rank's features of every token,
+    gathered), or whole."""
+    if plan.vocab == "rows":
         rows = table.shape[0]
         local = tokens - tp.rank * rows
         mine = (local >= 0) & (local < rows)
         x = F.embedding(torch.where(mine, local, 0), table) * mine[..., None].to(table.dtype)
         x = reduce_from(x, tp)
+    elif plan.vocab == "features":
+        x = gather_last(F.embedding(tokens, table), tp)
     else:
         x = F.embedding(tokens, table)
     if cfg.embedding_scale:
@@ -484,14 +427,28 @@ def _embed(params: dict, cfg: ModelConfig, plan: TPPlan, tp: TPGroup, tokens: to
 
 def _chunk_nll(params: dict, cfg: ModelConfig, plan: TPPlan, tp: TPGroup,
                hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """The summed next-token NLL of a chunk: the unembedding on this rank's
-    vocabulary columns and the cross entropy reduced over ranks
-    (``transformer._token_nll`` whole)."""
-    x = copy_to(hidden, tp) if plan.vocab else hidden
-    logits = x @ params["embed.table"].T if cfg.tie_embeddings else x @ params["embed.unembed"]
-    if cfg.final_logit_softcap > 0.0:
-        cap = cfg.final_logit_softcap
-        logits = cap * torch.tanh(logits / cap)
+    """The summed next-token NLL of a chunk (``transformer._token_nll``
+    whole): on this rank's vocabulary columns with the cross entropy
+    reduced over ranks; or, the table split by features, this rank's
+    features' partial logits reduced to the whole logits."""
+    audio = cfg.arch_type == "audio"
+    table = params["token_embed" if audio else "embed.table"]
+    tied = audio or cfg.tie_embeddings
+
+    def unembed(x):
+        logits = x @ table.T if tied else x @ params["embed.unembed"]
+        if cfg.final_logit_softcap > 0.0 and plan.vocab != "features":
+            cap = cfg.final_logit_softcap
+            logits = cap * torch.tanh(logits / cap)
+        return logits
+
+    if plan.vocab == "features":
+        logits = reduce_from(unembed(slice_last(hidden, tp)), tp)
+        if cfg.final_logit_softcap > 0.0:
+            cap = cfg.final_logit_softcap
+            logits = cap * torch.tanh(logits / cap)
+        return transformer._token_nll(logits, labels).sum()
+    logits = unembed(copy_to(hidden, tp) if plan.vocab else hidden)
     if not plan.vocab:
         return transformer._token_nll(logits, labels).sum()
     lf = logits.float()
@@ -504,25 +461,72 @@ def _chunk_nll(params: dict, cfg: ModelConfig, plan: TPPlan, tp: TPGroup,
     return (lse - reduce_from(picked, tp)).sum()
 
 
+def _nll(params: dict, cfg: ModelConfig, plan: TPPlan, tp: TPGroup, x: torch.Tensor,
+         labels: torch.Tensor, remat: bool) -> torch.Tensor:
+    """The mean next-token NLL over chunks of ``transformer._XENT_CHUNK``."""
+    B, S, _ = x.shape
+    chunk = transformer._XENT_CHUNK if S % transformer._XENT_CHUNK == 0 else S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        args = (params, cfg, plan, tp, x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+        total = total + (transformer._remat(_chunk_nll, *args) if remat else _chunk_nll(*args))
+    return total / (B * S)
+
+
+def _enc_layer(params: dict, i: int, cfg: ModelConfig, tp: TPGroup, x, zeros):
+    return encoder_layer(_ns(params, f"enc_layers.{i}."), cfg, x, zeros, tp)
+
+
+def _dec_layer(params: dict, i: int, cfg: ModelConfig, tp: TPGroup, x, positions, enc):
+    return decoder_layer(_ns(params, f"dec_layers.{i}."), cfg, x, positions, enc, tp=tp)[0]
+
+
+def _whisper_loss(params: dict, cfg: ModelConfig, batch: dict, plan: TPPlan, tp: TPGroup,
+                  remat: bool) -> torch.Tensor:
+    """``registry.loss_fn`` of whisper on local shards: the encoder over
+    the stub frames (bidirectional, RoPE at angle 0), the decoder's causal
+    self-attention and cross-attention, layer norms with bias whole, the
+    tied table by vocabulary rows or by features."""
+    frames, tokens, labels = batch["frames"], batch["tokens"], batch["labels"]
+    B, Sf, D = frames.shape
+    x = frames + sinusoidal_positions(Sf, D, frames.dtype, frames.device)[None]
+    zeros = torch.zeros((B, Sf), dtype=torch.int64, device=frames.device)
+    for i in range(cfg.encoder.num_layers):
+        args = (params, i, cfg, tp, x, zeros)
+        x = transformer._remat(_enc_layer, *args) if remat else _enc_layer(*args)
+    enc = layer_norm(_ns(params, "enc_final_ln."), x, cfg.norm_eps)
+    y = _embed(params["token_embed"], cfg, plan, tp, tokens)
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    y = y + sinusoidal_positions(S, D, y.dtype, y.device)[positions]
+    for i in range(cfg.num_layers):
+        args = (params, i, cfg, tp, y, positions, enc)
+        y = transformer._remat(_dec_layer, *args) if remat else _dec_layer(*args)
+    y = layer_norm(_ns(params, "dec_final_ln."), y, cfg.norm_eps)
+    return _nll(params, cfg, plan, tp, y, labels, remat)
+
+
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict, plan: TPPlan, tp: TPGroup, *,
             remat: bool = False, batch_groups: tuple = ()) -> torch.Tensor:
-    """``transformer.lm_loss`` (float32, the mean next-token cross entropy
-    plus ``router_aux_coef`` times the MoE aux loss) of the model whose
-    leaves are ``params`` (this rank's blocks, named as
-    ``LM.named_parameters()``) on ``batch`` (``tokens``, ``labels``,
-    optional ``image_embeds``); ``remat`` recomputes each layer's and each
-    loss chunk's activations in the backward pass. ``batch_groups``: the
-    groups (``TPGroup``s) a node's batch is split over, for the MoE aux
-    loss's whole-batch statistics."""
+    """``registry.loss_fn``'s loss (float32: the mean next-token cross
+    entropy plus ``router_aux_coef`` times the MoE aux loss) of the model
+    whose leaves are ``params`` (this rank's blocks, named as the model's
+    ``named_parameters()``) on ``batch`` (``tokens``, ``labels``, optional
+    ``image_embeds``; whisper's ``frames``); ``remat`` recomputes each
+    layer's and each loss chunk's activations in the backward pass.
+    ``batch_groups``: the groups (``TPGroup``s) a node's batch is split
+    over, for the MoE aux loss's whole-batch statistics."""
+    remat = remat and torch.is_grad_enabled()
+    if cfg.arch_type == "audio":
+        return _whisper_loss(params, cfg, batch, plan, tp, remat)
     tokens, labels = batch["tokens"], batch["labels"]
     image_embeds = batch.get("image_embeds")
-    x = _embed(params, cfg, plan, tp, tokens)
+    x = _embed(params["embed.table"], cfg, plan, tp, tokens)
     if image_embeds is not None:
         x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         args = (params, i, cfg, plan, tp, x, positions, batch_groups)
         x, a = transformer._remat(_layer, *args) if remat else _layer(*args)
@@ -531,13 +535,7 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, plan: TPPlan, tp: TPGro
     x = rms_norm(types.SimpleNamespace(scale=params["final_norm.scale"]), x, cfg.norm_eps)
     if image_embeds is not None:
         x = x[:, image_embeds.shape[1]:, :]
-    B, S, _ = x.shape
-    chunk = transformer._XENT_CHUNK if S % transformer._XENT_CHUNK == 0 else S
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c0 in range(0, S, chunk):
-        args = (params, cfg, plan, tp, x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
-        total = total + (transformer._remat(_chunk_nll, *args) if remat else _chunk_nll(*args))
-    loss = total / (B * S)
+    loss = _nll(params, cfg, plan, tp, x, labels, remat)
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_coef * aux
     return loss

@@ -696,3 +696,119 @@ def mesh_import_job(rank: int, n: int) -> dict:
     _, _, loss = setup.train_step(params, None, batch)
     return {"loss": float(loss), "modules": sorted(m for m in sys.modules
                                                    if m.startswith("repro_torch.train"))}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism of every family (tests/test_torch_lm_mesh_families.py)
+# ---------------------------------------------------------------------------
+
+def _latent_per_rank(c_local, norm, eps, tp, split):
+    """A planted fault: MLA's split latent normalised on each rank's block
+    (its own sum of squares), then gathered."""
+    import types
+
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.train import tensor_parallel as T
+
+    if not split:
+        return rms_norm(types.SimpleNamespace(scale=T.copy_to(norm.scale, tp)), c_local, eps)
+    c = rms_norm(types.SimpleNamespace(scale=T.slice_last(norm.scale, tp)), c_local, eps)
+    return T.gather_last_partial(c, tp)
+
+
+def _branch_cut(x_local, tp):
+    """A planted fault: the recurrent branch the gates read cut to this
+    rank's features (the other ranks' blocks zero)."""
+    import torch
+
+    from repro_torch.train import tensor_parallel as T
+
+    full = T.gather_last_partial(x_local, tp)
+    w = x_local.shape[-1]
+    keep = torch.zeros(full.shape[-1], dtype=full.dtype, device=full.device)
+    keep[tp.rank * w:(tp.rank + 1) * w] = 1
+    return full * keep
+
+
+# planted in repro_torch.models.parallel, whose functions the blocks call
+_FAULTS = {"latent_per_rank": ("latent_norm", _latent_per_rank),
+           "gates_cut_per_rank": ("branch", _branch_cut)}
+
+
+def lm_families_job(rank: int, n: int, ref_path: str, arms: dict, lr: float, steps: int,
+                    faults: dict) -> dict:
+    """Every arm of ``test_torch_lm_mesh_families`` on this rank: its blocks
+    of the reference's init on the arm's ``(data, model)`` mesh, the
+    gradient at init (``grad_fn``, the node's first batch), ``steps``
+    ``train_step`` calls; the plan, the gathers' sources, and the planted
+    faults' losses and gradients."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import mixing as M
+    from repro_torch.models import parallel
+    from repro_torch.train import sharding
+    from repro_torch.train.lm_trainer import make_train_setup
+
+    with np.load(ref_path) as f:
+        ref = {k: f[k] for k in f.files}
+    meshes: dict = {}
+    out: dict = {"_rank": rank}
+
+    def batch_at(name, t):
+        b = {"tokens": ref[f"{name}/tokens"][t].astype(np.int64),
+             "labels": ref[f"{name}/labels"][t].astype(np.int64)}
+        if f"{name}/frames" in ref:
+            b["frames"] = ref[f"{name}/frames"][t]
+        return {k: torch.as_tensor(v) for k, v in b.items()}
+
+    for name, arm in arms.items():
+        shape = tuple(arm["mesh"])
+        if shape not in meshes:
+            meshes[shape] = sharding.make_mesh(shape, ("data", "model"))
+        cfg = dataclasses.replace(get_smoke_config(arm["cfg"]), **arm.get("over", {}))
+        setup = make_train_setup(cfg, mesh=meshes[shape], lr=lr, device="cpu")
+        layout = setup._layout
+        prefix = f"{name}/init/"
+        params = {k[len(prefix):]: layout.shard(torch.as_tensor(v), k[len(prefix):])
+                  for k, v in ref.items() if k.startswith(prefix)}
+        ptrs = {v.untyped_storage().data_ptr() for v in params.values()}
+        first = setup.local_batch(batch_at(name, 0))
+        real, gathers = dist.all_gather_into_tensor, []
+
+        def spy(dst, src, *a, **k):
+            gathers.append(src.untyped_storage().data_ptr() in ptrs)
+            return real(dst, src, *a, **k)
+
+        M.reset_collective_bytes()
+        dist.all_gather_into_tensor = spy
+        try:
+            loss0, grads = setup.grad_fn(params, first)
+        finally:
+            dist.all_gather_into_tensor = real
+        calls = {k: v for k, v in M.collective_calls.items() if v}
+        p, losses = params, []
+        for t in range(steps):
+            p, _, loss = setup.train_step(p, None, setup.local_batch(batch_at(name, t)))
+            losses.append(float(loss))
+        plan = setup._core.plan
+        row = {"node": layout.node, "coords": layout.coords, "sizes": layout.sizes,
+               "specs": setup.param_specs, "grad_loss": float(loss0), "grads": _np(grads),
+               "final": _np(p), "losses": losses, "vocab": plan.vocab,
+               "layers": [{k: dict(v) if hasattr(v, "items") else v for k, v in lp.items()}
+                          for lp in plan.layers + plan.enc_layers],
+               "gathered_params": sum(gathers), "gathers": len(gathers), "calls": calls}
+        for fault in faults.get(name, ()):
+            attr, fn = _FAULTS[fault]
+            saved = getattr(parallel, attr)
+            setattr(parallel, attr, fn)
+            try:
+                floss, fgrads = setup.grad_fn(params, first)
+            finally:
+                setattr(parallel, attr, saved)
+            row[f"fault/{fault}"] = {"loss": float(floss), "grads": _np(fgrads)}
+        out[name] = row
+    return out
