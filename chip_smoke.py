@@ -145,7 +145,8 @@ nvcc per source, all at once) and then, on the card:
    prompt), the prefill and 8 long-context decode steps after the prompt
    within 2e-3 of the plain full forward (``impl="plain"``) with
    ``window_override`` at the same positions;
-12. trains qwen3-0.6b at full width and depth in bf16 with the LM trainer
+12. trains qwen3-0.6b at full width, 14 of its 28 layers (``TRAIN``), in
+   bf16 with the LM trainer
    (``train.lm_trainer.make_train_setup``): 4 stacked nodes, per-node
    batch 2 x 1024 tokens (8192 a step), lr 1e-3, the STL-FW topology of
    a 4-domain, one-domain-per-node Pi at budget 2; batches drawn on the
@@ -181,7 +182,8 @@ nvcc per source, all at once) and then, on the card:
    quarantined bytes) on the all-gather transport, 6 steps captured.
    Each arm launches ``gossip_schedule`` and prints ms/step (the last
    segment), peak memory, losses and launches;
-13. trains qwen3-0.6b at full width and depth in bf16 with one node per
+13. trains phase 12's model (qwen3-0.6b at full width, 14 layers) in bf16
+   with one node per
    rank (``make_train_setup(cfg, group=...)``): four rank processes
    (spawned) share the card, each with its own ``NCCL_HOSTID`` (NCCL
    refuses two ranks on one device otherwise, and then moves bytes over
@@ -219,13 +221,14 @@ nvcc per source, all at once) and then, on the card:
    accounting: a bfloat16 leaf moves as bfloat16), each rank's peak memory, the
    backend, the time to spawn and initialise the ranks; the yardstick's
    kernel launches (in the ranks) count as the phase's;
-14. trains qwen3-0.6b whole in bf16 on a mesh of four NCCL ranks sharing
+14. trains phase 12's model in bf16 on a mesh of four NCCL ranks sharing
    the card (``make_train_setup(cfg, mesh=...)``; one spawn and one
    process group, a ``DeviceMesh`` an arm; phase 13's NCCL environment,
    memory cap and ``remat=True``; phase 12's seed, lr and batches, nodes
    0 and 1): (a) dsgd on ``(data 2, model 2)`` -- each node's replica
    split over ``model``, tensor-parallel -- with a static STL-FW schedule
-   of 2 nodes, 3 steps captured (``rollout="scan"``) bitwise the same
+   of 2 nodes, 2 steps captured (``rollout="scan"``; then one more
+   replay, timed alone) bitwise the same
    steps' loop, each node's loss before each step within 1e-2 of a
    stacked 2-node run of the same batches through ``gossip_schedule``,
    and no all-gather in the step; (b) fsdp on ``(2, 2)``, 2 steps, the
@@ -250,7 +253,31 @@ nvcc per source, all at once) and then, on the card:
    gradient, each rank's block of every leaf against the same block of
    the yardstick's, its norm and 4 Gaussian projections within 2e-2 of
    the block's norm (``grad_sketch``, ``TP_GRAD_RTOL``); a rank's
-   parameters at rest within 1.1 x the node's over ``model``.
+   parameters at rest within 1.1 x the node's over ``model``. Then the
+   sharded serve setup on the same ranks (``SERVE``;
+   ``engine.make_serve_setup``, each rank's blocks cut by its specs from
+   the seed's weights): (h) qwen3-0.6b whole in bfloat16 on ``(2, 2)``,
+   the sharded prefill of 4 prompts x 1024 tokens (2 a data rank; flash
+   on each rank's 8 query and 4 kv heads: 28 launches a rank), 16 decode
+   steps by ``serve_step`` and again through a captured ``MeshDecoder``
+   (its NCCL collectives in the graph): every step's logits within 3e-2
+   of the one-card ``prefill`` / ``decode_step`` yardstick's largest
+   magnitude, the captured steps bitwise the eager ones, one capture a
+   rank, a rank's cache at rest its specs' block in bytes, and its
+   parameters, cache and inputs the dry run's ``argument_bytes`` for
+   the same shape (``launch/dryrun.py`` on a fake (2, 2) group, in a
+   process of its own); (i) recurrentgemma-2b at 3 layers and (j)
+   deepseek-v2-236b at 1 layer in float32 on ``(1, 4)`` (the weights
+   drawn in bfloat16 and cast), a prefill and 4 decode steps, within 1e-4
+   -- (i): its single kv head's cache split by head_dim, the RG-LRU state
+   by features, ``rglru_scan`` on a rank's features; (j): MLA's latent
+   cache split by its last dimension and gathered a step. Printed per
+   arm: decode ms/token (captured and eager), prefill seconds, the
+   collectives and bytes a token by kind, each rank's peak memory and
+   resident bytes. After the phase the training CLI (``python -m
+   repro_torch.launch.train``, ``CLI_ARGS``: qwen3-0.6b whole, 4 stacked
+   nodes) runs in a process of its own: it exits 0 with finite losses;
+   its s/step.
    ``scripts/tp_fault_drill.py`` plants a fault in these arms and shows
    that the checks catch it. The yardsticks run in this process before
    the spawn; their launches count as the phase's. Printed: ms/step a rank (the
@@ -2764,9 +2791,21 @@ def phase_long_context(device: torch.device) -> dict:
 # Phase 12: LM D-SGD training on one card
 # ---------------------------------------------------------------------------
 
-TRAIN = {"name": "qwen3-0.6b", "nodes": 4, "batch": 2, "seq": 1024, "lr": 1e-3, "steps": 6,
-         "segment": 2, "budget": 2}
+# phases 12-14's model: qwen3-0.6b at its published widths, 14 of its 28
+# layers (whole before the serve arms of phase 14 came: four ranks over the
+# socket pay ~20-35 ms a collective, and the gossip and TP collectives go
+# with the layers)
+TRAIN = {"name": "qwen3-0.6b", "layers": 14, "nodes": 4, "batch": 2, "seq": 1024, "lr": 1e-3,
+         "steps": 6, "segment": 2, "budget": 2}
 GOSSIP = ("gossip_schedule", "gossip_mix")
+
+
+def train_config():
+    """Phases 12-14's model (``TRAIN``): the config at its depth cut."""
+    return dataclasses.replace(get_config(TRAIN["name"]), num_layers=TRAIN["layers"])
+
+
+LM_KERNELS = GOSSIP + ("flash_attention", "rglru_scan")
 
 
 def card_batches(corpus: DomainSkewCorpus, Pi: np.ndarray, steps: int, batch: int, seq: int,
@@ -2910,7 +2949,7 @@ def phase_lm_training(device: torch.device) -> dict:
     """Phase 12 (module docstring): qwen3-0.6b D-SGD on 4 stacked nodes."""
     t_phase = time.perf_counter()
     label = "12 qwen3-0.6b"
-    cfg = get_config(TRAIN["name"])
+    cfg = train_config()
     n, b, S, steps = TRAIN["nodes"], TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
     Pi = np.eye(n)  # 4 domains, one a node
     res = learn_topology(Pi, budget=TRAIN["budget"])
@@ -3202,8 +3241,9 @@ def rank_yardstick(setup, params0: dict, batches: dict, arrays, steps: int) -> d
 # ---------------------------------------------------------------------------
 
 RANKS = {"nodes": 4, "seed": 0, "timeout_s": 600,
-         # steps an arm takes (each moves the whole model over the socket;
-         # arm (a) 2: phase 14 needs the time)
+         # steps an arm takes (each moves the whole model over the socket);
+         # two at least where a loss is held to a yardstick, so that the
+         # second loss reads the first step's update
          "steps": {"a": 2, "b": 3, "c": 2, "d_schedule": 2, "d_pmean": 1}}
 # NCCL refuses two ranks on one device ("duplicate GPU"); a host id of its
 # own per rank makes it take the ranks for separate hosts and move bytes
@@ -3226,7 +3266,7 @@ def _check_tree() -> dict:
     """The distinct leaf widths of qwen3-0.6b: the embedding (the largest
     leaf), one layer's leaves (every layer has the same) and the final
     norm; shapes from the meta model."""
-    meta = transformer.LM(get_config(TRAIN["name"]), "meta")
+    meta = transformer.LM(train_config(), "meta")
     return {k: tuple(p.shape) for k, p in meta.named_parameters()
             if k.startswith(("embed.", "layers.0.", "final_norm."))}
 
@@ -3411,7 +3451,7 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     group = dist.group.WORLD
     out: dict = {"init_s": time.perf_counter() - t0, "backend": M.group_backend(group)}
     reset_launch_counts()
-    cfg = get_config(TRAIN["name"])
+    cfg = train_config()
     b, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
     Pi = np.eye(n)
     sched = schedule_from_result(learn_topology(Pi, budget=TRAIN["budget"]))
@@ -3673,7 +3713,7 @@ def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
         bound = 1.1 * 2 * max_leaf * (n if r == 0 else 1)
         check(ck["peak_increment"] <= bound, f"{label} rank {r}: the checkpoint's peak "
               f"{ck['peak_increment']} B over {bound:.0f} B")
-    cfg = get_config(TRAIN["name"])
+    cfg = train_config()
     check(rows[0]["checkpoint"]["embed_shape"] == [n, cfg.vocab_size, cfg.d_model],
           f"{label}: checkpoint layout {rows[0]['checkpoint']}")
     check(rows[0]["checkpoint"]["archive_bytes"] >= 2 * n * rows[0]["transports"]["p_tree"],
@@ -3731,15 +3771,17 @@ def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH = {"seed": 0, "timeout_s": 600,
-        # steps an arm takes: (a) captured and loop, (b) fsdp, (c) dsgd_pod
-        "steps": {"a": 3, "b": 2, "c": 2}}
+        # steps an arm takes: (a) captured and loop (the captured leg then
+        # times one more replay), (b) fsdp, (c) dsgd_pod; two each, so that
+        # the second loss held to the yardstick reads the first update
+        "steps": {"a": 2, "b": 2, "c": 2}}
 MESH_TOL = 1e-2  # on losses, against the one-card yardsticks (bfloat16)
 # phase 14 (d)-(g): the other families tensor-parallel, (depth -- None:
 # whole --, (data, model)); deepseek's one layer is ~10 GB of bf16 a node,
 # so data 1: only the tensor-parallel collectives cross the socket
 TP_FAMILIES = {"recurrentgemma-2b": (3, (1, 4)), "xlstm-350m": (4, (2, 2)),
                "whisper-small": (None, (2, 2)), "deepseek-v2-236b": (1, (1, 4))}
-TP_STEPS = 2
+TP_STEPS = 2  # the second loss reads the first update and its gossip over data
 # the TP arms keep their activations (their depths leave room; the sLSTM's
 # step loop would run three times with recomputation)
 TP_COMMON = dict(lr=TRAIN["lr"], remat=False)
@@ -3761,6 +3803,18 @@ TP_LOSS32_TOL = 1e-4
 TP_GRAD_RTOL = 2e-2
 TP_PROBES = 4
 TP_SKETCH_TOKENS = 512  # the float32 pass: the first sequence's first tokens
+# phase 14 (h)-(j): the sharded serve setup on the same ranks. key ->
+# (family, depth (None: whole), (data, model), prompts, prompt length,
+# decode steps, dtype run, the logits' limit against the one-card
+# yardstick, relative to their largest magnitude). The weights are drawn
+# in the config's bfloat16 from the seed and cast (float32 arms), so a
+# rank draws a node's 10 GB of deepseek, not 20
+SERVE = {"h": ("qwen3-0.6b", None, (2, 2), 4, 1024, 16, "bfloat16", 3e-2),
+         "i": ("recurrentgemma-2b", 3, (1, 4), 2, 1024, 4, "float32", 1e-4),
+         "j": ("deepseek-v2-236b", 1, (1, 4), 2, 512, 4, "float32", 1e-4)}
+# the CLI's full-width run after phase 14 (4 stacked nodes on the card)
+CLI_ARGS = ("--arch", "qwen3-0.6b", "--full", "--data", "4", "--steps", "4",
+            "--topology", "stl-fw", "--budget", "2")
 
 
 def tp_config(name: str):
@@ -3858,7 +3912,7 @@ def tp_batches(cfg, nodes: int, device: torch.device) -> dict:
 def mesh_batches(device: torch.device) -> dict:
     """Phase 12's batches (4 nodes, its seed), nodes 0 and 1: ``(steps, 2,
     batch, seq)``, the reference's layout of 2 nodes (pods) of 2 sequences."""
-    cfg = get_config(TRAIN["name"])
+    cfg = train_config()
     n = RANKS["nodes"]
     corpus = DomainSkewCorpus(cfg.vocab_size, n_domains=n, seed=0)
     batches = card_batches(corpus, np.eye(n), max(MESH["steps"].values()), TRAIN["batch"],
@@ -3909,7 +3963,7 @@ def mesh_yardsticks(device: torch.device) -> dict:
     sequences. All recompute activations in the backward (``remat``, the
     same gradients)."""
     t0 = time.perf_counter()
-    cfg = get_config(TRAIN["name"])
+    cfg = train_config()
     steps = MESH["steps"]
     two = mesh_batches(device)
     sched = schedule_from_result(learn_topology(np.eye(2), budget=1))  # 2 one-domain nodes
@@ -3949,8 +4003,9 @@ def mesh_yardsticks(device: torch.device) -> dict:
     free_card()
     out["tp"] = {name: tp_yardstick(name, device) for name in TP_FAMILIES}
     free_card()
+    out["serve"] = {key: serve_yardstick(key, device) for key in SERVE}
     counts = launch_counts()
-    out["launches"] = {k: counts[k] for k in GOSSIP}
+    out["launches"] = {k: counts[k] for k in LM_KERNELS}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3961,13 +4016,12 @@ def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     import torch.distributed as dist
 
     from repro_torch.core import mixing as M
-    from repro_torch.train.sharding import make_mesh
 
     t0 = time.perf_counter()
     device = join_ranks(rank, n, init, device)
     out: dict = {"init_s": time.perf_counter() - t0, "backend": M.group_backend(None)}
     reset_launch_counts()
-    cfg = get_config(TRAIN["name"])
+    cfg = train_config()
     steps = MESH["steps"]
     two = mesh_batches(device)
     out["token_sum"] = int(two["tokens"].sum())
@@ -3975,6 +4029,7 @@ def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
                              perms=tuple(tuple(p) for p in yard["sched"]["perms"]))
     common = dict(lr=TRAIN["lr"], device=device, remat=True)
     arms: dict = {}
+    serve: dict = {}
 
     def measured(label: str, k: int, fn):
         M.reset_collective_bytes()
@@ -3991,17 +4046,25 @@ def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
         return res
 
     def steps_of(setup, rollout: str, params, k: int, own: list | None = None,
-                 times: list | None = None):
+                 times: list | None = None, replay: list | None = None):
         multi = setup.multi_step_fn(rollout)
         losses = []
-        for t in range(k):
+        for t in range(k + (replay is not None)):
             torch.cuda.synchronize()
             tic = time.perf_counter()
-            batch = setup.local_batch({kk: v[t] for kk, v in two.items()} if setup.mode != "fsdp"
-                                      else {kk: v[t].reshape((-1,) + v.shape[3:])
+            i = min(t, k - 1)  # the timed replay takes the last step's batch again
+            batch = setup.local_batch({kk: v[i] for kk, v in two.items()} if setup.mode != "fsdp"
+                                      else {kk: v[i].reshape((-1,) + v.shape[3:])
                                             for kk, v in two.items()})
             if own is not None:
-                own.append(float(setup.grad_fn(params, batch)[0]))
+                own.append(node_loss(setup, params, batch))
+            if t == k:  # one more replay, timed alone, on a copy: the result is the k steps'
+                tic = time.perf_counter()
+                multi({kk: v.clone() for kk, v in params.items()}, None,
+                      {kk: v[None] for kk, v in batch.items()})
+                torch.cuda.synchronize()
+                replay.append(1e3 * (time.perf_counter() - tic))
+                break
             params, _, lo = multi(params, None, {kk: v[None] for kk, v in batch.items()})
             losses.append(lo)
             torch.cuda.synchronize()
@@ -4011,30 +4074,32 @@ def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
 
     # (a) dsgd on (data 2, model 2): the schedule, captured against the loop
     tic = time.perf_counter()
-    mesh = make_mesh((2, 2), ("data", "model"))
+    mesh = mesh_of((2, 2), ("data", "model"))
     setup = make_train_setup(cfg, mesh=mesh, schedule=sched, **common)
     out["mesh_s"] = time.perf_counter() - tic
     params0 = setup.init_params(MESH["seed"])
     out["a_resident_bytes"] = sum(v.numel() * v.element_size() for v in params0.values())
     out["a_coords"] = setup._layout.coords
-    own, t_loop, t_scan = [], [], []
+    own, t_loop, t_scan, t_replay = [], [], [], []
     pl, ll, _ = measured("a_dsgd_tp_loop", steps["a"],
                          lambda: steps_of(setup, "loop", params0, steps["a"], own, t_loop))
     # gloo cannot capture: a CPU rehearsal runs both as the loop
     pc, lc, traces = measured("a_dsgd_tp_scan", steps["a"], lambda: steps_of(
-        setup, "scan" if device.type == "cuda" else "loop", params0, steps["a"], None, t_scan))
+        setup, "scan" if device.type == "cuda" else "loop", params0, steps["a"], None, t_scan,
+        t_replay))
     arms["a_dsgd_tp_loop"].update({"losses": ll.tolist(), "own_losses": own, "step_ms": t_loop,
                                    "note": "each step after a grad_fn pass (the node's loss)"})
-    # the scan's steps: the eager warm-up, the capture and a replay, a replay
+    # the scan's steps: the eager warm-up, the capture and a replay; then
+    # one more replay, timed alone
     arms["a_dsgd_tp_scan"].update({"losses": lc.tolist(), "captures": traces, "step_ms": t_scan,
-                                   "replay_ms": t_scan[-1]})
+                                   "replay_ms": t_replay[0]})
     out["a_captured_is_loop"] = bool(torch.equal(lc, ll)) and all(
         torch.equal(pc[k], pl[k]) for k in pc)
     out["a_comm_model"] = setup.comm_bytes_per_step
     del pc, pl, setup, params0
     free_card()
     # (b) fsdp on (data 2, model 2): one model, a quarter a rank at rest
-    mesh = make_mesh((2, 2), ("data", "model"))
+    mesh = mesh_of((2, 2), ("data", "model"))
     setup = make_train_setup(cfg, mesh=mesh, mode="fsdp", **common)
     params0 = setup.init_params(MESH["seed"])
     out["b_resident_bytes"] = sum(v.numel() * v.element_size() for v in params0.values())
@@ -4044,7 +4109,7 @@ def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     del setup, params0
     free_card()
     # (c) dsgd_pod on (pod 2, data 2, model 1): the complete graph over pods
-    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    mesh = mesh_of((2, 2, 1), ("pod", "data", "model"))
     setup = make_train_setup(cfg, mesh=mesh, mode="dsgd_pod", **common)
     params0 = setup.init_params(MESH["seed"])
     out["c_resident_bytes"] = sum(v.numel() * v.element_size() for v in params0.values())
@@ -4057,11 +4122,35 @@ def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     for name in TP_FAMILIES:
         tp_arm(name, device, measured, arms)
         free_card()
-    out.update({"arms": arms, "launches": launch_counts(),
+    # (h)-(j): the sharded serve setup, the yardsticks' tokens
+    for key in SERVE:
+        serve_arm(key, device, yard["serve"][key]["tokens"], serve)
+    out.update({"arms": arms, "serve": serve, "launches": launch_counts(),
                 "seconds": time.perf_counter() - t0})
     dist.barrier()
     dist.destroy_process_group()
     return out
+
+
+_MESHES: dict = {}
+
+
+def mesh_of(shape: tuple, names: tuple):
+    """This rank's ``DeviceMesh`` of ``shape``, made once a process (its
+    groups' communicators set up once)."""
+    if (shape, names) not in _MESHES:
+        _MESHES[(shape, names)] = sharding.make_mesh(shape, names)
+    return _MESHES[(shape, names)]
+
+
+def node_loss(setup, params: dict, batch: dict) -> float:
+    """A mesh setup's node loss on ``batch`` (a rank's slice): the forward
+    of its gradient pass (``tensor_parallel.lm_loss``), no gradient."""
+    from repro_torch.train import tensor_parallel
+
+    core = setup._core
+    with torch.no_grad():
+        return float(tensor_parallel.lm_loss(params, core.cfg, batch, core.plan, core.tp))
 
 
 def tp_arm(name: str, device: torch.device, measured, arms: dict) -> None:
@@ -4072,7 +4161,7 @@ def tp_arm(name: str, device: torch.device, measured, arms: dict) -> None:
     ``arms["tp_" + name]``."""
     cfg = tp_config(name)
     shape = TP_FAMILIES[name][1]
-    mesh = sharding.make_mesh(shape, ("data", "model"))
+    mesh = mesh_of(shape, ("data", "model"))
     setup = make_train_setup(cfg, mesh=mesh, **TP_COMMON, device=device)
     params0 = setup.init_params(MESH["seed"])
     resident = sum(v.numel() * v.element_size() for v in params0.values())
@@ -4098,6 +4187,195 @@ def tp_arm(name: str, device: torch.device, measured, arms: dict) -> None:
     del multi, local, setup
 
 
+def serve_configs(key: str):
+    """(the config the weights are drawn in, the config served) of a
+    phase-14 serve arm."""
+    name, depth, *_, dtype, _ = SERVE[key]
+    cfg = get_config(name)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    return cfg, dataclasses.replace(cfg, dtype=dtype)
+
+
+def serve_prompt(key: str, device) -> torch.Tensor:
+    """A serve arm's prompts (B, S): uniform tokens from the seed."""
+    name, _, _, B, S, *_ = SERVE[key]
+    rng = np.random.default_rng(MESH["seed"] + 1)
+    return torch.as_tensor(rng.integers(0, get_config(name).vocab_size, (B, S)), device=device)
+
+
+def serve_model(key: str, device, cast: bool = True):
+    """The serve arm's whole model on ``device``: drawn from the seed in
+    the config's dtype, cast to the served dtype (``cast``)."""
+    cfg_init, cfg = serve_configs(key)
+    model = registry.init_model(cfg_init, seed=MESH["seed"], device=device)
+    if cast and cfg.dtype != cfg_init.dtype:
+        model = model.to(dtype_of(cfg))
+        model.cfg = cfg
+    return model
+
+
+def serve_yardstick(key: str, device: torch.device) -> dict:
+    """A serve arm's one-card yardstick: ``engine.prefill`` of the prompts,
+    then ``decode_step`` eagerly on the greedy tokens; every step's logits
+    (float32, on the host) and the tokens fed."""
+    tic = time.perf_counter()
+    _, cfg = serve_configs(key)
+    *_, steps, _, _ = SERVE[key]
+    model = serve_model(key, device)
+    prompt = serve_prompt(key, device)
+    B, S = prompt.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(model, cfg, prompt, max_len=S + steps + 1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, tokens = [logits.float().cpu()], []
+        tok = logits.argmax(dim=-1, keepdim=True)
+        t0 = time.perf_counter()
+        for t in range(steps):
+            tokens.append(tok)
+            lo, cache = engine.decode_step(model, cfg, tok, torch.full_like(tok, S + t), cache)
+            out.append(lo.float().cpu())
+            tok = lo.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / steps
+    del model, cache
+    free_card()
+    return {"tokens": torch.stack(tokens).cpu().tolist(), "logits": torch.stack(out),
+            "prefill_s": prefill_s, "decode_ms": decode_ms,
+            "seconds": time.perf_counter() - tic}
+
+
+def serve_arm(key: str, device: torch.device, tokens: list, arms: dict) -> None:
+    """Phase 14 (h)-(j) on this rank: the arm's model split by the serve
+    setup's specs (``engine.make_serve_setup``), the sharded prefill of
+    its prompts into a fresh cache block, its decode steps on the
+    yardstick's tokens by ``serve_step`` (eager, timed), and for (h) the
+    same steps through a captured ``MeshDecoder`` from a second prefill;
+    into ``arms[key]``."""
+    from repro_torch.core import mixing as M
+
+    tic_arm = time.perf_counter()
+    name, _, shape, B, S, steps, _, _ = SERVE[key]
+    _, cfg = serve_configs(key)
+    mesh = mesh_of(shape, ("data", "model"))
+    setup = engine.make_serve_setup(cfg, mesh, batch=B, seq_len=S + steps + 1, device=device)
+    model = serve_model(key, device, cast=False)  # a rank casts its blocks, not the model
+    params = {k: sharding.shard(p.detach(), setup.param_specs[k], mesh).to(dtype_of(cfg))
+              for k, p in model.named_parameters()}
+    del model
+    free_card()
+    prompt = setup.local_batch(serve_prompt(key, device))
+    toks = [setup.local_batch(torch.as_tensor(t, device=device)) for t in tokens]
+    cache = setup.init_cache()
+    leaves: list = []
+    engine._map_cache(lambda _, t: leaves.append(t) or t, cache, flags=False)
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    param_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts0 = launch_counts()
+    M.reset_collective_bytes()
+    tic = time.perf_counter()
+    logits = [setup.prefill(params, prompt, cache)]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - tic
+    counts1 = launch_counts()
+    prefill_bytes = {k: v for k, v in M.collective_bytes.items() if v}
+    M.reset_collective_bytes()
+    eager_ms = []
+    for t in range(steps):
+        tic = time.perf_counter()
+        lo, _ = setup.serve_step(params, toks[t], torch.full_like(toks[t], S + t), cache)
+        torch.cuda.synchronize()
+        eager_ms.append(1e3 * (time.perf_counter() - tic))
+        logits.append(lo)
+    out = {"mesh": list(shape), "coords": sharding.mesh_coords(mesh),
+           "prefill_s": prefill_s, "eager_ms": eager_ms,
+           "flash_prefill": counts1["flash_attention"] - counts0["flash_attention"],
+           "scan_prefill": counts1["rglru_scan"] - counts0["rglru_scan"],
+           "prefill_bytes": prefill_bytes,
+           "bytes_per_token": {k: v / steps for k, v in M.collective_bytes.items() if v},
+           "collectives_per_token": {k: v / steps for k, v in M.collective_calls.items() if v},
+           "cache_bytes": cache_bytes, "cache_spec_bytes": setup.cache_bytes(),
+           "param_bytes": param_bytes, "param_spec_bytes": setup.param_bytes(),
+           "token_bytes": 2 * toks[0].numel() * toks[0].element_size()}
+    if key == "h":
+        dec = setup.decoder(params, setup.init_cache())
+        dec.start(prompt)
+        captured, cap_ms = [], []
+        for t in range(steps):
+            tic = time.perf_counter()
+            dec.step(toks[t])
+            torch.cuda.synchronize()
+            cap_ms.append(1e3 * (time.perf_counter() - tic))
+            captured.append(dec.logits.clone())
+        out.update({"captures": dec.n_captures, "captured_ms": cap_ms,
+                    "captured_is_eager": all(torch.equal(c, e)
+                                             for c, e in zip(captured, logits[1:]))})
+        del dec, captured
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - tic_arm
+    # the logits are whole on every rank of a data coordinate: the first
+    # model rank returns them, the others a checksum
+    out["checksum"] = [float(x.double().sum()) for x in logits]
+    if out["coords"]["model"] == 0:  # numpy: a tensor would go back by a file descriptor
+        out["logits"] = [x.float().cpu().numpy() for x in logits]
+    arms[key] = out
+    del params, cache, logits
+    free_card()
+
+
+def dry_run_process(key: str) -> subprocess.Popen:
+    """The dry run of a serve arm's decode step at its shape on a fake
+    process group of its mesh (``launch/dryrun.py``; the CPU only), in a
+    process of its own."""
+    name, _, shape, B, S, steps, _, _ = SERVE[key]
+    code = (f"import json; from repro_torch.launch import dryrun; "
+            f"rec = dryrun.run_one({name!r}, 'decode', '{shape[0]}x{shape[1]}', None, "
+            f"shape={{'seq_len': {S + steps + 1}, 'global_batch': {B}, 'kind': 'decode'}}); "
+            f"print('RECORD ' + json.dumps(rec))")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+
+
+def dry_run_record(proc: subprocess.Popen) -> dict:
+    stdout, stderr = proc.communicate(timeout=600)
+    line = next((x for x in stdout.splitlines() if x.startswith("RECORD ")), None)
+    check(proc.returncode == 0 and line is not None, f"the dry run failed: {stderr[-2000:]}")
+    rec = json.loads(line[len("RECORD "):])
+    check(rec["status"] == "ok", f"the dry run failed: {rec.get('traceback')}")
+    return rec
+
+
+def phase_cli() -> dict:
+    """``python -m repro_torch.launch.train`` (``CLI_ARGS``: qwen3-0.6b
+    whole, 4 stacked nodes on the card, STL-FW budget 2) in a process of
+    its own: it exits 0, its losses are finite; its s/step."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    tic = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGS],
+                          capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - tic
+    check(proc.returncode == 0, f"14 cli: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    line = next((x for x in proc.stdout.splitlines() if x.startswith("loss: ")), "")
+    vals = [float(v) for v in line.split()[1:4:2]] if line else []
+    check(len(vals) == 2 and all(math.isfinite(v) for v in vals),
+          f"14 cli: no finite losses in {proc.stdout[-2000:]}")
+    steps = [x for x in proc.stdout.splitlines() if x.startswith("step ")]
+    s_per_step = float(steps[-1].split("(")[1].split("s/step")[0])
+    out = {"args": " ".join(CLI_ARGS), "loss_first": vals[0], "loss_last": vals[1],
+           "s_per_step": s_per_step, "wall_s": wall, "steps_printed": steps}
+    note("# 14 cli " + json.dumps(out))
+    return out
+
+
 def _mesh_worker(rank: int, n: int, init: str, yard: dict, device: torch.device,
                  queue) -> None:
     """A phase-14 rank process: its NCCL environment, then ``mesh_phase``."""
@@ -4112,9 +4390,12 @@ def _mesh_worker(rank: int, n: int, init: str, yard: dict, device: torch.device,
 
 
 def without_sketches(yard: dict) -> dict:
-    """Phase 14's yardsticks less the TP arms' gradient sketches."""
+    """Phase 14's yardsticks less the TP arms' gradient sketches and the
+    serve arms' logits."""
     return yard | {"tp": {k: {kk: vv for kk, vv in v.items() if kk != "sketch"}
-                          for k, v in yard["tp"].items()}}
+                          for k, v in yard["tp"].items()},
+                   "serve": {k: {kk: vv for kk, vv in v.items() if kk != "logits"}
+                             for k, v in yard["serve"].items()}}
 
 
 def check_tp(where: str, arm: dict, ref: dict, err: dict) -> None:
@@ -4141,8 +4422,10 @@ def phase_lm_mesh(device: torch.device) -> dict:
     # the ranks take the yardsticks without the sketches, which the checks
     # below read here: a payload past the pipe's 64 KiB makes each spawn
     # wait for the last child to import this module
+    dry = dry_run_process("h")  # on the host's CPU while the ranks run
     rows, wall = spawn_ranks(_mesh_worker, RANKS["nodes"], without_sketches(yard), device,
                              MESH["timeout_s"], label)
+    serve = check_serve(label, rows, yard, dry_run_record(dry), device)
     tol, tp_err = MESH_TOL, {}
     for r, row in enumerate(rows):
         want = "nccl" if device.type == "cuda" else "gloo"
@@ -4182,8 +4465,8 @@ def phase_lm_mesh(device: torch.device) -> dict:
           f"{label}: the odd placements did not run (recurrentgemma's heads inside a head, "
           f"whisper's table by features)")
     launches = {k: yard["launches"][k] + sum(row["launches"][k] for row in rows)
-                for k in GOSSIP}
-    check(all(v > 0 for v in launches.values()), f"{label}: yardstick launches {launches}")
+                for k in LM_KERNELS}
+    check(all(v > 0 for v in launches.values()), f"{label}: launches {launches}")
     arms0 = rows[0]["arms"]
     summary = {
         "seconds": time.perf_counter() - t_phase, "yardstick_s": yard["seconds"],
@@ -4192,6 +4475,7 @@ def phase_lm_mesh(device: torch.device) -> dict:
         "rank_seconds": [row["seconds"] for row in rows], "backend": rows[0]["backend"],
         "ms_per_step": {k: v["ms_per_step"] for k, v in arms0.items()},
         "a_step_ms": {k: arms0[k]["step_ms"] for k in ("a_dsgd_tp_loop", "a_dsgd_tp_scan")},
+        "a_replay_ms": arms0["a_dsgd_tp_scan"]["replay_ms"],
         "bytes_per_step": {k: v["bytes_per_step"] for k, v in arms0.items()},
         "collectives_per_step": {k: v["collectives_per_step"] for k, v in arms0.items()},
         "a_bytes_model": rows[0]["a_comm_model"], "model_bytes": yard["model_bytes"],
@@ -4208,11 +4492,94 @@ def phase_lm_mesh(device: torch.device) -> dict:
                               for k in TP_FAMILIES},
         "tp_errors": tp_err, "tp_limits": {"loss": TP_LOSS_TOL, "loss32": TP_LOSS32_TOL,
                                            "grad_rtol": TP_GRAD_RTOL},
-        "launches": launches,
+        "launches": launches, "serve": serve,
         "note": "ranks share one card; NCCL moves bytes over its socket transport (loopback): "
                 "not a multi-card rate"}
     note(f"# {label} " + json.dumps(summary))
     return launches
+
+
+def logits_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest gap of two logits arrays over the reference's largest
+    magnitude."""
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_serve(label: str, rows: list, yard: dict, dry: dict, device: torch.device) -> dict:
+    """Phase 14 (h)-(j) against the one-card yardsticks: every step's
+    logits within the arm's limit (relative to their largest magnitude),
+    the logits whole and equal on every rank of a data coordinate, the
+    prefill's kernel launches (a flash launch per attention layer, a scan
+    per RG-LRU layer), a rank's cache at rest its specs' block in bytes;
+    (h) also its captured steps bitwise the eager ones, one capture a
+    rank, and the dry run's argument bytes the rank's resident bytes.
+    Returns the arms' summary (printed per arm)."""
+    summary = {}
+    cuda = device.type == "cuda"
+    for key, (name, _, shape, B, S, steps, dtype, tol) in SERVE.items():
+        ref = yard["serve"][key]
+        cfg = serve_configs(key)[1]
+        want_flash = sum(cfg.kind(i) in ("attn", "local_attn") for i in range(cfg.num_layers)) \
+            if cfg.mla is None else 0
+        want_scan = sum(cfg.kind(i) == "rglru" for i in range(cfg.num_layers))
+        err, per_rank = 0.0, []
+        for r, row in enumerate(rows):
+            arm = row["serve"][key]
+            where = f"{label} serve ({key}) {name} {shape} rank {r}"
+            if "logits" in arm:
+                d, rows_d = arm["coords"]["data"], B // shape[0]
+                for t, got in enumerate(arm["logits"]):
+                    e = logits_error(got, ref["logits"][t][d * rows_d:(d + 1) * rows_d])
+                    err = max(err, e)
+                    check(e <= tol, f"{where}: step {t} logits off the one-card yardstick by "
+                                    f"{e:.3e} (limit {tol})")
+            twin = next(x["serve"][key] for x in rows
+                        if x["serve"][key]["coords"] == {"data": arm["coords"]["data"],
+                                                         "model": 0})
+            check(arm["checksum"] == twin["checksum"], f"{where}: logits differ across model")
+            check(not cuda or (arm["flash_prefill"] == want_flash and
+                               arm["scan_prefill"] == want_scan),
+                  f"{where}: prefill launched {arm['flash_prefill']} flash / "
+                  f"{arm['scan_prefill']} scan, not {want_flash} / {want_scan}")
+            check(arm["cache_bytes"] == arm["cache_spec_bytes"],
+                  f"{where}: cache at rest {arm['cache_bytes']} B, its specs' block "
+                  f"{arm['cache_spec_bytes']} B")
+            check(arm["param_bytes"] == arm["param_spec_bytes"],
+                  f"{where}: parameters at rest {arm['param_bytes']} B, the specs' "
+                  f"{arm['param_spec_bytes']} B")
+            resident = arm["param_bytes"] + arm["cache_bytes"] + arm["token_bytes"]
+            if key == "h":
+                check(arm["captured_is_eager"], f"{where}: captured steps != eager steps")
+                check(arm["captures"] == 1, f"{where}: {arm['captures']} captures, not 1")
+                check(resident == dry["memory"]["argument_bytes"],
+                      f"{where}: resident {resident} B, the dry run's argument bytes "
+                      f"{dry['memory']['argument_bytes']}")
+            per_rank.append({"peak_gb": arm["peak_gb"], "resident_bytes": resident,
+                             "prefill_s": arm["prefill_s"]})
+        a0 = rows[0]["serve"][key]
+        out = {"mesh": list(shape), "dtype": dtype, "prompts": B, "prompt_len": S,
+               "steps": steps, "max_logits_err": err, "limit": tol,
+               "prefill_s": a0["prefill_s"], "one_card_prefill_s": ref["prefill_s"],
+               "eager_ms_per_token": float(np.median(a0["eager_ms"])),
+               "one_card_eager_ms_per_token": ref["decode_ms"],
+               "bytes_per_token": a0["bytes_per_token"],
+               "collectives_per_token": a0["collectives_per_token"],
+               "prefill_bytes": a0["prefill_bytes"],
+               "flash_prefill": a0["flash_prefill"], "scan_prefill": a0["scan_prefill"],
+               "cache_bytes": a0["cache_bytes"], "param_bytes": a0["param_bytes"],
+               "ranks": per_rank, "yardstick_s": ref["seconds"], "arm_s": a0["seconds"]}
+        if key == "h":
+            # the replays: the first step warms up, the second captures
+            out.update({"captured_ms_per_token": float(np.median(a0["captured_ms"][2:])),
+                        "captured_ms": a0["captured_ms"], "captures": a0["captures"],
+                        "dry_run_argument_bytes": dry["memory"]["argument_bytes"],
+                        "dry_run_temp_bytes": dry["memory"]["temp_bytes"],
+                        "dry_run_collectives": {k: v for k, v in dry["collectives"].items()
+                                                if k not in ("calls", "by_axis")}})
+        note(f"# {label} serve ({key}) {name} " + json.dumps(out))
+        summary[key] = out
+    return summary
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4302,6 +4669,7 @@ def main(argv: list[str] | None = None) -> int:
     mesh = phase_lm_mesh(torch.device("cuda"))
     for k, v in mesh.items():
         launches[k] += v
+    phase_cli()
     stamp("14")
 
     kernels = []

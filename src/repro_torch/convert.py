@@ -34,6 +34,12 @@ unstacked tree (``fsdp``), cut by the setup's specs
 (``train.sharding``) at its mesh coordinates. The checkpoint's gather is
 its inverse (``TrainSetup.run_segments``).
 
+``lm_cache_from_numpy`` carries the reference's decode cache (its
+``init_cache`` / ``prefill`` pytree, as numpy arrays: ``stages`` leaves
+stacked on the group axis, ``tail`` after them; whisper's flat dict) into
+the port's layout, one dict per layer (``transformer.init_cache``), the
+``index`` as int64.
+
 ``lm_stacked_from_numpy`` / ``lm_stacked_to_numpy`` carry the LM
 trainer's parameters: the reference's ``make_train_setup(...).init_params``
 pytree has a leading node axis on every leaf, before the ``stages``
@@ -58,6 +64,7 @@ __all__ = [
     "lm_params_from_numpy",
     "lm_params_to_numpy",
     "module_params_from_numpy",
+    "lm_cache_from_numpy",
     "lm_stacked_from_numpy",
     "lm_stacked_to_numpy",
     "lm_node_from_numpy",
@@ -320,3 +327,24 @@ def lm_params_to_numpy(model) -> dict:
         "tail": layers[reps * plen :],
         "final_norm": _nest({n: _array(p) for n, p in model.final_norm.named_parameters()}),
     }
+
+
+def lm_cache_from_numpy(tree: dict, cfg, *, device: torch.device | str | None = None):
+    """The port's cache of the reference's cache pytree (numpy leaves) on
+    ``device`` (None = CUDA): a list of per-layer dicts, or whisper's
+    ``{"encoder_out", "self": [...]}``; indices int64."""
+    device = resolve_device(device)
+
+    def leaf(name, arr):
+        t = _tensor(np.asarray(arr))
+        return (t.to(torch.int64) if name == "index" else t).to(device)
+
+    def layer(d: dict, g: int | None = None) -> dict:
+        return {k: leaf(k, v if g is None else np.asarray(v)[g]) for k, v in d.items()}
+
+    if cfg.arch_type == "audio":
+        return {"encoder_out": leaf("encoder_out", tree["encoder_out"]),
+                "self": [layer(d) for d in tree["self"]]}
+    reps, plen = _layer_slots(cfg)
+    return [layer(tree["stages"][i % plen], i // plen) if i < reps * plen
+            else layer(tree["tail"][i - reps * plen]) for i in range(cfg.num_layers)]

@@ -26,6 +26,11 @@ elsewhere is first copied into a fresh tensor.
 
 ``launch_counts["flash_attention"]`` rises by one at every launch of
 either kernel and nowhere else.
+
+On a ``meta`` tensor (the dry run's shape-only pass, ``launch/dryrun.py``)
+nothing launches and nothing is counted: the call returns an empty output
+of q's shape and appends its shape to ``meta_calls``, from which the dry
+run adds the launch's FLOPs.
 """
 
 from __future__ import annotations
@@ -38,9 +43,12 @@ from .ref import flash_attention_ref
 
 __all__ = [
     "flash_attention", "kernel_design", "launch_counts", "reset_launch_counts", "HEAD_DIMS",
+    "meta_calls",
 ]
 
 launch_counts = {"flash_attention": 0}
+# the shapes of the calls made on meta tensors (the dry run reads them)
+meta_calls: list[dict] = []
 HEAD_DIMS = (32, 64, 128, 256)
 
 _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
@@ -75,7 +83,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap) -
             raise ValueError(f"{name} is on {t.device} but q is on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (B, S, heads, D)")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
@@ -111,6 +119,11 @@ def flash_attention(
     softmax weights enter P V as two bfloat16 parts); returns q's dtype.
     """
     _check(q, k, v, window, softcap)
+    if q.device.type == "meta":
+        B, S, H, D = q.shape
+        meta_calls.append({"B": B, "S": S, "H": H, "Hkv": k.shape[2], "D": D,
+                           "causal": causal, "window": window})
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.requires_grad or k.requires_grad or v.requires_grad:

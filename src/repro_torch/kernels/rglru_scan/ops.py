@@ -18,7 +18,9 @@ The kernel has no backward pass, as the reference's has none: a CUDA
 call on an input that requires grad raises instead of detaching it.
 
 ``launch_counts["rglru_scan"]`` rises by one at every launch and nowhere
-else.
+else. On a ``meta`` tensor (the dry run's shape-only pass) nothing
+launches or counts: the call returns an empty output and appends its
+shape to ``meta_calls``.
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ import torch
 
 from .ref import rglru_scan_ref
 
-__all__ = ["rglru_scan", "kernel_design", "launch_counts", "reset_launch_counts"]
+__all__ = ["rglru_scan", "kernel_design", "launch_counts", "reset_launch_counts", "meta_calls"]
 
 launch_counts = {"rglru_scan": 0}
+# the shapes of the calls made on meta tensors (the dry run reads them)
+meta_calls: list[dict] = []
 
 _SYMBOLS = {torch.float32: "rglru_scan_f32", torch.bfloat16: "rglru_scan_bf16"}
 _P = ctypes.c_void_p
@@ -73,8 +77,11 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape != b.shape or a.dtype != b.dtype:
         raise ValueError(f"a and b differ: {tuple(a.shape)} {a.dtype} vs "
                          f"{tuple(b.shape)} {b.dtype}")
-    if a.device != b.device or a.device.type not in ("cpu", "cuda"):
+    if a.device != b.device or a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"a and b must share a cpu or cuda device, got {a.device}, {b.device}")
+    if a.device.type == "meta":
+        meta_calls.append(dict(zip("BSD", a.shape)))
+        return torch.empty_like(a)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.requires_grad or b.requires_grad:

@@ -23,7 +23,7 @@ from . import (
     whisper,
     xlstm,
 )
-from .common import ModelConfig, param_count
+from .common import ModelConfig, active_param_count, param_count
 from .registry import init_model, loss_fn, make_inputs, model_forward
 
 __all__ = [
@@ -39,6 +39,7 @@ __all__ = [
     "xlstm",
     "ModelConfig",
     "param_count",
+    "active_param_count",
     "init_model",
     "loss_fn",
     "make_inputs",

@@ -116,14 +116,17 @@ def init_attention(
 
 
 def _project_qkv(params: Attention, cfg: ModelConfig, x: torch.Tensor,
-                 tp: P.TPGroup | None = None, kv_x: torch.Tensor | None = None):
+                 tp: P.TPGroup | None = None, kv_x: torch.Tensor | None = None,
+                 all_heads: bool = False):
     """q (B, S, heads, Dh) and k / v (B, Sk, kv heads, Dh); ``kv_x``: keys
     and values from it (cross-attention:
     no bias, no qk-norm). With ``tp`` (the query columns split over its
     ranks, ``wo``'s rows with them): keys and values split by whole heads
     stay local, else they are gathered (or computed whole where the rules
     leave them whole); query heads split inside a head are gathered and
-    every head the rank's columns touch (``parallel.touched``) is kept."""
+    every head the rank's columns touch (``parallel.touched``) is kept;
+    with ``all_heads`` (a decode step over a cache split by head_dim) the
+    queries of every head are gathered."""
     B, S, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     cross = kv_x is not None
@@ -142,10 +145,12 @@ def _project_qkv(params: Attention, cfg: ModelConfig, x: torch.Tensor,
         k = k + (P.slice_last(params.bk, tp) if kv_split else kv_weight(params.bk))
         v = v + (P.slice_last(params.bv, tp) if kv_split else kv_weight(params.bv))
     aligned = tp is None or h % tp.size == 0
-    if kv_split and not (aligned and hkv % tp.size == 0):
+    if kv_split and not (aligned and hkv % tp.size == 0 and not all_heads):
         k, v = P.gather_last_partial(k, tp), P.gather_last_partial(v, tp)
-    lo, hi, _ = P.touched(h, dh, tp)
-    if not aligned:
+    lo, hi, _ = (0, h, 0) if all_heads else P.touched(h, dh, tp)
+    if all_heads:
+        q = P.gather_last(q, tp)
+    elif not aligned:
         q = P.gather_last_partial(q, tp)[..., lo * dh:hi * dh]
     q = q.reshape(B, S, hi - lo, dh)
     k = k.reshape(B, xk.shape[1], -1, dh)
@@ -156,6 +161,51 @@ def _project_qkv(params: Attention, cfg: ModelConfig, x: torch.Tensor,
         k = rms_norm(types.SimpleNamespace(scale=P.copy_to(params.k_norm.scale, tp)), k,
                      cfg.norm_eps)
     return q, k, v
+
+
+def _cache_layout(cache: dict, cfg: ModelConfig) -> str:
+    """How a rank's block of an attention cache splits it over ``model``
+    (``serve.engine``'s cache specs): ``"heads"`` (the kv heads),
+    ``"head_dim"`` (where the kv heads do not divide), or ``"whole"``."""
+    k = cache["k"]
+    if k.shape[2] < cfg.num_kv_heads:
+        return "heads"
+    if k.shape[3] < cfg.resolved_head_dim:
+        return "head_dim"
+    return "whole"
+
+
+def _cache_block(t: torch.Tensor, cache_t: torch.Tensor, layout: str,
+                 tp: P.TPGroup | None) -> torch.Tensor:
+    """This rank's block of new keys or values ``t`` (B, S, heads, Dh) --
+    the rank's kv heads, or every kv head -- for a cache block
+    ``cache_t``."""
+    if layout == "whole" or t.shape[2] == cache_t.shape[2] and t.shape[3] == cache_t.shape[3]:
+        return t
+    dim = 2 if layout == "heads" else 3
+    return P.own_block(t, tp, dim)
+
+
+def _sdpa_split_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                    cfg: ModelConfig, tp: P.TPGroup) -> torch.Tensor:
+    """Attention over a cache split by head_dim: q (B, Sq, H, Dh) every
+    head's queries, k / v (B, Sk, Hkv, Dh / m) the rank's block. The
+    scores' partial products over the rank's Dh block are summed over
+    ``model`` (float32), the softmax runs whole, and the output's Dh
+    blocks are gathered: (B, Sq, H, Dh)."""
+    B, Sq, H, Dh = q.shape
+    Hkv, width = k.shape[2], k.shape[3]
+    groups = H // Hkv
+    qg = P.own_block(q, tp, 3).reshape(B, Sq, Hkv, groups, width)
+    logits = P.reduce_from(torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()), tp)
+    logits = logits * Dh**-0.5
+    if cfg.attn_logit_softcap > 0.0:
+        cap = cfg.attn_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    logits = torch.where(mask[:, :, None] if mask.ndim == 4 else mask, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return P.gather_last(out.reshape(B, Sq, H, width).to(q.dtype), tp)
 
 
 def _own_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, tp: P.TPGroup | None):
@@ -169,15 +219,17 @@ def _own_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, tp: P.TPGroup
 
 
 def _out_proj(params: Attention, cfg: ModelConfig, out: torch.Tensor,
-              tp: P.TPGroup | None) -> torch.Tensor:
-    """The output projection of the rank's heads: its columns kept where
-    the heads split inside a head, partial sums reduced."""
+              tp: P.TPGroup | None, all_heads: bool = False) -> torch.Tensor:
+    """The output projection of the rank's heads (or, ``all_heads``, of
+    every head): its columns kept where the heads split inside a head or
+    every head is here, partial sums reduced."""
     B, S = out.shape[:2]
     out = out.reshape(B, S, -1)
-    if tp is not None and cfg.num_heads % tp.size:
-        dh = cfg.resolved_head_dim
-        off = P.touched(cfg.num_heads, dh, tp)[2]
-        out = out[..., off:off + cfg.num_heads * dh // tp.size]
+    if tp is not None and (all_heads or cfg.num_heads % tp.size):
+        width = cfg.num_heads * cfg.resolved_head_dim // tp.size
+        off = tp.rank * width if all_heads else P.touched(cfg.num_heads,
+                                                          cfg.resolved_head_dim, tp)[2]
+        out = out[..., off:off + width]
     return P.reduce_from(out @ params.wo, tp)
 
 
@@ -287,22 +339,30 @@ def attention(
     ``models/kvcache.py``). ``local=True`` applies the layer's sliding
     window (``window`` overrides ``cfg.sliding_window`` -- the long_500k
     sub-quadratic mode). ``tp``: this rank's block of a split replica
-    (full sequence, ``impl="plain"``; ``_project_qkv``), whole where the
-    rules leave ``wq`` whole.
+    (``_project_qkv``), whole where the rules leave ``wq`` whole; with a
+    cache, the rank's block of it (``serve.engine``'s cache specs): by kv
+    heads (the rank's own), or by head_dim, where a decode step sums the
+    scores' partial products over the ranks (``_sdpa_split_dim``).
     """
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
+    ctp = tp  # the cache's block follows the cache specs, whatever the weights' split
     tp = P.split(tp, params.wq.shape[1], cfg.num_heads * dh)
-    if tp is not None and (cache is not None or impl != "plain"):
-        raise ValueError("a split attention runs the full sequence with impl='plain'")
     eff_window = window if window is not None else (cfg.sliding_window if local else None)
-    q, k, v = _project_qkv(params, cfg, x, tp)
+    layout = "whole" if cache is None else _cache_layout(cache, cfg)
+    if layout == "heads" and (tp is None or cfg.num_heads % tp.size):
+        raise ValueError("a cache split by kv heads needs whole query heads a rank")
+    split_dim = layout == "head_dim" and S == 1
+    q, k, v = _project_qkv(params, cfg, x, tp, all_heads=split_dim)
     cos, sin = rotary_embedding(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    k, v = _own_heads(k, v, cfg, tp)
+    if cache is not None:
+        k_new, v_new = (_cache_block(t, cache[n], layout, ctp) for t, n in ((k, "k"), (v, "v")))
+    if not split_dim:
+        k, v = _own_heads(k, v, cfg, tp)
 
     if cache is None or S > 1:
         # The full sequence, or a prefill (a multi-token append, from a
@@ -322,20 +382,19 @@ def attention(
         if cache is None:
             new_cache = None
         elif local or window is not None:
-            new_cache = update_window_cache(cache, k, v)
+            new_cache = update_window_cache(cache, k_new, v_new)
         else:
-            new_cache = update_full_cache(cache, k, v)
+            new_cache = update_full_cache(cache, k_new, v_new)
     else:
         # positions: (B, S) absolute positions of the new tokens.
         qpos = positions[:, :, None]  # (B, Sq, 1)
         if not (local or window is not None):
-            new_cache = update_full_cache(cache, k, v)
+            new_cache = update_full_cache(cache, k_new, v_new)
             Sk = new_cache["k"].shape[1]
             kpos = torch.arange(Sk, device=x.device)[None, None, :]  # (1, 1, Sk)
             mask = kpos <= qpos  # (B, Sq, Sk)
-            out = _sdpa(q, new_cache["k"], new_cache["v"], mask[:, None], cfg)
         else:  # window ring buffer
-            new_cache = update_window_cache(cache, k, v)
+            new_cache = update_window_cache(cache, k_new, v_new)
             W = new_cache["k"].shape[1]
             slot = torch.arange(W, device=x.device)
             idx = new_cache["index"]  # absolute positions written so far
@@ -346,7 +405,11 @@ def attention(
             mask = (abs_pos >= 0) & (abs_pos <= qpos)
             if eff_window is not None:
                 mask = mask & (abs_pos > qpos - eff_window)
-            out = _sdpa(q, new_cache["k"], new_cache["v"], mask[:, None], cfg)
+        if split_dim:
+            out = _sdpa_split_dim(q, new_cache["k"], new_cache["v"], mask[:, None], cfg, ctp)
+            return _out_proj(params, cfg, out, tp, all_heads=True), new_cache
+        kc, vc = _own_heads(new_cache["k"], new_cache["v"], cfg, tp)
+        out = _sdpa(q, kc, vc, mask[:, None], cfg)
 
     return _out_proj(params, cfg, out, tp), new_cache
 
@@ -502,17 +565,18 @@ def mla_attention(
     ``c_kv`` and the rotated ``k_rope`` only (written in place by
     ``kvcache.update_mla``): appended, or around the ring if the cache
     is one (the long-context mode's). Returns (output, updated cache).
-    ``tp`` (a split replica, the full sequence): this rank's heads of
+    ``tp`` (a split replica): this rank's heads of
     ``wq`` / ``w_uk`` / ``w_uv`` and rows of ``wo``, the latent and the
     shared rope key whole on every rank (gathered where the rules split
     them, the latent before ``kv_norm``), the output's partial sums
-    reduced."""
+    reduced; with a cache, the rank's block of its last dimension
+    (``serve.engine``'s cache specs): a step writes the block of the new
+    latents and gathers the whole cache to decompress it."""
     m = cfg.mla
     B, S, _ = x.shape
     dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    ctp = tp  # the cache's block follows the cache specs
     tp = P.split(tp, params.wq.shape[1], cfg.num_heads * dq)
-    if tp is not None and cache is not None:
-        raise ValueError("a split MLA runs the full sequence")
     x = P.copy_to(x, tp)
     dkv = P.split(tp, params.w_dkv.shape[1], m.kv_lora_rank) is not None
     krope = P.split(tp, params.w_krope.shape[1], m.qk_rope_head_dim) is not None
@@ -528,6 +592,12 @@ def mla_attention(
     # the rope key is shared by the heads: rotated with a singleton head axis
     k_rope = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0, :]
 
+    def block(t, name):  # the rank's block of a new latent / rope key
+        return t if cache[name].shape[-1] == t.shape[-1] else P.own_block(t, ctp, t.ndim - 1)
+
+    def whole(t, full):  # a cache block gathered whole
+        return t if t.shape[-1] == full else P.gather_dim(t, ctp, t.ndim - 1)
+
     long_seq = S > _CHUNK_THRESHOLD and S % _CHUNK_Q == 0
     if cache is None or S > 1:
         # full sequence, or a prefill from a fresh cache: attention over
@@ -537,9 +607,10 @@ def mla_attention(
         else:
             mask = _causal_mask(S, S, window, x.device)
             out = _mla_attend(params, cfg, q_nope, q_rope, c_kv, k_rope, mask)
-        new_cache = None if cache is None else update_mla(cache, c_kv, k_rope)
+        new_cache = None if cache is None else update_mla(
+            cache, block(c_kv, "c_kv"), block(k_rope, "k_rope"))
     else:
-        new_cache = update_mla(cache, c_kv, k_rope)
+        new_cache = update_mla(cache, block(c_kv, "c_kv"), block(k_rope, "k_rope"))
         L = new_cache["c_kv"].shape[1]
         slot = torch.arange(L, device=x.device)
         idx = new_cache["index"]  # on the device: a replayed step reads its own
@@ -551,8 +622,9 @@ def mla_attention(
         mask = (abs_pos >= 0) & (abs_pos <= qpos)
         if window is not None:
             mask = mask & (abs_pos > qpos - window)
-        out = _mla_attend(params, cfg, q_nope, q_rope, new_cache["c_kv"], new_cache["k_rope"],
-                          mask[:, None])
+        out = _mla_attend(params, cfg, q_nope, q_rope,
+                          whole(new_cache["c_kv"], m.kv_lora_rank),
+                          whole(new_cache["k_rope"], m.qk_rope_head_dim), mask[:, None])
     return P.reduce_from(out @ params.wo, tp), new_cache
 
 

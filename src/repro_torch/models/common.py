@@ -35,15 +35,9 @@ __all__ = [
     "truncated_normal_",
     "dtype_of",
     "layer_kind",
-    "NOT_PORTED",
+    "active_param_count",
 ]
 
-# what an entry point still to port raises with: every model family
-# scores, serves (long-context too) and trains -- stacked on one card with
-# every robustness option, one node per rank, or tensor-parallel on a
-# (data, model) or (pod, data, model) mesh --; the sharded serve setup
-# and launch/ wait
-NOT_PORTED = "not ported yet (ROADMAP queue 1 items 13d and 15)"
 # full-sequence implementations: the reference's "xla" and "pallas"
 IMPLS = ("plain", "kernel")
 
@@ -178,3 +172,31 @@ def truncated_normal_(param: torch.Tensor, stddev: float, generator: torch.Gener
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def _named_sizes(model_or_named_shapes) -> dict[str, int]:
+    """``{name: numel}`` of a module's parameters, or of a mapping name ->
+    tensor or shape."""
+    if isinstance(model_or_named_shapes, nn.Module):
+        return {n: p.numel() for n, p in model_or_named_shapes.named_parameters()}
+    out = {}
+    for name, leaf in model_or_named_shapes.items():
+        shape = leaf.shape if isinstance(leaf, torch.Tensor) else leaf
+        n = 1
+        for s in shape:
+            n *= int(s)
+        out[name] = n
+    return out
+
+
+def active_param_count(model_or_named_shapes, cfg: ModelConfig) -> int:
+    """Active parameters per token: with MoE only ``top_k`` of the routed
+    experts' parameters count (the reference's ``active_param_count``,
+    which finds them by ``routed`` in the path). Takes a module or a
+    mapping name -> tensor or shape (a meta model's)."""
+    sizes = _named_sizes(model_or_named_shapes)
+    total = sum(sizes.values())
+    if cfg.moe is None:
+        return total
+    routed = sum(n for name, n in sizes.items() if "routed" in name.split("."))
+    return total - routed + routed * cfg.moe.top_k // cfg.moe.num_experts

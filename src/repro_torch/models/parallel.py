@@ -9,6 +9,11 @@ so the whole model and a rank's split replica run one forward. A block
 sees from its weights' shapes whether the rules split it (:func:`split`)
 and computes whole where they do not.
 
+Serving reads and writes a rank's block of the caches (``serve.engine``'s
+cache specs): ``own_block`` cuts this rank's block of a dimension out of
+a tensor every rank holds whole, ``gather_dim`` gathers a dimension's
+blocks (forward only: caches take no gradient).
+
 ``collective_bytes`` (``core.mixing``) counts what a rank receives under
 ``"tp_all_reduce"`` and ``"tp_all_gather"``, ``collective_calls`` the
 calls.
@@ -26,7 +31,8 @@ from repro_torch.core import mixing as _M
 from .layers import rms_norm
 
 __all__ = ["TPGroup", "split", "copy_to", "reduce_from", "gather_last", "gather_last_partial",
-           "slice_last", "touched", "branch", "latent_norm", "split_rms_norm"]
+           "slice_last", "touched", "branch", "latent_norm", "split_rms_norm", "own_block",
+           "gather_dim"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,3 +224,19 @@ def split_rms_norm(x_local: torch.Tensor, norm, eps: float, tp: TPGroup | None
     ss = copy_to(reduce_from(x32.square().sum(dim=-1, keepdim=True), tp), tp)
     normed = x32 * torch.rsqrt(ss / (x_local.shape[-1] * tp.size) + eps)
     return (normed * slice_last(norm.scale, tp).float()).to(x_local.dtype)
+
+
+def own_block(x: torch.Tensor, tp: TPGroup | None, dim: int) -> torch.Tensor:
+    """This rank's block of dimension ``dim`` of ``x`` (every rank holds it
+    whole), contiguous."""
+    if _one(tp):
+        return x
+    width = x.shape[dim] // tp.size
+    return x.narrow(dim, tp.rank * width, width).contiguous()
+
+
+def gather_dim(x: torch.Tensor, tp: TPGroup | None, dim: int) -> torch.Tensor:
+    """The ranks' blocks of dimension ``dim`` gathered (forward only)."""
+    if _one(tp):
+        return x
+    return _all_gather_last(x.movedim(dim, -1), tp).movedim(-1, dim).contiguous()

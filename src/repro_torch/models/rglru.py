@@ -110,7 +110,7 @@ def rglru_block(
     conv tail land in its own tensors, so a captured decode step reads and
     writes the same storage at every replay) and returned.
 
-    ``tp`` (a split replica, the full sequence): the gate and input
+    ``tp`` (a split replica): the gate and input
     branches by columns, the conv on the rank's features (its block of a
     whole ``conv_w``), the recurrence and input gates from the gathered
     branch (``parallel.branch``: they read all of it; the branch is

@@ -219,6 +219,32 @@ def _mlstm_recurrent_step(q, k, v, i_tilde, f_tilde, state):
     return h, {"C": C_new, "n": n_new, "m": m_new}
 
 
+def _mlstm_step_split(q, k, v, i_tilde, f_tilde, state, tp):
+    """One decode step on a state split over ``tp`` by its last dimension
+    (``serve.engine``'s cache specs: ``C`` (B, H, dh, dh / m), ``n`` (B, H,
+    dh / m), ``m`` (B, H) or its head block): q / k / v (B, H, dh) and the
+    gates (B, H) of every head. The state's update is elementwise on the
+    rank's block of the key dimension; the readout's products over it are
+    summed over the ranks. Returns (h (B, H, dh), the new state's block)."""
+    C, n, m = state["C"], state["n"], state["m"]
+    H, Dh = q.shape[1], q.shape[-1]
+    m_all = m if m.shape[-1] == H else P.gather_dim(m, tp, m.ndim - 1)
+    log_f = F.logsigmoid(f_tilde.float())
+    m_new = torch.maximum(log_f + m_all, i_tilde.float())
+    i_p = torch.exp(i_tilde.float() - m_new)[..., None]
+    f_p = torch.exp(log_f + m_all - m_new)[..., None]
+    kb = P.own_block(k.float() * (Dh**-0.5), tp, 2)
+    qb = P.own_block(q.float(), tp, 2)
+    C_new = f_p[..., None] * C + i_p[..., None] * (v.float()[..., :, None] * kb[..., None, :])
+    n_new = f_p * n + i_p * kb
+    num = P.reduce_from(torch.einsum("bhdk,bhk->bhd", C_new, qb), tp)
+    dot = P.reduce_from(torch.einsum("bhk,bhk->bh", n_new, qb), tp)
+    den = torch.maximum(dot.abs()[..., None], torch.exp(-m_new)[..., None])
+    h = (num / den).to(q.dtype)
+    m_out = m_new if m.shape[-1] == H else P.own_block(m_new, tp, 1)
+    return h, {"C": C_new, "n": n_new, "m": m_out}
+
+
 def _mlstm_prefill_state(k, v, i_tilde, f_tilde):
     """The closed form of the state after a prefill from a fresh state:
     C_T, n_T, m_T of the exp-gate weights at the last position."""
@@ -261,20 +287,28 @@ def mlstm_block(
     when state is None; the recurrent step at S == 1; a prefill (S > 1,
     from a fresh state) otherwise. A given state is written in place.
 
-    ``tp`` (a split replica, the full sequence): up / gate branches by
+    ``tp`` (a split replica): up / gate branches by
     columns, the conv on the rank's features, q / k / v by columns from
     the gathered conv and up branches, the gates (``w_if`` whole) for the
     rank's heads, the output norm over the split features, ``w_down`` by
     rows. Heads split inside a head are gathered; the rank runs every head
-    its columns touch and keeps its columns."""
+    its columns touch and keeps its columns. A state split by its last
+    dimension (``serve.engine``'s cache specs; the conv tail by the rank's
+    features): a decode step gathers every head's q / k / v and runs
+    ``_mlstm_step_split``; a prefill's closed-form state takes every
+    head's keys and values and keeps its block."""
     B, S, D = x.shape
     h = cfg.num_heads
+    ctp = tp  # the state's block follows the cache specs
     tp = P.split(tp, params.w_up.shape[1], int(D * _MLSTM_PROJ))
     xn = P.copy_to(rms_norm(params.norm, x, cfg.norm_eps), tp)
     up = xn @ params.w_up  # (B,S,d_in): the rank's columns under tp
     gate = xn @ params.w_gate
     d_in = up.shape[-1]
     dh = params.wq.shape[0] // h
+    split_state = state is not None and state["C"].shape[-1] < dh
+    if split_state and tp is None:
+        raise ValueError("an mLSTM state split over model needs the block split with it")
 
     conv_w = params.conv_w
     if conv_w.shape[-1] != d_in:
@@ -285,10 +319,19 @@ def mlstm_block(
     conv_full, up_full = P.branch(conv_out, tp), P.branch(up, tp)
     q, k, v = conv_full @ params.wq, conv_full @ params.wk, up_full @ params.wv
     gates = conv_full @ P.copy_to(params.w_if, tp) + P.copy_to(params.b_if, tp)  # (B,S,2h)
+    if split_state:
+        # every head's q / k / v (the rank's columns gathered): the state's
+        # block spans every head
+        qa, ka, va = (P.gather_last(t, tp).reshape(B, S, h, dh).transpose(1, 2)
+                      for t in (q, k, v))
     lo, hi, off = P.touched(h, dh, tp)
-    if tp is not None and h % tp.size:
-        q, k, v = (P.gather_last_partial(t, tp)[..., lo * dh:hi * dh] for t in (q, k, v))
-    q, k, v = (t.reshape(B, S, hi - lo, dh).transpose(1, 2) for t in (q, k, v))
+    if split_state and S == 1:
+        lo, hi, off = 0, h, tp.rank * d_in
+        q, k, v = qa, ka, va
+    else:
+        if tp is not None and h % tp.size:
+            q, k, v = (P.gather_last_partial(t, tp)[..., lo * dh:hi * dh] for t in (q, k, v))
+        q, k, v = (t.reshape(B, S, hi - lo, dh).transpose(1, 2) for t in (q, k, v))
     i_tilde = gates[..., lo:hi].transpose(1, 2)  # (B,h,S)
     f_tilde = gates[..., h + lo:h + hi].transpose(1, 2)
 
@@ -298,7 +341,13 @@ def mlstm_block(
         else:
             h_out = _mlstm_parallel(q, k, v, i_tilde, f_tilde)  # (B,h,S,dh)
     else:
-        if S == 1:
+        if S == 1 and split_state:
+            h_step, new = _mlstm_step_split(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                            i_tilde[:, :, 0], f_tilde[:, :, 0], state, ctp)
+            h_out = h_step[:, :, None, :]
+        elif S == 1:
+            if state["C"].shape[1] != hi - lo:
+                raise ValueError("an mLSTM state of every head beside split heads")
             h_step, new = _mlstm_recurrent_step(
                 q[:, :, 0], k[:, :, 0], v[:, :, 0], i_tilde[:, :, 0], f_tilde[:, :, 0], state)
             h_out = h_step[:, :, None, :]  # (B,h,1,dh)
@@ -307,7 +356,15 @@ def mlstm_block(
             # incoming state is fresh, which is how the serve engine starts a
             # prefill: transformer.reset_cache_)
             h_out = _mlstm_parallel(q, k, v, i_tilde, f_tilde)
-            new = _mlstm_prefill_state(k, v, i_tilde, f_tilde)
+            if split_state:
+                new = _mlstm_prefill_state(ka, va,
+                                           gates[..., :h].transpose(1, 2),
+                                           gates[..., h:].transpose(1, 2))
+                new = {"C": P.own_block(new["C"], ctp, 3), "n": P.own_block(new["n"], ctp, 2),
+                       "m": new["m"] if state["m"].shape[-1] == h else
+                       P.own_block(new["m"], ctp, 1)}
+            else:
+                new = _mlstm_prefill_state(k, v, i_tilde, f_tilde)
         for name, value in new.items():
             state[name].copy_(value)
         state["conv"].copy_(new_conv)
@@ -536,14 +593,18 @@ def slstm_block(
     prefill with S > 1, from the given state); one step at S == 1 with a
     state. A given state is written in place.
 
-    ``tp`` (a split replica, the full sequence), where the rules split
+    ``tp`` (a split replica), where the rules split
     them: the gate inputs gathered whole (``w_in``'s contiguous columns
     hand a rank whole gates, not heads); the time loop on the rank's
     heads of ``r`` (their hidden states gathered after it); the FFN by
-    columns / rows. The rest computes whole."""
+    columns / rows. The rest computes whole. A state split by its last
+    dimension (``serve.engine``'s cache specs) is gathered whole before
+    the loop, the new state's heads gathered after it and its block
+    kept."""
     B, S, D = x.shape
     H = cfg.num_heads
     dh = D // H
+    ctp = tp  # the state's block follows the cache specs
     xn = rms_norm(params.norm, x, cfg.norm_eps)
     heads = P.split(tp, params.r.shape[1], H)
     cols = P.split(tp, params.w_in.shape[1], 4 * D)
@@ -554,19 +615,29 @@ def slstm_block(
         gate_in = P.copy_to(xn, heads) @ P.copy_to(params.w_in, heads)
     gate_in = gate_in + P.copy_to(params.b_in, heads)  # (B,S,4D)
     Hl = params.r.shape[1]
+    h0 = 0 if heads is None else heads.rank * Hl
     if heads is not None:
-        h0 = heads.rank * Hl
         gate_in = gate_in.reshape(B, S, 4, H, dh)[:, :, :, h0:h0 + Hl].reshape(B, S, 4 * Hl * dh)
+    split_state = state is not None and state["c"].shape[-1] < dh
+    run = state
+    if state is not None and (split_state or heads is not None):
+        # the rank's heads of the whole state
+        run = {k: (P.gather_dim(v, ctp, 2) if split_state else v)[:, h0:h0 + Hl]
+               for k, v in state.items()}
 
     if state is None or S > 1:
-        init = state if state is not None else init_slstm_state(cfg, B, x.device, Hl)
+        init = run if run is not None else init_slstm_state(cfg, B, x.device, Hl)
         hs, final = _slstm_scan(params, gate_in, init)  # (S,B,h,dh)
         h_seq = P.gather_last(hs.transpose(0, 1).reshape(B, S, Hl * dh).to(x.dtype), heads)
     else:
-        final = _slstm_step(params, cfg, state, gate_in[:, 0])
-        h_seq = final["h"].reshape(B, 1, D).to(x.dtype)
+        final = _slstm_step(params, cfg, run, gate_in[:, 0])
+        h_seq = P.gather_dim(final["h"], heads, 1).reshape(B, 1, D).to(x.dtype)
     if state is not None:
         for name, value in final.items():
+            if heads is not None:
+                value = P.gather_dim(value, heads, 1)
+            if split_state:
+                value = P.own_block(value, ctp, 2)
             state[name].copy_(value)
 
     h_seq = rms_norm(params.out_norm, h_seq, cfg.norm_eps)

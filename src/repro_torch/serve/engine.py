@@ -41,24 +41,42 @@ it is a ring (``kvcache.init_mla_cache(ring=True)``), so its write never
 depends on the window a forward is given. A decoder serves one mode: a
 ``generate`` in the other mode builds a new decoder, captured anew.
 Whisper takes the flag and ignores it, as the reference does.
-``make_serve_setup`` (the reference's sharded dry-run serve step) waits
-for the mesh slice (ROADMAP queue 1 item 13d).
+
+``make_serve_setup(cfg, mesh, batch=, seq_len=)`` is the reference's
+sharded serve setup on a ``(data, model)`` or ``(pod, data, model)``
+``DeviceMesh`` of joined ranks: parameters split over ``model`` by the
+reference's rules (``train.sharding.make_param_specs`` without node or
+fsdp axis) and run tensor-parallel (``train/tensor_parallel.py``, the
+model's own blocks with their ``tp`` hooks), requests and caches split
+over ``data`` (and ``pod``), each cache leaf over ``model`` as the
+reference's ``_cache_specs_for`` places it (``cache_specs_for``). Its
+``serve_step`` decodes one token on a rank's blocks and returns the
+logits whole over the vocabulary; its ``prefill`` is the dry run's
+sharded prefill (flash on the rank's heads under ``impl="kernel"``, the
+RG-LRU scan on its features); ``ServeSetup.decoder`` captures the step
+with its collectives as a CUDA graph (``MeshDecoder``). The production
+meshes' specs come from a mesh on the ``"fake"`` process group
+(``launch/dryrun.py``'s ``join_fake``), no cards needed.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import weakref
+from typing import Callable
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, shapes_only
 from repro_torch.graphs import Body, GraphRunner
-from repro_torch.models import transformer, whisper
+from repro_torch.models import parallel, transformer, whisper
 from repro_torch.models.common import ModelConfig, dtype_of
 from repro_torch.models.kvcache import check_fits
-from repro_torch.models.layers import unembed
+from repro_torch.models.layers import sinusoidal_positions, unembed
 
-__all__ = ["prefill", "decode_step", "generate", "Decoder", "decoder_for"]
+__all__ = ["prefill", "decode_step", "generate", "Decoder", "decoder_for", "ServeSetup",
+           "make_serve_setup", "cache_specs_for", "MeshDecoder"]
 
 
 def _offset(image_embeds: torch.Tensor | None) -> int:
@@ -338,3 +356,276 @@ def generate(
         dec.step()
     with torch.inference_mode():
         return dec.tokens[:, total : total + max(max_new_tokens, 1)].clone()
+
+
+
+# ---------------------------------------------------------------------------
+# The sharded serve setup (the reference's make_serve_setup)
+# ---------------------------------------------------------------------------
+
+def _cache_spec(name: str, shape: tuple, sizes: dict) -> tuple:
+    """The reference's ``_cache_specs_for`` of one leaf (no group axis):
+    the batch over ``data`` (with ``pod``, ``("pod", "data")``); keys and
+    values over ``model`` on the kv heads, else head_dim, else the
+    sequence; MLA's latents on their last dimension, else the sequence;
+    whisper's ``encoder_out`` on its features; recurrent states and conv
+    tails on their last dimension; a 0-d ``index`` whole."""
+    from repro_torch.train.sharding import sanitize_spec
+
+    rank = len(shape)
+    if rank == 0:
+        return ()
+    dims: list = [None] * rank
+    dims[0] = ("pod", "data") if "pod" in sizes else "data"
+    msize = sizes["model"]
+
+    def try_model(i: int) -> bool:
+        if 0 < i < rank and shape[i] % msize == 0:
+            dims[i] = "model"
+            return True
+        return False
+
+    if name in ("k", "v") and rank == 4:  # (B, S, H, D)
+        _ = try_model(2) or try_model(3) or try_model(1)
+    elif name in ("c_kv", "k_rope"):  # (B, S, r)
+        _ = try_model(2) or try_model(1)
+    elif name == "encoder_out":  # (B, F, D)
+        try_model(2)
+    else:  # recurrent states / conv tails: the last (feature) dimension
+        try_model(rank - 1)
+    return sanitize_spec(tuple(dims), shape, sizes)
+
+
+def _map_cache(fn, cache, flags: bool = True):
+    """``fn(name, leaf)`` over every tensor of a cache (per-layer dicts, or
+    whisper's ``{"encoder_out", "self"}``); non-tensor entries (an MLA
+    ring's flag) kept as they are with ``flags``, else left out."""
+    def layer(d: dict) -> dict:
+        return {k: fn(k, v) if isinstance(v, torch.Tensor) else v for k, v in d.items()
+                if flags or isinstance(v, torch.Tensor)}
+
+    if isinstance(cache, dict):
+        return {"encoder_out": fn("encoder_out", cache["encoder_out"]),
+                "self": [layer(d) for d in cache["self"]]}
+    return [layer(d) for d in cache]
+
+
+def cache_specs_for(cache, mesh) -> list | dict:
+    """The spec of every cache leaf on ``mesh`` (a ``DeviceMesh`` or its
+    sizes), in the cache's structure: the reference's ``_cache_specs_for``
+    without the group axis's None."""
+    from repro_torch.train.sharding import mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    return _map_cache(lambda name, t: _cache_spec(name, tuple(t.shape), sizes), cache,
+                      flags=False)
+
+
+def _block_shape(shape: tuple, spec: tuple, sizes: dict) -> tuple:
+    from repro_torch.train.sharding import _axes
+
+    return tuple(s // (1 if e is None else math.prod(sizes[a] for a in _axes(e)))
+                 for s, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+@dataclasses.dataclass
+class ServeSetup:
+    """The reference's ``ServeSetup`` for a rank of the mesh: ``serve_step``
+    ``(params, token, position, cache) -> (logits, cache)`` (a rank's
+    parameter blocks, its rows of the (B, 1) token and position, its cache
+    block written in place; logits (B_rank, V) whole over the
+    vocabulary), ``param_specs``, ``cache_specs`` (the cache's
+    structure), ``abstract_cache`` (meta tensors of the whole cache),
+    ``n_kv_shardable``; and what the port adds: ``prefill`` ``(params,
+    tokens, cache, *, image_embeds=, frames=) -> logits`` (the sharded
+    prefill into a fresh cache block), ``init_cache()`` (the rank's block,
+    fresh, on the mesh's device), ``local_batch`` (a rank's rows of a
+    (B, ...) tensor) and ``decoder`` (a captured ``MeshDecoder``)."""
+
+    serve_step: Callable
+    param_specs: dict
+    cache_specs: list | dict
+    abstract_cache: list | dict
+    n_kv_shardable: bool
+    prefill: Callable
+    init_cache: Callable
+    local_batch: Callable
+    cfg: ModelConfig
+    batch: int
+    seq_len: int
+    long_context: bool
+    device: torch.device
+    sizes: dict  # the mesh's
+    shapes: dict  # name -> (shape, element size)
+
+    def decoder(self, params: dict, cache) -> "MeshDecoder":
+        """A decoder of ``params`` over the rank's ``cache`` block."""
+        return MeshDecoder(self, params, cache)
+
+    def param_bytes(self) -> int:
+        """Bytes of a rank's parameter blocks at rest."""
+        return sum(math.prod(_block_shape(self.shapes[k][0], spec, self.sizes))
+                   * self.shapes[k][1] for k, spec in self.param_specs.items())
+
+    def cache_bytes(self) -> int:
+        """Bytes of a rank's cache block."""
+        total = []
+        _map_cache(lambda name, t: total.append(math.prod(_block_shape(
+            tuple(t.shape), _cache_spec(name, tuple(t.shape), self.sizes), self.sizes))
+            * t.element_size()), self.abstract_cache)
+        return sum(total)
+
+
+def make_serve_setup(
+    cfg: ModelConfig,
+    mesh,
+    *,
+    batch: int,
+    seq_len: int,
+    long_context: bool = False,
+    device: torch.device | str | None = None,
+) -> ServeSetup:
+    """The decode step and placements for a ``(cfg, batch, cache length)``
+    shape on ``mesh`` (a ``DeviceMesh`` with the reference's axis names,
+    every rank calling). ``device`` (None = CUDA; ``"meta"`` inside
+    ``device.shapes_only``, as the dry run runs) holds a rank's blocks. The prefill runs the kernels (``impl="kernel"``: flash, the
+    RG-LRU scan), as the one-card ``prefill`` does."""
+    from repro_torch.train import sharding
+    from repro_torch.train import tensor_parallel as TP
+
+    sizes = sharding.mesh_sizes(mesh)
+    if "model" not in sizes or "data" not in sizes:
+        raise ValueError(f"a serve mesh has data and model dimensions, got {tuple(sizes)}")
+    audio = cfg.arch_type == "audio"
+    long_context = _long_context(cfg, long_context)
+    meta = whisper.Whisper(cfg, "meta") if audio else transformer.LM(cfg, "meta")
+    shapes = {k: (tuple(p.shape), p.element_size()) for k, p in meta.named_parameters()}
+    param_specs = sharding.make_param_specs({k: v[0] for k, v in shapes.items()}, sizes, cfg=cfg)
+    with shapes_only():
+        abstract = _init_cache(cfg, batch, seq_len, "meta", long_context)
+    cache_specs = cache_specs_for(abstract, sizes)
+    dp = ("pod", "data") if "pod" in sizes else ("data",)
+    n_dp = math.prod(sizes[a] for a in dp)
+    device = resolve_device(device)
+    coords = sharding.mesh_coords(mesh)
+    tp = TP.TPGroup.of(mesh.get_group("model") if sizes["model"] > 1 else None)
+    plan = TP.make_plan(cfg, param_specs, tp.size)
+    window = _window(cfg, long_context)
+    split_batch = batch % n_dp == 0 and n_dp > 1
+    row0, rows = (sharding._block(dp if len(dp) > 1 else dp[0], sizes, coords)[0] * (batch // n_dp),
+                  batch // n_dp) if split_batch else (0, batch)
+    table = sinusoidal_positions(whisper.MAX_POSITIONS, cfg.d_model, dtype_of(cfg), device) \
+        if audio else None
+
+    def local_batch(x: torch.Tensor) -> torch.Tensor:
+        return x.narrow(0, row0, rows).contiguous()
+
+    def init_cache():
+        def leaf(name, t):
+            spec = _cache_spec(name, tuple(t.shape), sizes)
+            out = torch.zeros(_block_shape(tuple(t.shape), spec, sizes), dtype=t.dtype,
+                              device=device)
+            return out.fill_(-1e30) if name == "m" else out
+
+        return _map_cache(leaf, abstract)
+
+    def encoder_states(cache) -> torch.Tensor:
+        enc = cache["encoder_out"]
+        return enc if enc.shape[-1] == cfg.d_model else parallel.gather_dim(enc, tp, 2)
+
+    @torch.no_grad()
+    def serve_step(params: dict, token: torch.Tensor, position: torch.Tensor, cache):
+        if audio:
+            hidden = TP.whisper_serve_hidden(params, cfg, plan, tp, token, position, cache,
+                                             encoder_states(cache), table)
+        else:
+            hidden = TP.serve_hidden(params, cfg, plan, tp, token, position, cache,
+                                     window=window)
+        return TP.logits(params, cfg, plan, tp, hidden[:, -1:])[:, 0], cache
+
+    @torch.no_grad()
+    def prefill_fn(params: dict, tokens: torch.Tensor, cache, *,
+                   image_embeds: torch.Tensor | None = None,
+                   frames: torch.Tensor | None = None) -> torch.Tensor:
+        B, S = tokens.shape
+        total = _offset(image_embeds) + S
+        if not long_context:
+            check_fits(seq_len, 0, total)
+        pos = torch.arange(total, device=tokens.device)[None].expand(B, total)
+        if audio:
+            if frames is None:
+                raise ValueError("whisper's prefill needs frames")
+            enc = TP.whisper_encode(params, cfg, tp, frames)
+            cache["encoder_out"].copy_(enc if cache["encoder_out"].shape[-1] == cfg.d_model
+                                       else parallel.own_block(enc, tp, 2))
+            hidden = TP.whisper_serve_hidden(params, cfg, plan, tp, tokens, pos, cache, enc,
+                                             table)
+        else:
+            hidden = TP.serve_hidden(params, cfg, plan, tp, tokens, pos, cache, window=window,
+                                     image_embeds=image_embeds)
+        return TP.logits(params, cfg, plan, tp, hidden[:, -1:])[:, 0]
+
+    return ServeSetup(serve_step=serve_step, param_specs=param_specs, cache_specs=cache_specs,
+                      abstract_cache=abstract,
+                      n_kv_shardable=cfg.num_kv_heads % sizes["model"] == 0,
+                      prefill=prefill_fn, init_cache=init_cache, local_batch=local_batch, cfg=cfg,
+                      batch=batch, seq_len=seq_len, long_context=long_context, device=device,
+                      sizes=sizes, shapes=shapes)
+
+
+class MeshDecoder:
+    """Greedy decoding on a rank of a ``ServeSetup``'s mesh, the step
+    captured: static ``token`` / ``position`` (B_rank, 1) int64 and
+    ``logits`` (B_rank, V); :meth:`start` prefills a prompt into the
+    rank's ``cache`` block (eagerly), :meth:`step` decodes ``token`` (the
+    last greedy token, or one the caller gives) through
+    ``repro_torch.graphs``: eagerly at its first run, a CUDA graph (the
+    collectives inside it) captured at its second, replays after; on the
+    CPU eagerly, counted as on the card. A failed capture raises."""
+
+    def __init__(self, setup: ServeSetup, params: dict, cache):
+        cfg, device = setup.cfg, setup.device
+        self.setup, self.params, self.cache = setup, params, cache
+        rows = setup.local_batch(torch.zeros((setup.batch, 1))).shape[0]
+        self.token = torch.zeros((rows, 1), dtype=torch.int64, device=device)
+        self.position = torch.zeros((rows, 1), dtype=torch.int64, device=device)
+        self.logits = torch.zeros((rows, cfg.vocab_size), dtype=dtype_of(cfg), device=device)
+        self._graphs = GraphRunner("serve.mesh_decode", device)
+        self._body = Body(self._step)
+        self._length = 0
+
+    @property
+    def n_captures(self) -> int:
+        return self._graphs.n_traces
+
+    def start(self, prompt: torch.Tensor, *, image_embeds: torch.Tensor | None = None,
+              frames: torch.Tensor | None = None) -> torch.Tensor:
+        """Prefill the rank's rows ``prompt`` (B_rank, S) into the cache
+        (fresh: ``init_cache``'s values); returns the prefill's logits."""
+        logits = self.setup.prefill(self.params, prompt, self.cache, image_embeds=image_embeds,
+                                    frames=frames)
+        total = _offset(image_embeds) + prompt.shape[1]
+        self.position.fill_(total - 1)
+        self._take(logits)
+        self._length = total
+        return logits
+
+    def step(self, token: torch.Tensor | None = None) -> None:
+        """Decode ``token`` ((B_rank, 1); None: the last greedy token) at
+        ``position``; ``logits`` holds the step's."""
+        if not self.setup.long_context:
+            check_fits(self.setup.seq_len, self._length, 1)
+        if token is not None:
+            self.token.copy_(token)
+        self._length += 1
+        self._graphs.run(self._body, "mesh decode step")
+
+    def _step(self) -> None:
+        logits, _ = self.setup.serve_step(self.params, self.token, self.position, self.cache)
+        self._take(logits)
+
+    @torch.no_grad()
+    def _take(self, logits: torch.Tensor) -> None:
+        self.logits.copy_(logits)
+        self.token.copy_(logits.argmax(dim=-1, keepdim=True))
+        self.position.add_(1)

@@ -103,8 +103,10 @@ float32 payloads, one rounding of each combine), the EF memory and the
 node-first ring (leaves ``(n, depth, ...)``, the reference's stacked
 layout) updated in place; ``probes=`` sums the spread over the node axis
 (``spread_sq_stacked``). Tensor parallelism covers every family
-(``tensor_parallel.make_plan``). The sharded serve setup and ``launch/``
-are not ported (ROADMAP queue 1 items 13d and 15).
+(``tensor_parallel.make_plan``). Serving on the same meshes is
+``serve.engine.make_serve_setup``; ``launch/train.py`` drives this
+trainer from the command line, ``launch/dryrun.py`` runs its step on a
+fake process group of the production meshes.
 """
 
 from __future__ import annotations

@@ -371,7 +371,12 @@ def _moe(p, cfg: ModelConfig, h: torch.Tensor, plan, tp: TPGroup, batch: tuple =
 
 
 def _layer(params: dict, i: int, cfg: ModelConfig, plan: TPPlan, tp: TPGroup, x, positions,
-           batch: tuple = ()):
+           batch: tuple = (), cache: dict | None = None, window: int | None = None,
+           impl: str = "plain"):
+    """Layer ``i`` on local shards: (x, the MoE aux loss or None); with a
+    ``cache`` (this rank's block of the layer's cache, serving; written in
+    place) or ``window`` (the long-context mode's override) as
+    ``transformer.LM``'s layer takes them."""
     lp = plan.layers[i]
     kind = cfg.kind(i)
     p = _ns(params, f"layers.{i}.")
@@ -379,20 +384,23 @@ def _layer(params: dict, i: int, cfg: ModelConfig, plan: TPPlan, tp: TPGroup, x,
     if kind in _ATTN_KINDS:
         h = rms_norm(p.ln1, x, cfg.norm_eps)
         if cfg.mla is not None:
-            window = cfg.sliding_window if kind == "local_attn" else None
-            out = mla_attention(p.attn, cfg, h, positions=positions, window=window, tp=tp)[0]
+            win = window if window is not None else (
+                cfg.sliding_window if kind == "local_attn" else None)
+            out = mla_attention(p.attn, cfg, h, positions=positions, cache=cache, window=win,
+                                tp=tp)[0]
         else:
-            out = attention(p.attn, cfg, h, positions=positions, local=kind == "local_attn",
-                            impl="plain", tp=tp)[0]
+            out = attention(p.attn, cfg, h, positions=positions,
+                            local=kind == "local_attn" or window is not None, window=window,
+                            cache=cache, impl=impl, tp=tp)[0]
         if cfg.post_block_norms:
             out = rms_norm(p.post_ln1, out, cfg.norm_eps)
         x = x + out
     elif kind == "rglru":
-        x = rglru_block(p.block, cfg, x, impl="plain", tp=tp)[0]
+        x = rglru_block(p.block, cfg, x, cache, impl=impl, tp=tp)[0]
     elif kind == "mlstm":
-        return mlstm_block(p.block, cfg, x, tp=tp)[0], None
+        return mlstm_block(p.block, cfg, x, cache, tp=tp)[0], None
     else:  # slstm
-        return slstm_block(p.block, cfg, x, tp=tp)[0], None
+        return slstm_block(p.block, cfg, x, cache, tp=tp)[0], None
     if cfg.d_ff > 0:
         h = rms_norm(p.ln2, x, cfg.norm_eps)
         if cfg.moe is not None:
@@ -539,3 +547,71 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, plan: TPPlan, tp: TPGro
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_coef * aux
     return loss
+
+
+# ---------------------------------------------------------------------------
+# Serving on local shards (``serve.engine.make_serve_setup``)
+# ---------------------------------------------------------------------------
+
+def logits(params: dict, cfg: ModelConfig, plan: TPPlan, tp: TPGroup,
+           hidden: torch.Tensor) -> torch.Tensor:
+    """The logits of ``hidden`` whole over the vocabulary on every rank:
+    this rank's vocabulary columns gathered (a table split by rows, an
+    untied unembedding by columns), or a table split by features, its
+    partial logits reduced; the final softcap after."""
+    audio = cfg.arch_type == "audio"
+    table = params["token_embed" if audio else "embed.table"]
+    tied = audio or cfg.tie_embeddings
+    if plan.vocab == "features":
+        out = reduce_from(slice_last(hidden, tp) @ table.T, tp)
+    else:
+        out = hidden @ table.T if tied else hidden @ params["embed.unembed"]
+        if plan.vocab:
+            out = gather_last(out, tp)
+    if cfg.final_logit_softcap > 0.0:
+        cap = cfg.final_logit_softcap
+        out = cap * torch.tanh(out / cap)
+    return out
+
+
+def serve_hidden(params: dict, cfg: ModelConfig, plan: TPPlan, tp: TPGroup,
+                 tokens: torch.Tensor, positions: torch.Tensor, cache: list, *,
+                 window: int | None = None,
+                 image_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """``LM.forward(return_hidden=True)`` with a cache on local shards: the
+    final-normed hidden states of ``tokens`` (after ``image_embeds``) at
+    ``positions``, this rank's cache blocks written in place; a prefill's
+    attention in flash, its RG-LRU in the scan kernel (``impl="kernel"``)."""
+    x = _embed(params["embed.table"], cfg, plan, tp, tokens)
+    if image_embeds is not None:
+        x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
+    for i in range(cfg.num_layers):
+        x = _layer(params, i, cfg, plan, tp, x, positions, cache=cache[i], window=window,
+                   impl="kernel")[0]
+    return rms_norm(types.SimpleNamespace(scale=params["final_norm.scale"]), x, cfg.norm_eps)
+
+
+def whisper_encode(params: dict, cfg: ModelConfig, tp: TPGroup,
+                   frames: torch.Tensor) -> torch.Tensor:
+    """``whisper.encode`` on local shards: the encoder's states, whole on
+    every rank."""
+    B, Sf, D = frames.shape
+    x = frames + sinusoidal_positions(Sf, D, frames.dtype, frames.device)[None]
+    zeros = torch.zeros((B, Sf), dtype=torch.int64, device=frames.device)
+    for i in range(cfg.encoder.num_layers):
+        x = _enc_layer(params, i, cfg, tp, x, zeros)
+    return layer_norm(_ns(params, "enc_final_ln."), x, cfg.norm_eps)
+
+
+def whisper_serve_hidden(params: dict, cfg: ModelConfig, plan: TPPlan, tp: TPGroup,
+                         tokens: torch.Tensor, positions: torch.Tensor, cache: dict,
+                         encoder_out: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``whisper_forward(return_hidden=True)`` with a cache on local shards:
+    the decoder over ``encoder_out`` (whole), ``table`` the decoder's
+    position table, this rank's self-attention cache blocks written in
+    place."""
+    y = _embed(params["token_embed"], cfg, plan, tp, tokens) + table[positions]
+    for i in range(cfg.num_layers):
+        y = decoder_layer(_ns(params, f"dec_layers.{i}."), cfg, y, positions, encoder_out,
+                          cache["self"][i], tp=tp)[0]
+    return layer_norm(_ns(params, "dec_final_ln."), y, cfg.norm_eps)

@@ -812,3 +812,114 @@ def lm_families_job(rank: int, n: int, ref_path: str, arms: dict, lr: float, ste
             row[f"fault/{fault}"] = {"loss": float(floss), "grads": _np(fgrads)}
         out[name] = row
     return out
+
+
+def _serve_cfg(arm: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(arm["cfg"]), **arm.get("over", {}))
+
+
+def serve_inputs(arm: dict, B: int, S: int, steps: int) -> dict:
+    """An arm's numpy inputs from its seed: the prompt (B, S), the decode
+    steps' tokens (steps, B, 1), whisper's stub frames N(0, 0.1)."""
+    cfg = _serve_cfg(arm)
+    rng = np.random.default_rng(arm.get("seed", 3))
+    out = {"prompt": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64),
+           "steps": rng.integers(0, cfg.vocab_size, (steps, B, 1)).astype(np.int64)}
+    if cfg.arch_type == "audio":
+        out["frames"] = rng.normal(0.0, 0.1, (B, cfg.encoder.num_frames, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def serve_mesh_job(rank: int, n: int, arms: dict, B: int, S: int, steps: int,
+                   max_len: int) -> dict:
+    """Every arm of ``test_torch_serve_mesh`` on this rank: the smoke
+    model from seed 0 (``registry.init_model``), this rank's blocks of its
+    reference pytree (``convert.lm_shard_from_numpy`` by the setup's
+    specs), the sharded prefill of the arm's prompt into a fresh cache
+    block, ``steps`` ``serve_step`` calls, then the same steps through a
+    ``MeshDecoder`` from a second prefill; returns the logits (this rank's
+    rows), the cache blocks, the collective counters and the bytes the
+    step takes."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import mixing as M
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import make_serve_setup
+    from repro_torch.train import sharding
+
+    out: dict = {"_rank": rank}
+    meshes: dict = {}
+    for name, arm in arms.items():
+        shape = tuple(arm["mesh"])
+        if shape not in meshes:
+            meshes[shape] = sharding.make_mesh(shape, ("data", "model"))
+        mesh = meshes[shape]
+        cfg = _serve_cfg(arm)
+        long = arm.get("long", False)
+        setup = make_serve_setup(cfg, mesh, batch=B, seq_len=max_len, long_context=long,
+                                 device="cpu")
+        model = registry.init_model(cfg, seed=0, device="cpu")
+        params = convert.lm_shard_from_numpy(convert.lm_params_to_numpy(model), cfg, mesh,
+                                             setup.param_specs, device="cpu")
+        del model
+        inp = {k: torch.as_tensor(v) for k, v in serve_inputs(arm, B, S, steps).items()}
+        kw = {"frames": setup.local_batch(inp["frames"])} if "frames" in inp else {}
+        prompt = setup.local_batch(inp["prompt"])
+        cache = setup.init_cache()
+        logits = [setup.prefill(params, prompt, cache, **kw)]
+        M.reset_collective_bytes()
+        token = setup.local_batch(inp["steps"][0])
+        position = torch.full_like(token, S)
+        arg_bytes = sum(v.numel() * v.element_size() for v in params.values()) + \
+            sum(v.numel() * v.element_size() for v in _cache_leaves(cache)) + \
+            token.numel() * token.element_size() + position.numel() * position.element_size()
+        for t in range(steps):
+            lo, cache = setup.serve_step(params, setup.local_batch(inp["steps"][t]),
+                                         torch.full_like(token, S + t), cache)
+            if t == 0:
+                first = {k: int(v) for k, v in M.collective_bytes.items() if v}
+            logits.append(lo)
+        dec = setup.decoder(params, setup.init_cache())
+        dec.start(prompt, **kw)
+        dec_logits = []
+        for t in range(steps):
+            dec.step(setup.local_batch(inp["steps"][t]))
+            dec_logits.append(dec.logits.clone())
+        out[name] = {
+            "coords": sharding.mesh_coords(mesh), "sizes": sharding.mesh_sizes(mesh),
+            "logits": [x.numpy() for x in logits],
+            "decoder_logits": [x.numpy() for x in dec_logits], "captures": dec.n_captures,
+            "cache": [(path, spec, t.numpy()) for path, spec, t in
+                      _cache_items(cache, setup.cache_specs)],
+            "step_bytes": first, "argument_bytes": arg_bytes,
+            "param_specs": setup.param_specs}
+    return out
+
+
+def _cache_leaves(cache) -> list:
+    return [t for _, _, t in _cache_items(cache, None)]
+
+
+def _cache_items(cache, specs) -> list:
+    """``(path, spec, tensor)`` of every tensor of a cache: ``(i, leaf)`` a
+    layer's, ``("encoder_out",)``, ``("self", i, leaf)`` whisper's."""
+    import torch
+
+    items = []
+    if isinstance(cache, dict):
+        items.append((("encoder_out",), specs and specs["encoder_out"], cache["encoder_out"]))
+        layers, pre = cache["self"], ("self",)
+        lspecs = specs["self"] if specs else None
+    else:
+        layers, pre, lspecs = cache, (), specs
+    for i, d in enumerate(layers):
+        for k, v in d.items():
+            if isinstance(v, torch.Tensor):
+                items.append((pre + (i, k), lspecs[i][k] if lspecs else None, v))
+    return items

@@ -97,7 +97,12 @@ print("LEAKED", sorted(m for m in sys.modules if m == "jax" or m.startswith(("ja
 
 @pytest.mark.parametrize("module", ["repro_torch.train.sharding",
                                     "repro_torch.train.tensor_parallel",
-                                    "repro_torch.train.mesh_layout"])
+                                    "repro_torch.train.mesh_layout",
+                                    "repro_torch.serve.engine",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.roofline",
+                                    "repro_torch.launch.train"])
 def test_mesh_modules_alone_load_no_jax(module):
     code = _IMPORTS_ONE.format(src=str(ROOT / "src"), module=module)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -117,6 +122,31 @@ def test_mesh_rank_processes_load_no_jax(tmp_path):
     assert all(not r["_jax_loaded"] for r in rows)
     assert rows[0]["loss"] == rows[1]["loss"] and np.isfinite(rows[0]["loss"])
     assert "repro_torch.train.tensor_parallel" in rows[0]["modules"]
+
+
+def test_launch_entry_points_run_without_jax(tmp_path):
+    """``launch/``'s dry run (qwen3-0.6b's decode step on the fake 16x16
+    group) and its roofline over that record run in a process without
+    the tests' ``PYTHONPATH``, and load neither jax nor the reference."""
+    code = f"""
+import sys, json
+sys.path.insert(0, {str(ROOT / "src")!r})
+from repro_torch.launch import dryrun, roofline
+rec = dryrun.run_one("qwen3-0.6b", "decode_32k", "16x16", {str(tmp_path)!r})
+roofline.main(["--dryrun", {str(tmp_path)!r}, "--out", {str(tmp_path / "r.md")!r}])
+print("STATUS", rec["status"])
+print("LEAKED", sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                       or m == "repro" or m.startswith("repro.")))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=str(tmp_path), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
+                 if line.startswith(("STATUS", "LEAKED")))
+    assert lines == {"STATUS": "ok", "LEAKED": "[]"}
+    assert "| qwen3-0.6b | decode_32k | 16x16 |" in (tmp_path / "r.md").read_text()
+    assert (tmp_path / "r.json").exists()
 
 
 def test_convert_round_trips():
