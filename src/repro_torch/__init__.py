@@ -19,9 +19,10 @@ This package imports ``torch`` and never ``jax``, and nothing of
 copies (``data/synthetic.py``, ``data/partition.py``, ``data/drift.py``,
 ``core/topology.py``, ``core/heterogeneity.py``, ``core/assignment.py``,
 ``core/stl_fw.py``, ``core/dcliques.py``, ``core/theory.py``,
-``core/dynamic.py``, ``online/streaming.py``, ``obs/trace.py``,
-``obs/report.py``, and ``faults/plan.py`` / ``faults/quarantine.py``
-with their imports pointed at the port). Entry points run on the card unless the caller
+``core/dynamic.py``, ``online/streaming.py``, ``obs/report.py``, and
+``faults/plan.py`` / ``faults/quarantine.py`` with their imports pointed
+at the port; ``obs/trace.py`` began as one and now also names its spans
+in the profiler's trace). Entry points run on the card unless the caller
 passes ``device="cpu"`` (see :func:`repro_torch.device.resolve_device`).
 """
 

@@ -26,6 +26,14 @@ Random draws: the generators a body draws from are registered with each
 graph (``CUDAGraph.register_generator_state``), so replays draw what the
 eager runs would have drawn and advance the generator alike.
 
+Under a ``tracer`` (``obs.trace.Tracer``), a body's first run is the
+span ``graph.warmup`` and its second the span ``graph.capture`` (on the
+card the capture and its first replay; on the CPU the eager run counted
+as one), with attributes ``runner`` (the runner's name) and ``what``,
+so the ``graph.capture`` spans number ``n_traces``. While a profiler
+records, each is also a named range in its trace, tracer or not.
+Replays open no span.
+
 A failed capture raises; the runner never falls back to the eager body
 on the card. Captures use the default ``"global"`` capture mode, in
 which a synchronising call or an allocation from ANY thread invalidates
@@ -50,7 +58,7 @@ from repro_torch.kernels.flash_attention import ops as _flash_ops
 from repro_torch.kernels.gossip_mix import ops as _gossip_ops
 from repro_torch.kernels.rglru_scan import ops as _scan_ops
 
-__all__ = ["Body", "GraphRunner", "device_work"]
+__all__ = ["Body", "GraphRunner", "device_work", "release"]
 
 _LAUNCH_COUNTS = (_gossip_ops.launch_counts, _flash_ops.launch_counts, _scan_ops.launch_counts)
 
@@ -93,6 +101,15 @@ class Body:
     capture_s: float | None = None
 
 
+def release(bodies: dict) -> None:
+    """Drop ``bodies`` (a dict of :class:`Body`) and their graphs: each
+    graph's memory pool goes with it, where the bodies' closures would
+    keep them to the next garbage collection."""
+    for body in bodies.values():
+        body.graph = None
+    bodies.clear()
+
+
 class GraphRunner:
     """Runs bodies as CUDA graphs on the card (warm-up, capture, replay),
     eagerly on the CPU with the same counting.
@@ -104,6 +121,8 @@ class GraphRunner:
       generators: the device generators the bodies draw from.
       fallback: what the error of a failed capture tells the caller to run
         instead.
+      tracer: an ``obs.trace.Tracer`` to record the ``graph.warmup`` and
+        ``graph.capture`` spans in.
     """
 
     def __init__(
@@ -114,12 +133,18 @@ class GraphRunner:
         retrace_guard=None,
         generators: tuple[torch.Generator, ...] = (),
         fallback: str = "",
+        tracer=None,
     ):
         self.name = name
         self.device = device
         self.retrace_guard = retrace_guard
         self.generators = tuple(generators)
         self.fallback = fallback
+        if tracer is None:  # read here, not at import, as in _counters
+            from repro_torch.obs.trace import Tracer
+
+            tracer = Tracer(enabled=False)
+        self.tracer = tracer
         self.n_traces = 0
         # warm-ups and captures run on this side stream
         self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -136,12 +161,19 @@ class GraphRunner:
         body in the error of a failed capture."""
         body.runs += 1
         if body.runs == 1:
-            self._warm_up(body)
+            with self.tracer.span("graph.warmup", runner=self.name, what=what):
+                self._warm_up(body)
             return
         if body.runs == 2:
-            self.count()
-            if self._stream is not None:
-                self._capture(body, what)
+            with self.tracer.span("graph.capture", runner=self.name, what=what):
+                self.count()
+                if self._stream is not None:
+                    self._capture(body, what)
+                self._replay(body)
+            return
+        self._replay(body)
+
+    def _replay(self, body: Body) -> None:
         if body.graph is None:  # the CPU: eager, counted as on the card
             body.fn()
             return

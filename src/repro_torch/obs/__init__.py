@@ -1,11 +1,17 @@
 """Run telemetry: span tracing, in-rollout health probes and run reports
-(``obs/trace.py`` and ``obs/report.py`` are copies of the reference's
-pure-Python modules).
+(``obs/report.py`` is a copy of the reference's pure-Python module;
+``obs/trace.py`` began as one).
 
 * :mod:`repro_torch.obs.trace`  -- :class:`Tracer`: nestable wall-clock
-  spans, a bounded ring + JSONL sink, and a Chrome trace exporter. The
-  simulator drivers record a ``sim.segment`` span per rollout segment,
-  the refresh controller its solves.
+  spans in a bounded ring. Unlike the reference's copy, each span is also
+  a ``torch.profiler.record_function`` range while a profiler records
+  (so it lands on the device trace's clock), and there are no exporters
+  (no JSONL sink, no Perfetto events). The port records
+  ``sim.prepare``, ``sim.segment``, ``sim.eval`` and ``sim.release``
+  around a simulator call's phases, ``graph.warmup`` / ``graph.capture``
+  around a body's first two runs (``graphs.GraphRunner``), and its
+  refresh solves, fault streams and LM segments; the module docstring
+  names each span's reader.
 * :mod:`repro_torch.obs.probes` -- :class:`HealthProbes`: consensus
   distance, gradient deviation and Prop. 2's tau_bar at the live Pi_hat,
   computed inside the captured rollout body as extra per-step outputs
@@ -34,12 +40,11 @@ from .report import (
     load_report,
     validate_report,
 )
-from .trace import SpanRecord, Tracer, read_jsonl
+from .trace import SpanRecord, Tracer
 
 __all__ = [
     "Tracer",
     "SpanRecord",
-    "read_jsonl",
     "HealthProbes",
     "compute_probes",
     "consensus_sq",

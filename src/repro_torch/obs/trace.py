@@ -1,20 +1,59 @@
-"""Span tracing: where did a segment's wall time go?
+"""Span tracing: where did a simulator call's wall time go?
 
 A :class:`Tracer` records *spans* -- named wall-clock intervals with
 nesting -- from any thread (the overlapped refresh solve runs on a
-worker; its spans land in the same trace with their own thread id).
-Three sinks, all cheap enough to leave on in production runs:
+worker; its spans land in the same trace with their own thread id), in
+a bounded in-memory ring: ``capacity`` completed spans; overflow drops
+the OLDEST spans and counts them in ``dropped``, so a long run can keep
+a tracer attached without unbounded memory.
 
-* a bounded in-memory ring (``capacity`` completed spans; overflow
-  drops the OLDEST spans and counts them in ``dropped``, so a long run
-  can keep a tracer attached without unbounded memory),
-* an optional append-only JSONL file (``sink_path``): every completed
-  span is written immediately, so the on-disk trace is complete even
-  when the ring has wrapped, and survives a crash mid-run,
-* a Chrome/Perfetto trace-event export (:meth:`to_perfetto` /
-  :meth:`write_perfetto`): load the JSON in ``chrome://tracing`` or
-  https://ui.perfetto.dev and see the rollout, the overlapped solve,
-  the restage, and the checkpoint on one timeline.
+This module started as a copy of the reference's ``repro/obs/trace.py``
+and differs from it in two ways:
+
+* While a ``torch.profiler`` is recording on the calling thread, every
+  ``span(name)`` also opens ``torch.profiler.record_function(name)``
+  around its body -- for a disabled tracer too, so code that defaults to
+  a ``Tracer(enabled=False)`` still names its ranges. The span then
+  sits among the trace's host events, on the clock of the device's
+  kernels, and the profiler's own Chrome export shows it beside them.
+  With no profiler recording, a span costs one C call
+  (``torch._C._autograd._profiler_enabled``) and opens no range.
+* It has no exporters (no JSONL sink, no Perfetto events): the
+  profiler's trace is where spans are seen on a timeline; the ring is
+  what the run report (``RunReport.add_spans``) and the drivers read.
+
+No span opens inside a captured CUDA-graph body: a body's Python runs
+only at its warm-up and its capture, so a range there would describe
+those two runs and no replay.
+
+The spans the port records, and who reads them:
+
+* ``sim.prepare`` (``train/trainer.run_classification``): the call's
+  staging before its first segment -- the stacked node data, the model,
+  the segment runner and its carries, the mixing operands, the
+  minibatch indices and the test set on the device. Read by the
+  benchmark's ``prepare_s.sim``.
+* ``sim.segment`` (``run_mean_estimation``, ``run_classification``,
+  ``faults/runner.py``): one segment's bodies and the host copy of its
+  per-step outputs. Read by the benchmark's ``rollout_ms_per_step.sim``
+  and ``chip_smoke.py``'s phase 6b timings.
+* ``graph.warmup`` / ``graph.capture`` (``graphs.GraphRunner``, inside
+  ``sim.segment``): a body's first, eager run and its second run (the
+  capture on the card; on the CPU the eager run counted as one), with
+  attributes ``runner`` (its name) and ``what`` (the body). Read by
+  ``capture_s.sim``.
+* ``sim.eval`` (``run_classification``): one evaluation -- the test-set
+  forward, the accuracies' host copy and the consensus distance. Read by
+  ``eval_s.sim``.
+* ``sim.release`` (``run_classification``): dropping the call's bodies,
+  their graphs and the graphs' memory pools. Read by ``release_s.sim``.
+  The benchmark's ``idle_host_work.sim`` reads the device's idle time
+  inside the union of these five host-work kinds.
+* ``faults.stream`` (``faults/plan.py``), ``refresh.solve`` and the
+  instants ``refresh.submit`` / ``refresh.collect`` / ``refresh.abandon``
+  (``online/refresh.py``), ``segment.rollout`` / ``segment.checkpoint``
+  / ``segment.restage`` (``train/lm_trainer.run_segments``): read by the
+  tests and the run report.
 
 Clocks are monotonic (``time.perf_counter``): span durations are
 immune to wall-clock adjustments, and all spans of one tracer share a
@@ -23,32 +62,34 @@ record anchors that timeline to the epoch once, at tracer creation.
 
 Usage::
 
-    tracer = Tracer(sink_path="trace.jsonl")
+    tracer = Tracer()
     with tracer.span("segment.rollout", t0=0, k=64):
         ...
         with tracer.span("segment.checkpoint"):
             ...
     tracer.instant("refresh.submit", t=63)
-    tracer.write_perfetto("trace_perfetto.json")
+    tracer.summary()
 
 Spans nest per-thread: the ``depth`` and ``parent`` fields record the
 enclosing span at *entry* time, and the ring orders records by
-*completion* (the parent closes after its children -- the Perfetto
-"X" events reconstruct the nesting from timestamps, which is why the
-exporter never needs the parent pointers).
+*completion* (the parent closes after its children).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import json
-import os
 import threading
 import time
-from contextlib import contextmanager
 from collections import deque
 
-__all__ = ["SpanRecord", "Tracer", "read_jsonl"]
+import torch
+
+__all__ = ["SpanRecord", "Tracer"]
+
+# true while a profiler records on the calling thread: one C call, no allocation
+_profiling = torch._C._autograd._profiler_enabled
+_NO_RANGE = contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,73 +114,21 @@ class SpanRecord:
     def duration_s(self) -> float:
         return self.t1 - self.t0
 
-    def to_dict(self) -> dict:
-        return {
-            "name": self.name,
-            "t0": self.t0,
-            "t1": self.t1,
-            "tid": self.tid,
-            "depth": self.depth,
-            "parent": self.parent,
-            "attrs": self.attrs,
-            "wall_unix": self.wall_unix,
-        }
-
-    @classmethod
-    def from_dict(cls, d: dict) -> "SpanRecord":
-        return cls(
-            name=str(d["name"]),
-            t0=float(d["t0"]),
-            t1=float(d["t1"]),
-            tid=int(d["tid"]),
-            depth=int(d["depth"]),
-            parent=d.get("parent"),
-            attrs=dict(d.get("attrs") or {}),
-            wall_unix=float(d.get("wall_unix", 0.0)),
-        )
-
-
-def _json_default(x):
-    # attrs may carry numpy scalars / 0-d arrays from instrumented code;
-    # coerce instead of crashing the sink mid-run
-    try:
-        return x.item()
-    except AttributeError:
-        return repr(x)
-
-
-def read_jsonl(path: str) -> list[SpanRecord]:
-    """Load a JSONL span sink back into records (the round-trip half)."""
-    out = []
-    with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if line:
-                out.append(SpanRecord.from_dict(json.loads(line)))
-    return out
-
 
 class Tracer:
-    """Thread-safe span recorder with a bounded ring and optional sinks.
+    """Thread-safe span recorder with a bounded ring.
 
     Args:
       capacity: max completed spans held in memory. Overflow evicts the
-        oldest records (counted in :attr:`dropped`); the JSONL sink, if
-        configured, still holds everything.
-      sink_path: append-mode JSONL file; one completed span per line,
-        flushed per span (crash-honest).
-      enabled: ``Tracer(enabled=False)`` is a no-op recorder -- every
-        ``span()`` still runs its body, nothing is stored. Lets
-        instrumented code take an always-on ``tracer`` argument with a
-        disabled default instead of ``if tracer is not None`` forests.
+        oldest records (counted in :attr:`dropped`).
+      enabled: ``Tracer(enabled=False)`` records nothing -- every
+        ``span()`` still runs its body, and still opens its profiler
+        range while a profiler records. Lets instrumented code take an
+        always-on ``tracer`` argument with a disabled default instead of
+        ``if tracer is not None`` forests.
     """
 
-    def __init__(
-        self,
-        capacity: int = 4096,
-        sink_path: str | None = None,
-        enabled: bool = True,
-    ):
+    def __init__(self, capacity: int = 4096, enabled: bool = True):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = int(capacity)
@@ -151,11 +140,6 @@ class Tracer:
         # one shared origin: all threads' spans land on one timeline
         self._origin = time.perf_counter()
         self._wall_unix = time.time()
-        self._sink = None
-        self.sink_path = sink_path
-        if sink_path is not None and self.enabled:
-            os.makedirs(os.path.dirname(os.path.abspath(sink_path)), exist_ok=True)
-            self._sink = open(sink_path, "a")
 
     # -- recording ----------------------------------------------------------
 
@@ -172,37 +156,34 @@ class Tracer:
             if len(self._ring) == self.capacity:
                 self.dropped += 1
             self._ring.append(rec)
-            if self._sink is not None:
-                self._sink.write(
-                    json.dumps(rec.to_dict(), default=_json_default) + "\n"
-                )
-                self._sink.flush()
 
-    @contextmanager
+    @contextlib.contextmanager
     def span(self, name: str, **attrs):
-        """Record ``name`` around the with-body. Exceptions propagate;
-        the span still completes (with ``attrs["error"]`` set)."""
-        if not self.enabled:
-            yield self
-            return
-        stack = self._stack()
-        parent = stack[-1] if stack else None
-        depth = len(stack)
-        stack.append(name)
-        t0 = self._now()
-        try:
-            yield self
-        except BaseException as exc:
-            attrs = dict(attrs)
-            attrs["error"] = repr(exc)
-            raise
-        finally:
-            stack.pop()
-            self._commit(SpanRecord(
-                name=name, t0=t0, t1=self._now(),
-                tid=threading.get_ident(), depth=depth, parent=parent,
-                attrs=dict(attrs), wall_unix=self._wall_unix,
-            ))
+        """Record ``name`` around the with-body, and open the profiler range
+        ``name`` while a profiler records. Exceptions propagate; the span
+        still completes (with ``attrs["error"]`` set)."""
+        with torch.profiler.record_function(name) if _profiling() else _NO_RANGE:
+            if not self.enabled:
+                yield self
+                return
+            stack = self._stack()
+            parent = stack[-1] if stack else None
+            depth = len(stack)
+            stack.append(name)
+            t0 = self._now()
+            try:
+                yield self
+            except BaseException as exc:
+                attrs = dict(attrs)
+                attrs["error"] = repr(exc)
+                raise
+            finally:
+                stack.pop()
+                self._commit(SpanRecord(
+                    name=name, t0=t0, t1=self._now(),
+                    tid=threading.get_ident(), depth=depth, parent=parent,
+                    attrs=dict(attrs), wall_unix=self._wall_unix,
+                ))
 
     def instant(self, name: str, **attrs) -> None:
         """Record a zero-duration event (submit/abandon markers)."""
@@ -217,7 +198,7 @@ class Tracer:
             attrs=dict(attrs), wall_unix=self._wall_unix,
         ))
 
-    # -- views / export -----------------------------------------------------
+    # -- views --------------------------------------------------------------
 
     def spans(self, name: str | None = None) -> list[SpanRecord]:
         """Ring contents in completion order (oldest first); optionally
@@ -245,58 +226,3 @@ class Tracer:
             "recorded": len(self.spans()),
             "by_name": table,
         }
-
-    def to_perfetto(self) -> list[dict]:
-        """Chrome trace-event list (``ph: "X"`` complete events, us).
-
-        Instants become ``ph: "i"`` thread-scoped events. One metadata
-        event per thread names it by its first span. Load the dumped
-        JSON array in chrome://tracing or ui.perfetto.dev.
-        """
-        events: list[dict] = []
-        named_tids: set[int] = set()
-        for r in self.spans():
-            if r.tid not in named_tids:
-                named_tids.add(r.tid)
-                events.append({
-                    "ph": "M", "pid": 1, "tid": r.tid,
-                    "name": "thread_name",
-                    "args": {"name": f"thread-{r.tid % 100000}"},
-                })
-            base = {
-                "name": r.name, "pid": 1, "tid": r.tid,
-                "ts": r.t0 * 1e6, "cat": "repro",
-                "args": dict(r.attrs),
-            }
-            if r.t1 == r.t0:
-                events.append({**base, "ph": "i", "s": "t"})
-            else:
-                events.append({**base, "ph": "X", "dur": r.duration_s * 1e6})
-        return events
-
-    def write_perfetto(self, path: str) -> str:
-        events = self.to_perfetto()
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        with open(path, "w") as f:
-            json.dump(events, f, default=_json_default)
-        return path
-
-    def write_jsonl(self, path: str) -> str:
-        """Dump the ring to a JSONL file (distinct from the live sink:
-        this is a one-shot export of what is currently in memory)."""
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        with open(path, "w") as f:
-            for r in self.spans():
-                f.write(json.dumps(r.to_dict(), default=_json_default) + "\n")
-        return path
-
-    def close(self) -> None:
-        if self._sink is not None:
-            self._sink.close()
-            self._sink = None
-
-    def __enter__(self) -> "Tracer":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()

@@ -162,7 +162,7 @@ from repro_torch.core.mixing import (
     straggler_stream,
 )
 from repro_torch.device import resolve_device
-from repro_torch.graphs import Body, GraphRunner
+from repro_torch.graphs import Body, GraphRunner, release
 from repro_torch.models import registry, transformer, whisper
 from repro_torch.models.common import IMPLS, ModelConfig, dtype_of
 from repro_torch.models.layers import sinusoidal_positions
@@ -702,12 +702,9 @@ class _Rollout:
         body.fn()
 
     def release(self) -> None:
-        """Drop the bodies and their graphs (each graph's memory pool goes
-        with it; the bodies' closures would keep them to the next garbage
-        collection): a restaged run's old multi-step."""
-        for body in self._bodies.values():
-            body.graph = None
-        self._bodies.clear()
+        """Drop the bodies and their graphs (``graphs.release``): a
+        restaged run's old multi-step."""
+        release(self._bodies)
 
     def __call__(self, params: Params, opt_state, batches: dict, *mix_w):
         self.setup._check_online_args(mix_w)

@@ -63,7 +63,7 @@ from typing import Callable, Hashable
 import torch
 
 from repro_torch.core.mixing import ScheduleArrays
-from repro_torch.graphs import Body, GraphRunner
+from repro_torch.graphs import Body, GraphRunner, release
 
 __all__ = ["MAX_GRAPH_STEPS", "SegmentRunner", "chunks"]
 
@@ -100,6 +100,8 @@ class SegmentRunner:
         ``"loop"`` rollout (eager every time).
       retrace_guard: an ``obs.RetraceGuard`` to record captures in.
       generators: the device generators the bodies draw from.
+      tracer: an ``obs.trace.Tracer`` for the graph runner's
+        ``graph.warmup`` / ``graph.capture`` spans.
     """
 
     def __init__(
@@ -110,13 +112,14 @@ class SegmentRunner:
         captured: bool,
         retrace_guard=None,
         generators: tuple[torch.Generator, ...] = (),
+        tracer=None,
     ):
         self.name = name
         self.device = device
         self.captured = captured
         self._graphs = GraphRunner(
             name, device, retrace_guard=retrace_guard, generators=generators,
-            fallback=" (run with rollout='loop')",
+            fallback=" (run with rollout='loop')", tracer=tracer,
         )
         self._bodies: dict[Hashable, _Body] = {}
         self._shapes: set = set()
@@ -219,6 +222,12 @@ class SegmentRunner:
         if outs and not isinstance(outs[0], torch.Tensor):
             return tuple(torch.cat(parts) for parts in zip(*outs))
         return torch.cat(outs)
+
+    def release(self) -> None:
+        """Drop the bodies and their graphs (``graphs.release``) at the end
+        of a run. The carries stay; a later segment builds its bodies
+        anew."""
+        release(self._bodies)
 
     def _run(self, key: Hashable, shape: Hashable) -> None:
         """Run the body of ``key`` once (eagerly, or through the graph runner;

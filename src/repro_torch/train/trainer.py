@@ -722,9 +722,13 @@ def run_classification(
     ``pi_hat`` work as in :func:`run_mean_estimation`: under staleness
     the half-step pytree is raveled into one (n, P) buffer and mixed
     through the ring (``aux["staleness"]``); probes land in
-    ``aux["health"]``. ``tracer`` records a ``sim.segment`` span per
-    segment; ``retrace_guard`` counts captures under
-    ``"classification.roll"``.
+    ``aux["health"]``. ``tracer`` records the call's spans:
+    ``sim.prepare`` (its staging), a ``sim.segment`` per segment with a
+    ``graph.warmup`` / ``graph.capture`` per body's first and second run
+    inside, a ``sim.eval`` per evaluation and ``sim.release`` (dropping
+    the bodies and their graphs at the end); while a profiler records,
+    each is also a named range in its trace, with or without a tracer.
+    ``retrace_guard`` counts captures under ``"classification.roll"``.
 
     Random draws come from ``torch.Generator``s seeded from ``seed``: the
     initial parameters from a CPU generator (``seed``, so every device
@@ -748,45 +752,50 @@ def run_classification(
     delays_arr = _check_staleness_args(staleness, delays, steps, n, online)
     pi_hat_t = _check_probe_args(probes, pi_hat, n, online, staleness, device)
     tracer = _NULL_TRACER if tracer is None else tracer
-    num_classes = int(np.max(y)) + 1
-    dim = X.shape[1]
-    data = _stack_node_data(X, y, indices_per_node, device)
-    net = StackedClassifier(
-        n, dim, num_classes, model=model, hidden=hidden,
-        generator=torch.Generator().manual_seed(seed), params0=params0,
-        device=device,
-    )
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    runner = SegmentRunner("classification.roll", device, captured=rollout == "scan",
-                           retrace_guard=retrace_guard, generators=(gen,))
-    # static: every body reads and continues these
-    params = {k: runner.carry(k, p.detach()) for k, p in net.named_parameters()}
-    state = dsgd_init(params)
-    use_ef = compressor is not None and not compressor.routes_to_plain
-    Wt, transport = _device_mixing(W, schedule, transport, device, params)
-    if batch_indices is not None:
-        batch_idx = torch.as_tensor(np.asarray(batch_indices), dtype=torch.long, device=device)
-        if batch_idx.shape != (steps, n, batch_size):
-            raise ValueError(
-                f"batch_indices must be (steps={steps}, n={n}, batch_size={batch_size}), "
-                f"got {tuple(batch_idx.shape)}"
-            )
-    # a node with no samples draws index 0 of its (empty, zero) rows, as
-    # the reference's maximum(length, 1) does
-    draw_len = data.lengths.clamp(min=1).to(torch.float32).unsqueeze(1)
-    rows = torch.arange(n, device=device).unsqueeze(1)
-    stale = spec = None
-    if staleness is not None:
-        flat0, spec = ravel_stack(params, pad_to=KERNEL_ROW_ALIGN)
-        stale = _StaleStreams(runner, flat0, staleness, delays_arr, schedule)
-        ef = runner.carry("ef", torch.zeros_like(flat0)) if use_ef else None
-        sched = schedule
-    else:
-        ef = ({k: runner.carry(f"ef.{k}", v) for k, v in ef_init(params).items()}
-              if use_ef else None)
-        sched = runner.swap(schedule) if online else schedule
-    ph = runner.carry("pi_hat", pi_hat_t) if pi_hat_t is not None else None
-    names = probes.names() if probes is not None else ()
+    # the call's staging: everything before its first segment
+    with tracer.span("sim.prepare", n=n, steps=steps):
+        num_classes = int(np.max(y)) + 1
+        dim = X.shape[1]
+        data = _stack_node_data(X, y, indices_per_node, device)
+        net = StackedClassifier(
+            n, dim, num_classes, model=model, hidden=hidden,
+            generator=torch.Generator().manual_seed(seed), params0=params0,
+            device=device,
+        )
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        runner = SegmentRunner("classification.roll", device, captured=rollout == "scan",
+                               retrace_guard=retrace_guard, generators=(gen,), tracer=tracer)
+        # static: every body reads and continues these
+        params = {k: runner.carry(k, p.detach()) for k, p in net.named_parameters()}
+        state = dsgd_init(params)
+        use_ef = compressor is not None and not compressor.routes_to_plain
+        Wt, transport = _device_mixing(W, schedule, transport, device, params)
+        if batch_indices is not None:
+            batch_idx = torch.as_tensor(np.asarray(batch_indices), dtype=torch.long, device=device)
+            if batch_idx.shape != (steps, n, batch_size):
+                raise ValueError(
+                    f"batch_indices must be (steps={steps}, n={n}, batch_size={batch_size}), "
+                    f"got {tuple(batch_idx.shape)}"
+                )
+        # a node with no samples draws index 0 of its (empty, zero) rows, as
+        # the reference's maximum(length, 1) does
+        draw_len = data.lengths.clamp(min=1).to(torch.float32).unsqueeze(1)
+        rows = torch.arange(n, device=device).unsqueeze(1)
+        stale = spec = None
+        if staleness is not None:
+            flat0, spec = ravel_stack(params, pad_to=KERNEL_ROW_ALIGN)
+            stale = _StaleStreams(runner, flat0, staleness, delays_arr, schedule)
+            ef = runner.carry("ef", torch.zeros_like(flat0)) if use_ef else None
+            sched = schedule
+        else:
+            ef = ({k: runner.carry(f"ef.{k}", v) for k, v in ef_init(params).items()}
+                  if use_ef else None)
+            sched = runner.swap(schedule) if online else schedule
+        ph = runner.carry("pi_hat", pi_hat_t) if pi_hat_t is not None else None
+        names = probes.names() if probes is not None else ()
+        do_eval = X_test is not None
+        X_t = torch.as_tensor(X_test, dtype=torch.float32, device=device) if do_eval else None
+        y_t = torch.as_tensor(y_test, dtype=torch.long, device=device) if do_eval else None
 
     def make_body(k: int, sched):
         idx_in = (torch.empty((k, n, batch_size), dtype=torch.long, device=device)
@@ -839,25 +848,24 @@ def run_classification(
 
         return body, inputs, (losses_out, health) if names else losses_out
 
-    do_eval = X_test is not None
-    X_t = torch.as_tensor(X_test, dtype=torch.float32, device=device) if do_eval else None
-    y_t = torch.as_tensor(y_test, dtype=torch.long, device=device) if do_eval else None
     logger = MetricLogger()
 
     def log_segment(t0: int, losses: np.ndarray, evaluate: bool) -> None:
         for j, loss in enumerate(losses):
             t = t0 + j
             if j == len(losses) - 1 and evaluate and (t % eval_every == 0 or t == steps - 1):
-                with torch.no_grad():
-                    logits = torch.func.functional_call(net, params, (X_t,))
-                    accs = (logits.argmax(-1) == y_t).float().mean(dim=1).cpu().numpy()
+                with tracer.span("sim.eval", t=t):
+                    with torch.no_grad():
+                        logits = torch.func.functional_call(net, params, (X_t,))
+                        accs = (logits.argmax(-1) == y_t).float().mean(dim=1).cpu().numpy()
+                    consensus = float(consensus_distance(params))
                 logger.log(
                     t,
                     loss=float(loss),
                     acc_mean=float(accs.mean()),
                     acc_min=float(accs.min()),
                     acc_max=float(accs.max()),
-                    consensus=float(consensus_distance(params)),
+                    consensus=consensus,
                 )
             else:
                 logger.log(t, loss=float(loss))
@@ -889,6 +897,8 @@ def run_classification(
         if on_segment is not None and t0 < steps:  # no hook after the final segment
             new = _segment_hook(on_segment, t0 - 1, runner, swaps, stale, ph is not None)
             sched = new if new is not None else sched
+    with tracer.span("sim.release"):
+        runner.release()
     logger.aux["n_traces"] = runner.n_traces
     logger.aux["swaps"] = swaps
     if names:
