@@ -26,6 +26,13 @@ nvcc per source, all at once) and then, on the card:
    qwen3-0.6b's long-context prefill at S = 8192, window 4096, qwen2.5-14b, qwen3-moe-30b-a3b, llava-next-mistral-7b, gemma-2b,
    gemma2-2b local at S = 8192 and global, softcap 50; SDPA has no
    softcap, so those rows time it without one, beside the row); the
+   flash backward (``flash_attention_bwd``: the saving forward under
+   autograd, then the dQ and dK / dV kernels) at the LM cell's layer
+   (2, 1024, 16 / 8, 128, causal) and recurrentgemma-2b's: dq, dk and dv
+   against autograd through the plain version in float32, each element
+   within 2^-7 of its value plus 2^-9 of the largest, two backward calls
+   bitwise equal, timed beside the plain backward and SDPA's (its bound
+   10 D flops a kept pair and head); the
    device auction LMO on the cold and warm STL-FW gradients of phase 6b's
    label-shard Pi (n = 100), of a Dirichlet(0.1) label partition at n =
    128, 512 and 1024 (2048 cut for time), and on tied integers: its
@@ -181,7 +188,13 @@ nvcc per source, all at once) and then, on the card:
    degrade policy with raw delays and node 1 quarantined (the meter's
    quarantined bytes) on the all-gather transport, 6 steps captured.
    Each arm launches ``gossip_schedule`` and prints ms/step (the last
-   segment), peak memory, losses and launches;
+   segment), peak memory, losses and launches. In every arm of phases
+   12-14 the flash calls are counted from just before the arm's steps:
+   one backward (``flash_attention_bwd``) a layer, node and step, and as
+   many forwards (twice as many where the backward recomputes the layers,
+   phases 13 and 14, and one more a layer where a loss is read without
+   gradient); phase 14's other families train no attention through the
+   kernels;
 13. trains phase 12's model (qwen3-0.6b at full width, 14 layers) in bf16
    with one node per
    rank (``make_train_setup(cfg, group=...)``): four rank processes
@@ -399,6 +412,12 @@ KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:109",
+    },
+    # no Pallas counterpart: the reference trains through plain XLA
+    "flash_attention_bwd": {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": "none: flash_attention_pallas has no backward (the reference's training "
+                    "differentiates plain XLA attention)",
     },
     "rglru_scan": {
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
@@ -631,6 +650,85 @@ def flash_case(label: str, B: int, S: int, H: int, Hkv: int, D: int, window: int
     return row
 
 
+# the backward against autograd through the plain version in float32: an
+# element within 2^-7 of its value (twice dq / dk / dv's one bfloat16
+# rounding) plus 2^-9 of the tensor's largest magnitude (a sum that
+# cancels), plus 1e-6 (tests/test_torch_flash_bwd_cuda.py's bound)
+FLASH_BWD_REL, FLASH_BWD_ABS, FLASH_BWD_FLOOR = 2.0 ** -7, 2.0 ** -9, 1e-6
+
+
+def flash_bwd_bound(B: int, S: int, H: int, Hkv: int, D: int,
+                    window: int | None) -> tuple[float, str]:
+    """Least time of the causal windowed GQA backward in ms, and what bounds
+    it: 10 D flops a kept pair and head (S, dP, dV, dK and dQ, five products
+    of 2 D); q, k, v, dO, the saved float32 output and log-sum-exp read
+    once, dq, dk and dv written once."""
+    t_bytes = (2 * (4 * B * S * H * D + 4 * B * S * Hkv * D)
+               + 4 * (B * S * H * D + B * H * S)) / HBM_BYTES_PER_S
+    t_ops = 10 * D * kept_pairs(S, window) * B * H / PEAK_OPS_PER_S[torch.bfloat16]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_bwd_case(label: str, B: int, S: int, H: int, Hkv: int, D: int, window: int | None,
+                   seed: int) -> dict:
+    """The bfloat16 backward (``ops.flash_attention`` under autograd: the
+    saving forward, then the dQ and dK / dV kernels) against autograd
+    through ``flash_attention_ref`` in float32 on the same inputs; timed
+    beside that plain backward and SDPA's (bfloat16, k / v expanded, the
+    library's yardstick, never called by the port)."""
+    bf16 = torch.bfloat16
+    q, k, v = (_randn(shape, bf16, seed + i) for i, shape in
+               enumerate(((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))))
+    dout = _randn((B, S, H, D), bf16, seed + 3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, window=window)
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    plain_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    plain = flash_attention_ref(*plain_leaves, window=window)
+    want = torch.autograd.grad(plain, plain_leaves, dout.float(), retain_graph=True)
+    errs, excess = [], []
+    for name, g, w in zip("qkv", got, want):
+        e = (g.float() - w).abs()
+        errs.append(float(e.max()))
+        excess.append(float((e / (FLASH_BWD_REL * w.abs() + FLASH_BWD_ABS * w.abs().max()
+                                  + FLASH_BWD_FLOOR)).max()))
+        check(excess[-1] <= 1.0, f"flash_attention_bwd {label} d{name}: {excess[-1]:.3f} x the "
+                                 f"bound (max |err| {errs[-1]:.3e})")
+    check(all(torch.equal(a, b) for a, b in zip(
+        got, torch.autograd.grad(out, leaves, dout, retain_graph=True))),
+        f"flash_attention_bwd {label}: two backward calls differ")
+    g = H // Hkv
+    qt, kt, vt = (t.transpose(1, 2).repeat_interleave(H // t.shape[2], dim=1)
+                  .detach().requires_grad_() for t in (q, k, v))
+    pos = torch.arange(S, device="cuda")
+    band = pos[None, :] <= pos[:, None]
+    if window is not None:
+        band = band & (pos[None, :] > pos[:, None] - window)
+    # causal without a window: SDPA's own causal path, its fastest
+    mask = dict(is_causal=True) if window is None else dict(attn_mask=band)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, **mask)
+    dt = dout.transpose(1, 2)
+    bound, bound_by = flash_bwd_bound(B, S, H, Hkv, D, window)
+    row = {
+        "kernel": "flash_attention_bwd", "case": label, "shape": [B, S, H, Hkv, D],
+        "window": window, "dtype": "bfloat16", "group": g,
+        "design": "dQ kernel (Q, dO stationary), then dK / dV kernel (K, V stationary, the "
+                  "GQA group summed in registers); bf16 wgmma, P and dS as two bf16 parts, "
+                  "no atomics",
+        "max_abs_err": max(errs), "max_abs_err_qkv": errs, "bound_excess_qkv": excess,
+        "bitwise_rerun": True,
+        "kernel_ms": device_ms(lambda: torch.autograd.grad(out, leaves, dout,
+                                                           retain_graph=True)),
+        "plain_ms": device_ms(lambda: torch.autograd.grad(plain, plain_leaves, dout.float(),
+                                                          retain_graph=True)),
+        "library_ms": device_ms(lambda: torch.autograd.grad(lib, (qt, kt, vt), dt,
+                                                            retain_graph=True)),
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    row["TFLOP_per_s"] = 10 * D * kept_pairs(S, window) * B * H / row["kernel_ms"] / 1e9
+    return row
+
+
 def scan_case(label: str, B: int, S: int, D: int, dtype: torch.dtype, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     a = (torch.rand((B, S, D), generator=gen, device="cuda") * 0.399 + 0.6).to(dtype)
@@ -692,6 +790,10 @@ def phase_lm_kernels() -> list[dict]:
         flash_case("f32, S=1024", 1, 1024, 10, 1, 256, 2048, f32, 23),
         flash_case("S=100 ragged", 2, 100, 10, 1, 256, 2048, f32, 26),
         flash_case("S=100 ragged", 2, 100, 10, 1, 256, 2048, bf16, 29),
+        # the backward: the LM cell's layer (qwen3-0.6b, causal) first, then
+        # recurrentgemma-2b's layer
+        flash_bwd_case("qwen3-0.6b training layer, S=1024", 2, 1024, 16, 8, 128, None, 62),
+        flash_bwd_case("recurrentgemma-2b layer", 2, 4096, 10, 1, 256, 2048, 63),
         scan_case("recurrentgemma-2b layer", 2, 4096, 2560, f32, 32),
         scan_case("ragged S and D", 3, 1001, 2561, f32, 33),
         scan_case("ragged S and D", 3, 1001, 2561, bf16, 34),
@@ -1042,7 +1144,8 @@ def phase_main_path(mnist) -> dict:
 
     def expect(label, counts, schedule, mix):
         check(counts == {"gossip_schedule": schedule, "gossip_mix": mix,
-                         "flash_attention": 0, "rglru_scan": 0, "auction": 0},
+                         "flash_attention": 0, "flash_attention_bwd": 0, "rglru_scan": 0,
+                         "auction": 0},
               f"{label}: launches {counts}, expected schedule={schedule} mix={mix}")
         for k in launches:
             launches[k] += counts[k]
@@ -1932,8 +2035,8 @@ def expect_lm(label: str, counts: dict, flash: int, scan: int, device: torch.dev
     """The LM kernels' launches of one counted run (none on the CPU)."""
     if device.type != "cuda":
         flash = scan = 0
-    want = {"gossip_schedule": 0, "gossip_mix": 0, "flash_attention": flash, "rglru_scan": scan,
-            "auction": 0}
+    want = {"gossip_schedule": 0, "gossip_mix": 0, "flash_attention": flash,
+            "flash_attention_bwd": 0, "rglru_scan": scan, "auction": 0}
     check(counts == want, f"{label}: launches {counts}, expected {want}")
     note(f"# {label}: launches flash_attention={flash} rglru_scan={scan}")
 
@@ -2798,6 +2901,8 @@ def phase_long_context(device: torch.device) -> dict:
 TRAIN = {"name": "qwen3-0.6b", "layers": 14, "nodes": 4, "batch": 2, "seq": 1024, "lr": 1e-3,
          "steps": 6, "segment": 2, "budget": 2}
 GOSSIP = ("gossip_schedule", "gossip_mix")
+# a training step's flash calls: the forward kernel and the backward's
+ATTENTION = ("flash_attention", "flash_attention_bwd")
 
 
 def train_config():
@@ -2805,7 +2910,28 @@ def train_config():
     return dataclasses.replace(get_config(TRAIN["name"]), num_layers=TRAIN["layers"])
 
 
-LM_KERNELS = GOSSIP + ("flash_attention", "rglru_scan")
+LM_KERNELS = GOSSIP + ATTENTION + ("rglru_scan",)
+
+
+def attention_since(before: dict) -> dict:
+    """The flash forward and backward calls since ``before`` (a
+    ``launch_counts()``)."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in ATTENTION}
+
+
+def expect_attention(label: str, got: dict, calls: int, device: torch.device,
+                     forwards: int | None = None) -> None:
+    """A training run's flash calls (``attention_since``): ``calls``
+    backward calls, one a layer, node and step (every full-sequence
+    attention trains through the kernels), and ``forwards`` forward calls
+    (default ``calls``; more where the backward recomputes the layers or a
+    loss is read without gradient); none on the CPU."""
+    want = {"flash_attention": calls if forwards is None else forwards,
+            "flash_attention_bwd": calls}
+    if device.type != "cuda":
+        want = {k: 0 for k in ATTENTION}
+    check(got == want, f"{label}: flash launches {got}, expected {want}")
 
 
 def card_batches(corpus: DomainSkewCorpus, Pi: np.ndarray, steps: int, batch: int, seq: int,
@@ -2976,15 +3102,18 @@ def phase_lm_training(device: torch.device) -> dict:
             "batcher_128_tokens_s": batcher_s, "batcher_step_s_estimate": batcher_step_s,
             "step_bound_ms": bound_ms}
     note(f"# {label} setup " + json.dumps(head))
-    rows, launches = {}, {k: 0 for k in GOSSIP}
+    rows, launches = {}, {k: 0 for k in GOSSIP + ATTENTION}
 
     def record(arm: str, out: dict) -> None:
         row = out["row"]
         row["bound_share"] = bound_ms / row["ms_per_step"]
+        row["attention"] = {k: out["counts"][k] for k in ATTENTION}
         rows[arm] = row
-        for k in GOSSIP:
+        for k in GOSSIP + ATTENTION:
             launches[k] += out["counts"][k]
         note(f"# {label} arm {arm} " + json.dumps(row))
+        # (d)'s microbatches are a node's sequences: a call a layer each too
+        expect_attention(f"{label} {arm}", row["attention"], cfg.num_layers * n * steps, device)
 
     a = train_arm("(a)", setup_a, params0, None, batches, profile=True)
     record("a_dsgd_schedule_scan", a)
@@ -3036,7 +3165,7 @@ def phase_lm_training(device: torch.device) -> dict:
           f"{label} (f): launches {f['counts']}")
     del f
     robust, robust_yard = phase_lm_robust(cfg, sched, arrays, params0, batches, device)
-    for k in GOSSIP:
+    for k in robust:
         launches[k] += robust[k]
     yard.update(robust_yard)
     del params0
@@ -3100,7 +3229,7 @@ def phase_lm_robust(cfg, sched, arrays, params0: dict, batches: dict,
     label = "12 qwen3-0.6b"
     n, seg = TRAIN["nodes"], ROBUST["segment"]
     common = dict(n_nodes=n, lr=TRAIN["lr"], device=device, online_w=True)
-    launches, yard = {k: 0 for k in GOSSIP}, {}
+    launches, yard = {k: 0 for k in GOSSIP + ATTENTION}, {}
 
     def first(k: int) -> dict:
         return {name: v[:k] for name, v in batches.items()}
@@ -3116,10 +3245,12 @@ def phase_lm_robust(cfg, sched, arrays, params0: dict, batches: dict,
         counts = launch_counts()
         row = {"steps": k, "seconds": time.perf_counter() - tic,
                "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": {name: counts[name] for name in GOSSIP}}
-        for name in GOSSIP:
+               "launches": {name: counts[name] for name in GOSSIP},
+               "attention": {name: counts[name] for name in ATTENTION}}
+        for name in GOSSIP + ATTENTION:
             launches[name] += counts[name]
         check(counts["gossip_schedule"] > 0, f"{label} {arm}: no gossip_schedule launch")
+        expect_attention(f"{label} {arm}", row["attention"], cfg.num_layers * n * k, device)
         return res, row
 
     def segmented(res: dict, row: dict, seg_len: int) -> dict:
@@ -3477,13 +3608,15 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
         M.reset_collective_bytes()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
         tic = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - tic
         arms[label] = {"steps": k, "ms_per_step": 1e3 * seconds / k,
                        "bytes_per_step": {kk: v / k for kk, v in M.collective_bytes.items()},
-                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "attention": attention_since(before)}
         return res
 
     def falls(label, setup, params, loss0: float) -> None:
@@ -3511,6 +3644,7 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
     del g, kept
     free_card()
     p = params0
+    attention = {k: 0 for k in ATTENTION}
     for t in range(steps["a"]):
         if t:
             own.append(float(setup.grad_fn(p, {k: v[t] for k, v in mine.items()})[0]))
@@ -3519,10 +3653,13 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
         M.reset_collective_bytes()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
         tic = time.perf_counter()
         p, _, loss = setup.train_step(p, None, {k: v[t] for k, v in mine.items()}, arrays)
         means.append(float(loss))
         torch.cuda.synchronize()
+        for k, v in attention_since(before).items():
+            attention[k] += v
         if t == 0:
             arms["a_allgather_arrays"] = {
                 "steps": steps["a"], "ms_first_step": 1e3 * (time.perf_counter() - tic),
@@ -3531,7 +3668,8 @@ def rank_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
                 "peak_grad_gb": peak_grad / 1e9, "grad_base_gb": grad_base / 1e9,
                 "peak_grad_no_remat_accum2_gb": peak_kept / 1e9,
                 "no_remat_accum2_loss_diff": abs(float(l_kept) - float(l0))}
-    arms["a_allgather_arrays"].update({"own_losses": own, "mean_losses": means})
+    arms["a_allgather_arrays"].update({"own_losses": own, "mean_losses": means,
+                                       "attention": attention})
     falls("a_allgather_arrays", setup, p, own[0])
     out["checkpoint"] = rank_checkpoint(rank, n, setup, {k: p[k] for k in _check_tree()},
                                         arrays, steps["a"])
@@ -3736,7 +3874,15 @@ def phase_lm_ranks(yard: dict, device: torch.device) -> dict:
             if "first_batch_loss_after" in arm:
                 check(arm["first_batch_loss_after"] < arm["first_batch_loss_before"],
                       f"{label} {arm_name}: the loss did not fall: {arm}")
-    launches = {k: sum(row["launches"][k] for row in rows) for k in GOSSIP}
+    # every arm's steps through the flash kernels; remat runs each layer's
+    # forward again in the backward
+    layers = train_config().num_layers
+    for r, row in enumerate(rows):
+        for arm_name, arm in row["arms"].items():
+            calls = layers * arm["steps"]
+            expect_attention(f"{label} {arm_name} rank {r}", arm["attention"], calls, device,
+                             forwards=2 * calls)
+    launches = {k: sum(row["launches"][k] for row in rows) for k in GOSSIP + ATTENTION}
     check(all(v > 0 for v in launches.values()), f"{label}: yardstick launches {launches}")
     summary = {
         "seconds": time.perf_counter() - t_phase, "ranks_wall_s": wall,
@@ -4035,10 +4181,12 @@ def mesh_phase(rank: int, n: int, init: str, yard: dict, device: torch.device) -
         M.reset_collective_bytes()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
         tic = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         arms[label] = {"steps": k, "ms_per_step": 1e3 * (time.perf_counter() - tic) / k,
+                       "attention": attention_since(before),
                        "bytes_per_step": {kk: v / k for kk, v in M.collective_bytes.items() if v},
                        "collectives_per_step": {kk: v / k for kk, v in
                                                 M.collective_calls.items() if v},
@@ -4150,7 +4298,8 @@ def node_loss(setup, params: dict, batch: dict) -> float:
 
     core = setup._core
     with torch.no_grad():
-        return float(tensor_parallel.lm_loss(params, core.cfg, batch, core.plan, core.tp))
+        return float(tensor_parallel.lm_loss(params, core.cfg, batch, core.plan, core.tp,
+                                             impl=core.loss_module.impl))
 
 
 def tp_arm(name: str, device: torch.device, measured, arms: dict) -> None:
@@ -4459,6 +4608,23 @@ def phase_lm_mesh(device: torch.device) -> dict:
             bound = 1.1 * yard["tp"][name]["node_bytes"] / shape[1]
             check(arm["resident_bytes"] <= bound,
                   f"{label} tp {name} rank {r}: {arm['resident_bytes']} B at rest")
+    # each arm's flash calls on a rank, remat running a layer's forward again
+    # in the backward: (a)'s loop also reads the node's loss without
+    # gradient before each step, (a)'s captured leg replays once more; the
+    # other families train no attention through the kernels (RG-LRU,
+    # mLSTM / sLSTM, whisper's and MLA's attention are plain)
+    layers = train_config().num_layers
+    for r, row in enumerate(rows):
+        arms = row["arms"]
+        for arm, calls, no_grad in (
+                ("a_dsgd_tp_loop", MESH["steps"]["a"], MESH["steps"]["a"]),
+                ("a_dsgd_tp_scan", MESH["steps"]["a"] + 1, 0),
+                ("b_fsdp", MESH["steps"]["b"], 0), ("c_dsgd_pod", MESH["steps"]["c"], 0)):
+            expect_attention(f"{label} {arm} rank {r}", arms[arm]["attention"], layers * calls,
+                             device, forwards=layers * (2 * calls + no_grad))
+        for name in TP_FAMILIES:
+            expect_attention(f"{label} tp_{name} rank {r}", arms[f"tp_{name}"]["attention"], 0,
+                             device)
     r0 = rows[0]["arms"]
     check(r0["tp_recurrentgemma-2b"]["heads_inside"] and
           r0["tp_whisper-small"]["vocab"] == "features",
@@ -4643,6 +4809,7 @@ def main(argv: list[str] | None = None) -> int:
     stamp("7")
     lm = phase_lm(torch.device("cuda"))
     launches.update(lm["launches"])
+    launches["flash_attention_bwd"] = 0  # phases 3-11 score and serve: no backward
     stamp("3-5")
     dense = phase_dense_families(torch.device("cuda"))
     launches["flash_attention"] += dense["flash_attention"]

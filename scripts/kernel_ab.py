@@ -11,6 +11,17 @@
         ``scaled_dot_product_attention`` at recurrentgemma-2b's layer
         (B 2, S 4096, H 10, Hkv 1, D 256, window 2048), old and new
         alternating.
+    python3 scripts/kernel_ab.py flash-bwd OLD_CSRC
+        The backward kernels (``flash_attention_bwd.cu``, through
+        ``ops``: both launches and the delta scratch) at the LM cell's
+        layer (B 2, S 1024, H 16, Hkv 8, D 128, causal) and at
+        recurrentgemma-2b's (above), beside their bound (10 D flops a
+        kept pair and head at 989 TFLOP/s), the plain version's backward
+        (autograd through ``flash_attention_ref`` in float32) and
+        ``scaled_dot_product_attention``'s backward (bfloat16, k and v
+        repeated over the group: the library's yardstick, never called by
+        the port); then the forward with grad off, from this checkout
+        and from OLD_CSRC alternating, and with its saved outputs.
     python3 scripts/kernel_ab.py gossip OLD_CSRC
         Builds ``gossip_mix.cu`` from this checkout and from OLD_CSRC and
         times both, and ``torch.matmul``, in float32 at the main path's
@@ -176,6 +187,53 @@ def flash(old_csrc: str) -> None:
     row["sdpa_ms"] = device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=band))
     print(json.dumps(row), flush=True)
+
+
+def _kept_pairs(S: int, causal: bool, window: int | None) -> int:
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    hi = i if causal else np.full(S, S - 1)
+    return int((hi - lo + 1).sum())
+
+
+def flash_bwd(old_csrc: str) -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    libs = nvcc_all({"flash_new": KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+                     "flash_old": Path(old_csrc).resolve() / "flash_attention.cu"})
+    calls = {name: _flash_fn(lib) for name, lib in libs.items()}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for B, S, H, Hkv, D, W in [(2, 1024, 16, 8, 128, None), (2, 4096, 10, 1, 256, 2048)]:
+        q, k, v = _qkv(B, S, H, Hkv, D, S + D)
+        dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                           device="cuda").bfloat16()
+        flops = 10 * D * B * H * _kept_pairs(S, True, W)
+        row = {"shape": [B, S, H, Hkv, D], "window": W, "bound_ms": flops / 989e12 * 1e3}
+        _, o32, lse = fa_ops._forward(q, k, v, True, W, 0.0, save=True)
+        grads = fa_ops._backward(q, k, v, dout, o32, lse, True, W, 0.0)
+        row["bwd_ms"] = device_ms(lambda: fa_ops._backward(q, k, v, dout, o32, lse, True, W, 0.0))
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        plain = flash_attention_ref(*leaves, window=W)
+        want = torch.autograd.grad(plain, leaves, dout.float(), retain_graph=True)
+        row["max_abs_err"] = [float((g.float() - w).abs().max()) for g, w in zip(grads, want)]
+        row["plain_bwd_ms"] = device_ms(
+            lambda: torch.autograd.grad(plain, leaves, dout.float(), retain_graph=True))
+        del plain, want, leaves
+        i = torch.arange(S, device="cuda")
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - (W or S))
+        qt, kt, vt = (t.transpose(1, 2).repeat_interleave(H // t.shape[2], dim=1)
+                      .detach().requires_grad_() for t in (q, k, v))
+        mask = dict(is_causal=True) if W is None else dict(attn_mask=band)
+        lib_out = sdpa(qt, kt, vt, **mask)
+        dt = dout.transpose(1, 2)
+        row["library_bwd_ms"] = device_ms(
+            lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dt, retain_graph=True))
+        del lib_out, qt, kt, vt
+        for rep in range(2):  # old, new, old, new (grad off), then with the saved outputs
+            for name in ("flash_old", "flash_new"):
+                row[f"fwd_{name}_ms_{rep}"] = device_ms(lambda: calls[name](q, k, v, window=W))
+        row["fwd_saving_ms"] = device_ms(lambda: fa_ops._forward(q, k, v, True, W, 0.0, save=True))
+        print(json.dumps(row), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -594,6 +652,8 @@ def main() -> int:
                              capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     if sys.argv[1:2] == ["flash"] and len(sys.argv) == 3:
         flash(sys.argv[2])
+    elif sys.argv[1:2] == ["flash-bwd"] and len(sys.argv) == 3:
+        flash_bwd(sys.argv[2])
     elif sys.argv[1:2] == ["gossip"] and len(sys.argv) == 3:
         gossip(sys.argv[2])
     elif sys.argv[1:2] == ["schedule"] and len(sys.argv) == 3:

@@ -33,6 +33,7 @@ KERNEL_SOURCES = {
     "gossip_schedule": "gossip_mix/csrc/gossip_schedule.cu",
     "gossip_mix": "gossip_mix/csrc/gossip_mix.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
     "auction": "auction/csrc/auction.cu",
 }

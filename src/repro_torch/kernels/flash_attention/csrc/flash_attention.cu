@@ -265,5 +265,17 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B,
                                     int S, int H, int Hkv, int D, int causal, int window,
                                     float softcap, void* stream) {
-  return flash_wgmma::launch(q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, stream);
+  return flash_wgmma::launch(q, k, v, out, nullptr, nullptr, B, S, H, Hkv, D, causal, window,
+                             softcap, stream);
+}
+
+// The same forward under autograd: it also writes the backward's inputs,
+// o32 (B, S, H, D) float32 and lse (B, H, S_pad) float32, S_pad = S
+// rounded up to a multiple of 128.
+extern "C" int flash_attention_bf16_save(const void* q, const void* k, const void* v, void* out,
+                                         void* o32, void* lse, int B, int S, int H, int Hkv,
+                                         int D, int causal, int window, float softcap,
+                                         void* stream) {
+  return flash_wgmma::launch(q, k, v, out, o32, lse, B, S, H, Hkv, D, causal, window, softcap,
+                             stream);
 }

@@ -48,6 +48,12 @@
 //   - The epilogue scales O by 1 / l (0 for a row with l = 0), stages
 //     the warp's 16 rows in its own rows of the Q tile and stores them
 //     with 16-byte writes, rows past S skipped.
+//   - Under autograd (kSave, o32 and lse not null) it also writes what
+//     the backward (flash_attention_bwd.cu) reads: each row's
+//     log-sum-exp m + log l in float32 at lse[(b H + h) S_pad + row]
+//     (S_pad = S rounded up to kLsePad), and O in float32 (B, S, H, D)
+//     beside the bf16 one. The inference launch is the kSave = false
+//     instance: the same kernel as without these outputs.
 // Shared memory: (128 + 4 * 64) * max(D, 64) * 2 bytes (+ 1 KB to align
 // the swizzle atoms, + the mbarriers), 193 KB at D = 256. TMA reads
 // q, k and v through tensor maps built at each launch; their addresses
@@ -70,6 +76,7 @@ constexpr int kThreads = 384;  // a producer warpgroup and two consumer warpgrou
 constexpr int kStages = 2;     // K / V ring
 constexpr float kNegInf = -2.0e9f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kLsePad = 128;   // the saved lse's rows: S rounded up to a multiple of this
 
 using bf16 = __nv_bfloat16;
 
@@ -212,11 +219,12 @@ __device__ __forceinline__ void load_rows(uint32_t tile, const CUtensorMap* map,
   for (int cb = 0; cb < Tile<D>::DP / 64; ++cb) tma_load(tile + cb * ROWS * 128, map, bar, cb * 64, head, r0, b);
 }
 
-template <int D>
+template <int D, bool kSave>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int S,
-                       int H, int Hkv, int causal, int window, float softcap, float scale) {
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                       float* __restrict__ o32, float* __restrict__ lse, int S, int H, int Hkv,
+                       int causal, int window, float softcap, float scale) {
   constexpr int DP = Tile<D>::DP;
   constexpr int NT = DP / 8;  // 8-column tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -396,6 +404,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  if constexpr (kSave) {
+    // the backward's inputs: rows qr0 and qr0 + 8 (those before S), the
+    // columns before D (D = 32 computes 64)
+    const int s_pad = (S + kLsePad - 1) / kLsePad * kLsePad;
+    float* lrow = lse + (int64_t)blockIdx.y * s_pad;
+    float* ob32 = o32 + (int64_t)b * S * q_stride + (int64_t)h * D;
+    if (lane % 4 == 0) {
+      if (qr0 < S) lrow[qr0] = m0 + logf(l0);
+      if (qr0 + 8 < S) lrow[qr0 + 8] = m1 + logf(l1);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = j * 8 + 2 * (lane % 4);
+      if (c >= D) continue;
+      if (qr0 < S)
+        *reinterpret_cast<float2*>(ob32 + (int64_t)qr0 * q_stride + c) =
+            make_float2(o[j][0] * inv0, o[j][1] * inv0);
+      if (qr0 + 8 < S)
+        *reinterpret_cast<float2*>(ob32 + (int64_t)(qr0 + 8) * q_stride + c) =
+            make_float2(o[j][2] * inv1, o[j][3] * inv1);
+    }
+  }
   // stage the warp's rows in its own rows of the (swizzled) Q tile, which
   // only this warp's finished MMAs read, then 16-byte stores
   const int r0 = warp * 16 + lane / 4;
@@ -461,34 +491,49 @@ inline int tensor_map(CUtensorMap* map, const void* base, int B, int S, int head
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int Hkv,
-             int causal, int window, float softcap, cudaStream_t stream) {
+template <int D, bool kSave>
+int launch_d(const void* q, const void* k, const void* v, void* out, void* o32, void* lse, int B,
+             int S, int H, int Hkv, int causal, int window, float softcap, cudaStream_t stream) {
   constexpr size_t bytes = Tile<D>::bytes;
+  // the runtime call first: on a thread where the runtime has not yet made
+  // the device's primary context current (autograd's, recomputing a
+  // forward under remat), the tensor-map encoder (a driver call) fails
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, kSave>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   int status;
   if ((status = tensor_map(&tq, q, B, S, H, D, kBQ)) != 0 ||
       (status = tensor_map(&tk, k, B, S, Hkv, D, kBKV)) != 0 ||
       (status = tensor_map(&tv, v, B, S, Hkv, D, kBKV)) != 0)
     return status;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)(B * H));
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), S, H, Hkv, causal, window, softcap,
-      (float)(1.0 / sqrt((double)D)));
+  flash_fwd_wgmma_kernel<D, kSave><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(o32), static_cast<float*>(lse), S,
+      H, Hkv, causal, window, softcap, (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
-inline int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                  int Hkv, int D, int causal, int window, float softcap, void* stream) {
+template <int D>
+int launch_saving(const void* q, const void* k, const void* v, void* out, void* o32, void* lse,
+                  int B, int S, int H, int Hkv, int causal, int window, float softcap,
+                  cudaStream_t st) {
+  return lse != nullptr
+             ? launch_d<D, true>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st)
+             : launch_d<D, false>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
+}
+
+// o32 and lse both null (inference) or both set (a forward under autograd)
+inline int launch(const void* q, const void* k, const void* v, void* out, void* o32, void* lse,
+                  int B, int S, int H, int Hkv, int D, int causal, int window, float softcap,
+                  void* stream) {
+  if ((o32 == nullptr) != (lse == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_d<32>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 64: return launch_d<64>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 128: return launch_d<128>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 256: return launch_d<256>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
+    case 32: return launch_saving<32>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
+    case 64: return launch_saving<64>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
+    case 128: return launch_saving<128>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
+    case 256: return launch_saving<256>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

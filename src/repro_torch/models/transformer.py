@@ -235,8 +235,8 @@ class LM(nn.Module):
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device: torch.device | str | None = None) -> LM:
     """An ``LM`` with weights drawn from ``torch.Generator(seed)`` on
-    ``device`` (None = CUDA), in eval mode with gradients off: this slice
-    is forward only (the reference's kernels have no backward pass)."""
+    ``device`` (None = CUDA), in eval mode with gradients off: for
+    scoring and serving (the trainers make their own parameter leaves)."""
     device = resolve_device(device)
     model = LM(cfg, device)
     model.init_weights(torch.Generator(device=device).manual_seed(seed))

@@ -61,9 +61,14 @@ Modes:
   mesh.
 * ``dsgd_pod`` -- pods are the nodes (a mesh only), mixing every step.
 
-Training runs ``impl="plain"`` under autograd: no kernel of the reference
-has a backward pass, so ``impl="kernel"`` is refused rather than run
-through the forward-only flash kernel.
+``impl`` picks the full-sequence attention (``models/attention.py``).
+``"kernel"`` trains through the flash-attention kernel, which has a
+backward for bfloat16 on the card (``kernels/flash_attention``; on the
+CPU autograd differentiates its plain version); it is refused for a
+config with RG-LRU layers (the scan kernel has no backward) and for a
+float32 or float16 config on the card. ``impl=None`` resolves to
+``"kernel"`` on a CUDA device wherever it would not be refused, else to
+``"plain"`` (plain PyTorch attention under autograd, as on the CPU).
 
 ``TrainSetup.multi_step_fn(rollout)`` is the counterpart of the
 reference's ``lax.scan`` rollout: ``"scan"`` runs the steps as captured
@@ -401,7 +406,8 @@ class _Step:
                 loss = tensor_parallel.lm_loss({k: named["model." + k] for k in leaves},
                                                self.cfg, b, self.plan, self.tp,
                                                remat=self.remat,
-                                               batch_groups=self.batch_groups)
+                                               batch_groups=self.batch_groups,
+                                               impl=self.loss_module.impl)
                 return loss.detach(), torch.autograd.grad(loss, [named[k] for k in keys])
             return torch.func.functional_call(self.loss_module, {**named, **self.buffers},
                                               (b, keys))
@@ -1276,6 +1282,29 @@ def _check_robustness(mode: str, online_w: bool, gossip_every: int, compressor, 
             raise ValueError("compression rides the online transports: build with online_w=True")
 
 
+def _kernel_refusal(cfg: ModelConfig, device: torch.device) -> str | None:
+    """Why ``impl="kernel"`` cannot train ``cfg`` on ``device``, or None."""
+    if "rglru" in cfg.layer_pattern:
+        return "the RG-LRU scan kernel has no backward"
+    if device.type == "cuda" and dtype_of(cfg) != torch.bfloat16:
+        return f"the flash-attention kernel's backward takes bfloat16 only, not {cfg.dtype}"
+    return None
+
+
+def _train_impl(cfg: ModelConfig, device: torch.device, impl: str | None) -> str:
+    """``impl`` as ``make_train_setup`` runs it: None is ``"kernel"`` on a
+    CUDA device where ``cfg`` can train through the kernels, else
+    ``"plain"``; ``"kernel"`` where it cannot raises."""
+    if impl is None:
+        return "kernel" if device.type == "cuda" and _kernel_refusal(cfg, device) is None \
+            else "plain"
+    reason = _kernel_refusal(cfg, device) if impl == "kernel" else None
+    if reason is not None:
+        raise ValueError(f"impl='kernel' cannot train {cfg.name} on {device.type}: {reason} "
+                         "(no backward kernel); use impl='plain'")
+    return impl
+
+
 def make_train_setup(
     cfg: ModelConfig,
     *,
@@ -1284,7 +1313,7 @@ def make_train_setup(
     schedule: BirkhoffSchedule | None = None,
     lr: float = 1e-3,
     momentum: float = 0.0,
-    impl: str = "plain",
+    impl: str | None = None,
     grad_accum: int = 1,
     gossip_every: int = 1,
     online_w: bool = False,
@@ -1348,6 +1377,9 @@ def make_train_setup(
     bfloat16 leaf moves as bfloat16, so for a bfloat16 model a rank
     receives half of it; ``mixing.collective_bytes`` counts what a rank
     really receives.
+
+    ``impl`` (None: resolved by the device and ``cfg``, the module
+    docstring) picks the attention the step trains through.
     """
     if mesh is not None and group is not None:
         raise ValueError("pass mesh= or group=, not both (group= is a ('data',) mesh)")
@@ -1360,12 +1392,8 @@ def make_train_setup(
     if mode == "fsdp" and group is not None:
         raise ValueError("fsdp over ranks takes mesh= a (data, model) DeviceMesh (group= is the "
                          "one-node-a-rank layout of dsgd)")
-    if impl not in IMPLS:
+    if impl is not None and impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "kernel":
-        raise ValueError(
-            "impl='kernel' cannot train: the flash-attention and RG-LRU scan kernels are "
-            "forward only (the reference's Pallas kernels have no backward); use impl='plain'")
     compressor = make_compressor(compression)
     _check_robustness(mode, online_w, gossip_every, compressor, staleness, probes)
     if sharded_transport not in ("auto", "allgather", "pool"):
@@ -1383,6 +1411,7 @@ def make_train_setup(
         raise ValueError(f"grad_accum and gossip_every must be >= 1, got {grad_accum}, "
                          f"{gossip_every}")
     device = resolve_device(device)
+    impl = _train_impl(cfg, device, impl)
     meta = whisper.Whisper(cfg, "meta") if cfg.arch_type == "audio" else \
         transformer.LM(cfg, "meta")
     layout = None

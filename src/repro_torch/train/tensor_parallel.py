@@ -515,7 +515,7 @@ def _whisper_loss(params: dict, cfg: ModelConfig, batch: dict, plan: TPPlan, tp:
 
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict, plan: TPPlan, tp: TPGroup, *,
-            remat: bool = False, batch_groups: tuple = ()) -> torch.Tensor:
+            remat: bool = False, batch_groups: tuple = (), impl: str = "plain") -> torch.Tensor:
     """``registry.loss_fn``'s loss (float32: the mean next-token cross
     entropy plus ``router_aux_coef`` times the MoE aux loss) of the model
     whose leaves are ``params`` (this rank's blocks, named as the model's
@@ -523,7 +523,8 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, plan: TPPlan, tp: TPGro
     ``image_embeds``; whisper's ``frames``); ``remat`` recomputes each
     layer's and each loss chunk's activations in the backward pass.
     ``batch_groups``: the groups (``TPGroup``s) a node's batch is split
-    over, for the MoE aux loss's whole-batch statistics."""
+    over, for the MoE aux loss's whole-batch statistics. ``impl``: the
+    attention's, as ``models/attention.py`` takes it."""
     remat = remat and torch.is_grad_enabled()
     if cfg.arch_type == "audio":
         return _whisper_loss(params, cfg, batch, plan, tp, remat)
@@ -536,7 +537,7 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, plan: TPPlan, tp: TPGro
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        args = (params, i, cfg, plan, tp, x, positions, batch_groups)
+        args = (params, i, cfg, plan, tp, x, positions, batch_groups, None, None, impl)
         x, a = transformer._remat(_layer, *args) if remat else _layer(*args)
         if a is not None:
             aux = aux + a

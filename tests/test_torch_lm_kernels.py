@@ -107,6 +107,85 @@ def test_flash_attention_rejects_bad_inputs(shapes, kwargs, err):
         fa_ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
 
 
+GRAD_CASES = [c for c in CASES if c[1] > 1] + [(1, 70, 4, 4, 64, None, 20.0)]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,softcap", GRAD_CASES)
+def test_flash_attention_grads_match_plain_sdpa_on_cpu(B, S, H, Hkv, D, window, softcap):
+    """On the CPU autograd differentiates ``ops.flash_attention`` (its
+    plain version): dq, dk, dv equal those of the training path's plain
+    ``_sdpa`` under the same causal / window mask, in float32 (1e-5: two
+    float32 softmaxes, their sums in other orders)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.attention import _causal_mask, _sdpa
+
+    rng = np.random.default_rng(S + D + H)
+    leaves = [torch.tensor(rng.normal(size=shape), dtype=torch.float32, requires_grad=True)
+              for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+    dout = torch.tensor(rng.normal(size=(B, S, H, D)), dtype=torch.float32)
+    out = fa_ops.flash_attention(*leaves, window=window, softcap=softcap)
+    got = torch.autograd.grad(out, leaves, dout)
+    plain = _sdpa(*leaves, _causal_mask(S, S, window), SimpleNamespace(attn_logit_softcap=softcap))
+    want = torch.autograd.grad(plain, leaves, dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+def test_flash_attention_grads_through_the_smoke_lm_on_cpu():
+    """qwen3-0.6b's smoke config (float32): every parameter's gradient of
+    the loss through ``impl="kernel"`` (autograd through
+    ``ops.flash_attention``) equals that through ``impl="plain"``
+    (``_sdpa``) within 1e-5 relative plus 1e-6 of the leaf's largest
+    magnitude."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    model = registry.init_model(cfg, seed=0, device="cpu")
+    toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 48)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+    params = [p.requires_grad_() for _, p in model.named_parameters()]
+    grads = {}
+    for impl in ("kernel", "plain"):
+        loss = registry.loss_fn(model, cfg, batch, impl=impl)[0]
+        grads[impl] = torch.autograd.grad(loss, params)
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(g, w, atol=1e-6 * float(w.abs().max()) + 1e-12, rtol=1e-5)
+
+
+def test_tensor_parallel_loss_takes_the_trainers_impl(monkeypatch):
+    """The mesh trainers' forward (``tensor_parallel.lm_loss``, here on
+    one rank with every leaf whole) attends through ``ops.flash_attention``
+    once a layer under ``impl="kernel"``, which the trainer resolves to on
+    the card, and not under ``impl="plain"``; the losses and gradients
+    agree (float32, 1e-5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry
+    from repro_torch.train import tensor_parallel
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    model = registry.init_model(cfg, seed=0, device="cpu")
+    params = {k: p.detach().requires_grad_() for k, p in model.named_parameters()}
+    plan = tensor_parallel.make_plan(cfg, {k: (None,) * p.ndim for k, p in params.items()}, 1)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+    calls = []
+    flash = fa_ops.flash_attention
+    monkeypatch.setattr(fa_ops, "flash_attention", lambda *a, **kw: calls.append(1) or
+                        flash(*a, **kw))
+    out = {}
+    for impl in ("kernel", "plain"):
+        calls.clear()
+        loss = tensor_parallel.lm_loss(params, cfg, batch, plan,
+                                       tensor_parallel.TPGroup.of(None), impl=impl)
+        out[impl] = (loss, torch.autograd.grad(loss, list(params.values())), len(calls))
+    assert out["kernel"][2] == cfg.num_layers and out["plain"][2] == 0
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], atol=1e-5, rtol=1e-5)
+    for g, w in zip(out["kernel"][1], out["plain"][1]):
+        torch.testing.assert_close(g, w, atol=1e-6 * float(w.abs().max()) + 1e-12, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # rglru_scan
 # ---------------------------------------------------------------------------

@@ -36,9 +36,11 @@ carry; a swap in ``run_segments`` adds no capture; a resumed
 ``run_segments`` is bitwise the uninterrupted one, also over the EF +
 stale carry and a restage; probes are bitwise the probes-off run; every
 robustness option and ``run_segments`` argument builds and runs on
-stacked nodes; ``impl="kernel"`` is refused.
+stacked nodes; ``impl="kernel"`` is refused only where a kernel has no
+backward, and ``impl=None`` resolves by device and config.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -733,9 +735,36 @@ def test_run_segments_arguments_left_for_later_items_raise(reference, what):
         assert isinstance(out["mix"], ScheduleArrays) and out["mix"].l_max == 4
 
 
-def test_impl_kernel_is_refused():
-    with pytest.raises(ValueError, match="backward"):
-        make_train_setup(get_smoke_config(NAME), n_nodes=N, impl="kernel", device="cpu")
+@pytest.mark.parametrize("case", ["rglru", "float32_on_card", "default_on_cpu",
+                                  "default_on_card"])
+def test_impl_kernel_is_refused(case):
+    """``impl="kernel"`` is refused only where a kernel has no backward: a
+    config with RG-LRU layers, a float32 config on the card; ``impl=None``
+    resolves to ``"kernel"`` for a bfloat16 attention config on the card
+    and to ``"plain"`` on the CPU (one predicate for both)."""
+    on_card = case.endswith("on_card")
+    if on_card and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card's resolution is checked on the card")
+    device = "cuda" if on_card else "cpu"
+    if case == "rglru":
+        with pytest.raises(ValueError, match="backward"):
+            make_train_setup(get_smoke_config("recurrentgemma-2b"), n_nodes=2, impl="kernel",
+                             device=device)
+        assert make_train_setup(get_smoke_config("recurrentgemma-2b"), n_nodes=2,
+                                device=device)._core.loss_module.impl == "plain"
+    elif case == "float32_on_card":
+        cfg = get_smoke_config(NAME)
+        assert cfg.dtype == "float32"
+        with pytest.raises(ValueError, match="backward"):
+            make_train_setup(cfg, n_nodes=N, impl="kernel", device=device)
+        assert make_train_setup(cfg, n_nodes=N, device=device)._core.loss_module.impl == "plain"
+    else:
+        cfg = dataclasses.replace(get_smoke_config(NAME), dtype="bfloat16")
+        setup = make_train_setup(cfg, n_nodes=N, device=device)
+        assert setup._core.loss_module.impl == ("kernel" if on_card else "plain")
+        # an explicit "kernel" trains on the CPU too (autograd through the plain version)
+        kernel = make_train_setup(cfg, n_nodes=N, impl="kernel", device=device)
+        assert kernel._core.loss_module.impl == "kernel"
 
 
 def test_online_and_argument_checks(reference):
