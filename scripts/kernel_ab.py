@@ -123,10 +123,14 @@ def device_ms(fn, launches: int = 30, warmup: int = 5) -> float:
 # flash_attention: this checkout's bfloat16 kernel against another version
 # ---------------------------------------------------------------------------
 
-def _flash_fn(lib: ctypes.CDLL):
+def _flash_fn(lib: ctypes.CDLL, csrc: Path):
+    """The bf16 forward of a built ``flash_attention.cu``; a source whose
+    entry takes the logits' scale (after the softcap) is passed 0, its
+    D^-0.5 default, and an older one is called without it."""
     fn = lib.flash_attention_bf16
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P]
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    scaled = "float softcap, float scale, void* stream" in csrc.read_text()
+    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F] + ([F] if scaled else []) + [P]
     fn.restype = I
 
     def call(q, k, v, causal=True, window=None, softcap=0.0):
@@ -134,7 +138,7 @@ def _flash_fn(lib: ctypes.CDLL):
         B, S, H, D = q.shape
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2],
                     D, int(causal), 0 if window is None else window, softcap,
-                    torch.cuda.current_stream().cuda_stream)
+                    *([0.0] if scaled else []), torch.cuda.current_stream().cuda_stream)
         if status:
             raise RuntimeError(f"flash_attention_bf16: cudaError {status}")
         return out
@@ -149,7 +153,8 @@ def _qkv(B, S, H, Hkv, D, seed):
 
 def flash_check() -> None:
     """The new kernel against the plain version at small shapes (child process)."""
-    call = _flash_fn(ctypes.CDLL(str(OUT / "flash_new.so")))
+    call = _flash_fn(ctypes.CDLL(str(OUT / "flash_new.so")),
+                     KERNELS / "flash_attention" / "csrc" / "flash_attention.cu")
     for B, S, H, Hkv, D, causal, window, softcap in [
             (1, 1, 2, 1, 64, True, None, 0.0), (1, 100, 4, 2, 256, True, 64, 0.0),
             (2, 129, 4, 4, 32, True, None, 0.0), (1, 300, 8, 4, 128, False, None, 50.0),
@@ -167,10 +172,11 @@ def flash_check() -> None:
 
 
 def flash(old_csrc: str) -> None:
-    libs = nvcc_all({"flash_new": KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
-                     "flash_old": Path(old_csrc).resolve() / "flash_attention.cu"})
+    sources = {"flash_new": KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+               "flash_old": Path(old_csrc).resolve() / "flash_attention.cu"}
+    libs = nvcc_all(sources)
     subprocess.run([sys.executable, __file__, "flash-check"], check=True, timeout=120)
-    calls = {name: _flash_fn(lib) for name, lib in libs.items()}
+    calls = {name: _flash_fn(lib, sources[name]) for name, lib in libs.items()}
     B, S, H, Hkv, D, W = 2, 4096, 10, 1, 256, 2048
     q, k, v = _qkv(B, S, H, Hkv, D, 20)
     plain = flash_attention_ref(q.float(), k.float(), v.float(), window=W)
@@ -199,9 +205,10 @@ def _kept_pairs(S: int, causal: bool, window: int | None) -> int:
 def flash_bwd(old_csrc: str) -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    libs = nvcc_all({"flash_new": KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
-                     "flash_old": Path(old_csrc).resolve() / "flash_attention.cu"})
-    calls = {name: _flash_fn(lib) for name, lib in libs.items()}
+    sources = {"flash_new": KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+               "flash_old": Path(old_csrc).resolve() / "flash_attention.cu"}
+    libs = nvcc_all(sources)
+    calls = {name: _flash_fn(lib, sources[name]) for name, lib in libs.items()}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for B, S, H, Hkv, D, W in [(2, 1024, 16, 8, 128, None), (2, 4096, 10, 1, 256, 2048)]:
         q, k, v = _qkv(B, S, H, Hkv, D, S + D)
@@ -209,9 +216,10 @@ def flash_bwd(old_csrc: str) -> None:
                            device="cuda").bfloat16()
         flops = 10 * D * B * H * _kept_pairs(S, True, W)
         row = {"shape": [B, S, H, Hkv, D], "window": W, "bound_ms": flops / 989e12 * 1e3}
-        _, o32, lse = fa_ops._forward(q, k, v, True, W, 0.0, save=True)
-        grads = fa_ops._backward(q, k, v, dout, o32, lse, True, W, 0.0)
-        row["bwd_ms"] = device_ms(lambda: fa_ops._backward(q, k, v, dout, o32, lse, True, W, 0.0))
+        _, o32, lse = fa_ops._forward(q, k, v, True, W, 0.0, None, save=True)
+        grads = fa_ops._backward(q, k, v, dout, o32, lse, True, W, 0.0, None)
+        row["bwd_ms"] = device_ms(
+            lambda: fa_ops._backward(q, k, v, dout, o32, lse, True, W, 0.0, None))
         leaves = [t.float().requires_grad_() for t in (q, k, v)]
         plain = flash_attention_ref(*leaves, window=W)
         want = torch.autograd.grad(plain, leaves, dout.float(), retain_graph=True)
@@ -232,7 +240,8 @@ def flash_bwd(old_csrc: str) -> None:
         for rep in range(2):  # old, new, old, new (grad off), then with the saved outputs
             for name in ("flash_old", "flash_new"):
                 row[f"fwd_{name}_ms_{rep}"] = device_ms(lambda: calls[name](q, k, v, window=W))
-        row["fwd_saving_ms"] = device_ms(lambda: fa_ops._forward(q, k, v, True, W, 0.0, save=True))
+        row["fwd_saving_ms"] = device_ms(
+            lambda: fa_ops._forward(q, k, v, True, W, 0.0, None, save=True))
         print(json.dumps(row), flush=True)
 
 

@@ -8,8 +8,9 @@ The port runs every architecture of the reference: the dense GQA
 families (qwen3-0.6b, gemma-2b, gemma2-2b, qwen2.5-14b), recurrentgemma-2b,
 the MoE families (qwen3-moe-30b-a3b; deepseek-v2-236b, with MLA and shared
 experts), xlstm-350m, whisper-small (encoder-decoder) and
-llava-next-mistral-7b (stub patch embeddings). An unknown name raises
-``ValueError``.
+llava-next-mistral-7b (stub patch embeddings). ``PORT_IDS`` are the port's
+own architectures, beyond the reference's ten (``ARCH_IDS``):
+deepseek-v2-lite. An unknown name raises ``ValueError``.
 
 Input shapes (the reference's):
   train_4k     seq 4096,   global batch 256   (train_step)
@@ -24,8 +25,8 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-__all__ = ["ARCH_IDS", "PORTED", "INPUT_SHAPES", "get_config", "get_smoke_config",
-           "all_configs"]
+__all__ = ["ARCH_IDS", "PORT_IDS", "PORTED", "INPUT_SHAPES", "get_config",
+           "get_smoke_config", "all_configs"]
 
 # canonical ids (hyphenated) -> module names, as in the reference
 ARCH_IDS = {
@@ -41,6 +42,10 @@ ARCH_IDS = {
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 PORTED = tuple(ARCH_IDS.values())
+# the port's own architectures: canonical id -> module name
+PORT_IDS = {
+    "deepseek-v2-lite": "deepseek_v2_lite",
+}
 
 INPUT_SHAPES = {
     "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},
@@ -51,8 +56,8 @@ INPUT_SHAPES = {
 
 
 def _module(name: str):
-    mod = ARCH_IDS.get(name, name).replace("-", "_").replace(".", "_")
-    if mod not in PORTED:
+    mod = {**ARCH_IDS, **PORT_IDS}.get(name, name).replace("-", "_").replace(".", "_")
+    if mod not in PORTED and mod not in PORT_IDS.values():
         raise ValueError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
@@ -66,4 +71,5 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 
 def all_configs() -> dict[str, ModelConfig]:
+    """The reference's ten architectures' full configs."""
     return {name: get_config(name) for name in ARCH_IDS}

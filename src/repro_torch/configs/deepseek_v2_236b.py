@@ -5,6 +5,15 @@ vocab=102400. MLA with kv_lora=512, decoupled RoPE 64; MoE with 2 shared +
 On one 80 GB card: 244.19 B parameters (about 8.1 GB of bfloat16 per
 layer) do not fit whole, so ``chip_smoke.py`` runs the published widths
 cut to 4 layers.
+
+This is the reference's config, and departs from the published
+``config.json`` (https://huggingface.co/deepseek-ai/DeepSeek-V2): no
+leading dense layer (``first_k_dense_replace`` 1 there), the top-k gate
+values renormalised (``norm_topk_prob`` false there), no routing scale
+(``routed_scaling_factor`` 16 there), a full-rank q projection (q LoRA of
+rank 1536 there), no YaRN rotary scaling (factor 40 there), and the
+Switch-style auxiliary loss at 0.01. Its parity with the reference holds
+it so; ``deepseek_v2_lite.py`` carries the published forms.
 """
 
 from repro_torch.models.common import MLAConfig, ModelConfig, MoEConfig

@@ -222,7 +222,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-             int Hkv, int causal, int window, float softcap, cudaStream_t stream) {
+             int Hkv, int causal, int window, float softcap, float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -231,18 +231,18 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B, int 
   flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), S, H, Hkv, causal, window, softcap,
-      (float)(1.0 / sqrt((double)D)));
+      scale > 0.f ? scale : (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int Hkv,
-           int D, int causal, int window, float softcap, void* stream) {
+           int D, int causal, int window, float softcap, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_d<32>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 64: return launch_d<64>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 128: return launch_d<128>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
-    case 256: return launch_d<256>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, st);
+    case 32: return launch_d<32>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, scale, st);
+    case 64: return launch_d<64>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, scale, st);
+    case 128: return launch_d<128>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, scale, st);
+    case 256: return launch_d<256>(q, k, v, out, B, S, H, Hkv, causal, window, softcap, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -251,12 +251,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 
 // q, out: (B, S, H, D); k, v: (B, S, Hkv, D); row-major, one dtype. Hkv
 // divides H, D in {32, 64, 128, 256}, B * H <= 65535. window <= 0 means
-// no window; softcap <= 0 means no softcap. Returns the launch's
+// no window; softcap <= 0 means no softcap; the logits are scaled by
+// `scale`, or by D^-0.5 where scale <= 0. Returns the launch's
 // cudaError_t (cudaErrorInvalidValue for another D).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out, int B,
                                    int S, int H, int Hkv, int D, int causal, int window,
-                                   float softcap, void* stream) {
-  return launch(q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, stream);
+                                   float softcap, float scale, void* stream) {
+  return launch(q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, scale, stream);
 }
 
 // The tensor-core kernel: q, k, v and out also 16-byte aligned (TMA
@@ -264,9 +265,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
 // tensor-map encoder.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, int B,
                                     int S, int H, int Hkv, int D, int causal, int window,
-                                    float softcap, void* stream) {
+                                    float softcap, float scale, void* stream) {
   return flash_wgmma::launch(q, k, v, out, nullptr, nullptr, B, S, H, Hkv, D, causal, window,
-                             softcap, stream);
+                             softcap, scale, stream);
 }
 
 // The same forward under autograd: it also writes the backward's inputs,
@@ -275,7 +276,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 extern "C" int flash_attention_bf16_save(const void* q, const void* k, const void* v, void* out,
                                          void* o32, void* lse, int B, int S, int H, int Hkv,
                                          int D, int causal, int window, float softcap,
-                                         void* stream) {
+                                         float scale, void* stream) {
   return flash_wgmma::launch(q, k, v, out, o32, lse, B, S, H, Hkv, D, causal, window, softcap,
-                             stream);
+                             scale, stream);
 }

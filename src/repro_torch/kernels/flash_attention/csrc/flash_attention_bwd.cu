@@ -439,9 +439,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, const void* dout, const void* o32,
              const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S, int H,
-             int Hkv, int causal, int window, float softcap, cudaStream_t stream) {
+             int Hkv, int causal, int window, float softcap, float logit_scale,
+             cudaStream_t stream) {
   using T = Shape<D>;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = logit_scale > 0.f ? logit_scale : (float)(1.0 / sqrt((double)D));
   // runtime calls first: autograd runs the backward on a thread of its own,
   // where the tensor-map encoder (a driver call) finds no current context
   // until the runtime has made the device's primary context current
@@ -485,20 +486,20 @@ int launch_d(const void* q, const void* k, const void* v, const void* dout, cons
 // rounded up to a multiple of 128); delta (B, H, S_pad) float32 scratch.
 // q, k, v and dout 16-byte aligned (TMA reads them), Hkv divides H, D in
 // {32, 64, 128, 256}, S >= 1. window <= 0 means no window; softcap <= 0
-// no softcap. Two launches on `stream`; returns the first failure's
+// no softcap; scale is the forward's (D^-0.5 where <= 0). Two launches on `stream`; returns the first failure's
 // cudaError_t (cudaErrorInvalidValue for another D, cudaErrorNotSupported
 // if the driver has no tensor-map encoder).
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                         const void* dout, const void* o32, const void* lse,
                                         void* delta, void* dq, void* dk, void* dv, int B, int S,
                                         int H, int Hkv, int D, int causal, int window,
-                                        float softcap, void* stream) {
+                                        float softcap, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
 #define FLASH_BWD_CASE(d)                                                                       \
   case d:                                                                                       \
     return flash_bwd::launch_d<d>(q, k, v, dout, o32, lse, delta, dq, dk, dv, B, S, H, Hkv,     \
-                                  causal, window, softcap, st);
+                                  causal, window, softcap, scale, st);
     FLASH_BWD_CASE(32)
     FLASH_BWD_CASE(64)
     FLASH_BWD_CASE(128)

@@ -493,7 +493,8 @@ inline int tensor_map(CUtensorMap* map, const void* base, int B, int S, int head
 
 template <int D, bool kSave>
 int launch_d(const void* q, const void* k, const void* v, void* out, void* o32, void* lse, int B,
-             int S, int H, int Hkv, int causal, int window, float softcap, cudaStream_t stream) {
+             int S, int H, int Hkv, int causal, int window, float softcap, float scale,
+             cudaStream_t stream) {
   constexpr size_t bytes = Tile<D>::bytes;
   // the runtime call first: on a thread where the runtime has not yet made
   // the device's primary context current (autograd's, recomputing a
@@ -510,30 +511,32 @@ int launch_d(const void* q, const void* k, const void* v, void* out, void* o32, 
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)(B * H));
   flash_fwd_wgmma_kernel<D, kSave><<<grid, kThreads, bytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(o32), static_cast<float*>(lse), S,
-      H, Hkv, causal, window, softcap, (float)(1.0 / sqrt((double)D)));
+      H, Hkv, causal, window, softcap, scale > 0.f ? scale : (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_saving(const void* q, const void* k, const void* v, void* out, void* o32, void* lse,
                   int B, int S, int H, int Hkv, int causal, int window, float softcap,
-                  cudaStream_t st) {
+                  float scale, cudaStream_t st) {
   return lse != nullptr
-             ? launch_d<D, true>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st)
-             : launch_d<D, false>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
+             ? launch_d<D, true>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap,
+                                 scale, st)
+             : launch_d<D, false>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap,
+                                  scale, st);
 }
 
 // o32 and lse both null (inference) or both set (a forward under autograd)
 inline int launch(const void* q, const void* k, const void* v, void* out, void* o32, void* lse,
                   int B, int S, int H, int Hkv, int D, int causal, int window, float softcap,
-                  void* stream) {
+                  float scale, void* stream) {
   if ((o32 == nullptr) != (lse == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_saving<32>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
-    case 64: return launch_saving<64>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
-    case 128: return launch_saving<128>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
-    case 256: return launch_saving<256>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, st);
+    case 32: return launch_saving<32>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, scale, st);
+    case 64: return launch_saving<64>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, scale, st);
+    case 128: return launch_saving<128>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, scale, st);
+    case 256: return launch_saving<256>(q, k, v, out, o32, lse, B, S, H, Hkv, causal, window, softcap, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,8 +14,10 @@ Two detours of the reference's ``ops.py`` are not carried over: the
 kernel takes any S >= 1 and masks the ragged q and kv edges itself (the
 reference falls back to its oracle below S = 128 and pads S), and it
 applies the true ``D**-0.5`` in float32 (the reference pads D to a
-multiple of 128 and pre-scales q in q's dtype). Head dims are those of
-the repo's configs: 32, 64, 128 and 256.
+multiple of 128 and pre-scales q in q's dtype), or the ``scale`` it is
+given: a caller that zero-pads q and k to a kernel head dim (MLA's 192
+to 256) keeps the scale of its own. Head dims are those of the repo's
+configs: 32, 64, 128 and 256.
 
 Under autograd (grad enabled and an input that requires grad) a
 bfloat16 call on the card is a ``torch.autograd.Function``: the forward
@@ -64,12 +66,13 @@ _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attenti
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, stream
-_ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _P]
+# q, k, v, out, B, S, H, Hkv, D, causal, window, softcap, scale (<= 0: D^-0.5), stream
+_ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _F, _P]
 # flash_attention_bf16_save: q, k, v, out, o32, lse, then as above
-_SAVE_ARGTYPES = [_P] * 6 + [_I] * 7 + [_F, _P]
-# q, k, v, dout, o32, lse, delta, dq, dk, dv, B, S, H, Hkv, D, causal, window, softcap, stream
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _P]
+_SAVE_ARGTYPES = [_P] * 6 + [_I] * 7 + [_F, _F, _P]
+# q, k, v, dout, o32, lse, delta, dq, dk, dv, B, S, H, Hkv, D, causal, window, softcap, scale,
+# stream
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _F, _P]
 LSE_PAD = 128  # the saved log-sum-exp's rows: S rounded up to a multiple of this
 
 
@@ -90,7 +93,7 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap, scale) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.ndim != 4:
             raise ValueError(f"{name} must be a 4-D (B, S, heads, D) tensor")
@@ -116,6 +119,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, softcap) -
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if softcap < 0.0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
+    if scale is not None and not scale > 0.0:
+        raise ValueError(f"scale must be > 0 or None, got {scale}")
 
 
 def flash_attention(
@@ -126,32 +131,35 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     softcap: float = 0.0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Flash attention with GQA. q: (B, S, H, D); k/v: (B, S, Hkv, D).
 
     Causal (``kpos <= qpos``) unless ``causal=False``; ``window`` keeps
-    ``kpos > qpos - window``; ``softcap > 0`` applies ``cap * tanh(s / cap)``
-    to the scaled logits before the mask. Float32 sums and softmax inside
+    ``kpos > qpos - window``; the logits are scaled by ``scale`` (None:
+    ``D**-0.5``); ``softcap > 0`` applies ``cap * tanh(s / cap)`` to the
+    scaled logits before the mask. Float32 sums and softmax inside
     (on the card, bfloat16 inputs multiply on the tensor cores and the
     softmax weights enter P V as two bfloat16 parts); returns q's dtype.
     Differentiable: on the card for bfloat16 inputs, on the CPU always.
     """
-    _check(q, k, v, window, softcap)
+    _check(q, k, v, window, softcap, scale)
     if q.device.type == "meta":
         B, S, H, D = q.shape
         meta_calls.append({"B": B, "S": S, "H": H, "Hkv": k.shape[2], "D": D,
                            "causal": causal, "window": window})
         return torch.empty_like(q)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   scale=scale)
     if q.shape[0] * q.shape[2] > 65535:
         raise ValueError(f"B * H = {q.shape[0] * q.shape[2]} exceeds the grid's y limit of 65535")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if q.dtype != torch.bfloat16:
             raise RuntimeError(f"flash_attention: no backward kernel for {q.dtype} (the "
                                "tensor-core kernel's backward takes bfloat16 only)")
-        return _FlashAttention.apply(q, k, v, causal, window, softcap)
-    return _forward(*_aligned(q, k, v), causal, window, softcap, save=False)[0]
+        return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return _forward(*_aligned(q, k, v), causal, window, softcap, scale, save=False)[0]
 
 
 def _aligned(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -164,7 +172,7 @@ def _s_pad(S: int) -> int:
     return -(-S // LSE_PAD) * LSE_PAD
 
 
-def _forward(q, k, v, causal, window, softcap, *, save: bool):
+def _forward(q, k, v, causal, window, softcap, scale, *, save: bool):
     """The forward launch: out, and with ``save`` (bfloat16 only) the
     float32 output and the (B, H, S_pad) float32 log-sum-exp."""
     from repro_torch.kernels import _build
@@ -186,6 +194,7 @@ def _forward(q, k, v, causal, window, softcap, *, save: bool):
         fn = _build.kernel_function("flash_attention", symbol, argtypes)
         status = fn(*ptrs, B, S, H, k.shape[2], D, int(causal),
                     0 if window is None else int(window), float(softcap),
+                    0.0 if scale is None else float(scale),
                     torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {status}")
@@ -193,7 +202,7 @@ def _forward(q, k, v, causal, window, softcap, *, save: bool):
     return out, o32, lse
 
 
-def _backward(q, k, v, dout, o32, lse, causal, window, softcap):
+def _backward(q, k, v, dout, o32, lse, causal, window, softcap, scale):
     """dq, dk, dv (bfloat16) from the saved forward and the output's gradient."""
     from repro_torch.kernels import _build
 
@@ -210,6 +219,7 @@ def _backward(q, k, v, dout, o32, lse, causal, window, softcap):
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), B, S, H, k.shape[2], D, int(causal),
                     0 if window is None else int(window), float(softcap),
+                    0.0 if scale is None else float(scale),
                     torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_attention backward launch failed: cudaError {status}")
@@ -222,11 +232,11 @@ class _FlashAttention(torch.autograd.Function):
     output and log-sum-exp, the backward launches the backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
         q, k, v = _aligned(q, k, v)
-        out, o32, lse = _forward(q, k, v, causal, window, softcap, save=True)
+        out, o32, lse = _forward(q, k, v, causal, window, softcap, scale, save=True)
         ctx.save_for_backward(q, k, v, o32, lse)
-        ctx.opts = (causal, window, softcap)
+        ctx.opts = (causal, window, softcap, scale)
         return out
 
     @staticmethod
@@ -234,4 +244,4 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, o32, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, dout, o32, lse, *ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None

@@ -1,8 +1,9 @@
 """Plain PyTorch version of flash attention (causal / sliding-window, GQA).
 
 The same function as the reference's ``flash_attention/ref.py``: logits
-in float32, scaled by the true ``D**-0.5``, optionally tanh-softcapped,
-masked with -2e9, then a softmax and the product with v.
+in float32, scaled by the true ``D**-0.5`` (or the given ``scale``),
+optionally tanh-softcapped, masked with -2e9, then a softmax and the
+product with v.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ def flash_attention_ref(
     causal: bool = True,
     window: int | None = None,
     softcap: float = 0.0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Reference attention. q: (B, S, H, D); k/v: (B, S, Hkv, D).
 
@@ -32,7 +34,8 @@ def flash_attention_ref(
     Hkv = k.shape[2]
     groups = H // Hkv
     qg = q.reshape(B, S, Hkv, groups, D).float()
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (D**-0.5)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (D**-0.5 if scale is None
+                                                                  else scale)
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     qpos = torch.arange(S, device=q.device)[:, None]

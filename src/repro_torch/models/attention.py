@@ -22,10 +22,16 @@ runs every prefill in plain XLA).
 
 DeepSeek-V2's multi-head latent attention (``MLAAttention``,
 ``mla_attention``) is plain PyTorch on every path, as it is plain XLA in
-the reference (which has no Pallas MLA kernel): its cache holds the
-compressed latents, decompressed per head at every call; in the
-long-context mode that cache is a ring that wraps (the cache says so:
-``kvcache.init_mla_cache(ring=True)``).
+the reference (which has no Pallas MLA kernel), but for a config with
+``mla.flash`` (the port's own: DeepSeek-V2-Lite) whose full sequence runs
+without a cache under ``impl="kernel"``: there the per-head q = [q_nope;
+q_rope] and k = [k_nope; k_rope] (192 wide) and v (128) are zero-padded
+to the flash kernels' head dim 256 -- zeros add nothing to a dot product,
+and the padded output columns are dropped -- and the kernel is given
+MLA's own softmax scale (``mla_scale``: (dn + dr)^-0.5, times YaRN's
+mscale squared). Its cache holds the compressed latents, decompressed per
+head at every call; in the long-context mode that cache is a ring that
+wraps (the cache says so: ``kvcache.init_mla_cache(ring=True)``).
 
 Whisper's decoder attends to the encoder's states through
 ``cross_attention``: queries from the decoder, keys and values projected
@@ -42,7 +48,7 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
-from .common import IMPLS, ModelConfig, dtype_of, truncated_normal_
+from .common import IMPLS, ModelConfig, dtype_of, truncated_normal_, yarn_mscale
 from .kvcache import (
     init_full_cache,
     init_mla_cache,
@@ -64,6 +70,7 @@ __all__ = [
     "MLAAttention",
     "init_mla_attention",
     "mla_attention",
+    "mla_scale",
     "init_mla_attention_cache",
     "init_cross_attention",
     "cross_attention",
@@ -356,7 +363,7 @@ def attention(
         raise ValueError("a cache split by kv heads needs whole query heads a rank")
     split_dim = layout == "head_dim" and S == 1
     q, k, v = _project_qkv(params, cfg, x, tp, all_heads=split_dim)
-    cos, sin = rotary_embedding(positions, dh, cfg.rope_theta)
+    cos, sin = rotary_embedding(positions, dh, cfg.rope_theta, cfg.rope_scaling)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
@@ -483,6 +490,37 @@ def _decompress(params: MLAAttention, cfg: ModelConfig, c_kv: torch.Tensor):
     return k_nope, v
 
 
+def mla_scale(cfg: ModelConfig) -> float:
+    """MLA's softmax scale: ``(dn + dr)^-0.5``, times ``mscale(factor,
+    mscale_all_dim)^2`` under YaRN (DeepSeek-V2's ``softmax_scale``)."""
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    y = cfg.rope_scaling
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
+def _mla_flash(params: MLAAttention, cfg: ModelConfig, q_nope: torch.Tensor,
+               q_rope: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
+               window: int | None) -> torch.Tensor:
+    """Causal MLA over the full sequence in the flash kernels: per-head q, k
+    (dn + dr) and v (dv) zero-padded to the smallest kernel head dim that
+    holds both, the kernel given ``mla_scale``; the output's padded columns
+    dropped. (B, S, H dv)."""
+    m = cfg.mla
+    B, S, H, _ = q_nope.shape
+    k_nope, v = _decompress(params, cfg, c_kv)
+    dq, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    D = min(d for d in fa_ops.HEAD_DIMS if d >= max(dq, dv))
+    pad = torch.nn.functional.pad
+    q = pad(torch.cat([q_nope, q_rope], dim=-1), (0, D - dq))
+    k = pad(torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, -1)], dim=-1), (0, D - dq))
+    out = fa_ops.flash_attention(q, k, pad(v, (0, D - dv)), causal=True, window=window,
+                                 scale=mla_scale(cfg))
+    return out[..., :dv].reshape(B, S, H * dv)
+
+
 def _mla_attend(
     params: MLAAttention,
     cfg: ModelConfig,
@@ -498,7 +536,7 @@ def _mla_attend(
     m = cfg.mla
     B, Sq, H, _ = q_nope.shape
     k_nope, v = _decompress(params, cfg, c_kv)
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scale = mla_scale(cfg)
     logits = (
         torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
         + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
@@ -528,7 +566,7 @@ def _mla_attend_chunked(
     m = cfg.mla
     B, S, H, _ = q_nope.shape
     k_nope, v = _decompress(params, cfg, c_kv)
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scale = mla_scale(cfg)
     kf, krf, vf = k_nope.float(), k_rope.float(), v.float()
     kpos = torch.arange(S, device=q_nope.device)
     chunks = []
@@ -560,6 +598,7 @@ def mla_attention(
     cache: dict | None = None,
     window: int | None = None,
     tp: P.TPGroup | None = None,
+    impl: str = "plain",
 ) -> tuple[torch.Tensor, dict | None]:
     """MLA self-attention; the cache stores the normalised latents
     ``c_kv`` and the rotated ``k_rope`` only (written in place by
@@ -582,7 +621,8 @@ def mla_attention(
     krope = P.split(tp, params.w_krope.shape[1], m.qk_rope_head_dim) is not None
     q = (x @ params.wq).reshape(B, S, -1, dq)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    cos, sin = rotary_embedding(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    cos, sin = rotary_embedding(positions, m.qk_rope_head_dim, cfg.rope_theta,
+                                cfg.rope_scaling)
     q_rope = apply_rope(q_rope, cos, sin)
     c_kv = P.latent_norm(x @ (params.w_dkv if dkv else P.copy_to(params.w_dkv, tp)),
                          params.kv_norm, cfg.norm_eps, tp, dkv)
@@ -602,7 +642,9 @@ def mla_attention(
     if cache is None or S > 1:
         # full sequence, or a prefill from a fresh cache: attention over
         # the new positions, then (prefill) the cache write
-        if long_seq:
+        if cache is None and impl == "kernel" and m.flash:
+            out = _mla_flash(params, cfg, q_nope, q_rope, c_kv, k_rope, window)
+        elif long_seq:
             out = _mla_attend_chunked(params, cfg, q_nope, q_rope, c_kv, k_rope, window)
         else:
             mask = _causal_mask(S, S, window, x.device)

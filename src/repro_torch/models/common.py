@@ -5,9 +5,14 @@ per-layer block pattern (attention / local attention / mLSTM / sLSTM /
 RG-LRU) plus optional MoE / MLA / encoder / vision / audio sub-configs.
 The dataclasses are copies of the reference's ``models/common.py`` (same
 fields, same defaults), so a config built for one package builds for the
-other. ``moe`` and ``mla`` build the MoE block and MLA attention
-(``models/moe.py``, ``models/attention.py``); ``encoder`` sizes whisper's
-encoder (``models/whisper.py``), ``vision`` the VLM's stub patch
+other; the port's own fields (``PORT_FIELDS``: DeepSeek-V2-Lite's leading
+dense layers, router form, sequence-wise auxiliary loss, held expert
+share, flash MLA and YaRN rotary scaling) come after them, and their
+defaults keep every reference config's behaviour (``reference_dict``
+gives a config as the reference's dataclasses hold it). ``moe`` and
+``mla`` build the MoE block and MLA attention (``models/moe.py``,
+``models/attention.py``); ``encoder`` sizes whisper's encoder
+(``models/whisper.py``), ``vision`` the VLM's stub patch
 embeddings (``registry.make_inputs``); ``audio`` is carried as data only
 (its frontend is a stub, as in the reference).
 
@@ -19,6 +24,7 @@ weights load by name (``repro_torch.convert.lm_params_from_numpy``).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -36,6 +42,10 @@ __all__ = [
     "dtype_of",
     "layer_kind",
     "active_param_count",
+    "YarnConfig",
+    "PORT_FIELDS",
+    "reference_dict",
+    "yarn_mscale",
 ]
 
 # full-sequence implementations: the reference's "xla" and "pallas"
@@ -53,6 +63,17 @@ class MoEConfig:
     d_ff_shared: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    # --- the port's own (DeepSeek-V2-Lite's router and expert share) ---
+    norm_topk_prob: bool = True  # renormalise the top-k gate values
+    routed_scaling_factor: float = 1.0  # the gate values' scale
+    router_f32: bool = False  # the router product in float32 (else the model dtype)
+    aux_loss: str = "switch"  # "switch" (top-1 share) | "seq" (sequence-wise, DeepSeek)
+    # held_experts > 0: this device holds experts [first_expert, first_expert
+    # + held_experts) of the num_experts the router scores, and runs them
+    # grouped over the choices they received, dropping none; 0: every
+    # expert, dispatched to capacity slots
+    held_experts: int = 0
+    first_expert: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +85,26 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    # the port's own: full-sequence attention without a cache in the flash
+    # kernels under impl="kernel" (q / k / v zero-padded to a kernel head dim)
+    flash: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnConfig:
+    """YaRN rotary scaling (DeepSeek-V2's ``rope_scaling``, type ``yarn``)."""
+
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """``0.1 mscale ln(factor) + 1`` (1 for ``factor <= 1``)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +171,10 @@ class ModelConfig:
     # long-context override: when serving long_500k, attention layers use a
     # ring-buffer window of this size (sub-quadratic requirement).
     long_context_window: int = 4096
+    # --- the port's own (DeepSeek-V2-Lite) ---
+    first_dense_layers: int = 0  # with moe: layers [0, k) take a dense MLP
+    dense_d_ff: int = 0  # their width (0 => d_ff)
+    rope_scaling: YarnConfig | None = None
 
     @property
     def resolved_head_dim(self) -> int:
@@ -144,6 +189,28 @@ class ModelConfig:
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+# the fields the reference's dataclasses lack, by class
+PORT_FIELDS = {
+    "ModelConfig": ("first_dense_layers", "dense_d_ff", "rope_scaling"),
+    "MoEConfig": ("norm_topk_prob", "routed_scaling_factor", "router_f32", "aux_loss",
+                  "held_experts", "first_expert"),
+    "MLAConfig": ("flash",),
+}
+
+
+def reference_dict(cfg) -> dict:
+    """``dataclasses.asdict(cfg)`` without the port's own fields where they
+    hold their defaults (a field set otherwise stays, so the config no
+    longer reads as the reference's)."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        value = getattr(cfg, f.name)
+        if f.name in PORT_FIELDS.get(type(cfg).__name__, ()) and value == f.default:
+            continue
+        out[f.name] = reference_dict(value) if dataclasses.is_dataclass(value) else value
+    return out
 
 
 def layer_kind(cfg: ModelConfig, layer: int) -> str:

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ModelConfig, dtype_of, truncated_normal_
+from .common import ModelConfig, YarnConfig, dtype_of, truncated_normal_, yarn_mscale
 
 __all__ = [
     "RMSNorm",
@@ -33,6 +33,8 @@ __all__ = [
     "layer_norm",
     "init_layer_norm",
     "rotary_embedding",
+    "yarn_inv_freq",
+    "yarn_correction_range",
     "apply_rope",
     "sinusoidal_positions",
     "causal_conv1d",
@@ -103,13 +105,49 @@ def layer_norm(params: LayerNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.T
 # ---------------------------------------------------------------------------
 
 def rotary_embedding(
-    positions: torch.Tensor, head_dim: int, theta: float
+    positions: torch.Tensor, head_dim: int, theta: float, scaling: YarnConfig | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) of shape ``positions.shape + (head_dim // 2,)``, float32."""
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
-    freqs = 1.0 / (theta**exps)
+    """(cos, sin) of shape ``positions.shape + (head_dim // 2,)``, float32;
+    with ``scaling`` the YaRN frequencies (``yarn_inv_freq``), cos and sin
+    times ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``."""
+    if scaling is None:
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+        freqs = 1.0 / (theta**exps)
+    else:
+        freqs = yarn_inv_freq(head_dim, theta, scaling, positions.device)
     angles = positions.to(torch.float32)[..., None] * freqs
-    return torch.cos(angles), torch.sin(angles)
+    if scaling is None:
+        return torch.cos(angles), torch.sin(angles)
+    m = yarn_mscale(scaling.factor, scaling.mscale) / yarn_mscale(scaling.factor,
+                                                                   scaling.mscale_all_dim)
+    return torch.cos(angles) * m, torch.sin(angles) * m
+
+
+def yarn_correction_range(head_dim: int, theta: float, s: YarnConfig) -> tuple[int, int]:
+    """YaRN's (low, high) dims: ``dim(r) = D ln(L0 / (2 pi r)) / (2 ln theta)``
+    at r = beta_fast (floored) and r = beta_slow (ceiled), clamped to [0, D - 1]."""
+    def dim(rotations: float) -> float:
+        return head_dim * math.log(s.original_max_position_embeddings
+                                   / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    return (max(math.floor(dim(s.beta_fast)), 0),
+            min(math.ceil(dim(s.beta_slow)), head_dim - 1))
+
+
+def yarn_inv_freq(head_dim: int, theta: float, s: YarnConfig,
+                  device: torch.device | str = "cpu") -> torch.Tensor:
+    """(head_dim / 2,) float32 YaRN inverse frequencies on ``device`` (made
+    there: no host copy, so a captured step can make them): for pair i,
+    ``theta^(-2i/D) (m_i + (1 - m_i) / factor)``, ``m_i = 1 - clamp((i - low)
+    / (high - low), 0, 1)`` (DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``)."""
+    low, high = yarn_correction_range(head_dim, theta, s)
+    extra = 1.0 / theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim)
+    span = (high - low) if high != low else 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+            / span).clamp(0, 1)
+    keep = 1.0 - ramp
+    return extra / s.factor * (1.0 - keep) + extra * keep
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -5,13 +5,15 @@
 pattern: ``attn`` / ``local_attn`` (GQA attention, or MLA with
 ``cfg.mla``, + an MLP, or the MoE block with ``cfg.moe``), ``mlstm`` /
 ``slstm`` (the self-contained xLSTM blocks, no MLP) or ``rglru`` (Griffin
-recurrent block + MLP). The reference stacks the layers of each pattern
-position on a group axis and runs ``lax.scan`` over the groups (plus an
-unrolled tail); here a plain Python loop runs the layers in order
-(``repro_torch.convert`` maps the reference's stacked layout onto
-``layers``) and sums the MoE layers' auxiliary losses as the scan's carry
-does. VLM (llava) inputs prepend stub patch embeddings to the token
-embeddings. The encoder-decoder (whisper) is ``models/whisper.py``.
+recurrent block + MLP); with ``cfg.first_dense_layers`` (DeepSeek-V2-Lite)
+the first layers of an MoE config take a dense MLP of ``dense_d_ff``. The
+reference stacks the layers of each pattern position on a group axis and
+runs ``lax.scan`` over the groups (plus an unrolled tail); here a plain
+Python loop runs the layers in order (``repro_torch.convert`` maps the
+reference's stacked layout onto ``layers``) and sums the MoE layers'
+auxiliary losses as the scan's carry does. VLM (llava) inputs prepend
+stub patch embeddings to the token embeddings. The encoder-decoder
+(whisper) is ``models/whisper.py``.
 
 API:
   init_lm(cfg, seed=, device=)          -> LM (weights drawn, no grad)
@@ -61,10 +63,12 @@ class Layer(nn.Module):
     """One block of kind ``attn`` / ``local_attn`` (``ln1``, ``attn``: GQA,
     or MLA with ``cfg.mla``), ``mlstm`` / ``slstm`` or ``rglru``
     (``block``), then, but for the xLSTM kinds, ``ln2`` and ``mlp`` (an
-    MLP, or the MoE block with ``cfg.moe``) when ``d_ff > 0``; ``post_ln1``
-    / ``post_ln2`` with gemma2's post-block norms."""
+    MLP, or the MoE block with ``cfg.moe`` from layer
+    ``cfg.first_dense_layers`` on) when ``d_ff > 0``; ``post_ln1`` /
+    ``post_ln2`` with gemma2's post-block norms."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device: torch.device | str):
+    def __init__(self, cfg: ModelConfig, kind: str, device: torch.device | str,
+                 index: int = 0):
         super().__init__()
         dt = dtype_of(cfg)
         self.kind = kind
@@ -83,7 +87,10 @@ class Layer(nn.Module):
             raise ValueError(f"unknown layer kind {kind}")
         if cfg.d_ff > 0 and kind not in _XLSTM_KINDS:
             self.ln2 = RMSNorm(cfg.d_model, dt, device)
-            self.mlp = MoE(cfg, device) if cfg.moe is not None else MLP(cfg, device)
+            if cfg.moe is not None and index >= cfg.first_dense_layers:
+                self.mlp = MoE(cfg, device)
+            else:
+                self.mlp = MLP(cfg, device, d_ff=cfg.dense_d_ff or None)
             if cfg.post_block_norms:
                 self.post_ln2 = RMSNorm(cfg.d_model, dt, device)
 
@@ -112,7 +119,7 @@ def _layer_forward(
             win = window_override if window_override is not None else (
                 cfg.sliding_window if lp.kind == "local_attn" else None)
             attn_out, new_cache = mla_attention(
-                lp.attn, cfg, h, positions=positions, cache=cache_layer, window=win)
+                lp.attn, cfg, h, positions=positions, cache=cache_layer, window=win, impl=impl)
         else:
             attn_out, new_cache = attention(
                 lp.attn, cfg, h,
@@ -134,7 +141,7 @@ def _layer_forward(
 
     if cfg.d_ff > 0 and lp.kind not in _XLSTM_KINDS:
         h = rms_norm(lp.ln2, x, cfg.norm_eps)
-        if cfg.moe is not None:
+        if isinstance(lp.mlp, MoE):
             mlp_out, aux = moe_forward(lp.mlp, cfg, h)
         else:
             mlp_out = mlp_forward(lp.mlp, h, cfg.mlp_type)
@@ -157,7 +164,7 @@ class LM(nn.Module):
         self.cfg = cfg
         self.embed = Embedding(cfg, device)
         self.layers = nn.ModuleList(
-            Layer(cfg, cfg.kind(i), device) for i in range(cfg.num_layers)
+            Layer(cfg, cfg.kind(i), device, i) for i in range(cfg.num_layers)
         )
         self.final_norm = RMSNorm(cfg.d_model, dtype_of(cfg), device)
 

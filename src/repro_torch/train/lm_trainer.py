@@ -367,6 +367,10 @@ class _Step:
         self.buffers = {} if cfg.arch_type != "audio" else {
             "model.positions": sinusoidal_positions(whisper.MAX_POSITIONS, cfg.d_model,
                                                     dtype_of(cfg), device)}
+        # the held-expert MoE layers' load counters (``models/moe.py``): every
+        # node's forward adds to them, inside a captured body too
+        self.buffers.update({"model." + name: torch.zeros(b.shape, dtype=b.dtype, device=device)
+                             for name, b in meta.named_buffers() if name.endswith(".load")})
         self.static_mix = gossip_fn(schedule, n_nodes, group=group) \
             if mode == "dsgd" and not online_w else None
         # dsgd_pod's static mix: the schedule's W, or the complete graph
@@ -919,6 +923,15 @@ class TrainSetup:
                 f"{group_backend(self.group)!r} backend's cannot be captured; use "
                 f"rollout='loop' or an nccl group")
         return _Rollout(self, rollout == "scan", retrace_guard)
+
+    @property
+    def expert_loads(self) -> dict[str, torch.Tensor]:
+        """The held-expert MoE layers' load counters, by module name
+        (``layers.<i>.mlp.load``): (held,) int32 device tensors, the choices
+        each held expert received summed over every node and step since
+        the setup was built (empty without held experts)."""
+        return {k[len("model."):]: v for k, v in self._core.buffers.items()
+                if k.endswith(".load")}
 
     @property
     def param_specs(self) -> dict | None:

@@ -45,6 +45,7 @@ from repro.models import registry as J_registry  # noqa: E402
 from repro.models import transformer as J_transformer  # noqa: E402
 from repro.serve import engine as J_engine  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.models.common import reference_dict  # noqa: E402
 from repro_torch.configs import PORTED, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.models import param_count, registry, transformer  # noqa: E402
@@ -255,8 +256,8 @@ def test_family_leaves_are_carried(name):
 @pytest.mark.parametrize("name", FAMILIES)
 def test_configs_match_reference(name):
     assert name.replace("-", "_").replace(".", "_") in PORTED
-    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(J_get_config(name))
-    assert dataclasses.asdict(get_smoke_config(name)) == dataclasses.asdict(J_get_smoke(name))
+    assert reference_dict(get_config(name)) == dataclasses.asdict(J_get_config(name))
+    assert reference_dict(get_smoke_config(name)) == dataclasses.asdict(J_get_smoke(name))
 
 
 _PARAMS = {"qwen3-0.6b": (0.5e9, 0.8e9), "gemma-2b": (2.4e9, 2.7e9),

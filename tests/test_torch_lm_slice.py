@@ -35,6 +35,7 @@ from repro.models import registry as J_registry  # noqa: E402
 from repro.models import transformer as J_transformer  # noqa: E402
 from repro.serve import engine as J_engine  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.models.common import reference_dict  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
@@ -208,7 +209,7 @@ def test_weights_with_another_layout_are_refused():
 
 def test_full_config_matches_reference_and_counts_its_parameters():
     cfg = get_config(NAME)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(J_get_config(NAME))
+    assert reference_dict(cfg) == dataclasses.asdict(J_get_config(NAME))
     abstract = jax.eval_shape(lambda k: J_transformer.init_lm(k, J_get_config(NAME)),
                               jax.random.PRNGKey(0))
     n = param_count(transformer.LM(cfg, "meta"))  # shapes only, nothing allocated
@@ -228,7 +229,7 @@ def test_get_config_builds_every_reference_architecture(name):
     """Each of the reference's ten architectures: the full config field for
     field (by id and by module name), and its smoke model built and run."""
     assert list(ARCH_IDS) == list(J_ARCH_IDS)
-    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(J_get_config(name))
+    assert reference_dict(get_config(name)) == dataclasses.asdict(J_get_config(name))
     assert get_config(ARCH_IDS[name]) == get_config(name)
     cfg = get_smoke_config(name)
     model = registry.init_model(cfg, seed=0, device="cpu")
@@ -256,7 +257,7 @@ def test_all_configs_match_reference():
     ours, ref = all_configs(), J_all_configs()
     assert list(ours) == list(ref)
     for name in ref:
-        assert dataclasses.asdict(ours[name]) == dataclasses.asdict(ref[name]), name
+        assert reference_dict(ours[name]) == dataclasses.asdict(ref[name]), name
 
 
 @pytest.mark.parametrize("name", list(J_ARCH_IDS))

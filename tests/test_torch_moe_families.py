@@ -43,6 +43,7 @@ from repro.models import registry as J_registry  # noqa: E402
 from repro.models import transformer as J_transformer  # noqa: E402
 from repro.serve import engine as J_engine  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.models.common import reference_dict  # noqa: E402
 from repro_torch.configs import PORTED, get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.models import moe as P_moe  # noqa: E402
@@ -295,8 +296,8 @@ def test_weights_round_trip_bitwise(name, dtype):
 @pytest.mark.parametrize("name", FAMILIES)
 def test_configs_match_reference(name):
     assert name.replace("-", "_").replace(".", "_") in PORTED
-    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(J_get_config(name))
-    assert dataclasses.asdict(get_smoke_config(name)) == dataclasses.asdict(J_get_smoke(name))
+    assert reference_dict(get_config(name)) == dataclasses.asdict(J_get_config(name))
+    assert reference_dict(get_smoke_config(name)) == dataclasses.asdict(J_get_smoke(name))
 
 
 _PARAMS = {"qwen3-moe-30b-a3b": 30_532_122_624, "deepseek-v2-236b": 244_188_441_600}

@@ -38,6 +38,7 @@ from repro.models import registry as J_registry  # noqa: E402
 from repro.models import whisper as J_w  # noqa: E402
 from repro.serve import engine as J_engine  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.models.common import reference_dict  # noqa: E402
 from repro_torch.configs import PORTED, get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import attention as P_attn  # noqa: E402
 from repro_torch.models import layers as P_layers  # noqa: E402
@@ -331,8 +332,8 @@ def test_weights_round_trip_bitwise(dtype):
 
 def test_full_config_matches_reference_and_counts_its_parameters():
     assert "whisper_small" in PORTED
-    assert dataclasses.asdict(get_config(NAME)) == dataclasses.asdict(J_get_config(NAME))
-    assert dataclasses.asdict(get_smoke_config(NAME)) == dataclasses.asdict(J_get_smoke(NAME))
+    assert reference_dict(get_config(NAME)) == dataclasses.asdict(J_get_config(NAME))
+    assert reference_dict(get_smoke_config(NAME)) == dataclasses.asdict(J_get_smoke(NAME))
     abstract = jax.eval_shape(lambda k: J_w.init_whisper(k, J_get_config(NAME)),
                               jax.random.PRNGKey(0))
     n = param_count(P_w.Whisper(get_config(NAME), "meta"))  # shapes only, nothing allocated

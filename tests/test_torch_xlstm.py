@@ -42,6 +42,7 @@ from repro.models import transformer as J_transformer  # noqa: E402
 from repro.models import xlstm as J_x  # noqa: E402
 from repro.serve import engine as J_engine  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.models.common import reference_dict  # noqa: E402
 from repro_torch.configs import PORTED, get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import layers as P_layers  # noqa: E402
 from repro_torch.models import param_count, registry, transformer  # noqa: E402
@@ -455,8 +456,8 @@ def test_weights_round_trip_bitwise(num_layers, dtype):
 
 def test_full_config_matches_reference_and_counts_its_parameters():
     assert "xlstm_350m" in PORTED
-    assert dataclasses.asdict(get_config(NAME)) == dataclasses.asdict(J_get_config(NAME))
-    assert dataclasses.asdict(get_smoke_config(NAME)) == dataclasses.asdict(J_get_smoke(NAME))
+    assert reference_dict(get_config(NAME)) == dataclasses.asdict(J_get_config(NAME))
+    assert reference_dict(get_smoke_config(NAME)) == dataclasses.asdict(J_get_smoke(NAME))
     cfg = get_config(NAME)
     abstract = jax.eval_shape(lambda k: J_transformer.init_lm(k, J_get_config(NAME)),
                               jax.random.PRNGKey(0))
